@@ -1,0 +1,115 @@
+"""Build of the port's CUDA kernels at first use.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library
+with a plain C interface and loaded with ``ctypes`` (no PyTorch headers,
+so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+
+The output lands in ``pathway_tpu_torch/_build/`` (git-ignored), keyed by
+a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads the library already there.  A failed build raises:
+nothing falls back to a kernel's plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+__all__ = ["BuildError", "build_all", "load"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+class BuildError(RuntimeError):
+    """nvcc is missing or failed on a kernel source."""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise BuildError("nvcc not found (PATH, CUDA_HOME/bin, /usr/local/cuda/bin)")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cu*")) + sorted(CSRC.glob("*.h")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(nvcc: str, name: str, target: Path):
+    """Start nvcc for ``csrc/<name>.cu``; returns (target, tmp path,
+    process, command)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return target, tmp, proc, cmd
+
+
+def _finish(job) -> None:
+    target, tmp, proc, cmd = job
+    output, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise BuildError(f"{' '.join(cmd)} failed ({proc.returncode}):\n{output}")
+    os.replace(tmp, target)  # atomic: a concurrent build sees all or nothing
+
+
+def build_all(names: Sequence[str] | None = None) -> List[Path]:
+    """Compile every kernel source (or ``names``) that has no current
+    library, with all nvcc processes started together.  Returns the
+    library paths."""
+    if names is None:
+        names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    targets = {n: _target(n) for n in names}
+    with _lock:
+        missing = [n for n in names if not targets[n].exists()]
+        nvcc = _nvcc() if missing else ""
+        jobs = [_start(nvcc, n, targets[n]) for n in missing]
+        errors = []
+        for job in jobs:
+            try:
+                _finish(job)
+            except BuildError as exc:
+                errors.append(str(exc))
+        if errors:
+            raise BuildError("\n".join(errors))
+    return [targets[n] for n in names]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        (path,) = build_all([name])
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                lib = _libs[name] = ctypes.CDLL(str(path))
+    return lib

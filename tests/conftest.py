@@ -22,6 +22,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: spawns subprocess clusters / long-running"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without one"
+    )
 
 
 @pytest.fixture(autouse=True)
