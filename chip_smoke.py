@@ -9,21 +9,29 @@ Phases, in order; any failure exits non-zero:
 1. the card's name and power limit from ``nvidia-smi``;
 2. build of every CUDA kernel from ``pathway_tpu_torch/csrc`` (timed);
 3. each kernel against its plain PyTorch version on the card, at edge
-   shapes (B not a multiple of 8, p = C, M and d not multiples of 128,
-   bf16 slabs, ~20% -inf bias rows);
+   shapes (B = 1, B not a multiple of 8, B = 130, p = C, all probes on one
+   cluster, duplicate and out-of-range probes, M and d not multiples of
+   128, d = 99, M = 33, bf16 slabs, ~20% -inf bias rows), two launches
+   bitwise equal, and no device-to-host sync in the wrapper;
 4. the main path at full width: ``SentenceEncoder`` (384 wide, 6 layers,
    6 heads, d_ff 1536, max_length 128, vocab 32768, bf16, seeded init)
    encodes 65,536 synthetic documents; seeded unit vectors made on the
    card fill the index to 1,000,000 x 384; the exact ``DeviceKnnIndex``
    and ``IvfKnnIndex.build_from_matrix`` are built over that matrix; the
-   rescore kernel is held against its plain version and timed at the
-   main-path shape (the probes of a real query batch);
+   rescore kernels are held against their plain version and timed at the
+   main-path shape (the probes of a real query batch), over the f32 slabs
+   and a bf16 copy;
 5. serve: ``FusedEncodeSearch`` over both indexes answers batches of 64
    queries (encoded documents); checks exact self-hit 1.0, prints IVF
    recall@10 at the default probe and p50 latencies, and checks that the
    IVF serve launched the rescore kernel; then, on an index of the
    65,536 encoded documents alone, IVF at full probe must return the
-   exact top-10.
+   exact top-10;
+6. absorb: 4,096 freshly encoded documents added to the 1M IVF index
+   move into free slab slots in the background (in-place slab and bias
+   writes; rows whose preferred clusters are full stay in the tail), and
+   a full-probe IVF serve of 64 absorbed documents must rank each one's
+   own key first.
 
 The line before the last is the JSON record of the kernels; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -131,15 +139,29 @@ def compare_rescore(rescore, plain, probe, q, slabs, bias) -> float:
 
 
 def rescore_edge_cases(rescore, plain, dev) -> float:
+    """The kernel against its plain version at edge shapes: B not a
+    multiple of 8, B = 1, B = 130 (more queries on a cluster than one pass
+    takes), p = C, every probe on one cluster, duplicate probes in a row,
+    out-of-range ids (clamped, as the reference's gather does), M, d, C
+    off the TPU tiling, d = 99 (the non-TMA path) in both slab types,
+    M = 33, bf16 at the main-path widths.  Each shape also runs twice and
+    must give bitwise-equal output."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     worst = 0.0
-    for B, p, C, M, d, dtype in (
-        (3, 5, 16, 128, 128, torch.float32),  # B not a multiple of 8
-        (8, 16, 16, 128, 128, torch.float32),  # p = C
-        (5, 7, 7, 200, 96, torch.float32),  # M, d, C off the TPU tiling
-        (5, 7, 7, 200, 96, torch.bfloat16),  # bf16 slabs (16-byte path)
-        (4, 3, 9, 33, 99, torch.bfloat16),  # d not a multiple of 8 (scalar path)
-        (64, 69, 300, 256, 384, torch.bfloat16),  # main-path widths, bf16
+    for B, p, C, M, d, dtype, probes in (
+        (3, 5, 16, 128, 128, torch.float32, "random"),  # B not a multiple of 8
+        (8, 16, 16, 128, 128, torch.float32, "perm"),  # p = C
+        (1, 6, 40, 256, 384, torch.float32, "random"),  # B = 1
+        (130, 8, 12, 96, 64, torch.float32, "random"),  # several query passes per cluster
+        (64, 1, 9, 128, 384, torch.float32, "one"),  # every probe on one cluster
+        (7, 6, 11, 96, 128, torch.bfloat16, "dup"),  # duplicate probes in a row
+        (5, 4, 8, 64, 96, torch.float32, "oob"),  # ids outside [0, C)
+        (5, 7, 7, 200, 96, torch.float32, "random"),  # M, d, C off the TPU tiling
+        (5, 7, 7, 200, 96, torch.bfloat16, "random"),  # bf16 slabs
+        (4, 3, 9, 33, 99, torch.float32, "random"),  # d = 99: rows not 16-byte aligned
+        (4, 3, 9, 33, 99, torch.bfloat16, "random"),
+        (6, 4, 10, 33, 128, torch.float32, "random"),  # M = 33 through TMA
+        (64, 69, 300, 256, 384, torch.bfloat16, "random"),  # main-path widths, bf16
     ):
         q = torch.randn(B, d, generator=gen, device=dev)
         slabs = torch.randn(C, M, d, generator=gen, device=dev).to(dtype)
@@ -148,13 +170,36 @@ def rescore_edge_cases(rescore, plain, dev) -> float:
             torch.tensor(float("-inf"), device=dev),
             torch.tensor(0.0, device=dev),
         )
-        if p == C:
+        if probes == "perm":
             probe = torch.stack([torch.randperm(C, generator=gen, device=dev) for _ in range(B)])
+        elif probes == "one":
+            probe = torch.full((B, p), C // 2, device=dev)
+        elif probes == "dup":
+            probe = torch.randint(0, C, (B, p // 2), generator=gen, device=dev).repeat_interleave(2, dim=1)
+        elif probes == "oob":
+            probe = torch.randint(-3, C + 3, (B, p), generator=gen, device=dev)
         else:
             probe = torch.randint(0, C, (B, p), generator=gen, device=dev)
-        err = compare_rescore(rescore, plain, probe.to(torch.int32), q, slabs, bias)
-        log(f"kernel ivf_rescore vs plain B={B} p={p} C={C} M={M} d={d} {dtype}: max_abs_err={err:.3e}")
+        probe = probe.to(torch.int32)
+        err = compare_rescore(
+            rescore, lambda pr, *a: plain(pr.clamp(0, C - 1), *a), probe, q, slabs, bias
+        )
+        again = [rescore(probe, q, slabs, bias) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not torch.equal(again[0].view(torch.int32), again[1].view(torch.int32)):
+            raise AssertionError(f"rescore kernel: two launches differ at B={B} p={p} C={C} M={M} d={d}")
+        log(
+            f"kernel ivf_rescore vs plain B={B} p={p} C={C} M={M} d={d} {dtype} probes={probes}: "
+            f"max_abs_err={err:.3e}, two launches bitwise equal"
+        )
         worst = max(worst, err)
+    # the wrapper makes no device-to-host sync
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rescore(probe, q, slabs, bias)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log("kernel ivf_rescore: no device-to-host sync under torch.cuda.set_sync_debug_mode('error')")
     return worst
 
 
@@ -321,22 +366,46 @@ def main() -> int:
         kernel_ms = timed_ms(lambda: rescore_shortlist(*args), reps=20, flush=flush)
         plain_ms = timed_ms(lambda: ivf_rescore_reference(*args), reps=5, flush=flush)
         pl = probe.long()
-        rows = ivf._slabs[pl].reshape(BATCH, p * M, ivf._d_pad)
-        bias_g = ivf._bias[pl].reshape(BATCH, p * M, 1)
+        d_pad = ivf._d_pad
         qcol = q.reshape(BATCH, -1, 1)
+
+        def gather_baddbmm():
+            rows_ = ivf._slabs[pl].reshape(BATCH, p * M, d_pad)
+            return torch.baddbmm(ivf._bias[pl].reshape(BATCH, p * M, 1), rows_, qcol)
+
+        rows = ivf._slabs[pl].reshape(BATCH, p * M, d_pad)
+        bias_g = ivf._bias[pl].reshape(BATCH, p * M, 1)
         library_ms = timed_ms(lambda: torch.baddbmm(bias_g, rows, qcol), reps=5, flush=flush)
-        del rows, bias_g, flush
+        del rows, bias_g
+        library_gather_ms = timed_ms(gather_baddbmm, reps=5, flush=flush)
+        # the same probes over bf16 slabs (a bf16 copy of the index's slabs)
+        slabs16 = ivf._slabs.to(torch.bfloat16)
+        args16 = (probe, q, slabs16, ivf._bias)
+        worst_err = max(worst_err, compare_rescore(rescore_shortlist, ivf_rescore_reference, *args16))
+        bf16_ms = timed_ms(lambda: rescore_shortlist(*args16), reps=20, flush=flush)
+        bf16_plain_ms = timed_ms(lambda: ivf_rescore_reference(*args16), reps=5, flush=flush)
+        del slabs16, args16, flush
     distinct = int(torch.unique(probe).numel())
-    elem = ivf._slabs.element_size()
-    n_bytes = distinct * M * (ivf._d_pad * elem + 4) + q.numel() * 4 + probe.numel() * 4 + BATCH * p * M * 4
-    n_ops = 2 * BATCH * p * M * ivf._d_pad
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
+    n_ops = 2 * BATCH * p * M * d_pad
+    io_bytes = q.numel() * 4 + probe.numel() * 4 + BATCH * p * M * 4  # q, probe, out
+
+    def bound(elem: int):
+        """(bound ms, what bounds it, bytes): each probed slab and its bias
+        row read once, q and probe read once, the output written once;
+        f32 FLOPs at the f32 rate outside the tensor cores."""
+        n_bytes = distinct * M * (d_pad * elem + 4) + io_bytes
+        t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_FLOPS * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", n_bytes
+
+    bound_ms, bound_by, n_bytes = bound(4)
+    bf16_bound_ms, bf16_bound_by, bf16_bytes = bound(2)
     log(
-        f"ivf_rescore at main-path shape B={BATCH} p={p} M={M} d={ivf._d_pad} f32 slabs, "
-        f"{distinct} distinct clusters probed ({n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.3f} GFLOP): "
-        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, baddbmm over pre-gathered slabs "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}) {tag}"
+        f"ivf_rescore at main-path shape B={BATCH} p={p} M={M} d={d_pad}, "
+        f"{distinct} distinct clusters probed ({n_ops / 1e9:.3f} GFLOP): f32 slabs ({n_bytes / 1e9:.3f} GB) "
+        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, baddbmm over slabs gathered beforehand "
+        f"(gather not timed) {library_ms:.4f} ms, gather + baddbmm {library_gather_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}); bf16 slabs ({bf16_bytes / 1e9:.3f} GB) kernel {bf16_ms:.4f} ms, "
+        f"plain {bf16_plain_ms:.4f} ms, bound {bf16_bound_ms:.4f} ms ({bf16_bound_by}) {tag}"
     )
 
     # -- 5. serve: the main path, counted --------------------------------------
@@ -407,6 +476,47 @@ def main() -> int:
     if mismatched:
         raise AssertionError(f"full-probe IVF differs from exact on {mismatched} rows")
 
+    # -- 6. absorb on the 1M index ----------------------------------------------
+    # fresh documents past absorb_threshold move into free slab slots in the
+    # background; a full-probe serve must then rank each one first
+    fresh = [t + " absorbed" for t in corpus(ivf.absorb_threshold, seed=SEED + 7)]
+    fresh_keys = [(1 << 62) + i for i in range(len(fresh))]
+    if set(fresh_keys) & set(keys):
+        raise AssertionError("fresh keys collide with indexed keys")
+    with torch.no_grad():
+        fresh_vecs = torch.cat(
+            [encoder.encode_to_device(fresh[i : i + ENCODE_CHUNK]) for i in range(0, len(fresh), ENCODE_CHUNK)]
+        ).cpu().numpy()
+    t0 = time.perf_counter()
+    ivf.add(fresh_keys, fresh_vecs)
+    while ivf._absorbing:
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError("absorb did not finish within 120 s")
+        time.sleep(0.01)
+    absorb_s = time.perf_counter() - t0
+    # rows whose preferred clusters are all full stay in the exact tail,
+    # as in the reference
+    placed = [i for i, key in enumerate(fresh_keys) if key in ivf._slot_of_key]
+    if ivf.stats["absorbs"] != 1 or ivf.stats["absorb_failures"] or len(placed) < BATCH:
+        raise AssertionError(f"absorb placed {len(placed)}/{len(fresh)} rows; stats {ivf.stats}")
+    if len(placed) + len(ivf._tail) != len(fresh):
+        raise AssertionError(f"{len(placed)} placed + {len(ivf._tail)} in the tail != {len(fresh)} added")
+    ivf.n_probe = C
+    before = rescore_shortlist.launches
+    probe_rows = placed[:: max(1, len(placed) // BATCH)][:BATCH]
+    got = FusedEncodeSearch(encoder, ivf, k=K)([fresh[i] for i in probe_rows])
+    found = sum(1 for row, i in zip(got, probe_rows) if row and row[0][0] == fresh_keys[i])
+    ivf.n_probe = None
+    log(
+        f"absorb: {len(fresh)} fresh rows added past absorb_threshold={ivf.absorb_threshold}, "
+        f"{len(placed)} placed in free slots, {len(ivf._tail)} left in the exact tail (their 4 preferred "
+        f"clusters full), in {absorb_s:.3f} s; full-probe IVF serve (n_probe={C}, "
+        f"{rescore_shortlist.launches - before} rescore launch) ranks the absorbed key first on "
+        f"{found}/{BATCH} rows {tag}"
+    )
+    if found != BATCH:
+        raise AssertionError(f"full-probe serve found {found}/{BATCH} absorbed keys")
+
     record = {
         "kernels": [
             {
@@ -419,8 +529,13 @@ def main() -> int:
                 "ms": kernel_ms,
                 "plain_ms": plain_ms,
                 "bound_ms": bound_ms,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_by": bound_by,
                 "library_ms": library_ms,
+                "library_with_gather_ms": library_gather_ms,
+                "bf16_ms": bf16_ms,
+                "bf16_plain_ms": bf16_plain_ms,
+                "bf16_bound_ms": bf16_bound_ms,
+                "bf16_bound_by": bf16_bound_by,
             }
         ]
     }

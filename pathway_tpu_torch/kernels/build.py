@@ -5,7 +5,7 @@ with a plain C interface and loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu -ldl
 
 The output lands in ``pathway_tpu_torch/_build/`` (git-ignored), keyed by
 a hash of the sources and flags, so an edited source rebuilds and an
@@ -33,6 +33,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = ("-ldl",)  # after the source, so the linker keeps it
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -58,7 +59,7 @@ def _target(name: str) -> Path:
     for src in sorted(CSRC.glob("*.cu*")) + sorted(CSRC.glob("*.h")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -67,7 +68,7 @@ def _start(nvcc: str, name: str, target: Path):
     process, command)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"), *LINK_FLAGS]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return target, tmp, proc, cmd
 

@@ -84,14 +84,14 @@ class HashTokenizer:
         length: ``pad_to``, else the longest row rounded up to a multiple
         of 16 and capped at ``max_length``.
 
-        Single texts are framed as the reference's batch scanner frames
-        them: at most ``L - 2`` word ids between CLS and SEP, so a row cut
-        by a short ``pad_to`` still ends in SEP.  (The reference frames
-        non-ASCII batches through its Python path, which cuts the SEP
-        instead; the two differ only when ``pad_to`` is shorter than a
-        row.)"""
+        Single texts are framed as the reference frames them.  An ASCII
+        batch goes the way of its batch scanner: at most ``L - 2`` word ids
+        between CLS and SEP, so a row cut by a short ``pad_to`` still ends
+        in SEP.  A batch with any non-ASCII text goes the way of its
+        Python path: ``encode`` per text, then the row is cut at ``L``,
+        SEP and all."""
         max_length = max_length or self.max_length
-        if pairs is None and len(texts):
+        if pairs is None and len(texts) and "".join(map(str, texts)).isascii():
             words = [self.tokenize(t)[: max_length - 2] for t in texts]
             longest = max(len(w) for w in words) + 2
             L = pad_to or min(max_length, ((longest + 15) // 16) * 16)

@@ -13,19 +13,28 @@
   multiples;
 - **search**: one ``[B, d] x [d, C]`` matmul scores the centroids,
   ``topk`` picks ``n_probe`` clusters per query, and the probed slabs are
-  rescored exactly by ``rescore_shortlist`` (the CUDA kernel on the
+  rescored exactly by ``rescore_shortlist`` (the CUDA kernels on the
   card), plus an exact scan of the rows added since the build (the
-  tail).
+  tail);
+- **absorb**: once the tail reaches ``absorb_threshold`` rows, ``add``
+  starts a background thread that places tail rows into free slab slots
+  at their nearest centroid with room (the reference's plan, integer for
+  integer) and commits them with in-place device writes to the slabs and
+  the bias, on the stream of the last serve dispatch, so a batch already
+  dispatched reads the old slab.  Absorbed rows are then found only when
+  their cluster is probed.
 
-Not ported yet: absorb (``_absorb_scatter``) and the background retrain.
-Rows added after a build stay in the exact tail for good, so past the
-reference's ``absorb_threshold`` the port scans a longer tail than the
-reference, whose absorb would have moved those rows into the slabs.
+Not ported yet: the background retrain (``_retrain_bg``) and its
+reconciliation at install.  An index whose host rows grow past
+``rebuild_fraction`` of the build retrains in the reference and not here.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,6 +47,10 @@ from .knn import normalize_metric
 __all__ = ["IvfKnnIndex"]
 
 _PREF_CHUNK = 131072
+# failed background absorbs retry a bounded number of times with backoff
+_ABSORB_ATTEMPTS = 3
+_ABSORB_BASE_DELAY_S = 0.05
+_log = logging.getLogger(__name__)
 
 
 def _kmeans(
@@ -101,10 +114,17 @@ def _unit_rows(rows: torch.Tensor) -> torch.Tensor:
     return rows / torch.clamp(torch.linalg.vector_norm(rows, dim=-1, keepdim=True), min=1e-9)
 
 
+def _tail_prefs(rows: torch.Tensor, centroids: torch.Tensor, n_pref: int) -> torch.Tensor:
+    """Per-row top-``n_pref`` centroid preferences for absorb placement:
+    a matmul in the rows' dtype, then ``topk``."""
+    return torch.topk(rows @ centroids.t().to(rows.dtype), n_pref, dim=1).indices
+
+
 class IvfKnnIndex:
     """Approximate KNN with the host API of ``DeviceKnnIndex`` (add /
     remove / search / ``__len__``).  Rows added after a build are scored
-    exactly in the tail until the next ``build``."""
+    exactly in the tail until a background absorb moves them into free
+    slab slots (or the next ``build``)."""
 
     def __init__(
         self,
@@ -115,6 +135,7 @@ class IvfKnnIndex:
         dtype: torch.dtype = torch.float32,
         train_sample: int = 32768,
         kmeans_iters: int = 8,
+        absorb_threshold: int = 4096,
         seed: int = 0,
         device=None,
     ):
@@ -130,6 +151,7 @@ class IvfKnnIndex:
         self.n_probe = n_probe
         self.train_sample = train_sample
         self.kmeans_iters = kmeans_iters
+        self.absorb_threshold = absorb_threshold
         self.seed = seed
         self._lock = threading.RLock()
         # host-of-record row store (build source and exact tail)
@@ -148,6 +170,21 @@ class IvfKnnIndex:
         self._built_n = 0
         # device upload of the tail, cached until the tail changes
         self._tail_cache: Optional[Tuple[List[int], torch.Tensor]] = None
+        # host mirror of slot occupancy (True = live row), for absorb's
+        # free-slot choice without a device fetch
+        self._live_mask: Optional[np.ndarray] = None
+        self._absorbing = False
+        # bumped by every layout install: an off-lock absorb plan made
+        # against an older layout aborts at commit
+        self._layout_gen = 0
+        # tail size at which an absorb placed nothing (every preferred
+        # cluster full): no new absorb until the tail grows another
+        # threshold, a slot frees, or a new layout lands
+        self._absorb_stuck_at: Optional[int] = None
+        # the stream of the last serve dispatch: absorb's in-place writes
+        # are ordered after it
+        self._serve_stream = None
+        self.stats = {"sync_builds": 0, "absorbs": 0, "absorb_failures": 0}
         # result-visibility generation: bumped on every mutation that can
         # change what a serve returns
         self.generation = 0
@@ -174,6 +211,22 @@ class IvfKnnIndex:
                 self._tail[key] = None
             self._tail_cache = None
             self.generation += 1
+            if (
+                self._slabs is not None
+                and not self._absorbing
+                and len(self._tail) >= self.absorb_threshold
+                and (
+                    self._absorb_stuck_at is None
+                    or len(self._tail) >= self._absorb_stuck_at + self.absorb_threshold
+                )
+            ):
+                # planning runs off the index lock; only the commit
+                # takes it again
+                self._absorbing = True
+                try:
+                    threading.Thread(target=self._absorb_bg, daemon=True, name="ivf-absorb").start()
+                except RuntimeError:
+                    self._absorbing = False  # a later add() retries
             return self.generation
 
     def remove(self, keys: Sequence[int]) -> None:
@@ -203,6 +256,9 @@ class IvfKnnIndex:
         if slots and self._bias is not None:
             arr = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
             self._bias[arr // self._M_pad, arr % self._M_pad] = float("-inf")
+            if self._live_mask is not None:
+                self._live_mask[np.asarray(slots, np.int64)] = False  # absorb may reuse
+            self._absorb_stuck_at = None  # capacity changed: re-arm absorb
 
     # -- build ---------------------------------------------------------------
     def build(self) -> None:
@@ -213,6 +269,7 @@ class IvfKnnIndex:
                 self._slabs = None
                 self._tail = {}
                 self._tail_cache = None
+                self._layout_gen += 1
                 self.generation += 1
                 return
             keys = list(self._rows)
@@ -293,11 +350,14 @@ class IvfKnnIndex:
         keys_by_slot = np.zeros(C_pad * M_pad, dtype=np.uint64)
         sorted_keys = np.asarray(keys, dtype=np.uint64)[order_by_cluster]
         keys_by_slot[slots] = sorted_keys
+        live_mask = np.zeros(C_pad * M_pad, dtype=bool)
+        live_mask[slots] = True
         return {
             "slabs": slabs.reshape(C_pad, M_pad, d_pad),
             "bias": torch.from_numpy(bias.reshape(C_pad, M_pad)).to(self.device),
             "centroids": cents_dev,
             "keys_by_slot": keys_by_slot,
+            "live_mask": live_mask,
             "slot_of_key": dict(zip(sorted_keys.tolist(), slots.tolist())),
             "M_pad": M_pad,
             "d_pad": d_pad,
@@ -311,17 +371,22 @@ class IvfKnnIndex:
         self._bias = built["bias"]
         self._centroids = built["centroids"]
         self._keys_by_slot = built["keys_by_slot"]
+        self._live_mask = built["live_mask"]
         self._slot_of_key = built["slot_of_key"]
         self._M_pad = built["M_pad"]
         self._d_pad = built["d_pad"]
         self._built_n = built["n"]
         self._tail = {k: None for k in self._rows if k not in self._slot_of_key}
         self._tail_cache = None
+        self._absorb_stuck_at = None  # fresh layout: re-arm absorb
+        self._layout_gen += 1  # in-flight absorb plans must abort
         self.generation += 1
+        self.stats["sync_builds"] += 1
 
     def load_warm_state(self, state: Dict[str, Any]) -> None:
         """Install a reference ``IvfKnnIndex.warm_state()`` snapshot (numpy
-        slabs, bias, centroids, ``keys_by_slot``, slot maps, tail rows):
+        slabs, bias, centroids, ``keys_by_slot``, ``live_mask``, slot maps,
+        tail rows):
         the port then serves from the reference's exact layout.  Raises
         ``ValueError`` on a geometry mismatch."""
         if state.get("kind") != "ivf":
@@ -351,13 +416,172 @@ class IvfKnnIndex:
             self._bias = bias
             self._centroids = cents
             self._keys_by_slot = state["keys_by_slot"]
+            live = state.get("live_mask")
+            # a copy: absorb and remove update the mask in place
+            self._live_mask = None if live is None else np.array(live, dtype=bool)
             self._M_pad = int(state["M_pad"])
             self._d_pad = int(state["d_pad"])
             self._slot_of_key = {int(k): int(s) for k, s in state["slot_of_key"].items()}
             self._tail = {int(k): None for k in state["tail"]}
             self._built_n = int(state["built_n"])
             self._tail_cache = None
+            self._absorb_stuck_at = None
+            self._layout_gen += 1  # in-flight absorb plans must abort
             self.generation = int(state["generation"])
+
+    # -- absorb --------------------------------------------------------------
+    def _absorb_bg(self) -> None:
+        """Background absorb: snapshot under the lock, plan off it (the
+        preference matmul and its host fetch), commit under it.  A failed
+        pass is logged once per exception type, counted in
+        ``stats["absorb_failures"]`` and retried from a fresh snapshot a
+        bounded number of times; the next ``add`` re-arms it after that."""
+        try:
+            for attempt in range(_ABSORB_ATTEMPTS):
+                try:
+                    with self._lock:
+                        snap = self._absorb_snapshot()
+                    if snap is None:
+                        return
+                    plan = self._plan_absorb(snap)
+                    with self._lock:
+                        self._commit_absorb(snap, plan)
+                    return
+                except Exception as exc:  # noqa: BLE001 - counted, logged, retried
+                    with self._lock:
+                        self.stats["absorb_failures"] += 1
+                    if self.stats["absorb_failures"] == 1:
+                        _log.warning("IVF background absorb failed (%r); retrying", exc)
+                    if attempt + 1 < _ABSORB_ATTEMPTS:
+                        time.sleep(_ABSORB_BASE_DELAY_S * 2**attempt)
+        finally:
+            self._absorbing = False
+
+    def _absorb_snapshot(self) -> Optional[Dict[str, Any]]:
+        """The tail and slab occupancy for planning (caller holds the
+        lock).  The stored vector objects double as a staleness check at
+        commit: ``add`` binds a fresh array per key."""
+        tail_keys = [k for k in self._tail if k in self._rows]
+        if not tail_keys or self._slabs is None:
+            return None
+        vec_refs = [self._rows[k] for k in tail_keys]
+        return {
+            "tail_keys": tail_keys,
+            "vec_refs": vec_refs,
+            "data": np.stack(vec_refs),
+            "live": self._live_mask.copy(),
+            "centroids": self._centroids,
+            "M_pad": self._M_pad,
+            "C_pad": self._bias.shape[0],
+            "d_pad": self._d_pad,
+            "gen": self._layout_gen,
+        }
+
+    def _plan_absorb(self, snap: Dict[str, Any]) -> Dict[str, Any]:
+        """Place tail rows in FREE slots of their nearest centroid with
+        room (lock-free: reads only the snapshot).  Rows competing for a
+        cluster are ranked by a stable sort, as the reference does, so
+        the slots match it integer for integer.  The placed rows are
+        uploaded here, off the lock, ready for the commit."""
+        data = snap["data"]
+        t = data.shape[0]
+        M_pad, C_pad = snap["M_pad"], snap["C_pad"]
+        C = snap["centroids"].shape[0]
+        n_pref = min(4, C)
+        prefs = _tail_prefs(torch.from_numpy(data).to(self.device), snap["centroids"], n_pref)
+        prefs = prefs.cpu().numpy()
+        live = snap["live"]
+        free_count = M_pad - live.reshape(C_pad, M_pad).sum(axis=1, dtype=np.int64)
+        target = np.full(t, -1, np.int64)
+        fill = np.zeros(C_pad, np.int64)
+        for r in range(n_pref):
+            todo = target < 0
+            if not todo.any():
+                break
+            cand = prefs[todo, r]
+            room = free_count[cand] - fill[cand] > 0
+            idxs = np.flatnonzero(todo)[room]
+            cand = cand[room]
+            order = np.argsort(cand, kind="stable")
+            cs = cand[order]
+            starts = np.searchsorted(cs, cs, "left")
+            within = np.arange(cs.size) - starts
+            ok = within < (free_count[cs] - fill[cs])
+            target[idxs[order[ok]]] = cs[ok]
+            np.add.at(fill, cs[ok], 1)
+        placed = np.flatnonzero(target >= 0)
+        if placed.size == 0:
+            return {"placed": placed, "slots": np.empty(0, np.int64)}
+        # the free slots of each cluster in order, rows in stable order
+        slots = np.empty(placed.size, np.int64)
+        pos = 0
+        for c in np.unique(target[placed]):
+            rows_c = placed[target[placed] == c]
+            free_js = np.flatnonzero(~live[c * M_pad : (c + 1) * M_pad])
+            slots[pos : pos + rows_c.size] = c * M_pad + free_js[: rows_c.size]
+            pos += rows_c.size
+        placed = placed[np.argsort(target[placed], kind="stable")]
+        vecs = np.zeros((placed.size, snap["d_pad"]), np.float32)
+        vecs[:, : self.dimension] = data[placed]
+        return {
+            "placed": placed,
+            "slots": slots,
+            "slots_dev": torch.from_numpy(slots).to(self.device),
+            "vecs_dev": torch.from_numpy(vecs).to(self.device, self.dtype),
+        }
+
+    def _commit_absorb(self, snap: Dict[str, Any], plan: Dict[str, Any]) -> None:
+        """Install an absorb plan (caller holds the lock).  A layout
+        installed since the snapshot aborts the plan; rows removed or
+        upserted since are dropped from it.  The device update writes the
+        slabs and the bias in place, ordered after the last serve
+        dispatch; ``keys_by_slot`` is replaced, not mutated, since an
+        in-flight serve completes through the old one."""
+        if snap["gen"] != self._layout_gen or self._slabs is None:
+            return
+        placed = plan["placed"]
+        if placed.size == 0:
+            # only if occupancy is unchanged: a remove() during the plan
+            # freed capacity and re-armed absorb
+            if np.array_equal(self._live_mask, snap["live"]):
+                self._absorb_stuck_at = len(self._tail)
+            return
+        tail_keys, vec_refs = snap["tail_keys"], snap["vec_refs"]
+        keep = np.asarray(
+            [
+                tail_keys[int(i)] in self._tail and self._rows.get(tail_keys[int(i)]) is vec_refs[int(i)]
+                for i in placed
+            ],
+            bool,
+        )
+        if not keep.any():
+            return
+        slots_dev, vecs_dev = plan["slots_dev"], plan["vecs_dev"]
+        if not keep.all():
+            sel = torch.from_numpy(np.flatnonzero(keep)).to(self.device)
+            slots_dev, vecs_dev = slots_dev[sel], vecs_dev[sel]
+        placed, slots = placed[keep], plan["slots"][keep]
+        self._absorb_stuck_at = None
+        C_pad, M_pad, d_pad = self._slabs.shape
+        on_stream = contextlib.nullcontext()
+        if self.device.type == "cuda":
+            stream = self._serve_stream or torch.cuda.current_stream(self.device)
+            stream.wait_stream(torch.cuda.current_stream(self.device))  # the plan's uploads
+            on_stream = torch.cuda.stream(stream)
+        with on_stream:
+            self._slabs.view(C_pad * M_pad, d_pad).index_copy_(0, slots_dev, vecs_dev)
+            self._bias.view(-1).index_fill_(0, slots_dev, 0.0)
+        self._live_mask[slots] = True
+        keys_by_slot = self._keys_by_slot.copy()
+        for row_i, slot in zip(placed.tolist(), slots.tolist()):
+            key = tail_keys[row_i]
+            keys_by_slot[slot] = key
+            self._slot_of_key[key] = slot
+            del self._tail[key]
+        self._keys_by_slot = keys_by_slot
+        self._tail_cache = None
+        self.generation += 1
+        self.stats["absorbs"] += 1
 
     def _default_probe(self) -> int:
         """Probe count bounding the rescore shortlist: up to 20% of
@@ -403,6 +627,8 @@ class IvfKnnIndex:
         B = z.shape[0]
         M = self._M_pad
         d = self.dimension
+        if z.device.type == "cuda":
+            self._serve_stream = torch.cuda.current_stream(z.device)
         probe = torch.topk(z @ self._centroids.t(), p, dim=1).indices.to(torch.int32)
         zq = z
         if self._d_pad > d:

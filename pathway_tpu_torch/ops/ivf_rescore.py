@@ -5,12 +5,15 @@ accumulated in f32, for probe ``[B, p]`` int32, q ``[B, d]`` f32, slabs
 ``[C, M, d]`` f32 or bf16 and bias ``[C, M]`` f32 (0 live, -inf
 pad/removed) -> ``[B, p, M]`` f32.
 
-``rescore_shortlist`` launches the hand-written CUDA kernel
-(``csrc/ivf_rescore.cu``) for CUDA tensors and runs the plain torch
-version ``ivf_rescore_reference`` for CPU tensors — chosen by where the
-tensors lie, never as a fallback.  The kernel takes any B, p, C, M and d
-(no multiples of 8 or 128).  ``rescore_shortlist.launches`` counts the
-kernel's launches.
+``rescore_shortlist`` launches the hand-written CUDA kernels
+(``csrc/ivf_rescore.cu``: a probe-table inversion, then one pass that
+reads each probed slab once for all the queries that probe it) for CUDA
+tensors, and runs the plain torch version ``ivf_rescore_reference`` for
+CPU tensors — chosen by where the tensors lie, never as a fallback.  The
+kernels take any B, p, C, M and d up to ~1,300 (no multiples of 8 or
+128), need no host sync, and allocate their scratch here with
+``torch.empty``.  ``rescore_shortlist.launches`` counts the calls that
+launched them.
 """
 
 from __future__ import annotations
@@ -41,8 +44,10 @@ def _lib():
     if fn.argtypes is None:
         # pointers and the stream as c_void_p: ctypes would pass a bare
         # int as a 32-bit c_int and cut the pointer
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.pw_ivf_rescore_scratch_ints.argtypes = [ctypes.c_int] * 3
+        lib.pw_ivf_rescore_scratch_ints.restype = ctypes.c_longlong
         lib.pw_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pw_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -88,11 +93,16 @@ def rescore_shortlist(
     C, M, d = slabs.shape
     out = torch.empty((B, p, M), dtype=torch.float32, device=probe.device)
     lib = _lib()
+    scratch = torch.empty(
+        lib.pw_ivf_rescore_scratch_ints(B, p, C), dtype=torch.int32, device=probe.device
+    )
+    sms = torch.cuda.get_device_properties(probe.device).multi_processor_count
     with torch.cuda.device(probe.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.pw_ivf_rescore(
             probe.data_ptr(), q.data_ptr(), slabs.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, p, C, M, d, _SLAB_DTYPES[slabs.dtype], stream,
+            out.data_ptr(), scratch.data_ptr(), B, p, C, M, d,
+            _SLAB_DTYPES[slabs.dtype], sms, stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -1,10 +1,13 @@
-"""Port tests that need an NVIDIA GPU and nvcc: the CUDA rescore kernel
-against its plain version, and the IVF serve path through it.  They skip
+"""Port tests that need an NVIDIA GPU and nvcc: the CUDA rescore kernels
+against their plain version, the IVF serve path through them, and an
+absorb on the card.  They skip
 without a card.  This file imports neither JAX nor the reference, so on
 a machine without JAX it runs as
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -14,12 +17,19 @@ from pathway_tpu_torch.ops.ivf_rescore import ivf_rescore_reference, rescore_sho
 
 # (B, p, C, M, d): the Pallas kernel's test shape, B not a multiple of 8,
 # p = C, M / d / C off the TPU tiling, d off the 16-byte vector width
+# (the non-TMA path), B = 1, B = 130 (a cluster probed by more queries
+# than one pass of the kernel takes), M = 33 with a TMA-aligned d, and a
+# C whose counters do not fit in shared memory
 _SHAPES = [
     (8, 4, 16, 128, 128),
     (3, 5, 16, 128, 128),
     (8, 16, 16, 128, 128),
     (5, 7, 7, 200, 96),
     (4, 3, 9, 33, 99),
+    (1, 6, 40, 256, 384),
+    (130, 8, 12, 96, 64),
+    (6, 4, 10, 33, 128),
+    (4, 5, 30000, 33, 64),
 ]
 
 
@@ -29,16 +39,30 @@ def _cuda():
     return torch.device("cuda")
 
 
-def _case(B, p, C, M, d, dev, seed=3):
+def _case(B, p, C, M, d, dev, seed=3, probe=None):
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, d)).astype(np.float32)
     slabs = rng.normal(size=(C, M, d)).astype(np.float32)
     bias = np.where(rng.random((C, M)) < 0.2, -np.inf, 0.0).astype(np.float32)
-    if p == C:
+    if probe is None and p == C:
         probe = np.stack([rng.permutation(C) for _ in range(B)])
-    else:
+    elif probe is None:
         probe = rng.integers(0, C, size=(B, p))
-    return [torch.from_numpy(a).to(dev) for a in (probe.astype(np.int32), q, slabs, bias)]
+    return [torch.from_numpy(np.asarray(a)).to(dev) for a in (probe.astype(np.int32), q, slabs, bias)]
+
+
+def _assert_matches_plain(probe, q, slabs, bias, plain_probe=None):
+    """-inf pattern identical; finite values within 1e-3 (f32 sums in
+    another order; bf16 slabs are fed to both versions).  Returns the
+    kernel's output."""
+    got = rescore_shortlist(probe, q, slabs, bias)
+    want = ivf_rescore_reference(probe if plain_probe is None else plain_probe, q, slabs, bias)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    assert float((got[fin] - want[fin]).abs().max()) <= 1e-3
+    return got
 
 
 @pytest.mark.cuda
@@ -51,14 +75,50 @@ def test_cuda_rescore_matches_plain(shape, slab_dtype):
     probe, q, slabs, bias = _case(*shape, dev)
     slabs = slabs.to(slab_dtype)
     before = rescore_shortlist.launches
-    got = rescore_shortlist(probe, q, slabs, bias)
-    want = ivf_rescore_reference(probe, q, slabs, bias)
-    torch.cuda.synchronize()
+    got = _assert_matches_plain(probe, q, slabs, bias)
     assert rescore_shortlist.launches == before + 1
-    assert got.shape == want.shape == (shape[0], shape[1], shape[3])
-    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
-    fin = torch.isfinite(want)
-    assert float((got[fin] - want[fin]).abs().max()) <= 1e-3
+    assert got.shape == (shape[0], shape[1], shape[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["one_cluster", "duplicates", "out_of_range"])
+def test_cuda_rescore_probe_table_edges(case, slab_dtype):
+    """Every probe on one cluster (p = 1, all equal); duplicate probes
+    within a row; ids outside [0, C) clamp to the edge clusters, as the
+    reference's gather does."""
+    dev = _cuda()
+    B, p, C, M, d = {"one_cluster": (64, 1, 9, 128, 384), "duplicates": (7, 6, 11, 96, 128),
+                     "out_of_range": (5, 4, 8, 64, 96)}[case]
+    rng = np.random.default_rng(11)
+    if case == "one_cluster":
+        probe = np.full((B, p), 4)
+    elif case == "duplicates":
+        probe = np.repeat(rng.integers(0, C, size=(B, p // 2)), 2, axis=1)
+    else:
+        probe = rng.integers(-3, C + 3, size=(B, p))
+    probe, q, slabs, bias = _case(B, p, C, M, d, dev, probe=probe)
+    slabs = slabs.to(slab_dtype)
+    _assert_matches_plain(probe, q, slabs, bias, plain_probe=probe.clamp(0, C - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rescore_bitwise_repeatable_without_sync(slab_dtype):
+    """Main-path widths: two launches give bitwise-equal output (the pair
+    order inside a cluster comes from atomics and must not matter), and
+    the call makes no device-to-host sync."""
+    dev = _cuda()
+    probe, q, slabs, bias = _case(64, 69, 300, 256, 384, dev)
+    slabs = slabs.to(slab_dtype)
+    first = _assert_matches_plain(probe, q, slabs, bias)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = rescore_shortlist(probe, q, slabs, bias)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -96,3 +156,30 @@ def test_cuda_ivf_serve_goes_through_kernel():
     for w, g in zip(want, got):
         assert [k for k, _ in g][:1] == [k for k, _ in w][:1]
         np.testing.assert_allclose([s for _, s in g], [s for _, s in w], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_ivf_absorb_writes_slabs_in_place():
+    """Rows added past ``absorb_threshold`` land in free slots through the
+    in-place slab and bias writes on the card; a full-probe search then
+    ranks each absorbed row first."""
+    dev = _cuda()
+    from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+
+    rng = np.random.default_rng(4)
+    centers = rng.normal(size=(16, 64)).astype(np.float32)
+    data = np.repeat(centers, 64, axis=0) + 0.05 * rng.normal(size=(1024, 64)).astype(np.float32)
+    ivf = IvfKnnIndex(64, n_clusters=16, absorb_threshold=32, device=dev)
+    ivf.build_from_matrix(list(range(1024)), torch.from_numpy(data).to(dev))
+    slabs_ptr = ivf._slabs.data_ptr()
+    fresh = data[::16] + 0.01 * rng.normal(size=(64, 64)).astype(np.float32)
+    ivf.add(list(range(10_000, 10_064)), fresh)
+    for _ in range(6000):
+        if not ivf._absorbing:
+            break
+        time.sleep(0.01)
+    assert not ivf._absorbing and ivf.stats["absorbs"] == 1 and not ivf._tail
+    assert ivf._slabs.data_ptr() == slabs_ptr  # updated in place
+    ivf.n_probe = ivf._centroids.shape[0]
+    got = ivf.search(fresh, k=3)
+    assert [row[0][0] for row in got] == list(range(10_000, 10_064))

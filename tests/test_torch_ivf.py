@@ -11,7 +11,16 @@ against the reference.
   return the reference's keys (hence slots: the slot maps are equal),
   allowing a swap only between scores tied within 1e-5; scores within
   1e-4.
+- Absorb: after adds past a small ``absorb_threshold`` both packages
+  place the tail in the same free slots (``slot_of_key``,
+  ``keys_by_slot``, tail, ``live_mask`` and bias equal integer for
+  integer), freed slots are reused alike, and a plan outdated by a build
+  or by changed rows is handled alike.
 """
+
+import sys
+import threading
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -169,3 +178,203 @@ def test_search_after_warm_state_matches_reference(slab_dtype):
         for w, g in zip(want, got):
             assert_same_ranking(w, g)
     assert all(keys[1] not in {k for k, _ in row} for row in got)
+
+
+# -- absorb ------------------------------------------------------------------
+
+
+def _wait_absorbed(*indexes, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while any(ix._absorbing for ix in indexes):
+        assert time.monotonic() < deadline, "absorb did not finish"
+        time.sleep(0.01)
+
+
+def _assert_same_layout(port, ref):
+    """Slots, keys, tail, occupancy and bias equal integer for integer;
+    slab rows equal to f32 rounding."""
+    assert port._slot_of_key == ref._slot_of_key
+    np.testing.assert_array_equal(port._keys_by_slot, ref._keys_by_slot)
+    assert list(port._tail) == list(ref._tail)
+    np.testing.assert_array_equal(port._live_mask, ref._live_mask)
+    np.testing.assert_array_equal(port._bias.float().numpy(), np.asarray(ref._bias, np.float32))
+    np.testing.assert_allclose(
+        port._slabs.float().numpy(), np.asarray(ref._slabs, np.float32), atol=1e-6
+    )
+
+
+def _absorb_pair(seed, from_matrix=False, threshold=64, **kw):
+    """A reference and a port index over the same blobs, built the same
+    way, with a small absorb threshold."""
+    keys, data, rng = _blobs(seed=seed)
+    ref = RefIvf(dimension=32, n_clusters=16, seed=1, absorb_threshold=threshold, **kw)
+    port = IvfKnnIndex(dimension=32, n_clusters=16, seed=1, absorb_threshold=threshold, device="cpu")
+    if from_matrix:
+        ref.build_from_matrix(keys, jnp.asarray(data))
+        port.build_from_matrix(keys, torch.from_numpy(data))
+    else:
+        ref.add(keys, data)
+        ref.build()
+        port.add(keys, data)
+        port.build()
+    return ref, port, keys, data, rng
+
+
+@pytest.mark.parametrize("from_matrix", [False, True])
+def test_absorb_matches_reference(from_matrix):
+    """Adds past ``absorb_threshold`` move the tail into free slots in both
+    packages, with equal slots; searches then agree.  One batch lands near
+    a single blob, so its cluster fills and the rest spill to their next
+    preference."""
+    ref, port, keys, data, rng = _absorb_pair(seed=8, from_matrix=from_matrix)
+    near = data[::29][:70] + 0.02 * rng.normal(size=(70, 32)).astype(np.float32)
+    crowd = data[5] + 0.02 * rng.normal(size=(200, 32)).astype(np.float32)
+    upsert = rng.normal(size=(3, 32)).astype(np.float32)
+    for batch_keys, batch in (
+        ([10**9 + i for i in range(70)], near),
+        ([2 * 10**9 + i for i in range(200)], crowd),
+        (keys[:3], upsert),
+    ):
+        ref.add(batch_keys, batch)
+        port.add(batch_keys, batch)
+        _wait_absorbed(ref, port)
+    assert port.stats["absorbs"] == ref.stats["absorbs"] >= 2
+    assert port.stats["absorb_failures"] == ref.stats["absorb_failures"] == 0
+    _assert_same_layout(port, ref)
+    assert len(port._tail) < 64 and len(port) == len(ref)
+    queries = np.concatenate([near[:10], crowd[:10], upsert, data[::211]])
+    for n_probe in (None, 4, 16):
+        for w, g in zip(ref.search(queries, k=10, n_probe=n_probe), port.search(queries, k=10, n_probe=n_probe)):
+            assert_same_ranking(w, g)
+
+
+def test_absorb_reuses_freed_slots_as_reference():
+    """A removed row frees its slot (live mask cleared, absorb re-armed);
+    the next absorb fills it exactly where the reference does."""
+    ref, port, keys, data, rng = _absorb_pair(seed=9)
+    gone = keys[::97][:12]
+    ref.remove(gone)
+    port.remove(gone)
+    freed = sorted(ref_slot for ref_slot in np.flatnonzero(~ref._live_mask))
+    np.testing.assert_array_equal(port._live_mask, ref._live_mask)
+    fresh = data[::97][:12] + 0.01 * rng.normal(size=(12, 32)).astype(np.float32)
+    more = data[1::33][:60] + 0.02 * rng.normal(size=(60, 32)).astype(np.float32)
+    new_keys = [3 * 10**9 + i for i in range(72)]
+    ref.add(new_keys, np.concatenate([fresh, more]))
+    port.add(new_keys, np.concatenate([fresh, more]))
+    _wait_absorbed(ref, port)
+    _assert_same_layout(port, ref)
+    reused = {port._slot_of_key[k] for k in new_keys if k in port._slot_of_key}
+    assert reused & set(int(s) for s in freed), "no freed slot was reused"
+    got = port.search(fresh, k=5)
+    for w, g in zip(ref.search(fresh, k=5), got):
+        assert_same_ranking(w, g)
+    assert all(k not in {key for key, _ in row} for row in got for k in gone)
+
+
+def test_absorb_plan_aborts_when_a_build_lands():
+    """A plan made against one layout is dropped at commit when a build
+    installed another in between (``_layout_gen``); the tail stays for the
+    next absorb, in both packages alike."""
+    results = []
+    for make in ("ref", "port"):
+        ref, port, keys, data, rng = _absorb_pair(seed=10, threshold=10**6)
+        ix = ref if make == "ref" else port
+        fresh = data[::50][:30] + 0.01 * rng.normal(size=(30, 32)).astype(np.float32)
+        ix.add([4 * 10**9 + i for i in range(30)], fresh)
+        with ix._lock:
+            snap = ix._absorb_snapshot()
+        plan = ix._plan_absorb(snap)
+        assert plan["placed"].size == 30
+        ix.build()  # a new layout: the plan's slots refer to the old one
+        gen = ix.generation
+        with ix._lock:
+            ix._commit_absorb(snap, plan)
+        assert ix.generation == gen and ix.stats["absorbs"] == 0
+        results.append((dict(ix._slot_of_key), list(ix._tail)))
+    assert results[0] == results[1]
+
+
+def test_absorb_skips_rows_changed_during_plan():
+    """Rows upserted or removed while the plan ran are dropped from the
+    commit (vector identity check), the rest land as in the reference."""
+    results = []
+    for make in ("ref", "port"):
+        ref, port, keys, data, rng = _absorb_pair(seed=11, threshold=10**6)
+        ix = ref if make == "ref" else port
+        fresh = data[::50][:30] + 0.01 * np.random.default_rng(3).normal(size=(30, 32)).astype(np.float32)
+        new_keys = [5 * 10**9 + i for i in range(30)]
+        ix.add(new_keys, fresh)
+        with ix._lock:
+            snap = ix._absorb_snapshot()
+        plan = ix._plan_absorb(snap)
+        ix.add(new_keys[:2], fresh[:2] * 0.5)  # upserted: stale
+        ix.remove(new_keys[2:4])  # removed: stale
+        with ix._lock:
+            ix._commit_absorb(snap, plan)
+        assert set(new_keys[:2]) <= set(ix._tail) and not set(new_keys[2:4]) & set(ix._slot_of_key)
+        results.append((dict(ix._slot_of_key), list(ix._tail), np.array(ix._live_mask)))
+    assert results[0][:2] == results[1][:2]
+    np.testing.assert_array_equal(results[0][2], results[1][2])
+
+
+def test_warm_state_carries_live_mask_and_absorbs_like_reference():
+    """After ``load_warm_state`` the port absorbs from the reference's
+    occupancy to the reference's slots."""
+    ref, _, keys, data, rng = _absorb_pair(seed=12)
+    ref.remove(keys[:5])
+    port = IvfKnnIndex(dimension=32, n_clusters=16, seed=1, absorb_threshold=64, device="cpu")
+    port.load_warm_state(ref.warm_state())
+    np.testing.assert_array_equal(port._live_mask, ref._live_mask)
+    fresh = data[::29][:70] + 0.01 * rng.normal(size=(70, 32)).astype(np.float32)
+    new_keys = [6 * 10**9 + i for i in range(70)]
+    ref.add(new_keys, fresh)
+    port.add(new_keys, fresh)
+    _wait_absorbed(ref, port)
+    _assert_same_layout(port, ref)
+
+
+def test_absorb_under_concurrent_writers_keeps_every_row():
+    """Writer threads add, remove and re-add while background absorbs
+    commit: no row is lost or duplicated (each live key sits in exactly
+    one of the slots and the tail, the live mask counts the slots), and a
+    search finds every live row."""
+    keys, data, rng = _blobs(seed=13)
+    port = IvfKnnIndex(dimension=32, n_clusters=16, seed=1, absorb_threshold=16, device="cpu")
+    port.build_from_matrix(keys, torch.from_numpy(data))
+    fresh = data[::4] + 0.01 * rng.normal(size=(512, 32)).astype(np.float32)
+    n_writers = 8
+
+    def writer(w):
+        mine = list(range(7 * 10**9 + w * 64, 7 * 10**9 + (w + 1) * 64))
+        for i in range(0, 64, 8):
+            port.add(mine[i : i + 8], fresh[w * 64 + i : w * 64 + i + 8])
+            if i % 16 == 8:
+                port.remove(mine[i - 8 : i - 6])
+                port.add(mine[i - 7 : i - 6], fresh[w * 64 + i - 7 : w * 64 + i - 6])  # re-added
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=writer, args=(w,)) for w in range(n_writers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        _wait_absorbed(port)
+    finally:
+        sys.setswitchinterval(switch)
+    removed = {7 * 10**9 + w * 64 + i for w in range(n_writers) for i in range(0, 64, 16)}
+    live = set(keys) | {7 * 10**9 + j for j in range(n_writers * 64)}
+    live -= removed
+    assert port.stats["absorbs"] >= 1 and port.stats["absorb_failures"] == 0
+    assert set(port._slot_of_key) | set(port._tail) == live
+    assert not set(port._slot_of_key) & set(port._tail)
+    assert int(port._live_mask.sum()) == len(port._slot_of_key) and len(port) == len(live)
+    assert all(port._keys_by_slot[s] == k for k, s in port._slot_of_key.items())
+    query_keys = sorted(k for k in live if k >= 7 * 10**9)[::7]
+    vecs = {7 * 10**9 + j: fresh[j] for j in range(n_writers * 64)}
+    port.n_probe = 16
+    got = port.search(np.stack([vecs[k] for k in query_keys]), k=1)
+    assert [row[0][0] for row in got] == query_keys

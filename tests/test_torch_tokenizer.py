@@ -63,6 +63,9 @@ def test_encode_batch_ascii_matches_reference():
 def test_encode_batch_non_ascii_matches_reference():
     _assert_same(_NON_ASCII)
     _assert_same(_NON_ASCII + _ASCII)
+    # a pad_to shorter than a row: the reference's Python path cuts the SEP
+    _assert_same(_NON_ASCII, pad_to=4)
+    _assert_same(_NON_ASCII + _ASCII, pad_to=8)
 
 
 def test_encode_pairs_match_reference():
