@@ -31,11 +31,32 @@ Phases, in order; any failure exits non-zero:
    move into free slab slots in the background (in-place slab and bias
    writes; rows whose preferred clusters are full stay in the tail), and
    a full-probe IVF serve of 64 absorbed documents must rank each one's
-   own key first.
+   own key first;
+7. retrain: a host-row ``IvfKnnIndex`` of 32,768 encoded documents is
+   built, then 8,256 more are added (past ``rebuild_fraction`` = 0.25):
+   the background retrain must install a new layout of all 41,024 rows,
+   and a full-probe serve must rank each of 64 newly added documents
+   first;
+8. rerank: a ``ForwardIndex`` (16 pooled rows per document, int8)
+   ingests the 65,536 encoded documents; a ``CrossEncoderModel`` (256
+   wide, 4 layers, 4 heads, d_ff 1024, max_length 256, vocab 32768, bf16,
+   seeded init) scores pairs; three ``RetrieveRerankPipeline`` over
+   ``FusedEncodeSearch`` on the 1M IVF index (16 queries per call, 32
+   candidates, k = 10): MaxSim only, MaxSim -> cross-encoder over the top
+   10, cross-encoder only.  Checked: a MaxSim serve is 2 dispatches + 2
+   fetches with no degraded flag; its MaxSim scores equal a NumPy
+   recomputation from the fetched query token states and the
+   dequantized forward rows within 1e-4; the packed cross-encoder scores
+   equal ``predict(..., packed=False)`` within 3e-2 (bf16); every rerank
+   call launches the rescore kernel once, and the kernel agrees with its
+   plain version on the queries and probes of one 16-query rerank call.  Printed: p50 / p90 per mode,
+   stage-2 ms per mode, device ms of the MaxSim step and of the packed
+   cross-encoder forward, missing-document counts and known-item MRR.
 
-The line before the last is the JSON record of the kernels; the last is
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the
-package beside it, the script fails before printing any result.
+The card's name and power limit, then the JSON record of the kernels,
+then ``{"ok": true, "device": {...}}`` are the last three lines.
+Without CUDA, or without the package beside it, the script fails before
+printing any result.
 """
 
 from __future__ import annotations
@@ -57,6 +78,13 @@ N_BATCHES = 110  # p90 of batch latency keeps 11 samples beyond it
 ENCODE_CHUNK = 256
 SEED = 0
 DEVICE = "cuda"
+RETRAIN_BASE = 32_768  # phase 7: host rows of the build
+RETRAIN_GROW = 8_256  # > rebuild_fraction (0.25) of the build: a retrain
+RR_QUERIES = 16  # phase 8: queries per rerank call
+RR_CANDIDATES = 32
+RR_CALLS = 50  # timed calls per mode
+FWD_CHUNK = 1024  # forward-index ingest batch
+CE_ATOL = 3e-2  # packed vs unpacked cross-encoder, bf16
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -203,6 +231,25 @@ def rescore_edge_cases(rescore, plain, dev) -> float:
     return worst
 
 
+def kernel_time(fn, reps: int):
+    """Device time of ``fn``'s kernels alone, without the gaps between
+    them (``torch.profiler``): (ms per call, kernel launches per call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [
+        e for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+    ]
+    total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    return total_us / 1e3 / reps, sum(e.count for e in events) / reps
+
+
 def same_ranking(want, got, tie=1e-5, atol=1e-4) -> bool:
     """Rows of (key, score): keys equal position by position except
     between scores tied within ``tie``."""
@@ -280,6 +327,264 @@ def profile_serve(serve, batches) -> str:
         f"wall {wall_ms:.3f} ms/batch, device kernels {busy_ms:.3f} ms/batch "
         f"({100 * busy_ms / wall_ms:.1f}% busy); top: {parts}"
     )
+
+
+def wait_maintenance(index, timeout_s: float = 180.0) -> float:
+    """Wait for an IVF index's background absorb and retrain threads;
+    returns the seconds waited."""
+    t0 = time.perf_counter()
+    while index._absorbing or index._retraining:
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"background maintenance still running after {timeout_s} s")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def retrain_phase(encoder, docs, doc_vecs, keys, tag: str) -> None:
+    """A host-row IVF index grown past ``rebuild_fraction`` retrains in
+    the background; a full-probe serve then finds the new rows."""
+    from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+
+    n_all = RETRAIN_BASE + RETRAIN_GROW
+    vecs = doc_vecs[:n_all].float().cpu().numpy()
+    index = IvfKnnIndex(DIM, metric="cos")
+    t0 = time.perf_counter()
+    index.add(keys[:RETRAIN_BASE], vecs[:RETRAIN_BASE])
+    index.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    C0 = index._centroids.shape[0]
+    t0 = time.perf_counter()
+    index.add(keys[RETRAIN_BASE:n_all], vecs[RETRAIN_BASE:])
+    wait_maintenance(index)
+    retrain_s = time.perf_counter() - t0
+    st = index.stats
+    if st["retrains"] != 1 or st["retrain_failures"] or index._built_n != n_all or index._tail:
+        raise AssertionError(f"retrain: stats {st}, built_n {index._built_n}, tail {len(index._tail)}")
+    C = index._centroids.shape[0]
+    index.n_probe = C
+    rows = list(range(RETRAIN_BASE, n_all, RETRAIN_GROW // BATCH))[:BATCH]
+    got = FusedEncodeSearch(encoder, index, k=K)([docs[i] for i in rows])
+    found = sum(1 for row, i in zip(got, rows) if row and row[0][0] == keys[i])
+    log(
+        f"retrain: host-row IVF of {RETRAIN_BASE} encoded docs built in {build_s:.3f} s (C={C0}); "
+        f"{RETRAIN_GROW} more added past rebuild_fraction={index.rebuild_fraction}: background retrain "
+        f"installed a {n_all}-row layout (C={C}) {retrain_s:.3f} s after the add, absorbs {st['absorbs']}; "
+        f"full-probe serve ranks the added key first on {found}/{len(rows)} rows {tag}"
+    )
+    if found != len(rows):
+        raise AssertionError(f"after the retrain a full-probe serve found {found}/{len(rows)} added keys")
+
+
+def rerank_phase(encoder, ivf, docs, keys, tag: str):
+    """Forward-index ingest, then the three rerank modes over the 1M IVF
+    index; returns the rescore launches of the timed rerank calls and the
+    rescore kernel's max abs error against its plain version at this
+    path's shape."""
+    from pathway_tpu_torch.index import ForwardIndex
+    from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
+    from pathway_tpu_torch.ops import dispatch_counter
+    from pathway_tpu_torch.ops.ivf_rescore import ivf_rescore_reference, rescore_shortlist
+    from pathway_tpu_torch.ops.knn import _bucket
+    from pathway_tpu_torch.ops.maxsim import maxsim_scores_host, maxsim_topk
+    from pathway_tpu_torch.ops.retrieve_rerank import RetrieveRerankPipeline
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+
+    dev = torch.device(DEVICE)
+    fwd = ForwardIndex(encoder, tokens_per_doc=16, quant="int8")
+    t0 = time.perf_counter()
+    for i in range(0, N_DOCS, FWD_CHUNK):
+        fwd.add(keys[i : i + FWD_CHUNK], docs[i : i + FWD_CHUNK])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    if len(fwd) != N_DOCS:
+        raise AssertionError(f"forward index holds {len(fwd)} of {N_DOCS} docs")
+    log(
+        f"forward index: {N_DOCS} docs ingested in {ingest_s:.2f} s ({N_DOCS / ingest_s:.0f} docs/s incl. "
+        f"host tokenize + encode), T'={fwd.tokens_per_doc} int8, {fwd.hbm_bytes() / 1e6:.1f} MB on the card "
+        f"(capacity {fwd._capacity}), compression {fwd.compression_ratio():.2f}x, "
+        f"audit |MaxSim f32 - int8| {fwd._quant_abs_err:.5f} {tag}"
+    )
+    ce = CrossEncoderModel(
+        dimension=256, n_layers=4, n_heads=4, max_length=256, vocab_size=32768,
+        seed=SEED + 1, dtype=torch.bfloat16,
+    )
+    doc_text = dict(zip(keys[:N_DOCS], docs))
+
+    def retriever():
+        return FusedEncodeSearch(encoder, ivf, k=RR_CANDIDATES)
+
+    modes = {
+        "maxsim": RetrieveRerankPipeline(
+            retriever(), doc_text=doc_text, k=K, candidates=RR_CANDIDATES, forward_index=fwd
+        ),
+        "cascade": RetrieveRerankPipeline(
+            retriever(), ce, doc_text, k=K, candidates=RR_CANDIDATES, forward_index=fwd, cascade=K
+        ),
+        "cross_encoder": RetrieveRerankPipeline(retriever(), ce, doc_text, k=K, candidates=RR_CANDIDATES),
+    }
+    # known-item queries: every other word of an indexed document
+    n_q = RR_CALLS * RR_QUERIES
+    targets = [(i * 9973 + 1) % N_DOCS for i in range(n_q)]
+    calls = [
+        [" ".join(docs[t].split()[::2]) for t in targets[c * RR_QUERIES : (c + 1) * RR_QUERIES]]
+        for c in range(RR_CALLS)
+    ]
+    for pipe in modes.values():
+        pipe(calls[0])  # warm
+
+    # the main path, counted: every rerank call launches the rescore kernel once
+    rescore_shortlist.launches = 0
+    lat = {name: [] for name in modes}
+    mrr = {name: 0.0 for name in modes}
+    missing = {name: [0, 0] for name in modes}  # forward_missing, missing_docs
+    for c, qs in enumerate(calls):
+        for name, pipe in modes.items():
+            before = rescore_shortlist.launches
+            t = time.perf_counter()
+            got = pipe(qs)
+            lat[name].append((time.perf_counter() - t) * 1e3)
+            if rescore_shortlist.launches != before + 1:
+                raise AssertionError(f"{name}: {rescore_shortlist.launches - before} rescore launches in one call")
+            if len(got) != RR_QUERIES or any(len(r) != K for r in got):
+                raise AssertionError(f"{name}: rerank returned the wrong shape")
+            if not all(np.isfinite(s) for r in got for _, s in r) or got.degraded:
+                raise AssertionError(f"{name}: non-finite score or degraded {got.degraded}")
+            missing[name][0] += len(got.meta.get("forward_missing", ()))
+            missing[name][1] += len(got.meta.get("missing_docs", ()))
+            for row, target in zip(got, targets[c * RR_QUERIES :]):
+                ranked = [key for key, _ in row]
+                if keys[target] in ranked:
+                    mrr[name] += 1.0 / (ranked.index(keys[target]) + 1)
+    rr_launches = rescore_shortlist.launches
+    if rr_launches != len(modes) * RR_CALLS:
+        raise AssertionError(f"rerank calls launched the rescore kernel {rr_launches} times")
+
+    # the rescore kernel at this path's own shape, against its plain
+    # version: the queries and probes of one 16-query stage-1 call, made
+    # by the retriever's own steps (outside the counted window)
+    stage1 = modes["maxsim"].retriever
+    ids, mask = encoder.tokenizer.encode_batch(calls[0])
+    pad = np.zeros((_bucket(len(ids)) - len(ids), ids.shape[1]), ids.dtype)
+    with torch.no_grad():
+        z, _ = stage1._embed(np.concatenate([ids, pad]), np.concatenate([mask, pad]))
+        probe = torch.topk(z @ ivf._centroids.t(), ivf.probe_count(), dim=1).indices.to(torch.int32)
+        zq = torch.nn.functional.pad(z, (0, ivf._d_pad - z.shape[1])).contiguous()
+        rr_args = (probe, zq, ivf._slabs, ivf._bias)
+        rescore_err = compare_rescore(rescore_shortlist, ivf_rescore_reference, *rr_args)
+        flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+        rr_kernel_ms = timed_ms(lambda: rescore_shortlist(*rr_args), reps=20, flush=flush)
+        del flush
+    log(
+        f"kernel ivf_rescore vs plain at the rerank stage-1 shape B={probe.shape[0]} p={probe.shape[1]} "
+        f"C={ivf._centroids.shape[0]} M={ivf._M_pad} d={zq.shape[1]} f32 slabs, "
+        f"{int(torch.unique(probe).numel())} distinct clusters probed: max_abs_err={rescore_err:.3e}, "
+        f"kernel {rr_kernel_ms:.4f} ms {tag}"
+    )
+
+    # stage 2 alone: the cascade after a completed stage 1 (host clock)
+    stage2 = {}
+    for name, pipe in modes.items():
+        times = []
+        for qs in calls[:20]:
+            first = pipe.retriever.submit(qs, RR_CANDIDATES)
+            hits = first()
+            t = time.perf_counter()
+            done = pipe._submit_chain(
+                qs, hits, K, query_tokens=first.query_tokens, query_mask=first.query_mask
+            )
+            done()
+            times.append((time.perf_counter() - t) * 1e3)
+        stage2[name] = float(np.percentile(times, 50))
+
+    # checks: the 2 + 2 budget, MaxSim against NumPy, packed CE against unpacked
+    qs = calls[1]
+    with dispatch_counter.DispatchCounter() as counter:
+        got = modes["maxsim"](qs)
+    if (counter.dispatches, counter.fetches) != (2, 2) or got.degraded:
+        raise AssertionError(f"MaxSim serve: {counter.events}, degraded {got.degraded}")
+    handle = modes["maxsim"].submit(qs)
+    got = handle()
+    qtok = handle._stage1.query_tokens.cpu().numpy()
+    qmask = handle._stage1.query_mask
+    tok = fwd._tok.float().cpu().numpy()
+    scales = fwd._scales.cpu().numpy()
+    nvalid = fwd._nvalid.cpu().numpy()
+    maxsim_err, checked = 0.0, 0
+    for qi, row in enumerate(got):
+        for key, score in row:
+            slot = fwd._slot_of_key.get(key)
+            if slot is None:
+                continue  # backfilled with its stage-1 score
+            want = maxsim_scores_host(qtok[qi], qmask[qi], (tok[slot] * scales[slot])[None], nvalid[slot : slot + 1])[0]
+            maxsim_err = max(maxsim_err, abs(score - float(want)))
+            checked += 1
+    if checked == 0 or maxsim_err > 1e-4:
+        raise AssertionError(f"MaxSim vs NumPy: max abs err {maxsim_err} over {checked} scores")
+    got = modes["cross_encoder"](qs)
+    pairs = [(q, doc_text.get(key, "")) for q, row in zip(qs, got) for key, _ in row]
+    unpacked = ce.predict(pairs, packed=False)
+    packed = np.asarray([s for row in got for _, s in row], np.float32)
+    ce_err = float(np.abs(packed - unpacked).max())
+    if ce_err > CE_ATOL:
+        raise AssertionError(f"packed cross-encoder vs unpacked: max abs err {ce_err} > {CE_ATOL}")
+
+    # device time of the two stage-2 steps at this run's shapes (CUDA events)
+    first = modes["maxsim"].retriever.submit(qs, RR_CANDIDATES)
+    hits = first()
+    slots = np.full((first.query_tokens.shape[0], RR_CANDIDATES), -1, np.int32)
+    for qi, row in enumerate(hits):
+        for j, (key, _) in enumerate(row[:RR_CANDIDATES]):
+            slots[qi, j] = fwd._slot_of_key.get(key, -1)
+    slots_dev = torch.from_numpy(slots).to(dev)
+    qmask_dev = torch.from_numpy(first.query_mask.astype(np.float32)).to(dev)
+    Lq = first.query_tokens.shape[1]
+    with torch.no_grad():
+        maxsim_ms = timed_ms(
+            lambda: maxsim_topk(first.query_tokens, qmask_dev, fwd._tok, fwd._scales, fwd._nvalid, slots_dev, K, True),
+            reps=50,
+        )
+        ce_pairs = [(q, doc_text.get(key, "")) for q, row in zip(qs, hits) for key, _ in row[:RR_CANDIDATES]]
+        ids, segs, pos, S, _ = ce.packed_inputs(ce_pairs)
+        ce_ms = timed_ms(lambda: ce.packed_forward(ids, segs, pos, S), reps=20)
+        maxsim_kernel_ms, maxsim_kernels = kernel_time(
+            lambda: maxsim_topk(first.query_tokens, qmask_dev, fwd._tok, fwd._scales, fwd._nvalid, slots_dev, K, True),
+            reps=20,
+        )
+        ce_kernel_ms, ce_kernels = kernel_time(lambda: ce.packed_forward(ids, segs, pos, S), reps=5)
+    n_cand = int((slots >= 0).sum())
+    maxsim_bytes = n_cand * (16 * DIM + DIM * 4 + 4) + first.query_tokens.numel() * 4
+    maxsim_flops = 2 * slots.size * Lq * 16 * DIM
+    real_tokens = int((segs > 0).sum())
+    log(
+        f"rerank {RR_CALLS} calls x {RR_QUERIES} queries per mode over the 1M IVF index, {RR_CANDIDATES} "
+        f"candidates, k={K}, closed loop (host clock, submit to result) {tag}: "
+        + "; ".join(
+            f"{name} p50 {np.percentile(v, 50):.3f} ms p90 {np.percentile(v, 90):.3f} ms, stage 2 alone "
+            f"p50 {stage2[name]:.3f} ms, known-item MRR {mrr[name] / n_q:.4f}, forward_missing {missing[name][0]}, "
+            f"missing_docs {missing[name][1]}"
+            for name, v in lat.items()
+        )
+        + f"; rescore launches {rr_launches} (1 per call)"
+    )
+    log(
+        f"rerank checks {tag}: MaxSim serve 2 dispatches + 2 fetches; MaxSim vs NumPy max abs err "
+        f"{maxsim_err:.3e} over {checked} scores; packed vs unpacked cross-encoder max abs err {ce_err:.3e} "
+        f"over {len(pairs)} pairs"
+    )
+    log(
+        f"stage-2 device time {tag}: MaxSim step (gather + dequantize + MaxSim + top-k, B={slots.shape[0]} "
+        f"Kc={RR_CANDIDATES} Lq={Lq} T'=16 d={DIM}, {n_cand} resident candidates, {maxsim_bytes / 1e6:.3f} MB, "
+        f"{maxsim_flops / 1e9:.3f} GFLOP) {maxsim_ms:.4f} ms between CUDA events, its kernels alone "
+        f"{maxsim_kernel_ms:.4f} ms in {maxsim_kernels:.0f} launches; packed cross-encoder forward "
+        f"({len(ce_pairs)} pairs in {ids.shape[0]} rows x {ids.shape[1]} tokens, {S} segments per row, "
+        f"{real_tokens} real tokens) {ce_ms:.4f} ms between CUDA events, its kernels alone "
+        f"{ce_kernel_ms:.4f} ms in {ce_kernels:.0f} launches"
+    )
+    for name, pipe in modes.items():
+        log(f"profile rerank {name} {tag}: " + profile_serve(pipe, calls[:3]))
+    return rr_launches, rescore_err
 
 
 def main() -> int:
@@ -517,6 +822,13 @@ def main() -> int:
     if found != BATCH:
         raise AssertionError(f"full-probe serve found {found}/{BATCH} absorbed keys")
 
+    # -- 7. background retrain --------------------------------------------------
+    retrain_phase(encoder, docs, doc_vecs, keys, tag)
+
+    # -- 8. rerank: the main path's stage 2, counted ----------------------------
+    rr_launches, rr_err = rerank_phase(encoder, ivf, docs, keys, tag)
+    worst_err = max(worst_err, rr_err)
+
     record = {
         "kernels": [
             {
@@ -524,7 +836,8 @@ def main() -> int:
                 "route": "cuda",
                 "source": "pathway_tpu_torch/csrc/ivf_rescore.cu",
                 "replaces": "pathway_tpu/ops/ivf_pallas.py:37",
-                "launches": launches,
+                "launches": launches + rr_launches,
+                "launches_by_path": {"serve": launches, "rerank": rr_launches},
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,
                 "plain_ms": plain_ms,
@@ -539,8 +852,8 @@ def main() -> int:
             }
         ]
     }
-    print(json.dumps(record))
     print(smi)
+    print(json.dumps(record))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

@@ -5,11 +5,14 @@ its module layout (``models/``, ``ops/``) so each counterpart is easy to
 find, and never imports it.  Entry points run on the CUDA device unless
 the caller passes ``device="cpu"`` explicitly (see ``device.py``).
 
-Slice covered: host tokenizer -> ``TransformerEncoder`` forward + masked
+Slices covered: host tokenizer -> ``TransformerEncoder`` forward + masked
 mean pool + L2 normalize -> exact (``DeviceKnnIndex``) or IVF
-(``IvfKnnIndex``) stage-1 search -> packed int32 result, served through
-``FusedEncodeSearch``.  The IVF shortlist rescore is a hand-written CUDA
-kernel (``csrc/ivf_rescore.cu``).
+(``IvfKnnIndex``, with background absorb and retrain) stage-1 search ->
+packed int32 result, served through ``FusedEncodeSearch`` -> the rerank
+tier of ``RetrieveRerankPipeline``: MaxSim over the device-resident
+``index.ForwardIndex`` and/or the packed ``models.cross_encoder``.  The
+IVF shortlist rescore is a hand-written CUDA kernel
+(``csrc/ivf_rescore.cu``).
 """
 
 from .device import DEFAULT_DTYPE, resolve_device

@@ -13,9 +13,10 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
-__all__ = ["DEFAULT_DTYPE", "resolve_device"]
+__all__ = ["DEFAULT_DTYPE", "resolve_device", "to_host", "upload"]
 
 DEFAULT_DTYPE = torch.bfloat16
 
@@ -33,3 +34,31 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "the port on the CPU"
         )
     return dev
+
+
+def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device``.  On CUDA the source is pinned
+    and the copy is asynchronous: a pageable upload would wait for the
+    work already queued on the stream, serializing pipelined submits."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def to_host(packed: torch.Tensor):
+    """Start the device -> pinned host copy of one packed result; returns
+    a zero-arg callable that waits for it and returns the numpy array."""
+    if packed.device.type != "cuda":
+        arr = packed.numpy()
+        return lambda: arr
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait():
+        done.synchronize()
+        return host.numpy()
+
+    return wait

@@ -1,1 +1,2 @@
-"""Models of the port: tokenizer, encoder trunk, parameter bridge."""
+"""Models of the port: tokenizer, encoder trunk, cross-encoder, sequence
+packing, parameter bridge."""

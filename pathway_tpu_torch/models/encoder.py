@@ -4,8 +4,10 @@
 
 Batches are tokenized on the host, padded to a bucketed batch size, and
 run through one eager forward of the trunk; the result stays on the
-device for ``DeviceKnnIndex.add_from_device``.  Checkpoints, HF import,
-sequence packing and the embedding cache are not ported yet.
+device for ``DeviceKnnIndex.add_from_device``.  ``encode_token_states``
+is the doc-side token-state export of the forward index: the same
+module with its pool skipped, per-token L2-normalized.  Checkpoints, HF
+import, the packed encode and the embedding cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,10 +17,15 @@ from typing import Any, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from ..device import DEFAULT_DTYPE, resolve_device
+from ..device import DEFAULT_DTYPE, resolve_device, upload
 from .params import init_encoder_, params_from_flax
 from .tokenizer import HashTokenizer
-from .transformer import TransformerConfig, TransformerEncoder, resolve_heads
+from .transformer import (
+    TransformerConfig,
+    TransformerEncoder,
+    normalized_token_states,
+    resolve_heads,
+)
 
 __all__ = ["SentenceEncoder"]
 
@@ -97,6 +104,24 @@ class SentenceEncoder:
             torch.from_numpy(mask).to(self.device),
         )
         return out[:n]
+
+    @torch.no_grad()
+    def encode_token_states(self, texts: Sequence[str]):
+        """Batch encode to per-token states on the device: returns
+        ``(tokens [B, L, d] f32, mask [B, L] np int32, n_real)`` with the
+        batch padded to its bucket by empty texts and ``L`` pinned to
+        ``max_len``; pad tokens are zero, real tokens unit-norm."""
+        texts = ["" if t is None else str(t) for t in texts]
+        n = len(texts)
+        L = self.config.max_len
+        if n == 0:
+            empty = torch.zeros((0, L, self.config.d_model), device=self.device)
+            return empty, np.zeros((0, L), np.int32), 0
+        padded = list(texts) + [""] * (_bucket(n) - n)
+        ids, mask = self.tokenizer.encode_batch(padded, pad_to=L)
+        mask_t = upload(mask, self.device)
+        hidden = self.module(upload(ids, self.device), mask_t, pool="none")
+        return normalized_token_states(hidden, mask_t), mask, n
 
     def encode(self, texts: Sequence[str]) -> np.ndarray:
         """Batch encode: [n] strings -> [n, d] float32 numpy."""

@@ -1,5 +1,5 @@
-"""Parameters of the encoder trunk: the bridge from the reference's Flax
-tree, and the port's own seeded init.
+"""Parameters of the encoder trunk and the cross-encoder: the bridge
+from the reference's Flax trees, and the port's own seeded init.
 
 Flax tree of ``pathway_tpu`` ``TransformerEncoder`` (``module.init``):
 
@@ -8,6 +8,10 @@ Flax tree of ``pathway_tpu`` ``TransformerEncoder`` (``module.init``):
 - ``block_{i}/SelfAttention_0/{query, key, value, out}/{kernel [d, d], bias}``;
 - ``block_{i}/MlpBlock_0/Dense_{0,1}/{kernel, bias}``;
 - ``final_ln/{scale, bias}``.
+
+The cross-encoder's tree (``pathway_tpu`` ``_CrossEncoderModule``) is
+``trunk/...`` (the tree above) plus the head ``head_dense/{kernel [d, d],
+bias}`` and ``head_out/{kernel [d, 1], bias}``.
 
 A Flax Dense ``kernel`` is ``[in, out]``; a torch ``Linear.weight`` is
 ``[out, in]``, so kernels are transposed.  LayerNorm ``scale`` becomes
@@ -23,9 +27,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from .transformer import Dense, TransformerConfig, TransformerEncoder
+from .transformer import Dense, TransformerConfig
 
-__all__ = ["init_encoder_", "params_from_flax"]
+__all__ = ["cross_encoder_params_from_flax", "init_encoder_", "params_from_flax"]
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -62,8 +66,20 @@ def params_from_flax(
     return sd
 
 
+def cross_encoder_params_from_flax(
+    tree: Mapping[str, Any], config: TransformerConfig
+) -> Dict[str, torch.Tensor]:
+    """Flax tree of the reference's cross-encoder -> state dict of the
+    port's ``CrossEncoderModule``."""
+    sd = {f"trunk.{k}": v for k, v in params_from_flax(tree["trunk"], config).items()}
+    for name in ("head_dense", "head_out"):
+        sd[f"{name}.weight"] = _t(tree[name]["kernel"]).t().contiguous()
+        sd[f"{name}.bias"] = _t(tree[name]["bias"])
+    return sd
+
+
 @torch.no_grad()
-def init_encoder_(module: TransformerEncoder, generator: torch.Generator) -> None:
+def init_encoder_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded init with the Flax distributions (not the Flax numbers):
     xavier-uniform Dense kernels with zero biases, normal(0.02)
     embeddings, LayerNorm scale 1 and bias 0.  In place; ``generator``

@@ -22,15 +22,22 @@ here moves every embedding:
 - the masked mean pool sums in ``config.dtype`` before the f32 cast.
 
 Attention is plain torch (matmul, softmax, matmul): the reference
-computes it with XLA, not with a Pallas kernel.  The packed
-``segments`` forward and the KV/slot decode twins are not ported yet.
+computes it with XLA, not with a Pallas kernel.
+
+Packed forward (``segments`` / ``positions`` / ``n_segments``, the
+reference's sequence packing): several short sequences share one row;
+token l attends token m iff both carry the same nonzero segment id
+(block-diagonal attention, the segment mask replacing the key mask),
+positions restart per sequence, and the output is the per-segment
+masked mean pool ``[B, n_segments, d]`` f32.  The KV/slot decode twins
+are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +52,7 @@ __all__ = [
     "TransformerConfig",
     "TransformerEncoder",
     "gelu_tanh",
+    "masked_mean_pool",
     "normalized_token_states",
     "resolve_heads",
     "token_state_trunk",
@@ -78,6 +86,16 @@ def token_state_trunk(config: TransformerConfig) -> "TransformerEncoder":
     """A pool-free twin of a trunk config: takes the SAME state dict (no
     pooling layer carries weights) and returns raw [B, L, d] states."""
     return TransformerEncoder(replace(config, pool="none"))
+
+
+def masked_mean_pool(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The trunk's masked mean pool: sums in ``x.dtype``, then f32.  The
+    one pool for the module and for the token-state export, so the two
+    give bit-identical embeddings."""
+    m = mask[:, :, None].to(x.dtype)
+    summed = torch.sum(x * m, dim=1)
+    counts = torch.clamp(torch.sum(m, dim=1), min=1.0)
+    return (summed / counts).float()
 
 
 def normalized_token_states(hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -150,7 +168,9 @@ class SelfAttention(nn.Module):
         self.value = Dense(d, d, cfg.dtype)
         self.out = Dense(d, d, cfg.dtype)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, mask: torch.Tensor, segments: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
         cfg = self.cfg
         B, L, _ = x.shape
         H = cfg.n_heads
@@ -160,7 +180,13 @@ class SelfAttention(nn.Module):
         k = self.key(x).view(B, L, H, hd).transpose(1, 2)
         v = self.value(x).view(B, L, H, hd).transpose(1, 2)
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
-        allowed = (mask > 0)[:, None, None, :]  # [B, 1, 1, L] key mask
+        if segments is not None:
+            # packed rows: block-diagonal attention within each nonzero
+            # segment; [B, 1, L, L]
+            same = segments[:, None, :, None] == segments[:, None, None, :]
+            allowed = same & (segments[:, None, None, :] > 0)
+        else:
+            allowed = (mask > 0)[:, None, None, :]  # [B, 1, 1, L] key mask
         if cfg.causal:
             allowed = allowed & torch.ones(
                 L, L, dtype=torch.bool, device=x.device
@@ -181,15 +207,21 @@ class EncoderBlock(nn.Module):
         self.ln_1 = LayerNorm(cfg.d_model, cfg.dtype)
         self.mlp = MlpBlock(cfg)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_0(x), mask)
+    def forward(
+        self, x: torch.Tensor, mask: torch.Tensor, segments: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        x = x + self.attn(self.ln_0(x), mask, segments)
         return x + self.mlp(self.ln_1(x))
 
 
 class TransformerEncoder(nn.Module):
     """Token ids + mask -> pooled embedding [B, d] f32 (``pool`` mean or
     cls) or the final-LN hidden states [B, L, d] in ``config.dtype``
-    (``pool="none"``)."""
+    (``pool="none"``); ``forward(..., pool=...)`` overrides the config's
+    pool for one call.  Packed rows (``segments`` [B, L], 0 = pad,
+    1..``n_segments`` = sequence within the row; ``positions`` [B, L]
+    restarting per sequence) give ``[B, n_segments, d]`` f32, zero rows
+    for absent segments."""
 
     def __init__(self, config: TransformerConfig):
         super().__init__()
@@ -203,23 +235,40 @@ class TransformerEncoder(nn.Module):
         )
         self.final_ln = LayerNorm(config.d_model, config.dtype)
 
-    def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self,
+        ids: torch.Tensor,
+        mask: torch.Tensor,
+        segments: Optional[torch.Tensor] = None,
+        positions: Optional[torch.Tensor] = None,
+        n_segments: int = 0,
+        pool: Optional[str] = None,
+    ) -> torch.Tensor:
         cfg = self.config
+        pool = cfg.pool if pool is None else pool
         L = ids.shape[1]
-        positions = torch.arange(L, device=ids.device)
+        if positions is None:
+            positions = torch.arange(L, device=ids.device)[None]
         # f32 tables looked up, then cast (Flax casts the table first:
         # the same values)
-        x = self.tok_embed(ids).to(cfg.dtype) + self.pos_embed(positions).to(
-            cfg.dtype
-        )[None]
+        x = self.tok_embed(ids).to(cfg.dtype) + self.pos_embed(positions).to(cfg.dtype)
         for block in self.blocks:
-            x = block(x, mask)
+            x = block(x, mask, segments)
         x = self.final_ln(x)
-        if cfg.pool == "none":
+        if segments is not None:
+            # per-segment masked mean pool as one matmul per row:
+            # onehot [B, L, S] x hidden [B, L, d] -> [B, S, d]
+            if n_segments <= 0 or pool != "mean":
+                raise ValueError("the packed forward needs n_segments > 0 and pool='mean'")
+            seg_ids = torch.arange(1, n_segments + 1, device=ids.device)
+            onehot = (segments[:, :, None] == seg_ids[None, None, :]).to(x.dtype)
+            summed = torch.einsum("bls,bld->bsd", onehot, x)
+            counts = torch.clamp(torch.sum(onehot, dim=1), min=1.0)[:, :, None]
+            return (summed / counts).float()
+        if pool == "none":
             return x
-        if cfg.pool == "cls":
+        if pool == "cls":
             return x[:, 0, :].float()
-        m = mask[:, :, None].to(x.dtype)
-        summed = torch.sum(x * m, dim=1)
-        counts = torch.clamp(torch.sum(m, dim=1), min=1.0)
-        return (summed / counts).float()
+        if pool != "mean":
+            raise ValueError(f"unknown pool {pool!r}")
+        return masked_mean_pool(x, mask)

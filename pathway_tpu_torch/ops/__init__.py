@@ -1,2 +1,3 @@
-"""Stage-1 search of the port: exact and IVF indexes, the IVF rescore
-kernel, and the fused encode+search serve path."""
+"""Serve-path ops of the port: exact and IVF stage 1, the IVF rescore
+kernel, the fused encode+search serve path, MaxSim, the retrieve ->
+rerank pipeline and its dispatch accounting."""

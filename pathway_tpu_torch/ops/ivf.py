@@ -22,11 +22,17 @@
   integer) and commits them with in-place device writes to the slabs and
   the bias, on the stream of the last serve dispatch, so a batch already
   dispatched reads the old slab.  Absorbed rows are then found only when
-  their cluster is probed.
-
-Not ported yet: the background retrain (``_retrain_bg``) and its
-reconciliation at install.  An index whose host rows grow past
-``rebuild_fraction`` of the build retrains in the reference and not here.
+  their cluster is probed;
+- **background retrain**: once the host rows grow past
+  ``rebuild_fraction`` of the build, ``add`` (and a serve) starts a
+  thread that trains a fresh layout from a snapshot of the host rows off
+  the lock and installs it under the lock, reconciling rows that changed
+  meanwhile: a removed or upserted key (its stored vector is no longer
+  the snapshot's object) is masked out with ``-inf`` bias and a cleared
+  ``live_mask``, and keys the snapshot never saw stay in the exact tail.
+  An index built by ``build_from_matrix`` keeps only the streamed rows on
+  the host and never retrains.  Serving continues on the old layout
+  until the install.
 """
 
 from __future__ import annotations
@@ -47,9 +53,10 @@ from .knn import normalize_metric
 __all__ = ["IvfKnnIndex"]
 
 _PREF_CHUNK = 131072
-# failed background absorbs retry a bounded number of times with backoff
-_ABSORB_ATTEMPTS = 3
-_ABSORB_BASE_DELAY_S = 0.05
+# failed background absorbs and retrains retry a bounded number of
+# times with backoff
+_MAINT_ATTEMPTS = 3
+_MAINT_BASE_DELAY_S = 0.05
 _log = logging.getLogger(__name__)
 
 
@@ -135,6 +142,7 @@ class IvfKnnIndex:
         dtype: torch.dtype = torch.float32,
         train_sample: int = 32768,
         kmeans_iters: int = 8,
+        rebuild_fraction: float = 0.25,
         absorb_threshold: int = 4096,
         seed: int = 0,
         device=None,
@@ -151,6 +159,7 @@ class IvfKnnIndex:
         self.n_probe = n_probe
         self.train_sample = train_sample
         self.kmeans_iters = kmeans_iters
+        self.rebuild_fraction = rebuild_fraction
         self.absorb_threshold = absorb_threshold
         self.seed = seed
         self._lock = threading.RLock()
@@ -174,6 +183,7 @@ class IvfKnnIndex:
         # free-slot choice without a device fetch
         self._live_mask: Optional[np.ndarray] = None
         self._absorbing = False
+        self._retraining = False
         # bumped by every layout install: an off-lock absorb plan made
         # against an older layout aborts at commit
         self._layout_gen = 0
@@ -184,7 +194,13 @@ class IvfKnnIndex:
         # the stream of the last serve dispatch: absorb's in-place writes
         # are ordered after it
         self._serve_stream = None
-        self.stats = {"sync_builds": 0, "absorbs": 0, "absorb_failures": 0}
+        self.stats = {
+            "sync_builds": 0,
+            "retrains": 0,
+            "absorbs": 0,
+            "absorb_failures": 0,
+            "retrain_failures": 0,
+        }
         # result-visibility generation: bumped on every mutation that can
         # change what a serve returns
         self.generation = 0
@@ -227,6 +243,7 @@ class IvfKnnIndex:
                     threading.Thread(target=self._absorb_bg, daemon=True, name="ivf-absorb").start()
                 except RuntimeError:
                     self._absorbing = False  # a later add() retries
+            self.maybe_retrain_async()
             return self.generation
 
     def remove(self, keys: Sequence[int]) -> None:
@@ -261,9 +278,16 @@ class IvfKnnIndex:
             self._absorb_stuck_at = None  # capacity changed: re-arm absorb
 
     # -- build ---------------------------------------------------------------
+    def _needs_rebuild(self) -> bool:
+        if self._slabs is None:
+            return True
+        grown = len(self._rows) - self._built_n
+        return grown > max(64, self.rebuild_fraction * max(self._built_n, 1))
+
     def build(self) -> None:
         """Synchronous full train + install from the host row store (the
-        explicit bulk path; the lock is held throughout)."""
+        explicit bulk path): snapshot under the lock, train off it,
+        install under it."""
         with self._lock:
             if not self._rows:
                 self._slabs = None
@@ -272,12 +296,65 @@ class IvfKnnIndex:
                 self._layout_gen += 1
                 self.generation += 1
                 return
-            keys = list(self._rows)
-            data = np.stack([self._rows[k] for k in keys])
-            built = self._layout_from_data(
-                keys, torch.from_numpy(data).to(self.device), from_matrix=False
-            )
-            self._install(built)
+            snapshot = dict(self._rows)
+            self.stats["sync_builds"] += 1
+        built = self._train_layout(snapshot)
+        with self._lock:
+            self._install(built, snapshot)
+
+    def maybe_retrain_async(self) -> None:
+        """Start a background retrain once the host rows have grown past
+        ``rebuild_fraction`` of the build; at most one runs at a time.
+        Skipped while the host store holds only the streamed rows of a
+        ``build_from_matrix`` index (a retrain would drop the bulk)."""
+        with self._lock:
+            if (
+                self._slabs is None
+                or self._retraining
+                or not self._needs_rebuild()
+                or len(self._rows) < len(self)
+            ):
+                return
+            self._retraining = True
+        try:
+            threading.Thread(target=self._retrain_bg, daemon=True, name="ivf-retrain").start()
+        except RuntimeError:
+            self._retraining = False  # a later add() retries
+
+    def _retrain_bg(self) -> None:
+        """Background retrain: snapshot the host rows under the lock,
+        train a layout off it, install under it.  A failed pass is logged
+        once, counted in ``stats["retrain_failures"]`` and retried from a
+        fresh snapshot a bounded number of times; serving stays on the
+        old layout and a later ``add`` re-arms it."""
+        try:
+            for attempt in range(_MAINT_ATTEMPTS):
+                try:
+                    with self._lock:
+                        snapshot = dict(self._rows)
+                    if not snapshot:
+                        return
+                    built = self._train_layout(snapshot)
+                    with self._lock:
+                        self._install(built, snapshot)
+                        self.stats["retrains"] += 1
+                    return
+                except Exception as exc:  # noqa: BLE001 - counted, logged, retried
+                    with self._lock:
+                        self.stats["retrain_failures"] += 1
+                    if self.stats["retrain_failures"] == 1:
+                        _log.warning("IVF background retrain failed (%r); retrying", exc)
+                    if attempt + 1 < _MAINT_ATTEMPTS:
+                        time.sleep(_MAINT_BASE_DELAY_S * 2**attempt)
+        finally:
+            self._retraining = False
+
+    def _train_layout(self, rows: Dict[int, np.ndarray]) -> Dict[str, Any]:
+        """k-means + balanced assignment + slab layout of a snapshot of
+        host rows (lock-free: touches only its argument)."""
+        keys = list(rows)
+        data = np.stack([rows[k] for k in keys])
+        return self._layout_from_data(keys, torch.from_numpy(data).to(self.device), from_matrix=False)
 
     def build_from_matrix(self, keys: Sequence[int], matrix: torch.Tensor) -> None:
         """Bulk build from a DEVICE-RESIDENT row matrix [n, d] (e.g. the
@@ -291,6 +368,7 @@ class IvfKnnIndex:
         built = self._layout_from_data(keys, matrix.to(self.device), from_matrix=True)
         with self._lock:
             self._install(built)
+            self.stats["sync_builds"] += 1
 
     def _layout_from_data(
         self, keys: List[int], matrix: torch.Tensor, from_matrix: bool
@@ -364,9 +442,23 @@ class IvfKnnIndex:
             "n": n,
         }
 
-    def _install(self, built: Dict[str, Any]) -> None:
+    def _install(
+        self, built: Dict[str, Any], snapshot: Optional[Dict[int, np.ndarray]] = None
+    ) -> None:
         """Swap freshly built structures in (caller holds the lock); rows
-        of the host store the build did not cover stay in the tail."""
+        of the host store the build did not cover stay in the tail.  With
+        the ``snapshot`` the layout was trained from, keys removed or
+        upserted since (``add`` binds a fresh array per key, so the
+        stored object changes) are masked out of the new layout."""
+        slot_of_key = built["slot_of_key"]
+        if snapshot is not None:
+            stale = [k for k in slot_of_key if self._rows.get(k) is not snapshot[k]]
+            if stale:
+                slots = np.asarray([slot_of_key.pop(k) for k in stale], np.int64)
+                M_pad = built["M_pad"]
+                idx = torch.from_numpy(slots).to(self.device)
+                built["bias"][idx // M_pad, idx % M_pad] = float("-inf")
+                built["live_mask"][slots] = False
         self._slabs = built["slabs"]
         self._bias = built["bias"]
         self._centroids = built["centroids"]
@@ -381,7 +473,37 @@ class IvfKnnIndex:
         self._absorb_stuck_at = None  # fresh layout: re-arm absorb
         self._layout_gen += 1  # in-flight absorb plans must abort
         self.generation += 1
-        self.stats["sync_builds"] += 1
+
+    def warm_state(self) -> Dict[str, Any]:
+        """Snapshot in the reference's ``warm_state()`` format: host rows,
+        the layout as numpy (slabs as f32), slot bookkeeping, the tail and
+        the generation.  Refs are taken under the lock, copied off it."""
+        with self._lock:
+            rows = dict(self._rows)
+            slabs, bias, cents = self._slabs, self._bias, self._centroids
+            keys_by_slot, live_mask = self._keys_by_slot, self._live_mask
+            state: Dict[str, Any] = {
+                "kind": "ivf",
+                "dimension": int(self.dimension),
+                "metric": self.metric,
+                "M_pad": int(self._M_pad),
+                "d_pad": int(self._d_pad),
+                "slot_of_key": dict(self._slot_of_key),
+                "tail": list(self._tail),
+                "built_n": int(self._built_n),
+                "generation": int(self.generation),
+            }
+            # absorb and remove write the slabs, bias and live mask in
+            # place: copy them here (device copies are queued, not waited)
+            slabs = None if slabs is None else slabs.clone()
+            bias = None if bias is None else bias.clone()
+            live_mask = None if live_mask is None else live_mask.copy()
+        state["rows"] = rows
+        for name, t in (("slabs", slabs), ("bias", bias), ("centroids", cents)):
+            state[name] = None if t is None else t.float().cpu().numpy()
+        state["keys_by_slot"] = None if keys_by_slot is None else np.array(keys_by_slot)
+        state["live_mask"] = live_mask
+        return state
 
     def load_warm_state(self, state: Dict[str, Any]) -> None:
         """Install a reference ``IvfKnnIndex.warm_state()`` snapshot (numpy
@@ -437,7 +559,7 @@ class IvfKnnIndex:
         ``stats["absorb_failures"]`` and retried from a fresh snapshot a
         bounded number of times; the next ``add`` re-arms it after that."""
         try:
-            for attempt in range(_ABSORB_ATTEMPTS):
+            for attempt in range(_MAINT_ATTEMPTS):
                 try:
                     with self._lock:
                         snap = self._absorb_snapshot()
@@ -452,8 +574,8 @@ class IvfKnnIndex:
                         self.stats["absorb_failures"] += 1
                     if self.stats["absorb_failures"] == 1:
                         _log.warning("IVF background absorb failed (%r); retrying", exc)
-                    if attempt + 1 < _ABSORB_ATTEMPTS:
-                        time.sleep(_ABSORB_BASE_DELAY_S * 2**attempt)
+                    if attempt + 1 < _MAINT_ATTEMPTS:
+                        time.sleep(_MAINT_BASE_DELAY_S * 2**attempt)
         finally:
             self._absorbing = False
 
@@ -567,6 +689,9 @@ class IvfKnnIndex:
         if self.device.type == "cuda":
             stream = self._serve_stream or torch.cuda.current_stream(self.device)
             stream.wait_stream(torch.cuda.current_stream(self.device))  # the plan's uploads
+            # allocated on the absorb thread's stream: no reuse before the writes run
+            slots_dev.record_stream(stream)
+            vecs_dev.record_stream(stream)
             on_stream = torch.cuda.stream(stream)
         with on_stream:
             self._slabs.view(C_pad * M_pad, d_pad).index_copy_(0, slots_dev, vecs_dev)
@@ -659,6 +784,8 @@ class IvfKnnIndex:
                 return [[] for _ in range(nq)]
             if self._slabs is None:
                 self.build()  # first build only
+            else:
+                self.maybe_retrain_async()
             if self.metric == "cos":
                 norms = np.linalg.norm(queries, axis=1, keepdims=True)
                 queries = queries / np.where(norms == 0, 1.0, norms)

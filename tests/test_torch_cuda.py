@@ -1,6 +1,8 @@
 """Port tests that need an NVIDIA GPU and nvcc: the CUDA rescore kernels
-against their plain version, the IVF serve path through them, and an
-absorb on the card.  They skip
+against their plain version, the IVF serve path through them, an absorb
+and a background retrain on the card, the forward-index gather (against
+the NumPy MaxSim, and without a device-to-host sync) and the packed
+cross-encoder against the unpacked one.  They skip
 without a card.  This file imports neither JAX nor the reference, so on
 a machine without JAX it runs as
 
@@ -183,3 +185,95 @@ def test_cuda_ivf_absorb_writes_slabs_in_place():
     ivf.n_probe = ivf._centroids.shape[0]
     got = ivf.search(fresh, k=3)
     assert [row[0][0] for row in got] == list(range(10_000, 10_064))
+
+
+def _forward_stack(dev):
+    from pathway_tpu_torch.index import ForwardIndex
+    from pathway_tpu_torch.models.encoder import SentenceEncoder
+
+    enc = SentenceEncoder(dimension=64, n_layers=2, n_heads=4, max_length=32, vocab_size=4096, dtype=torch.float32)
+    docs = [f"document {i} about topic {i % 37} and item {i % 11} " + "word " * (i % 19) for i in range(300)]
+    fwd = ForwardIndex(enc, tokens_per_doc=8, initial_capacity=64)
+    for i in range(0, 300, 128):  # grows past the initial capacity
+        fwd.add(range(i, min(i + 128, 300)), docs[i : i + 128])
+    queries = docs[:16:3]
+    qtok, _, _ = enc.encode_token_states(queries)
+    ids, qmask = enc.tokenizer.encode_batch(queries)
+    qmask = np.concatenate([qmask, np.zeros((8 - len(queries), qmask.shape[1]), qmask.dtype)])
+    qtok = torch.cat([qtok[: len(queries), : ids.shape[1]], qtok.new_zeros((8 - len(queries), ids.shape[1], 64))])
+    cands = [[(i * 7 + j * 13) % 320 for j in range(20)] for i in range(len(queries))]  # keys >= 300 absent
+    return fwd, qtok, qmask, cands
+
+
+@pytest.mark.cuda
+def test_cuda_gather_matches_numpy_maxsim():
+    _cuda()
+    from pathway_tpu_torch.ops.maxsim import maxsim_scores_host
+
+    fwd, qtok, qmask, cands = _forward_stack(torch.device("cuda"))
+    done, missing = fwd.gather_submit(qtok, qmask, cands, 10, width=24)
+    scores, perm = done()
+    tok = fwd._tok.float().cpu().numpy() * fwd._scales.cpu().numpy()[:, None, :]
+    nvalid = fwd._nvalid.cpu().numpy()
+    q = qtok.cpu().numpy()
+    for qi, row in enumerate(cands):
+        assert missing[qi] == [j for j, key in enumerate(row) if key >= 300]
+        slots = [fwd._slot_of_key.get(key, -1) for key in row]
+        want = np.full(len(row), -np.inf, np.float32)
+        live = [j for j, s in enumerate(slots) if s >= 0]
+        want[live] = maxsim_scores_host(q[qi], qmask[qi], tok[[slots[j] for j in live]], nvalid[[slots[j] for j in live]])
+        order = np.argsort(-want, kind="stable")[:10]
+        np.testing.assert_allclose(scores[qi], want[order], atol=1e-4)
+        assert sorted(perm[qi].tolist()) == sorted(order.tolist())
+
+
+@pytest.mark.cuda
+def test_cuda_gather_makes_no_host_sync():
+    _cuda()
+    fwd, qtok, qmask, cands = _forward_stack(torch.device("cuda"))
+    fwd.gather_submit(qtok, qmask, cands, 10, width=24)[0]()  # warm the allocator
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        done, _ = fwd.gather_submit(qtok, qmask, cands, 10, width=24)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert done()[0].shape == (len(cands), 10)
+
+
+@pytest.mark.cuda
+def test_cuda_cross_encoder_packed_matches_unpacked():
+    _cuda()
+    from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
+
+    ce = CrossEncoderModel(dimension=64, n_layers=2, n_heads=4, max_length=128, vocab_size=4096)
+    rng = np.random.default_rng(5)
+    words = "stream join window index vector query tensor kernel shard replica".split()
+    pairs = [
+        (" ".join(rng.choice(words, size=4)), " ".join(rng.choice(words, size=int(rng.integers(1, 90)))))
+        for _ in range(70)
+    ]
+    np.testing.assert_allclose(ce.predict(pairs), ce.predict(pairs, packed=False), atol=3e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_ivf_background_retrain():
+    """Rows past ``rebuild_fraction`` retrain the layout on the card; each
+    added row is then its own nearest neighbour at full probe."""
+    dev = _cuda()
+    from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+
+    rng = np.random.default_rng(6)
+    data = rng.normal(size=(2048, 64)).astype(np.float32)
+    ivf = IvfKnnIndex(64, absorb_threshold=10**6, device=dev)
+    ivf.add(range(1536), data[:1536])
+    ivf.build()
+    ivf.add(range(1536, 2048), data[1536:])
+    for _ in range(6000):
+        if not ivf._retraining:
+            break
+        time.sleep(0.01)
+    assert ivf.stats["retrains"] == 1 and not ivf._tail and ivf._built_n == 2048
+    ivf.n_probe = ivf._centroids.shape[0]
+    got = ivf.search(data[1536::16], k=1)
+    assert [row[0][0] for row in got] == list(range(1536, 2048, 16))

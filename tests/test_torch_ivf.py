@@ -378,3 +378,118 @@ def test_absorb_under_concurrent_writers_keeps_every_row():
     port.n_probe = 16
     got = port.search(np.stack([vecs[k] for k in query_keys]), k=1)
     assert [row[0][0] for row in got] == query_keys
+
+
+# -- background retrain --------------------------------------------------------
+
+
+def _wait_maintenance(*indexes, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while any(ix._absorbing or ix._retraining for ix in indexes):
+        assert time.monotonic() < deadline, "background maintenance did not finish"
+        time.sleep(0.01)
+
+
+@pytest.mark.parametrize("threshold", [10**6, 64])
+def test_background_retrain_matches_reference(threshold):
+    """Host rows grown past ``rebuild_fraction`` of the build start a
+    background retrain in both packages (racing an absorb when the tail
+    also crosses ``absorb_threshold``); once both are done the layouts
+    are equal integer for integer and searches agree."""
+    ref, port, keys, data, rng = _absorb_pair(seed=14, threshold=threshold)
+    fresh = data[::3] + 0.02 * rng.normal(size=(683, 32)).astype(np.float32)
+    new_keys = [8 * 10**9 + i for i in range(len(fresh))]
+    for ix in (ref, port):
+        ix.add(new_keys, fresh)
+    _wait_maintenance(ref, port)
+    assert port.stats["retrains"] == ref.stats["retrains"] == 1
+    assert port.stats["retrain_failures"] == ref.stats["retrain_failures"] == 0
+    _assert_same_layout(port, ref)
+    assert not port._tail and port._built_n == ref._built_n == len(keys) + len(fresh)
+    queries = np.concatenate([fresh[::50], data[::211]])
+    for w, g in zip(ref.search(queries, k=10, n_probe=4), port.search(queries, k=10, n_probe=4)):
+        assert_same_ranking(w, g)
+    assert port.stats["retrains"] == 1  # the search found nothing stale
+
+
+def test_retrain_install_reconciles_changes_as_reference():
+    """Rows upserted, removed or added while a layout trained off the
+    lock are reconciled at install alike in both packages: stale keys
+    masked out (-inf bias, live mask cleared) and kept in the tail when
+    still present, keys the snapshot never saw left in the tail."""
+    layouts = []
+    for make in ("ref", "port"):
+        ref, port, keys, data, _ = _absorb_pair(seed=15, threshold=10**6)
+        ix = ref if make == "ref" else port
+        with ix._lock:
+            snapshot = dict(ix._rows)
+        built = ix._train_layout(snapshot)
+        ix.add(keys[:2], -data[:2])  # upserted meanwhile
+        ix.remove(keys[2:4])
+        ix.add([9 * 10**9], data[5:6] + 0.01)  # never in the snapshot
+        stale_slots = [built["slot_of_key"][k] for k in keys[:4]]
+        with ix._lock:
+            ix._install(built, snapshot)
+        assert list(ix._tail) == [keys[0], keys[1], 9 * 10**9]
+        assert not set(keys[:4]) & set(ix._slot_of_key)
+        assert not ix._live_mask[stale_slots].any()
+        assert int(ix._live_mask.sum()) == len(ix._slot_of_key) == len(keys) - 4
+        layouts.append(ix)
+    _assert_same_layout(layouts[1], layouts[0])
+
+
+def test_upsert_and_remove_during_background_retrain_reconciled():
+    """Within the port (the reference's race test): a writer keeps
+    removing one key and upserting another to the opposite vector while
+    the background retrain runs; nothing resurrects, the upsert wins."""
+    keys, data, _ = _blobs(seed=16)
+    port = IvfKnnIndex(dimension=32, n_clusters=16, n_probe=16, seed=1, absorb_threshold=10**6, device="cpu")
+    port.add(keys, data)
+    port.build()
+    extra = data[::2] + 0.05
+    port.add([10**10 + i for i in range(len(extra))], extra)  # stale: retrain starts
+    stop = threading.Event()
+
+    def mutate():
+        while not stop.is_set():
+            port.remove([keys[7]])
+            port.add([keys[9]], -data[9:10])
+            time.sleep(0.0005)  # let the retrain thread take the lock between rounds
+
+    writer = threading.Thread(target=mutate, daemon=True)
+    writer.start()
+    try:
+        _wait_maintenance(port)
+    finally:
+        stop.set()
+        writer.join(timeout=10)
+    assert not writer.is_alive()
+    assert port.stats["retrains"] == 1 and port.stats["retrain_failures"] == 0
+    assert all(key != keys[7] for key, _ in port.search(data[7:8], k=3)[0])
+    assert port.search(-data[9:10], k=1)[0][0][0] == keys[9]
+
+
+def test_build_from_matrix_never_retrains_like_reference():
+    ref, port, keys, data, rng = _absorb_pair(seed=17, from_matrix=True, threshold=10**6)
+    fresh = data[::2] + 0.02 * rng.normal(size=(1024, 32)).astype(np.float32)
+    for ix in (ref, port):
+        ix.add([11 * 10**9 + i for i in range(len(fresh))], fresh)
+        ix.maybe_retrain_async()
+        assert not ix._retraining and ix.stats["retrains"] == 0
+    _assert_same_layout(port, ref)
+
+
+def test_port_warm_state_loads_into_reference():
+    """``warm_state()`` of the port (after an absorb and a removal) in
+    the reference's format: the reference serves the same keys from it."""
+    ref, port, keys, data, rng = _absorb_pair(seed=18)
+    fresh = data[::29][:70] + 0.01 * rng.normal(size=(70, 32)).astype(np.float32)
+    port.add([12 * 10**9 + i for i in range(70)], fresh)
+    _wait_absorbed(port)
+    port.remove(keys[:3])
+    restored = RefIvf(dimension=32, n_clusters=16, seed=1)
+    restored.load_warm_state(port.warm_state())
+    _assert_same_layout(port, restored)
+    queries = np.concatenate([fresh[:10], data[::97]])
+    for w, g in zip(restored.search(queries, k=10), port.search(queries, k=10)):
+        assert_same_ranking(w, g)

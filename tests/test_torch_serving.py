@@ -20,6 +20,8 @@ from pathway_tpu.models.encoder import SentenceEncoder as RefEncoder
 from pathway_tpu.ops.ivf import IvfKnnIndex as RefIvf
 from pathway_tpu.ops.knn import DeviceKnnIndex as RefKnn
 from pathway_tpu.ops.serving import FusedEncodeSearch as RefServe
+from pathway_tpu_torch.index import ForwardIndex
+from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
 from pathway_tpu_torch.models.encoder import SentenceEncoder
 from pathway_tpu_torch.ops.ivf import IvfKnnIndex
 from pathway_tpu_torch.ops.knn import DeviceKnnIndex
@@ -161,7 +163,16 @@ def _imports(path):
 
 def test_port_imports_no_jax_flax_or_reference():
     files = sorted((_ROOT / "pathway_tpu_torch").rglob("*.py")) + [_ROOT / "chip_smoke.py"]
-    assert len(files) > 10
+    names = {str(f.relative_to(_ROOT / "pathway_tpu_torch")) for f in files[:-1]}
+    assert {
+        "index/forward.py",
+        "models/cross_encoder.py",
+        "models/packing.py",
+        "ops/dispatch_counter.py",
+        "ops/maxsim.py",
+        "ops/retrieve_rerank.py",
+        "robust.py",
+    } <= names
     bad = [
         (str(f.relative_to(_ROOT)), name)
         for f in files
@@ -178,6 +189,10 @@ def test_entry_points_refuse_cpu_fallback():
         lambda: SentenceEncoder(dimension=8, n_layers=1, n_heads=2, vocab_size=64),
         lambda: DeviceKnnIndex(8),
         lambda: IvfKnnIndex(8),
+        lambda: CrossEncoderModel(dimension=8, n_layers=1, n_heads=2, vocab_size=64),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
+    # the forward index and the pipeline run where their encoder runs
+    enc = SentenceEncoder(dimension=8, n_layers=1, n_heads=2, vocab_size=64, device="cpu")
+    assert ForwardIndex(enc).device.type == "cpu"
