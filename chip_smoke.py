@@ -49,12 +49,38 @@ Phases, in order; any failure exits non-zero:
    dequantized forward rows within 1e-4; the packed cross-encoder scores
    equal ``predict(..., packed=False)`` within 3e-2 (bf16); every rerank
    call launches the rescore kernel once, and the kernel agrees with its
-   plain version on the queries and probes of one 16-query rerank call.  Printed: p50 / p90 per mode,
+   plain version on the queries and probes of one 16-query rerank call,
+   where its bound is printed too.  Printed: p50 / p90 per mode,
    stage-2 ms per mode, device ms of the MaxSim step and of the packed
-   cross-encoder forward, missing-document counts and known-item MRR.
+   cross-encoder forward, missing-document counts and known-item MRR;
+9. scheduler: ``ServeScheduler`` over the phase-8 cascade pipeline
+   (window 5,000 us, 16 unique queries per batch), single-query requests
+   at concurrency 1, 4 and 16 (``max(32, 12 c)`` each; every 2nd one of
+   the 4 hot queries at the head of a pool of 64 eight-word queries, the
+   rest from that pool), scheduler off (callers call the pipeline) and on
+   (no result cache).  Checked: the rescore kernel agrees with its plain
+   version on the queries and probes of a B = 1 and a B = 4 stage-1 call,
+   the shapes most of this phase's launches run at;
+   every scheduled row has the keys and scores of the same text served
+   alone (bf16 trunk: within 3e-2, keys free only between scores tied
+   within 3e-2); every batch composition the scheduler formed, served
+   again alone, is bit-identical; a coalesced batch books one solo
+   serve's dispatches and fetches; no device-to-host sync while the
+   c16 arm runs; with the tier-0 cache a second pass hits on every
+   request with zero dispatches and rows bit-identical to the first,
+   and after a forced absorb nothing stale is served; with the embedding
+   cache keys and scores match the fused path and a repeated batch
+   encodes nothing; a one-shot stage-1 fault retries to the clean rows,
+   a persistent cross-encoder fault opens the breaker and later serves
+   come back ``rerank_skipped`` with no stage-2 dispatch, and after the
+   reset time serves are clean again.  Printed: queries/s and p50 / p90
+   per concurrency and arm, unique queries per batch, dedup rate, the
+   card's busy share at c16 with the scheduler on, and queries/s and p50
+   at c1 and c16 with the observe layer on and off.
 
 The card's name and power limit, then the JSON record of the kernels,
-then ``{"ok": true, "device": {...}}`` are the last three lines.
+then ``{"ok": true, "device": {...}}`` are the last three lines; the
+seconds the whole run took are printed before them.
 Without CUDA, or without the package beside it, the script fails before
 printing any result.
 """
@@ -64,6 +90,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -85,6 +112,11 @@ RR_CANDIDATES = 32
 RR_CALLS = 50  # timed calls per mode
 FWD_CHUNK = 1024  # forward-index ingest batch
 CE_ATOL = 3e-2  # packed vs unpacked cross-encoder, bf16
+SCHED_CONC = (1, 4, 16)  # phase 9: concurrent callers
+SCHED_WINDOW_US = 5000.0
+SCHED_MAX_BATCH = 16
+SCHED_TOL = 3e-2  # bf16 trunk: a query in another batch bucket moves its scores
+TICKET_TIMEOUT_S = 120.0
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -164,6 +196,72 @@ def compare_rescore(rescore, plain, probe, q, slabs, bias) -> float:
     if err > KERNEL_ATOL:
         raise AssertionError(f"rescore kernel: max abs err {err} > {KERNEL_ATOL}")
     return err
+
+
+def rescore_bound(distinct: int, M: int, d_pad: int, elem: int, B: int, p: int):
+    """(bound ms, what bounds it, bytes) of one rescore launch: each probed
+    slab and its bias row read once, q and probe read once, the output
+    written once; f32 FLOPs at the f32 rate outside the tensor cores."""
+    n_bytes = distinct * M * (d_pad * elem + 4) + B * d_pad * 4 + B * p * 4 + B * p * M * 4
+    n_ops = 2 * B * p * M * d_pad
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", n_bytes
+
+
+def stage1_rescore_args(retriever, ivf, texts):
+    """The rescore kernel's inputs of one IVF stage-1 call over ``texts``,
+    made by the retriever's own steps (bucketed batch, trunk, probes,
+    padded queries) without launching the kernel: ``(probe, zq, slabs,
+    bias)``."""
+    from pathway_tpu_torch.ops.knn import _bucket
+
+    ids, mask = retriever.encoder.tokenizer.encode_batch(texts)
+    pad = np.zeros((_bucket(len(ids)) - len(ids), ids.shape[1]), ids.dtype)
+    with torch.no_grad():
+        z, _ = retriever._embed(np.concatenate([ids, pad]), np.concatenate([mask, pad]))
+        probe = torch.topk(z @ ivf._centroids.t(), ivf.probe_count(), dim=1).indices.to(torch.int32)
+        zq = torch.nn.functional.pad(z, (0, ivf._d_pad - z.shape[1])).contiguous()
+    return probe, zq, ivf._slabs, ivf._bias
+
+
+def rescore_at_path_shape(ivf, args, dev):
+    """Kernel vs plain version, device time and bound of the rescore at
+    one path's own inputs ``args`` (f32 slabs)."""
+    from pathway_tpu_torch.ops.ivf_rescore import ivf_rescore_reference, rescore_shortlist
+
+    from torch.profiler import ProfilerActivity, profile
+
+    probe, zq = args[0], args[1]
+    with torch.no_grad():
+        err = compare_rescore(rescore_shortlist, ivf_rescore_reference, *args)
+        flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+        ms = timed_ms(lambda: rescore_shortlist(*args), reps=20, flush=flush)
+        # the two kernels alone (probe inversion + rescore), L2 cold: the
+        # event window above also holds any host gap before the launch
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                flush.zero_()
+                rescore_shortlist(*args)
+            torch.cuda.synchronize()
+        del flush
+    ours = [e for e in prof.key_averages() if "rescore_kernel" in e.key or "invert_probe_kernel" in e.key]
+    kernels_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in ours) / 1e3 / 20 if ours else None
+    distinct = int(torch.unique(probe).numel())
+    bound_ms, bound_by, n_bytes = rescore_bound(distinct, ivf._M_pad, zq.shape[1], 4, probe.shape[0], probe.shape[1])
+    return {
+        "max_abs_err": err, "ms": ms, "kernels_ms": kernels_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "distinct_clusters": distinct, "bytes": n_bytes, "B": probe.shape[0], "p": probe.shape[1],
+    }
+
+
+def rescore_line(ivf, r) -> str:
+    return (
+        f"B={r['B']} p={r['p']} C={ivf._centroids.shape[0]} M={ivf._M_pad} d={ivf._d_pad} f32 slabs, "
+        f"{r['distinct_clusters']} distinct clusters probed: max_abs_err={r['max_abs_err']:.3e}, "
+        f"kernel {r['ms']:.4f} ms between CUDA events, "
+        + (f"its 2 kernels alone {r['kernels_ms']:.4f} ms, " if r["kernels_ms"] is not None else "its kernels alone not measured, ")
+        + f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e9:.4f} GB)"
+    )
 
 
 def rescore_edge_cases(rescore, plain, dev) -> float:
@@ -379,14 +477,13 @@ def retrain_phase(encoder, docs, doc_vecs, keys, tag: str) -> None:
 
 def rerank_phase(encoder, ivf, docs, keys, tag: str):
     """Forward-index ingest, then the three rerank modes over the 1M IVF
-    index; returns the rescore launches of the timed rerank calls and the
-    rescore kernel's max abs error against its plain version at this
-    path's shape."""
+    index; returns the rescore launches of the timed rerank calls, a
+    record of the rescore kernel at this path's shape (max abs error
+    against its plain version, time, bound) and the cascade pipeline."""
     from pathway_tpu_torch.index import ForwardIndex
     from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
     from pathway_tpu_torch.ops import dispatch_counter
-    from pathway_tpu_torch.ops.ivf_rescore import ivf_rescore_reference, rescore_shortlist
-    from pathway_tpu_torch.ops.knn import _bucket
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
     from pathway_tpu_torch.ops.maxsim import maxsim_scores_host, maxsim_topk
     from pathway_tpu_torch.ops.retrieve_rerank import RetrieveRerankPipeline
     from pathway_tpu_torch.ops.serving import FusedEncodeSearch
@@ -462,26 +559,10 @@ def rerank_phase(encoder, ivf, docs, keys, tag: str):
         raise AssertionError(f"rerank calls launched the rescore kernel {rr_launches} times")
 
     # the rescore kernel at this path's own shape, against its plain
-    # version: the queries and probes of one 16-query stage-1 call, made
-    # by the retriever's own steps (outside the counted window)
-    stage1 = modes["maxsim"].retriever
-    ids, mask = encoder.tokenizer.encode_batch(calls[0])
-    pad = np.zeros((_bucket(len(ids)) - len(ids), ids.shape[1]), ids.dtype)
-    with torch.no_grad():
-        z, _ = stage1._embed(np.concatenate([ids, pad]), np.concatenate([mask, pad]))
-        probe = torch.topk(z @ ivf._centroids.t(), ivf.probe_count(), dim=1).indices.to(torch.int32)
-        zq = torch.nn.functional.pad(z, (0, ivf._d_pad - z.shape[1])).contiguous()
-        rr_args = (probe, zq, ivf._slabs, ivf._bias)
-        rescore_err = compare_rescore(rescore_shortlist, ivf_rescore_reference, *rr_args)
-        flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
-        rr_kernel_ms = timed_ms(lambda: rescore_shortlist(*rr_args), reps=20, flush=flush)
-        del flush
-    log(
-        f"kernel ivf_rescore vs plain at the rerank stage-1 shape B={probe.shape[0]} p={probe.shape[1]} "
-        f"C={ivf._centroids.shape[0]} M={ivf._M_pad} d={zq.shape[1]} f32 slabs, "
-        f"{int(torch.unique(probe).numel())} distinct clusters probed: max_abs_err={rescore_err:.3e}, "
-        f"kernel {rr_kernel_ms:.4f} ms {tag}"
-    )
+    # version: the queries and probes of one 16-query stage-1 call
+    # (outside the counted window)
+    rr_kernel = rescore_at_path_shape(ivf, stage1_rescore_args(modes["maxsim"].retriever, ivf, calls[0]), dev)
+    log(f"kernel ivf_rescore vs plain at the rerank stage-1 shape {rescore_line(ivf, rr_kernel)} {tag}")
 
     # stage 2 alone: the cascade after a completed stage 1 (host clock)
     stage2 = {}
@@ -584,7 +665,344 @@ def rerank_phase(encoder, ivf, docs, keys, tag: str):
     )
     for name, pipe in modes.items():
         log(f"profile rerank {name} {tag}: " + profile_serve(pipe, calls[:3]))
-    return rr_launches, rescore_err
+    return rr_launches, rr_kernel, modes["cascade"]
+
+class RecordingTarget:
+    """Forwards the scheduler's batches to a pipeline and keeps each
+    batch's text list, ``k`` and result, so a batch can be served again
+    alone (the bit-identity check)."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+        self.k = pipe.k
+        self.batches = []
+        self._lock = threading.Lock()
+
+    def index_generation(self):
+        return self.pipe.index_generation()
+
+    def _default_deadline(self):
+        return self.pipe._default_deadline()
+
+    def submit(self, texts, k=None, deadline=None, n_requests=1):
+        handle = self.pipe.submit(texts, k, deadline=deadline, n_requests=n_requests)
+        record = [list(texts), k, None]
+        with self._lock:
+            self.batches.append(record)
+
+        def complete():
+            record[2] = handle()
+            return record[2]
+
+        complete.advance = handle.advance
+        return complete
+
+
+def drive(serve_one, reqs, conc: int):
+    """``conc`` closed-loop callers share ``reqs`` (caller t takes every
+    conc-th request from t); returns (queries/s, latencies ms, rows)."""
+    n = len(reqs)
+    lats = [None] * n
+    rows = [None] * n
+    errors = []
+    barrier = threading.Barrier(conc)
+
+    def worker(t: int):
+        try:
+            barrier.wait(timeout=60)
+            for i in range(t, n, conc):
+                t0 = time.perf_counter()
+                rows[i] = serve_one(reqs[i])
+                lats[i] = (time.perf_counter() - t0) * 1e3
+        except Exception as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(t,), daemon=True) for t in range(conc)]
+    t_all = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    elapsed = time.perf_counter() - t_all
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"scheduler drive c{conc}: {errors[:3]} (alive: {sum(t.is_alive() for t in threads)})")
+    return n / elapsed, np.asarray(lats, np.float64), rows
+
+
+def scheduler_phase(encoder, ivf, docs, pipe, tag: str):
+    """Phase 9: the serve front over the cascade pipeline; returns the
+    rescore launches of its counted drives and the rescore kernel's
+    records at the B = 1 and B = 4 stage-1 shapes those drives launch
+    most."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathway_tpu_torch import observe
+    from pathway_tpu_torch.cache import EmbeddingCache, ResultCache
+    from pathway_tpu_torch.ops import dispatch_counter
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+    from pathway_tpu_torch.robust import CircuitBreaker, inject
+    from pathway_tpu_torch.serve import ServeScheduler
+
+    # the traffic of bench.py phase_concurrent_serve: the 4 hot queries
+    # are the head of the pool
+    pool = [" ".join(docs[(i * 9973) % N_DOCS].split()[:8]) for i in range(64)]
+    hot = pool[:4]
+
+    def workload(n: int):
+        return [hot[i % 4] if i % 2 == 0 else pool[(i * 7) % 64] for i in range(n)]
+
+    # warm the shapes both arms touch: each query alone, and coalesced
+    # compositions of every unique count a batch can hold
+    solo = {q: pipe([q], K) for q in pool}
+    for b in range(2, SCHED_MAX_BATCH + 1):
+        pipe(sorted(set(workload(3 * b)))[:b], K)
+    with dispatch_counter.DispatchCounter() as counter:
+        pipe([pool[0]], K)
+    per_serve = (counter.dispatches, counter.fetches)
+
+    def scheduler(target, cache=None):
+        return ServeScheduler(
+            target, window_us=SCHED_WINDOW_US, max_batch=SCHED_MAX_BATCH, result_cache=cache
+        )
+
+    def on_arm(sched):
+        return lambda q: sched.submit([q], K).result(timeout=TICKET_TIMEOUT_S)
+
+    # -- the counted drives: scheduler off and on per concurrency --------------
+    rescore_shortlist.launches = 0
+    stage1_batches = 0
+    lines = []
+    recorder = RecordingTarget(pipe)
+    checked_rows = 0
+    for conc in SCHED_CONC:
+        reqs = workload(max(32, 12 * conc))
+        cell = {}
+        for arm in ("off", "on"):
+            for measured in (False, True):  # an unmeasured pass first: warm compositions
+                sched = scheduler(recorder if arm == "on" else pipe) if arm == "on" else None
+                serve_one = on_arm(sched) if sched is not None else (lambda q: pipe([q], K))
+                try:
+                    with dispatch_counter.DispatchCounter() as counter:
+                        qps, lats, rows = drive(serve_one, reqs, conc)
+                finally:
+                    if sched is not None:
+                        sched.stop()
+                stage1_batches += sum(1 for kind, t in counter.events if kind == "dispatch" and t == "serve_ivf")
+                if not measured:
+                    continue
+                for q, got in zip(reqs, rows):
+                    if got.degraded or not same_ranking(solo[q][0], got[0], tie=SCHED_TOL, atol=SCHED_TOL):
+                        raise AssertionError(f"c{conc} {arm}: {q!r} got {got[0][:4]} {got.degraded}, alone {solo[q][0][:4]}")
+                checked_rows += len(rows)
+                cell[arm] = (qps, float(np.percentile(lats, 50)), float(np.percentile(lats, 90)))
+                if sched is not None:
+                    st = dict(sched.stats)
+                    n_batches = st["batches"] + st["solo"]
+                    if (counter.dispatches, counter.fetches) != (per_serve[0] * n_batches, per_serve[1] * n_batches):
+                        raise AssertionError(
+                            f"c{conc}: {counter.dispatches} dispatches + {counter.fetches} fetches for "
+                            f"{n_batches} batches; one serve books {per_serve}"
+                        )
+                    cell["unique"] = st["items_dispatched"] / max(st["batches"], 1)
+                    cell["dedup"] = st["dedup_hits"] / max(st["items"], 1)
+                    cell["batches"] = st["batches"]
+        lines.append(
+            f"c{conc} ({len(reqs)} requests): off {cell['off'][0]:.1f} q/s p50 {cell['off'][1]:.3f} ms "
+            f"p90 {cell['off'][2]:.3f} ms; on {cell['on'][0]:.1f} q/s p50 {cell['on'][1]:.3f} ms "
+            f"p90 {cell['on'][2]:.3f} ms, {cell['batches']} batches, {cell['unique']:.2f} unique queries "
+            f"per batch, dedup rate {cell['dedup']:.3f}"
+        )
+    launches = rescore_shortlist.launches
+    if launches != stage1_batches:
+        raise AssertionError(f"{launches} rescore launches for {stage1_batches} stage-1 batches")
+    log(
+        f"scheduler over the cascade (window {SCHED_WINDOW_US:.0f} us, max_batch {SCHED_MAX_BATCH}, no result "
+        f"cache; host clock per request) {tag}: " + "; ".join(lines)
+        + f"; {checked_rows} scheduled rows match their text served alone within {SCHED_TOL}; "
+        f"{per_serve[0]} dispatches + {per_serve[1]} fetches per batch as per solo serve; "
+        f"rescore launches {launches} (1 per stage-1 batch)"
+    )
+
+    # -- the rescore kernel at the shapes of those launches, against its plain
+    # version: the scheduler-off arms serve one query (bucket B = 1), the c4
+    # batches up to 4 unique queries (bucket B = 4); outside the counted drives
+    sched_kernel = []
+    for texts in ([hot[0]], sorted(hot)):
+        r = rescore_at_path_shape(ivf, stage1_rescore_args(pipe.retriever, ivf, texts), torch.device(DEVICE))
+        log(f"kernel ivf_rescore vs plain at the scheduler's stage-1 shape {rescore_line(ivf, r)} {tag}")
+        sched_kernel.append(r)
+
+    # -- the observe layer's own cost: scheduler on at c1 and c16 with the
+    # recorder (histograms, traces at sample 1.0, events) on and off,
+    # passes alternated on, off, off, on, on, off
+    observe_was = observe.snapshot()["enabled"]
+    cost = []
+    for conc in (1, 16):
+        reqs = workload(max(32, 12 * conc))
+        runs = {True: [], False: []}
+        for enabled in (True, False, False, True, True, False):
+            observe.set_enabled(enabled)
+            sched = scheduler(pipe)
+            try:
+                qps, lats, _ = drive(on_arm(sched), reqs, conc)
+            finally:
+                sched.stop()
+                observe.set_enabled(observe_was)
+            runs[enabled].append((qps, float(np.percentile(lats, 50)), sched.stats["batches"] + sched.stats["solo"]))
+        for enabled, name in ((True, "on"), (False, "off")):
+            qps, p50, batches = np.mean(runs[enabled], axis=0)
+            cost.append(
+                f"c{conc} observe {name}: {qps:.1f} q/s p50 {p50:.3f} ms, {batches:.1f} batches per pass "
+                f"(p50 per pass {[round(r[1], 3) for r in runs[enabled]]})"
+            )
+    log(f"observe cost, scheduler on, 3 passes per setting of 32 (c1) / 192 (c16) requests {tag}: " + "; ".join(cost))
+
+    # -- bit identity: every composition served again alone --------------------
+    compositions = [b for b in recorder.batches if b[2] is not None]
+    for texts, k, result in compositions:
+        again = pipe.submit(texts, k)()
+        if list(again) != list(result) or again.degraded != result.degraded:
+            raise AssertionError(f"batch of {len(texts)} served again differs from the scheduled serve")
+    log(f"scheduler bit identity {tag}: {len(compositions)} batch compositions served again alone, all bit-identical")
+
+    # -- device busy share at c16, and no hidden host sync ---------------------
+    reqs = workload(12 * 16)
+    sched = scheduler(pipe)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            drive(on_arm(sched), reqs, 16)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        sched.stop()
+    dev_ms = sum(
+        getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+    ) / 1e3
+    busy = f"{100 * dev_ms / wall_ms:.1f}% busy" if dev_ms > 0 else "device time not measured (no CUDA events traced)"
+    sched = scheduler(pipe)
+    torch.cuda.set_sync_debug_mode(1)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            drive(on_arm(sched), reqs, 16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        sched.stop()
+    syncs = [str(w.message)[:120] for w in caught if "synchroniz" in str(w.message).lower()]
+    log(
+        f"scheduler c16 {tag}: device kernels {dev_ms:.3f} ms in a {wall_ms:.3f} ms wall ({busy}); "
+        f"{len(syncs)} device-to-host syncs under set_sync_debug_mode"
+    )
+    if syncs:
+        raise AssertionError(f"hidden host sync on the scheduled serve path: {syncs[:3]}")
+
+    # -- tier-0 result cache -----------------------------------------------------
+    reqs = workload(12 * 16)
+    cache = ResultCache()
+    sched = scheduler(pipe, cache)
+    try:
+        _, _, first = drive(on_arm(sched), reqs, 16)
+        hits0 = sched.stats["cache_hits"]
+        with dispatch_counter.DispatchCounter() as counter:
+            _, _, second = drive(on_arm(sched), reqs, 16)
+        by_text = {}
+        for q, row in zip(reqs, first):
+            by_text.setdefault(q, []).append(list(row))
+        if sched.stats["cache_hits"] - hits0 != len(reqs) or counter.dispatches or counter.fetches:
+            raise AssertionError(
+                f"cached pass: {sched.stats['cache_hits'] - hits0}/{len(reqs)} hits, {counter.dispatches} dispatches"
+            )
+        if any(list(row) not in by_text[q] for q, row in zip(reqs, second)):
+            raise AssertionError("a cached row differs from every row the filling pass served for its text")
+        gen0 = ivf.generation
+        fresh = [t + " absorbed again" for t in corpus(ivf.absorb_threshold, seed=SEED + 11)]
+        with torch.no_grad():
+            fresh_vecs = torch.cat(
+                [encoder.encode_to_device(fresh[i : i + ENCODE_CHUNK]) for i in range(0, len(fresh), ENCODE_CHUNK)]
+            ).cpu().numpy()
+        ivf.add([(1 << 62) + (1 << 20) + i for i in range(len(fresh))], fresh_vecs)
+        wait_maintenance(ivf)
+        hits1 = sched.stats["cache_hits"]
+        with dispatch_counter.DispatchCounter() as counter:
+            after = [on_arm(sched)(q) for q in hot]
+        stale = [r.meta.get("index_generation") for r in after if r.meta.get("index_generation") != ivf.generation]
+        if sched.stats["cache_hits"] != hits1 or counter.dispatches == 0 or stale or ivf.generation <= gen0:
+            raise AssertionError(f"after the absorb: hits {sched.stats['cache_hits'] - hits1}, stale {stale}")
+    finally:
+        sched.stop()
+    log(
+        f"tier-0 result cache {tag}: second pass of {len(reqs)} requests all hits, 0 dispatches, rows bit-identical "
+        f"to the filling pass; absorb of {len(fresh)} rows moved the generation {gen0} -> {ivf.generation}, "
+        f"no stale row served ({counter.dispatches} dispatches for {len(hot)} requests after it)"
+    )
+
+    # -- tier-1 embedding cache --------------------------------------------------
+    texts = pool[16:32]
+    plain = FusedEncodeSearch(encoder, ivf, k=RR_CANDIDATES, embed_cache=None)(texts)
+    cached_serve = FusedEncodeSearch(encoder, ivf, k=RR_CANDIDATES, embed_cache=EmbeddingCache())
+    got = cached_serve(texts)
+    if not all(same_ranking(w, g, tie=SCHED_TOL, atol=SCHED_TOL) for w, g in zip(plain, got)):
+        raise AssertionError("embedding-cache serve differs from the fused path")
+    with dispatch_counter.DispatchCounter() as counter:
+        again = cached_serve(texts)
+    if (counter.dispatches, counter.physical_dispatches) != (1, 1) or list(again) != list(got):
+        raise AssertionError(f"repeated batch: {counter.physical_dispatches} launches, equal {list(again) == list(got)}")
+    retries = observe.counter("pathway_robust_retries_total", site="serve.dispatch")
+    r0 = retries.value
+    with inject.armed("serve.dispatch", "raise", times=1):
+        faulted = FusedEncodeSearch(encoder, ivf, k=RR_CANDIDATES, embed_cache=EmbeddingCache())(texts)
+    if list(faulted) != list(got) or retries.value - r0 != 1:
+        raise AssertionError(f"serve.dispatch fault: equal {list(faulted) == list(got)}, retries {retries.value - r0}")
+    log(
+        f"tier-1 embedding cache {tag}: {len(texts)} queries match the fused path within {SCHED_TOL}; the repeated "
+        f"batch is 1 launch (search only); a one-shot serve.dispatch fault retried once to the same bits"
+    )
+
+    # -- faults through the scheduler --------------------------------------------
+    sched = scheduler(pipe)
+    breaker = CircuitBreaker("cross_encoder.scheduler-phase", reset_s=1.0)
+    saved, pipe._breaker = pipe._breaker, breaker
+    try:
+        q = hot[0]
+        clean = on_arm(sched)(q)
+        retries = observe.counter("pathway_robust_retries_total", site="ivf.dispatch")
+        r0 = retries.value
+        with inject.armed("ivf.dispatch", "raise", times=1):
+            got = on_arm(sched)(q)
+        if list(got) != list(clean) or got.degraded or retries.value - r0 != 1:
+            raise AssertionError(f"ivf.dispatch fault: equal {list(got) == list(clean)}, retries {retries.value - r0}")
+        with inject.armed("rerank.dispatch", "raise"):
+            served = 0
+            while breaker.state != "open":
+                served += 1
+                if served > breaker.failure_threshold or on_arm(sched)(q).degraded != ("rerank_skipped",):
+                    raise AssertionError(f"breaker still {breaker.state} after {served} faulted serves")
+            fired = inject.fired_count("rerank.dispatch")
+            with dispatch_counter.DispatchCounter() as counter:
+                skipped = [on_arm(sched)(q) for _ in range(4)]
+            if any(r.degraded != ("rerank_skipped",) for r in skipped) or inject.fired_count("rerank.dispatch") != fired:
+                raise AssertionError("an open breaker still reached the cross-encoder")
+            if any(t == "rerank_stage2" for _, t in counter.events):
+                raise AssertionError("an open breaker still dispatched stage 2")
+        time.sleep(breaker.reset_s + 0.1)
+        after = on_arm(sched)(q)
+        if after.degraded or breaker.state != "closed" or list(after) != list(clean):
+            raise AssertionError(f"after the reset: {after.degraded}, breaker {breaker.state}")
+    finally:
+        pipe._breaker = saved
+        sched.stop()
+    log(
+        f"scheduler faults {tag}: one-shot ivf.dispatch fault retried once to the clean rows; persistent "
+        f"rerank.dispatch fault opened the breaker after {served} serves ({breaker.failure_threshold} failures), "
+        f"then 4 serves rerank_skipped with {fired} fault firings and no stage-2 dispatch; clean again "
+        f"{breaker.reset_s} s after disarming"
+    )
+    return launches, sched_kernel
 
 
 def main() -> int:
@@ -598,6 +1016,7 @@ def main() -> int:
     from pathway_tpu_torch.ops.knn import DeviceKnnIndex
     from pathway_tpu_torch.ops.serving import FusedEncodeSearch
 
+    t_run = time.perf_counter()
     dev = torch.device(DEVICE)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -692,18 +1111,8 @@ def main() -> int:
         del slabs16, args16, flush
     distinct = int(torch.unique(probe).numel())
     n_ops = 2 * BATCH * p * M * d_pad
-    io_bytes = q.numel() * 4 + probe.numel() * 4 + BATCH * p * M * 4  # q, probe, out
-
-    def bound(elem: int):
-        """(bound ms, what bounds it, bytes): each probed slab and its bias
-        row read once, q and probe read once, the output written once;
-        f32 FLOPs at the f32 rate outside the tensor cores."""
-        n_bytes = distinct * M * (d_pad * elem + 4) + io_bytes
-        t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_FLOPS * 1e3
-        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", n_bytes
-
-    bound_ms, bound_by, n_bytes = bound(4)
-    bf16_bound_ms, bf16_bound_by, bf16_bytes = bound(2)
+    bound_ms, bound_by, n_bytes = rescore_bound(distinct, M, d_pad, 4, BATCH, p)
+    bf16_bound_ms, bf16_bound_by, bf16_bytes = rescore_bound(distinct, M, d_pad, 2, BATCH, p)
     log(
         f"ivf_rescore at main-path shape B={BATCH} p={p} M={M} d={d_pad}, "
         f"{distinct} distinct clusters probed ({n_ops / 1e9:.3f} GFLOP): f32 slabs ({n_bytes / 1e9:.3f} GB) "
@@ -826,8 +1235,12 @@ def main() -> int:
     retrain_phase(encoder, docs, doc_vecs, keys, tag)
 
     # -- 8. rerank: the main path's stage 2, counted ----------------------------
-    rr_launches, rr_err = rerank_phase(encoder, ivf, docs, keys, tag)
-    worst_err = max(worst_err, rr_err)
+    rr_launches, rr_kernel, cascade = rerank_phase(encoder, ivf, docs, keys, tag)
+    worst_err = max(worst_err, rr_kernel["max_abs_err"])
+
+    # -- 9. the serve front over the cascade, counted ---------------------------
+    sched_launches, sched_kernel = scheduler_phase(encoder, ivf, docs, cascade, tag)
+    worst_err = max([worst_err] + [r["max_abs_err"] for r in sched_kernel])
 
     record = {
         "kernels": [
@@ -836,8 +1249,8 @@ def main() -> int:
                 "route": "cuda",
                 "source": "pathway_tpu_torch/csrc/ivf_rescore.cu",
                 "replaces": "pathway_tpu/ops/ivf_pallas.py:37",
-                "launches": launches + rr_launches,
-                "launches_by_path": {"serve": launches, "rerank": rr_launches},
+                "launches": launches + rr_launches + sched_launches,
+                "launches_by_path": {"serve": launches, "rerank": rr_launches, "scheduler": sched_launches},
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,
                 "plain_ms": plain_ms,
@@ -849,9 +1262,18 @@ def main() -> int:
                 "bf16_plain_ms": bf16_plain_ms,
                 "bf16_bound_ms": bf16_bound_ms,
                 "bf16_bound_by": bf16_bound_by,
+                "rerank_shape_ms": rr_kernel["ms"],
+                "rerank_shape_kernels_ms": rr_kernel["kernels_ms"],
+                "rerank_shape_bound_ms": rr_kernel["bound_ms"],
+                "rerank_shape_bound_by": rr_kernel["bound_by"],
+                "scheduler_shapes": [
+                    {key: r[key] for key in ("B", "p", "distinct_clusters", "max_abs_err", "ms", "kernels_ms", "bound_ms", "bound_by")}
+                    for r in sched_kernel
+                ],
             }
         ]
     }
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_run:.1f} s")
     print(smi)
     print(json.dumps(record))
     print(json.dumps({

@@ -10,9 +10,12 @@ mean pool + L2 normalize -> exact (``DeviceKnnIndex``) or IVF
 (``IvfKnnIndex``, with background absorb and retrain) stage-1 search ->
 packed int32 result, served through ``FusedEncodeSearch`` -> the rerank
 tier of ``RetrieveRerankPipeline``: MaxSim over the device-resident
-``index.ForwardIndex`` and/or the packed ``models.cross_encoder``.  The
-IVF shortlist rescore is a hand-written CUDA kernel
-(``csrc/ivf_rescore.cu``).
+``index.ForwardIndex`` and/or the packed ``models.cross_encoder`` -> the
+serve front ``serve.ServeScheduler`` (coalescing, the ``cache/`` result
+and embedding tiers, the ``robust/`` retry, breaker and fault-injection
+layer, the ``observe/`` recorder, traces and SLO shedding, and the knob
+table ``config.py``).  The IVF shortlist rescore is a hand-written CUDA
+kernel (``csrc/ivf_rescore.cu``).
 """
 
 from .device import DEFAULT_DTYPE, resolve_device

@@ -1,0 +1,239 @@
+"""The port's knob table (counterpart of ``pathway_tpu/config.py``).
+
+Only the knobs the port reads are declared here, each with the
+reference's key, ``PATHWAY_*`` environment name, type, default and
+bounds, so one environment configures both packages alike.  The table
+is the port's own: nothing is registered into the reference's registry.
+
+``get("serve.coalesce_us")`` is a cached typed lookup: the parse runs
+again only when the raw environment string changes.  A malformed value
+falls back to the declared default and an out-of-bounds number clamps
+to the declared bounds, each with one warning, never an exception.
+``get_site`` resolves the per-site family ``PATHWAY_RETRY_ATTEMPTS_<SITE>``
+of ``robust.retry_attempts``.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+__all__ = ["Knob", "UnknownKnobError", "get", "get_site", "registry"]
+
+_log = logging.getLogger("pathway_tpu_torch.config")
+
+_TRUE = ("1", "true", "yes", "on")
+_FALSE = ("", "0", "false", "no", "off")
+
+
+class UnknownKnobError(KeyError):
+    """A dotted key the table does not declare."""
+
+
+@dataclass(frozen=True)
+class Knob:
+    """One declared knob: ``kind`` is bool | int | float | str | enum;
+    ``lo``/``hi`` clamp numbers, ``choices`` bound enums, ``site_prefix``
+    names a per-site environment family."""
+
+    key: str
+    env: str
+    kind: str
+    default: Any
+    doc: str
+    lo: Optional[float] = None
+    hi: Optional[float] = None
+    choices: Optional[Tuple[str, ...]] = None
+    site_prefix: Optional[str] = None
+
+
+_REGISTRY: Dict[str, Knob] = {}
+# key -> (raw env string seen at parse time, typed value)
+_cache: Dict[str, Tuple[Optional[str], Any]] = {}
+_warned: set = set()
+_warned_lock = threading.Lock()
+
+
+def _knob(key: str, env: str, kind: str, default: Any, doc: str, **kw: Any) -> None:
+    if key in _REGISTRY:
+        raise ValueError(f"duplicate knob declaration: {key}")
+    _REGISTRY[key] = Knob(key, env, kind, default, doc, **kw)
+
+
+# serve front (serve/scheduler.py, ops/retrieve_rerank.py)
+_knob("serve.coalesce_us", "PATHWAY_SERVE_COALESCE_US", "float", 2000.0,
+      "scheduler coalescing window in µs (0 = no wait)", lo=0.0, hi=100_000.0)
+_knob("serve.max_batch", "PATHWAY_SERVE_MAX_BATCH", "int", 64,
+      "cap on unique queries per coalesced device batch", lo=1, hi=4096)
+_knob("serve.deadline_ms", "PATHWAY_SERVE_DEADLINE_MS", "float", 0.0,
+      "per-request serve deadline in ms (0 = none)", lo=0.0, hi=600_000.0)
+_knob("serve.stage1_fraction", "PATHWAY_SERVE_STAGE1_FRACTION", "float", 0.6,
+      "fraction of the deadline granted to stage 1", lo=0.05, hi=1.0)
+_knob("serve.shed", "PATHWAY_SERVE_SHED", "bool", True,
+      "SLO burn sheds shed-class requests at admission (off = advisory)")
+_knob("serve.shed_priorities", "PATHWAY_SERVE_SHED_PRIORITIES", "str", "low",
+      "comma-separated priority classes eligible for load shedding")
+_knob("serve.default_priority", "PATHWAY_SERVE_DEFAULT_PRIORITY", "enum", "normal",
+      "priority class for submit() calls that pass none", choices=("high", "normal", "low"))
+
+# cache tiers (cache/)
+_knob("cache.enabled", "PATHWAY_CACHE", "bool", True, "global cache kill switch")
+_knob("cache.result", "PATHWAY_CACHE_RESULT", "bool", True, "tier-0 result cache")
+_knob("cache.result_bytes", "PATHWAY_CACHE_RESULT_BYTES", "int", 32 << 20,
+      "result-tier byte budget", lo=0, hi=1 << 40)
+_knob("cache.result_ttl_s", "PATHWAY_CACHE_RESULT_TTL_S", "float", 60.0,
+      "result-tier TTL in seconds (0 = no expiry)", lo=0.0, hi=86_400.0)
+_knob("cache.embed", "PATHWAY_CACHE_EMBED", "bool", False,
+      "tier-1 embedding cache (opt-in: the search-only path changes low-order score bits)")
+_knob("cache.embed_bytes", "PATHWAY_CACHE_EMBED_BYTES", "int", 64 << 20,
+      "embedding-tier byte budget", lo=0, hi=1 << 40)
+_knob("cache.embed_ttl_s", "PATHWAY_CACHE_EMBED_TTL_S", "float", 0.0,
+      "embedding-tier TTL in seconds (0 = no expiry)", lo=0.0, hi=86_400.0)
+
+# observability (observe/)
+_knob("observe.enabled", "PATHWAY_OBSERVE", "bool", True,
+      "flight recorder + tracing master switch")
+_knob("observe.trace_sample", "PATHWAY_TRACE_SAMPLE", "float", 1.0,
+      "head-sampling probability for request traces", lo=0.0, hi=1.0)
+_knob("observe.trace_keep", "PATHWAY_TRACE_KEEP", "int", 256,
+      "kept-trace LRU capacity", lo=1, hi=65_536)
+_knob("observe.trace_pending", "PATHWAY_TRACE_PENDING", "int", 128,
+      "pending-trace ring capacity", lo=1, hi=65_536)
+_knob("observe.trace_max_spans", "PATHWAY_TRACE_MAX_SPANS", "int", 192,
+      "span cap per trace tree", lo=8, hi=65_536)
+_knob("observe.trace_slow_pct", "PATHWAY_TRACE_SLOW_PCT", "float", 0.99,
+      "tail-sampling slow-percentile threshold", lo=0.5, hi=0.9999)
+_knob("observe.slo", "PATHWAY_SLO", "bool", True,
+      "SLO engine shed probe in scheduler admission")
+_knob("observe.slo_tick_s", "PATHWAY_SLO_TICK_S", "float", 1.0,
+      "min seconds between SLO burn-rate evaluations", lo=0.0, hi=3600.0)
+_knob("observe.slo_latency_ms", "PATHWAY_SLO_LATENCY_MS", "float", 500.0,
+      "serve-latency SLO threshold in ms", lo=1.0, hi=600_000.0)
+_knob("observe.slo_latency_objective", "PATHWAY_SLO_LATENCY_OBJECTIVE", "float", 0.99,
+      "serve-latency SLO objective fraction", lo=0.5, hi=0.99999)
+_knob("observe.slo_availability", "PATHWAY_SLO_AVAILABILITY", "float", 0.999,
+      "availability SLO objective fraction", lo=0.5, hi=0.99999)
+_knob("observe.slo_fast_window_s", "PATHWAY_SLO_FAST_WINDOW_S", "float", 300.0,
+      "fast burn-rate window in seconds", lo=0.05, hi=86_400.0)
+_knob("observe.slo_slow_window_s", "PATHWAY_SLO_SLOW_WINDOW_S", "float", 3600.0,
+      "slow burn-rate window in seconds", lo=0.05, hi=86_400.0)
+_knob("observe.slo_burn", "PATHWAY_SLO_BURN", "float", 14.4,
+      "burn-rate multiple that fires the SLO alert", lo=0.1, hi=10_000.0)
+
+# robustness (robust/)
+_knob("robust.faults", "PATHWAY_FAULTS", "str", "",
+      "armed fault sites, e.g. 'cache.get=raise:p=0.01'")
+_knob("robust.retry_attempts", "PATHWAY_RETRY_ATTEMPTS", "int", 3,
+      "retry attempts per site", lo=1, hi=100, site_prefix="PATHWAY_RETRY_ATTEMPTS_")
+_knob("robust.retry_base_ms", "PATHWAY_RETRY_BASE_MS", "float", 5.0,
+      "retry backoff base delay in ms", lo=0.0, hi=60_000.0)
+_knob("robust.retry_max_ms", "PATHWAY_RETRY_MAX_MS", "float", 200.0,
+      "retry backoff max delay in ms", lo=0.0, hi=600_000.0)
+_knob("robust.retry_seed", "PATHWAY_RETRY_SEED", "int", 0,
+      "retry jitter seed", lo=0, hi=2**31 - 1)
+_knob("robust.breaker_threshold", "PATHWAY_BREAKER_THRESHOLD", "int", 5,
+      "consecutive failures that open a circuit breaker", lo=1, hi=10_000)
+_knob("robust.breaker_reset_s", "PATHWAY_BREAKER_RESET_S", "float", 30.0,
+      "open-breaker half-open probe delay in seconds", lo=0.0, hi=86_400.0)
+
+
+def _warn_once(tag: str, msg: str, *args: Any) -> None:
+    with _warned_lock:
+        if tag in _warned:
+            return
+        _warned.add(tag)
+    _log.warning(msg, *args)
+
+
+def _clamp_num(knob: Knob, value: float) -> float:
+    out = value
+    if knob.lo is not None and out < knob.lo:
+        out = knob.lo
+    if knob.hi is not None and out > knob.hi:
+        out = knob.hi
+    if out != value:
+        _warn_once(
+            f"clamp:{knob.env}:{value}",
+            "%s=%r outside declared bounds [%s, %s]; clamped to %r",
+            knob.env, value, knob.lo, knob.hi, out,
+        )
+    return out
+
+
+def _parse(knob: Knob, raw: Optional[str]) -> Any:
+    """Raw environment string -> typed, clamped value; never raises."""
+    if raw is not None:
+        s = raw.strip()
+        if knob.kind == "bool":
+            if s.lower() in _TRUE:
+                return True
+            if s.lower() in _FALSE:
+                return False
+            _warn_once(f"bool:{knob.env}:{s}", "%s=%r is not a recognized bool; using default %r",
+                       knob.env, raw, knob.default)
+        elif knob.kind in ("int", "float"):
+            try:
+                num = int(s) if knob.kind == "int" else float(s)
+            except ValueError:
+                _warn_once(f"num:{knob.env}:{s}", "%s=%r does not parse as %s; using default %r",
+                           knob.env, raw, knob.kind, knob.default)
+            else:
+                out = _clamp_num(knob, num)
+                return int(out) if knob.kind == "int" else float(out)
+        elif knob.kind == "enum":
+            if s.lower() in (knob.choices or ()):
+                return s.lower()
+            _warn_once(f"enum:{knob.env}:{s}", "%s=%r not in %s; using default %r",
+                       knob.env, raw, knob.choices, knob.default)
+        else:  # str
+            return raw
+    if knob.kind in ("int", "float"):
+        out = _clamp_num(knob, knob.default)
+        return int(out) if knob.kind == "int" else float(out)
+    return knob.default
+
+
+def _spec(key: str) -> Knob:
+    knob = _REGISTRY.get(key)
+    if knob is None:
+        raise UnknownKnobError(key)
+    return knob
+
+
+def _cached(cache_key: str, knob: Knob, raw: Optional[str]) -> Any:
+    hit = _cache.get(cache_key)
+    if hit is not None and hit[0] == raw:
+        return hit[1]
+    value = _parse(knob, raw)
+    _cache[cache_key] = (raw, value)
+    return value
+
+
+def get(key: str) -> Any:
+    """The typed value of one declared knob (environment, else the
+    declared default)."""
+    knob = _spec(key)
+    return _cached(key, knob, os.environ.get(knob.env))
+
+
+def get_site(key: str, site: str) -> Any:
+    """Per-site override: ``get_site("robust.retry_attempts",
+    "cache.get")`` reads ``PATHWAY_RETRY_ATTEMPTS_CACHE_GET`` (site
+    upper-cased, ``.``/``-`` -> ``_``) under the same declaration,
+    falling back to the base knob."""
+    knob = _spec(key)
+    if not knob.site_prefix:
+        return get(key)
+    env_name = knob.site_prefix + site.upper().replace(".", "_").replace("-", "_")
+    raw = os.environ.get(env_name)
+    if raw is None:
+        return get(key)
+    return _cached(f"{key}@{env_name}", knob, raw)
+
+
+def registry() -> Dict[str, Knob]:
+    """The declarations, read-only by convention."""
+    return dict(_REGISTRY)

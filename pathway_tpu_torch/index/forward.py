@@ -16,8 +16,10 @@
   tensors, so a gather already queued keeps the old ones;
 - **serve** (``gather_submit``): the slot table of the candidates is
   built on the host, uploaded, and the gather + dequantize + MaxSim +
-  top-k (``ops/maxsim.py``) launches under the lock; one packed int32
-  result is copied to pinned host memory.  Nothing syncs the device.
+  top-k (``ops/maxsim.py``) launches under the lock, retried under the
+  ``forward.gather`` site; one packed int32 result is copied to pinned
+  host memory, and the completion fires ``forward.gather.fetch``.
+  Nothing syncs the device.
 
 ``ShardedForwardIndex`` and the env knobs of the reference are not
 ported yet.
@@ -35,11 +37,14 @@ import torch
 from ..device import to_host, upload
 from ..ops.dispatch_counter import record_dispatch, record_fetch
 from ..ops.maxsim import maxsim_topk
+from ..robust import RetryPolicy, inject, retry_call
 
 __all__ = ["ForwardIndex", "ForwardUnavailable", "audit_quant_error", "pool_token_states"]
 
 # every Nth absorb re-measures the quantization error on its batch
 _AUDIT_EVERY = 8
+# the gather launches under the index lock: its retry budget stays short
+_GATHER_RETRY = RetryPolicy(attempts=3, base_delay_s=0.002, max_delay_s=0.02)
 
 
 class ForwardUnavailable(RuntimeError):
@@ -436,16 +441,23 @@ class ForwardIndex:
                 raise ForwardUnavailable("no candidate is resident")
             if self.device.type == "cuda":
                 self._serve_stream = torch.cuda.current_stream(self.device)
-            packed = maxsim_topk(
-                query_tokens, mask_dev, self._tok, self._scales, self._nvalid,
-                upload(slots, self.device), k_out, self.quant == "int8",
+            slots_dev = upload(slots, self.device)
+            # the launch runs under the index lock: a short retry schedule
+            fetch = retry_call(
+                "forward.gather",
+                lambda: to_host(maxsim_topk(
+                    query_tokens, mask_dev, self._tok, self._scales, self._nvalid,
+                    slots_dev, k_out, self.quant == "int8",
+                )),
+                deadline=deadline,
+                policy=_GATHER_RETRY,
             )
-            fetch = to_host(packed)
             self.stats["gathers"] += 1
             self.stats["gather_missing"] += n_missing
         record_dispatch("rerank_maxsim")
 
         def complete():
+            inject.fire("forward.gather.fetch", deadline=deadline)
             if deadline is not None:
                 deadline.check("forward.gather.fetch")
             arr = fetch()[:nq]

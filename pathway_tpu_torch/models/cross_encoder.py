@@ -9,19 +9,27 @@ Flax ``Dense`` layers with f32 parameters do on the f32 pooled input.
 length-bucketed rows (``models/packing.py``) and scored in one forward
 under block-diagonal segment attention; ``packed=False`` gives one pair
 per padded row (the parity oracle of the packed path).  Both return a
-completion that waits for one pinned host copy.  The HF-checkpoint path
-is not ported yet.
+completion that waits for one pinned host copy.  The launch retries
+under the ``cross_encoder.dispatch`` site and the completion fires
+``cross_encoder.fetch``; submit-to-ready lands on
+``pathway_serve_model_seconds{model="cross_encoder"}`` and the active
+trace (``model.cross_encoder``).  The HF-checkpoint path is not ported
+yet.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from .. import observe
 from ..device import DEFAULT_DTYPE, resolve_device, to_host, upload
+from ..observe import trace
+from ..robust import inject, retry_call
 from .encoder import _bucket
 from .packing import pack_rows, pad_packed_rows, row_length_bucket, seg_bucket
 from .params import cross_encoder_params_from_flax, init_encoder_
@@ -29,6 +37,28 @@ from .tokenizer import HashTokenizer
 from .transformer import Dense, TransformerConfig, TransformerEncoder, resolve_heads
 
 __all__ = ["CrossEncoderModel", "CrossEncoderModule"]
+
+_H_READY = observe.histogram("pathway_serve_model_seconds", model="cross_encoder")
+
+
+def _completion(fetch, n: int, deadline, select):
+    """The completion of one scoring launch: the fetch fault site, the
+    deadline, the wait, then ``select(host array)`` -> scores [n]."""
+    t_dispatch = time.perf_counter_ns()
+
+    def complete() -> np.ndarray:
+        inject.fire("cross_encoder.fetch", deadline=deadline)
+        if deadline is not None:
+            deadline.check("cross_encoder.fetch")
+        scores = select(fetch())
+        t_ready = time.perf_counter_ns()
+        _H_READY.observe_ns(t_ready - t_dispatch)
+        t = trace.current()
+        if t is not None:
+            t.add_span("model.cross_encoder", t_dispatch, t_ready, exemplar=_H_READY, pairs=n)
+        return scores
+
+    return complete
 
 
 class CrossEncoderModule(nn.Module):
@@ -104,14 +134,11 @@ class CrossEncoderModel:
         qs = [str(p[0]) for p in pairs] + [""] * (b - n)
         ds = [str(p[1]) for p in pairs] + [""] * (b - n)
         ids, mask = self.tokenizer.encode_batch(qs, pairs=ds)
-        fetch = to_host(self.module(upload(ids, self.device), upload(mask, self.device)))
-
-        def complete() -> np.ndarray:
-            if deadline is not None:
-                deadline.check("cross_encoder.fetch")
-            return fetch()[:n]
-
-        return complete
+        ids_t, mask_t = upload(ids, self.device), upload(mask, self.device)
+        fetch = retry_call(
+            "cross_encoder.dispatch", lambda: to_host(self.module(ids_t, mask_t)), deadline=deadline
+        )
+        return _completion(fetch, n, deadline, lambda arr: arr[:n])
 
     def _pack_pairs(self, pairs: Sequence[Tuple[str, str]]):
         """Tokenize pairs and pack them into length-bucketed rows: returns
@@ -146,11 +173,9 @@ class CrossEncoderModel:
     def _submit_packed(self, pairs, deadline):
         n = len(pairs)
         ids, segments, positions, S, flat_ix = self.packed_inputs(pairs)
-        fetch = to_host(self.packed_forward(ids, segments, positions, S))
-
-        def complete() -> np.ndarray:
-            if deadline is not None:
-                deadline.check("cross_encoder.fetch")
-            return fetch().reshape(-1)[flat_ix][:n]
-
-        return complete
+        fetch = retry_call(
+            "cross_encoder.dispatch",
+            lambda: to_host(self.packed_forward(ids, segments, positions, S)),
+            deadline=deadline,
+        )
+        return _completion(fetch, n, deadline, lambda arr: arr.reshape(-1)[flat_ix][:n])

@@ -2,19 +2,29 @@
 ``pathway_tpu/ops/dispatch_counter.py``).
 
 Serve sites report every device launch group (``record_dispatch``) and
-every device-to-host result copy (``record_fetch``) with a tag; a test
-or ``chip_smoke.py`` installs a ``DispatchCounter`` around a serve and
-asserts the budget (a retrieve-rerank serve is 2 dispatches + 2
-fetches).  With no counter installed a report is one global read.  The
-sites are the reference's: stage-1 submit / completion (``serve_exact``,
+every device-to-host result copy (``record_fetch``) with a tag.  Each
+report goes to three places: the port's recorder counters
+``pathway_serve_{dispatches,fetches}_total{tag}`` (always on), the
+active trace's dispatch and fetch counts, and an installed
+``DispatchCounter`` (a test or ``chip_smoke.py`` asserts the budget with
+one: a retrieve-rerank serve is 2 dispatches + 2 fetches).  The sites
+are the reference's: stage-1 submit / completion (``serve_exact``,
 ``serve_ivf``), the MaxSim gather (``rerank_maxsim``) and the packed
 cross-encoder stage 2 (``rerank_stage2``).
+
+``shards=N`` books one logical report that covers N physical launches
+(the embedding-cache path encodes its misses and then searches: one
+logical dispatch of two launches); ``physical_dispatches`` keeps the
+launch count.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
+
+from .. import observe
+from ..observe import trace as _trace
 
 __all__ = ["DispatchCounter", "install", "record_dispatch", "record_fetch", "uninstall"]
 
@@ -23,27 +33,41 @@ MAX_EVENTS = 4096
 
 _install_lock = threading.Lock()
 _active: Optional["DispatchCounter"] = None
+_obs_counters: Dict[Tuple[str, str], observe.Counter] = {}
+
+
+def _obs_counter(kind: str, tag: str) -> observe.Counter:
+    c = _obs_counters.get((kind, tag))
+    if c is None:
+        c = _obs_counters[(kind, tag)] = observe.counter(f"pathway_serve_{kind}es_total", tag=tag)
+    return c
 
 
 class DispatchCounter:
-    """Counts dispatches and fetches while installed (``with
-    DispatchCounter() as c:``); ``events`` keeps the first
-    ``MAX_EVENTS`` ``(kind, tag)`` pairs."""
+    """Counts logical dispatches and fetches while installed (``with
+    DispatchCounter() as c:``); ``physical_dispatches`` counts launches;
+    ``events`` keeps the first ``MAX_EVENTS`` ``(kind, tag)`` pairs and
+    ``events_dropped`` the rest."""
 
     def __init__(self) -> None:
         self.dispatches = 0
         self.fetches = 0
+        self.physical_dispatches = 0
         self.events: List[Tuple[str, str]] = []
+        self.events_dropped = 0
         self._lock = threading.Lock()
 
-    def _record(self, kind: str, tag: str) -> None:
+    def _record(self, kind: str, tag: str, shards: int) -> None:
         with self._lock:
             if kind == "dispatch":
                 self.dispatches += 1
+                self.physical_dispatches += max(1, int(shards))
             else:
                 self.fetches += 1
             if len(self.events) < MAX_EVENTS:
                 self.events.append((kind, tag))
+            else:
+                self.events_dropped += 1
 
     def __enter__(self) -> "DispatchCounter":
         install(self)
@@ -66,13 +90,20 @@ def uninstall() -> None:
         _active = None
 
 
-def record_dispatch(tag: str) -> None:
+def _report(kind: str, tag: str, shards: int) -> None:
+    _obs_counter(kind, tag).inc()
+    t = _trace.current()
+    if t is not None:
+        (t.note_dispatch if kind == "dispatch" else t.note_fetch)(tag, shards)
     c = _active
     if c is not None:
-        c._record("dispatch", tag)
+        c._record(kind, tag, shards)
 
 
-def record_fetch(tag: str) -> None:
-    c = _active
-    if c is not None:
-        c._record("fetch", tag)
+def record_dispatch(tag: str, shards: int = 1) -> None:
+    """One logical launch group of ``shards`` physical launches."""
+    _report("dispatch", tag, shards)
+
+
+def record_fetch(tag: str, shards: int = 1) -> None:
+    _report("fetch", tag, shards)

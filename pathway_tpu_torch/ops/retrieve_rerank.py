@@ -16,35 +16,50 @@ a cascade of pluggable ``RerankStage`` objects re-scores its candidates.
   ``meta["missing_docs"]``.
 
 A MaxSim-only serve is 2 dispatches + 2 fetches
-(``ops/dispatch_counter.py``).  A stage that raises (no forward rows, a
-spent deadline, a failed launch) flags its rung and the serve continues
-with the best ranking so far; stage 1 failing serves empty rows flagged
-``retrieval_failed``.  Nothing raises out of a serve handle.  Retry,
-circuit breakers and fault injection are not ported yet:
-``note_failure`` only counts.
+(``ops/dispatch_counter.py``).  A serve's deadline defaults to
+``deadline_ms``, else ``serve.deadline_ms``; stage 1 gets
+``stage1_fraction()`` of it.  The stage-2 launch retries under
+``rerank.dispatch``, gated by the cross-encoder's circuit breaker
+(``breaker("cross_encoder")`` unless ``rerank_breaker`` is given), which
+every cross-encoder failure feeds; an open breaker fails fast to the
+``rerank_skipped`` rung.  A stage that raises (no forward rows, a spent
+deadline, an open breaker, a failed launch) flags its rung and the serve
+continues with the best ranking so far; stage 1 failing serves empty
+rows flagged ``retrieval_failed``.  Nothing raises out of a serve handle.
+Stage timings land on ``pathway_serve_stage_seconds{stage}`` and the
+active trace (``stage.<name>``, ``stage2.pack_dispatch``, ``stage2.rtt``).
 """
 
 from __future__ import annotations
 
-import logging
 import threading
+import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from .. import observe
 from ..device import to_host, upload
 from ..models.encoder import _bucket
+from ..observe import trace
 from ..robust import (
     LATE_INTERACTION_SKIPPED,
     RERANK_SKIPPED,
     RETRIEVAL_FAILED,
-    STAGE1_FRACTION,
+    CircuitBreaker,
+    CircuitOpen,
     Deadline,
     DeadlineExceeded,
+    RetryPolicy,
     ServeResult,
+    inject,
+    log_once,
     record_degraded,
+    retry_call,
+    stage1_fraction,
 )
+from ..robust import breaker as robust_breaker
 from .dispatch_counter import record_dispatch, record_fetch
 from .maxsim import pack_topk
 
@@ -55,10 +70,16 @@ __all__ = [
     "RetrieveRerankPipeline",
 ]
 
-_log = logging.getLogger(__name__)
-
 # a stage's candidate pool per final result when it names no count
 OVER_FETCH = 4
+
+# the stage-2 launch retries briefly: its backoff delays the serve it
+# belongs to and the next batch's stage 2
+_STAGE2_RETRY = RetryPolicy(attempts=3, base_delay_s=0.002, max_delay_s=0.02)
+
+_H_S2PACK = observe.histogram("pathway_serve_stage_seconds", stage="stage2_pack")
+_H_S2RTT = observe.histogram("pathway_serve_stage_seconds", stage="stage2_rtt")
+_H_POST = observe.histogram("pathway_serve_stage_seconds", stage="postprocess")
 
 
 class RerankStage:
@@ -89,13 +110,14 @@ class RerankStage:
         raise NotImplementedError
 
     def note_failure(self, pipeline, exc: BaseException) -> None:
-        """Failure bookkeeping beyond the ladder (a deadline is not a
-        failure and never reaches here)."""
+        """Failure bookkeeping beyond the ladder (a deadline or an open
+        breaker is not a failure and never reaches here)."""
 
 
 class CrossEncoderStage(RerankStage):
     """The packed cross-encoder rescore, sized to this stage's pool
-    width (a cascade tail over the top few pays only its own table)."""
+    width (a cascade tail over the top few pays only its own table);
+    its failures feed the pipeline's circuit breaker."""
 
     name = "cross_encoder"
     rung = RERANK_SKIPPED
@@ -108,8 +130,7 @@ class CrossEncoderStage(RerankStage):
         return pipeline._submit_stage2(queries, cand_keys, keep, deadline=deadline, pool=pool_width)
 
     def note_failure(self, pipeline, exc: BaseException) -> None:
-        with pipeline._lock:
-            pipeline.stats["rerank_failures"] += 1
+        pipeline._breaker.record_failure()
 
 
 class LateInteractionStage(RerankStage):
@@ -168,14 +189,16 @@ class _PendingServe:
     the rerank chain without waiting on it; calling the handle finishes
     the serve.  Both are idempotent under a per-handle lock.  Stage-1
     rows already on the host are never discarded for a rerank problem;
-    stage 1 failing serves empty rows flagged ``retrieval_failed``."""
+    stage 1 failing serves empty rows flagged ``retrieval_failed``.
+    ``n_requests`` is how many scheduler riders share this serve: the
+    ladder counters count each of them."""
 
     __slots__ = (
         "_pipeline", "_stage1", "_queries", "_k", "_stage2", "_result",
-        "_done", "_hlock", "_deadline", "_stage1_rows",
+        "_done", "_hlock", "_deadline", "_stage1_rows", "_n_requests",
     )
 
-    def __init__(self, pipeline, stage1, queries, k, deadline=None) -> None:
+    def __init__(self, pipeline, stage1, queries, k, deadline=None, n_requests: int = 1) -> None:
         self._pipeline = pipeline
         self._stage1 = stage1
         self._queries = queries
@@ -186,6 +209,7 @@ class _PendingServe:
         self._hlock = threading.Lock()
         self._deadline: Optional[Deadline] = deadline
         self._stage1_rows: Any = None
+        self._n_requests = max(1, int(n_requests))
 
     def advance(self) -> None:
         with self._hlock:
@@ -198,8 +222,11 @@ class _PendingServe:
             hits = self._stage1()  # host fetch 1: the stage-1 packed result
         except Exception as exc:  # noqa: BLE001 - the ladder's bottom rung
             if not isinstance(exc, DeadlineExceeded):
-                _log.warning("stage-1 retrieval failed (%r); serving empty degraded rows", exc)
-            record_degraded(RETRIEVAL_FAILED)
+                log_once(
+                    f"stage1:{type(exc).__name__}",
+                    "stage-1 retrieval failed (%r); serving empty degraded rows", exc,
+                )
+            record_degraded(RETRIEVAL_FAILED, self._n_requests)
             empty = ServeResult([[] for _ in self._queries], degraded=(RETRIEVAL_FAILED,))
             self._stage2 = lambda: empty
             return
@@ -212,10 +239,11 @@ class _PendingServe:
                 deadline=self._deadline,
                 query_tokens=getattr(self._stage1, "query_tokens", None),
                 query_mask=getattr(self._stage1, "query_mask", None),
+                n_requests=self._n_requests,
             )
         except Exception as exc:  # noqa: BLE001 - degrade, never die
             if not isinstance(exc, DeadlineExceeded):
-                _log.warning("rerank submit failed (%r); serving stage-1 rows", exc)
+                log_once(f"stage2:{type(exc).__name__}", "rerank submit failed (%r); serving stage-1 rows", exc)
             self._stage2 = self._stage1_fallback_fn()
 
     def _stage1_fallback_fn(self):
@@ -229,7 +257,7 @@ class _PendingServe:
             [list(row[: self._k]) for row in hits],
             degraded=tuple(getattr(hits, "degraded", ())) + (rung,),
         )
-        record_degraded(rung)
+        record_degraded(rung, self._n_requests)
         return lambda: result
 
     def __call__(self) -> List[List[Tuple[int, float]]]:
@@ -240,7 +268,10 @@ class _PendingServe:
                     self._result = self._stage2()
                 except Exception as exc:  # noqa: BLE001 - last-resort net
                     if not isinstance(exc, DeadlineExceeded):
-                        _log.warning("rerank completion failed (%r); serving stage-1 rows", exc)
+                        log_once(
+                            f"stage2_fetch:{type(exc).__name__}",
+                            "rerank completion failed (%r); serving stage-1 rows", exc,
+                        )
                     self._result = self._stage1_fallback_fn()()
                 self._done = True
             return self._result
@@ -253,9 +284,10 @@ class RetrieveRerankPipeline:
     callable).  Explicit ``stages`` win; else a ``forward_index`` builds
     the MaxSim stage over ``candidates`` (default ``max(4k, 16)``), with
     a cross-encoder tail over the top ``cascade`` rows when ``cascade``
-    is set; else one cross-encoder stage.  ``deadline_ms`` (None or <= 0:
-    no deadline) bounds each serve: stage 1 gets ``STAGE1_FRACTION`` of
-    it, the cascade what remains."""
+    is set; else one cross-encoder stage.  ``deadline_ms`` bounds each
+    serve (<= 0: no deadline; None: the ``serve.deadline_ms`` knob).
+    ``rerank_breaker`` gates the cross-encoder (default: the shared
+    ``breaker("cross_encoder")``)."""
 
     def __init__(
         self,
@@ -265,6 +297,7 @@ class RetrieveRerankPipeline:
         k: int = 10,
         candidates: Optional[int] = None,
         deadline_ms: Optional[float] = None,
+        rerank_breaker: Optional[CircuitBreaker] = None,
         forward_index=None,
         cascade: Optional[int] = None,
         stages: Optional[Sequence[RerankStage]] = None,
@@ -274,6 +307,7 @@ class RetrieveRerankPipeline:
         self.doc_text = doc_text
         self.k = k
         self.deadline_ms = deadline_ms
+        self._breaker = rerank_breaker or robust_breaker("cross_encoder")
         width = candidates or max(4 * k, 16)
         if stages is not None:
             self.stages: List[RerankStage] = list(stages)
@@ -301,7 +335,14 @@ class RetrieveRerankPipeline:
                     "mean-pooling TransformerEncoder trunk)"
                 )
         self._lock = threading.Lock()
-        self.stats = {"rerank_failures": 0}
+        self.stats = {"serves": 0, "stage2_pairs": 0, "stage2_rows": 0}
+
+    def _default_deadline(self) -> Optional[Deadline]:
+        """``deadline_ms`` when given (<= 0: none), else the
+        ``serve.deadline_ms`` knob."""
+        if self.deadline_ms is not None:
+            return Deadline.after_ms(self.deadline_ms) if self.deadline_ms > 0 else None
+        return Deadline.from_env()
 
     def index_generation(self) -> int:
         gen_fn = getattr(self.retriever, "index_generation", None)
@@ -318,13 +359,15 @@ class RetrieveRerankPipeline:
         deadline: Optional[Deadline] = None,
         query_tokens=None,
         query_mask=None,
+        n_requests: int = 1,
     ):
         """Submit the first stage now (it overlaps the next serve's stage
         1) and return a completion that walks the rest of the cascade.
         Each stage rescores the best ranking so far, cut to its width; a
-        stage that fails flags its rung once and the chain goes on from
-        the previous ranking.  The result carries stage 1's flags, every
-        skipped rung and the merged stage metadata."""
+        stage that fails flags its rung once (counted for each of the
+        ``n_requests`` riders) and the chain goes on from the previous
+        ranking.  The result carries stage 1's flags, every skipped rung
+        and the merged stage metadata."""
         stages = self.stages
         flags: List[str] = list(getattr(hits, "degraded", ()))
         meta: Dict[str, Any] = dict(getattr(hits, "meta", {}) or {})
@@ -332,14 +375,31 @@ class RetrieveRerankPipeline:
         rows: List[List[Tuple[int, float]]] = [list(r) for r in hits]
         # how many rows stage i emits: the next stage's pool, or k
         keeps = [stages[i + 1].width(k) if i + 1 < len(stages) else k for i in range(len(stages))]
+        # per-stage trace bookkeeping: submit time and the budget left then
+        t_stage = [0] * len(stages)
+        budget_ms: List[Optional[float]] = [None] * len(stages)
 
-        def skip(stage: RerankStage, exc: BaseException) -> None:
-            if not isinstance(exc, DeadlineExceeded):
+        def stage_span(i: int, status: str, **attrs) -> None:
+            t = trace.current()
+            if t is not None:
+                t_end = time.perf_counter_ns()
+                t.add_span(
+                    "stage." + stages[i].name, t_stage[i] or t_end, t_end, status=status,
+                    budget_ms=budget_ms[i], keep=keeps[i], **attrs,
+                )
+
+        def skip(i: int, exc: BaseException) -> None:
+            stage = stages[i]
+            if not isinstance(exc, (DeadlineExceeded, CircuitOpen)):
                 stage.note_failure(self, exc)
-                _log.warning("rerank stage %s failed (%r); flagged %s", stage.name, exc, stage.rung)
+                log_once(
+                    f"stage:{stage.name}:{type(exc).__name__}",
+                    "rerank stage %s failed (%r); flagged %s", stage.name, exc, stage.rung,
+                )
+            stage_span(i, stage.rung, error=type(exc).__name__)
             if stage.rung not in flags:
                 flags.append(stage.rung)
-                record_degraded(stage.rung)
+                record_degraded(stage.rung, n_requests)
 
         def try_submit(i: int, cur_rows):
             stage = stages[i]
@@ -348,6 +408,9 @@ class RetrieveRerankPipeline:
             if deadline is not None:
                 deadline.check(f"{stage.name}_submit")
             width = stage.width(k)
+            t_stage[i] = time.perf_counter_ns()
+            if deadline is not None and trace.current() is not None:
+                budget_ms[i] = round(deadline.remaining_s() * 1e3, 3)
             return stage.submit(
                 self, queries, [r[:width] for r in cur_rows], keeps[i], deadline,
                 query_tokens=query_tokens, query_mask=query_mask, pool_width=width,
@@ -357,7 +420,7 @@ class RetrieveRerankPipeline:
         try:
             pending = try_submit(0, rows)
         except Exception as exc:  # noqa: BLE001 - a stage failure is a rung
-            skip(stages[0], exc)
+            skip(0, exc)
 
         def complete() -> ServeResult:
             nonlocal rows
@@ -368,7 +431,7 @@ class RetrieveRerankPipeline:
                     try:
                         cur = try_submit(i, rows)
                     except Exception as exc:  # noqa: BLE001
-                        skip(stages[i], exc)
+                        skip(i, exc)
                 if cur is None:
                     continue
                 try:
@@ -376,8 +439,9 @@ class RetrieveRerankPipeline:
                     rows = [list(r) for r in new_rows]
                     if stage_meta:
                         meta.update(stage_meta)
+                    stage_span(i, "ok")
                 except Exception as exc:  # noqa: BLE001
-                    skip(stages[i], exc)
+                    skip(i, exc)
             return ServeResult([list(r[:k]) for r in rows], degraded=flags, meta=meta or None)
 
         return complete
@@ -426,10 +490,12 @@ class RetrieveRerankPipeline:
         deadline: Optional[Deadline] = None,
         pool: Optional[int] = None,
     ):
-        """Pack the (query, candidate) pairs and launch the stage-2 step;
+        """Pack the (query, candidate) pairs and launch the stage-2 step
+        (retried under ``rerank.dispatch``, gated by the breaker);
         returns a completion -> ``(rows, meta)`` with ``missing_docs`` in
         ``meta`` when a key had no text.  ``pool`` is the calling stage's
         candidate width."""
+        t_pack = time.perf_counter_ns()
         ce = self.cross_encoder
         Kc = pool or self.candidates
         k_out = min(k, Kc)
@@ -450,14 +516,36 @@ class RetrieveRerankPipeline:
         pair_slot = np.full(Rb * S, Qb * Kc, np.int64)  # pad segments: the dump cell
         pair_slot[flat_ix] = slot_ids
         fn = self._compiled_stage2(S, Qb, Kc, k_out)
-        fetch = to_host(fn(ids, segments, positions, upload(pair_slot, ce.device)))
+        pair_slot_dev = upload(pair_slot, ce.device)
+        fetch = retry_call(
+            "rerank.dispatch",
+            lambda: to_host(fn(ids, segments, positions, pair_slot_dev)),
+            deadline=deadline,
+            policy=_STAGE2_RETRY,
+            breaker=self._breaker,
+        )
         record_dispatch("rerank_stage2")
+        with self._lock:
+            self.stats["stage2_pairs"] += len(pairs)
+            self.stats["stage2_rows"] += Rb
+        t_dispatch = time.perf_counter_ns()
+        _H_S2PACK.observe_ns(t_dispatch - t_pack)
+        observe.record_occupancy("stage2_pairs", len(pairs), Rb * S)
+        t = trace.current()
+        if t is not None:
+            t.add_span("stage2.pack_dispatch", t_pack, t_dispatch, exemplar=_H_S2PACK, pairs=len(pairs), rows=Rb)
 
         def complete():
+            inject.fire("cross_encoder.fetch", deadline=deadline)
             if deadline is not None:
                 deadline.check("cross_encoder.fetch")
             arr = fetch()[:nq]
             record_fetch("rerank_stage2")
+            t_fetch = time.perf_counter_ns()
+            _H_S2RTT.observe_ns(t_fetch - t_dispatch)
+            ct = trace.current()
+            if ct is not None:
+                ct.add_span("stage2.rtt", t_dispatch, t_fetch, exemplar=_H_S2RTT)
             scores = np.ascontiguousarray(arr[:, :k_out]).view(np.float32)
             perm = arr[:, k_out:]
             results: List[List[Tuple[int, float]]] = []
@@ -469,6 +557,16 @@ class RetrieveRerankPipeline:
                     if np.isfinite(scores[qi, j]) and int(perm[qi, j]) < len(cands)
                 ]
                 results.append(row[:k])
+            t_done = time.perf_counter_ns()
+            _H_POST.observe_ns(t_done - t_fetch)
+            observe.record_event("serve", "rerank_stage2", t_done - t_pack, queries=nq, pairs=len(pairs), rows=Rb)
+            observe.emit_span(
+                "pathway.serve.rerank_stage2",
+                queries=nq, pairs=len(pairs),
+                pack_ms=(t_dispatch - t_pack) * 1e-6,
+                rtt_ms=(t_fetch - t_dispatch) * 1e-6,
+                postprocess_ms=(t_done - t_fetch) * 1e-6,
+            )
             return results, meta
 
         return complete
@@ -479,19 +577,22 @@ class RetrieveRerankPipeline:
         queries: Sequence[str],
         k: Optional[int] = None,
         deadline: Optional[Deadline] = None,
+        n_requests: int = 1,
     ):
         """Launch stage 1 WITHOUT waiting; returns the serve handle
         (``advance()`` completes stage 1 and submits the cascade;
-        calling it finishes the serve)."""
+        calling it finishes the serve).  ``deadline`` defaults to
+        ``_default_deadline()``; ``n_requests`` is the number of
+        scheduler riders sharing this serve."""
         k = k or self.k
         queries = list(queries)
-        if deadline is None and self.deadline_ms is not None and self.deadline_ms > 0:
-            deadline = Deadline.after_ms(self.deadline_ms)
+        if deadline is None:
+            deadline = self._default_deadline()
         if not queries:
             done = _PendingServe(self, lambda: ServeResult(), [], k)
             done._stage2 = lambda: ServeResult()
             return done
-        stage1_deadline = deadline.sub_budget(STAGE1_FRACTION) if deadline else None
+        stage1_deadline = deadline.sub_budget(stage1_fraction()) if deadline else None
         try:
             # the kwarg only with a deadline: duck-typed retrievers with a
             # plain submit(texts, k) keep working without one
@@ -506,7 +607,9 @@ class RetrieveRerankPipeline:
             def stage1(_exc: Exception = exc):
                 raise _exc
 
-        return _PendingServe(self, stage1, queries, k, deadline=deadline)
+        with self._lock:
+            self.stats["serves"] += 1
+        return _PendingServe(self, stage1, queries, k, deadline=deadline, n_requests=n_requests)
 
     def __call__(
         self, queries: Sequence[str], k: Optional[int] = None, deadline: Optional[Deadline] = None

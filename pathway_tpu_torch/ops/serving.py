@@ -16,35 +16,61 @@ Packed layouts (as in the reference, so the completion code is shared):
   and ``k_tail`` tail columns; ``slots`` is -1 where the score is not
   finite, whatever order ``topk`` gave tied pad scores.
 
+Tier-1 embedding cache (``embed_cache``, opt-in through
+``PATHWAY_CACHE_EMBED``): cached ``[d]`` rows of known queries are
+stacked with ONE bucketed encode of the misses (``_cached_embeddings``)
+and the search runs from that ``z`` (the reference's ``from_z`` twins);
+the group is booked as one logical dispatch of 2 launches (1 when every
+row hit).  It is off while a late-interaction stage needs the query
+token states.
+
 Query token-state export (``export_query_tokens``, switched on by a
 late-interaction rerank stage): the trunk runs once with its pool
 skipped, the embedding is pooled from those hidden states with
 the module's own masked mean pool (so it is bit-identical to the
 non-export path), and the normalized per-token states ride the handle
 as ``query_tokens`` on the device, never fetched here, beside
-``query_mask`` on the host.  Each submit books one dispatch and each
-completion one fetch (``ops/dispatch_counter.py``).
+``query_mask`` on the host.
 
-Not ported yet: the embedding cache, the sharded path, and the
-observe/trace/retry layers.
+Each submit books one dispatch and each completion one fetch
+(``ops/dispatch_counter.py``).  The launch retries under the site
+``serve.dispatch`` (exact) or ``ivf.dispatch`` (IVF) with a short
+schedule, because it runs under the index and serve locks; the
+completion fires ``serve.fetch``.  Stage timings land on
+``pathway_serve_stage_seconds{stage}`` and, with the same clock reads, on
+the active trace (``stage1.dispatch`` / ``stage1.fetch`` /
+``stage1.postprocess``).  The sharded path is not ported yet.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import List, Optional, Sequence, Tuple
+import time
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import observe
+from ..cache import embedding_cache_from_env
 from ..device import to_host, upload
 from ..models.transformer import masked_mean_pool, normalized_token_states
-from ..robust import Deadline, ServeResult
+from ..observe import trace
+from ..robust import Deadline, RetryPolicy, ServeResult, inject, retry_call
 from .dispatch_counter import record_dispatch, record_fetch
 from .ivf import merge_stage1_row
 from .knn import _bucket
 
 __all__ = ["FusedEncodeSearch"]
+
+# the stage-1 launch runs under the index and serve locks: its backoff
+# sleeps stall every concurrent add and serve, so the budget stays in
+# the low milliseconds (the reference's IVF dispatch schedule)
+_LOCKED_DISPATCH_RETRY = RetryPolicy(attempts=3, base_delay_s=0.002, max_delay_s=0.02)
+
+_H_TOKENIZE = observe.histogram("pathway_serve_stage_seconds", stage="tokenize_pack")
+_H_STAGE1 = observe.histogram("pathway_serve_stage_seconds", stage="stage1_rtt")
+_H_POST = observe.histogram("pathway_serve_stage_seconds", stage="postprocess")
 
 
 def _f32_bits(s: torch.Tensor) -> torch.Tensor:
@@ -55,13 +81,16 @@ def _f32_bits(s: torch.Tensor) -> torch.Tensor:
 
 class FusedEncodeSearch:
     """Callable serving path over a ``SentenceEncoder`` plus either a
-    ``DeviceKnnIndex`` (exact) or an ``IvfKnnIndex`` (approximate)."""
+    ``DeviceKnnIndex`` (exact) or an ``IvfKnnIndex`` (approximate).
+    ``embed_cache``: an ``EmbeddingCache``, ``None``, or ``"env"`` (the
+    ``cache.embed`` knob)."""
 
-    def __init__(self, encoder, index, k: int = 10, export_query_tokens: bool = False):
+    def __init__(self, encoder, index, k: int = 10, export_query_tokens: bool = False, embed_cache: Any = "env"):
         self.encoder = encoder
         self.index = index
         self.k = k
         self.export_query_tokens = bool(export_query_tokens)
+        self.embed_cache = embedding_cache_from_env() if embed_cache == "env" else embed_cache
         self._lock = threading.Lock()
         self._ivf = hasattr(index, "_centroids")
 
@@ -89,14 +118,40 @@ class FusedEncodeSearch:
             z = z / torch.clamp(torch.linalg.vector_norm(z, dim=-1, keepdim=True), min=1e-9)
         return z, qtok
 
+    def _cached_embeddings(self, ids: np.ndarray, mask: np.ndarray, n_real: int, deadline=None):
+        """Tier-1 lookup for a padded batch: cached rows where the token
+        ids are known, ONE bucketed encode of the misses (retried under
+        ``serve.dispatch``), stacked into ``[B, d]`` with zero pad rows.
+        Returns ``(z, encoded)``; fresh rows are stored as copies of
+        their own (a view would keep the whole miss batch alive)."""
+        cache = self.embed_cache
+        B, L = ids.shape
+        rows, misses, row_keys = cache.lookup_rows(
+            ids, mask, n_real, deadline=deadline, space=f"serve:{self.index.metric}"
+        )
+        fresh = {}
+        if misses:
+            n_miss = len(misses)
+            pad = np.zeros((_bucket(n_miss) - n_miss, L), ids.dtype)
+            ids_m = np.concatenate([ids[misses], pad])
+            mask_m = np.concatenate([mask[misses], pad])
+            z_m = retry_call("serve.dispatch", lambda: self._embed(ids_m, mask_m)[0], deadline=deadline)
+            for j, i in enumerate(misses):
+                fresh[i] = z_m[j].clone()
+                cache.put_row(row_keys[i], fresh[i], deadline=deadline)
+        z = torch.stack([rows[i] if rows[i] is not None else fresh[i] for i in range(n_real)])
+        if B > n_real:
+            z = torch.cat([z, z.new_zeros((B - n_real, z.shape[1]))])
+        return z, bool(misses)
+
     @torch.no_grad()
-    def submit(
-        self, texts: Sequence[str], k: Optional[int] = None, deadline: Optional[Deadline] = None
-    ):
+    def submit(self, texts: Sequence[str], k: Optional[int] = None, deadline: Optional[Deadline] = None):
         """Dispatch one serve batch WITHOUT waiting for the result; returns
-        a zero-arg callable that completes it.  ``deadline`` is checked
-        before the dispatch (``DeadlineExceeded`` goes to the caller)."""
+        a zero-arg callable that completes it.  ``deadline`` bounds the
+        dispatch and its retries (``DeadlineExceeded`` goes to the
+        caller)."""
         k = k or self.k
+        t_start = time.perf_counter_ns()
         if not texts:
             return lambda: ServeResult()
         # host prep off the locks: tokenize, then pad to the query bucket
@@ -110,9 +165,12 @@ class FusedEncodeSearch:
             mask = np.concatenate([mask, pad])
         if deadline is not None:
             deadline.check("serve.dispatch")
-        if self._ivf:
-            return self._submit_ivf(texts, ids, mask, n_real, k)
-        return self._submit_exact(texts, ids, mask, n_real, k)
+        z, launches = None, 1
+        if self.embed_cache is not None and not self._exporting():
+            z, encoded = self._cached_embeddings(ids, mask, n_real, deadline)
+            launches = 2 if encoded else 1
+        submit = self._submit_ivf if self._ivf else self._submit_exact
+        return submit(texts, ids, mask, n_real, k, t_start, deadline, z, launches)
 
     @staticmethod
     def _handle(complete, qtok, mask, n_real: int):
@@ -123,7 +181,39 @@ class FusedEncodeSearch:
         complete.n_queries = n_real
         return complete
 
-    def _submit_exact(self, texts, ids, mask, n_real: int, k: int):
+    @staticmethod
+    def _note_dispatch(kind: str, t_start: int, n_real: int, batch: int, **attrs) -> int:
+        t_dispatch = time.perf_counter_ns()
+        _H_TOKENIZE.observe_ns(t_dispatch - t_start)
+        observe.record_occupancy("stage1", n_real, batch)
+        t = trace.current()
+        if t is not None:
+            t.add_span("stage1.dispatch", t_start, t_dispatch, exemplar=_H_TOKENIZE, kind=kind,
+                       queries=n_real, batch=batch, **attrs)
+        return t_dispatch
+
+    @staticmethod
+    def _fetch(fetch, tag: str, kind: str, n_real: int, t_dispatch: int, deadline):
+        """Wait for the packed result (after the ``serve.fetch`` site);
+        returns ``(arr, t_fetch, trace)``."""
+        inject.fire("serve.fetch", deadline=deadline)
+        arr = fetch()[:n_real]
+        record_fetch(tag)
+        t_fetch = time.perf_counter_ns()
+        _H_STAGE1.observe_ns(t_fetch - t_dispatch)
+        t = trace.current()
+        if t is not None:
+            t.add_span("stage1.fetch", t_dispatch, t_fetch, exemplar=_H_STAGE1, kind=kind)
+        return arr, t_fetch, t
+
+    @staticmethod
+    def _note_post(t, t_fetch: int) -> None:
+        t_post = time.perf_counter_ns()
+        _H_POST.observe_ns(t_post - t_fetch)
+        if t is not None:
+            t.add_span("stage1.postprocess", t_fetch, t_post)
+
+    def _submit_exact(self, texts, ids, mask, n_real: int, k: int, t_start: int, deadline, z, launches: int):
         index = self.index
         with index._lock, self._lock:
             n_items = len(index.key_to_slot)
@@ -132,36 +222,36 @@ class FusedEncodeSearch:
                 empty = ServeResult([[] for _ in texts], meta={"index_generation": gen0})
                 return self._handle(lambda: empty, None, mask, n_real)
             k_eff = min(k, n_items)
-            z, qtok = self._embed(ids, mask)
-            s, i = index.score_topk(z, k_eff)
-            # winners' keys gathered on the device from the int32 planes:
-            # completion needs no host slot -> key map
-            hi = index._keys_hi[i]
-            lo = index._keys_lo[i]
-            fetch = to_host(torch.cat([_f32_bits(s), hi, lo], dim=1))
-        record_dispatch("serve_exact")
+
+            def launch():
+                zz, qtok = (z, None) if z is not None else self._embed(ids, mask)
+                s, i = index.score_topk(zz, k_eff)
+                # winners' keys gathered on the device from the int32
+                # planes: completion needs no host slot -> key map
+                packed = torch.cat([_f32_bits(s), index._keys_hi[i], index._keys_lo[i]], dim=1)
+                return to_host(packed), qtok
+
+            fetch, qtok = retry_call(
+                "serve.dispatch", launch, deadline=deadline, policy=_LOCKED_DISPATCH_RETRY
+            )
+        record_dispatch("serve_exact", shards=launches)
+        t_dispatch = self._note_dispatch("exact", t_start, n_real, ids.shape[0])
 
         def complete() -> List[List[Tuple[int, float]]]:
-            arr = fetch()[:n_real]
-            record_fetch("serve_exact")
+            arr, t_fetch, t = self._fetch(fetch, "serve_exact", "exact", n_real, t_dispatch, deadline)
             scores = np.ascontiguousarray(arr[:, :k_eff]).view(np.float32)
             ints = np.ascontiguousarray(arr[:, k_eff:]).view(np.uint32)
-            keys = (ints[:, :k_eff].astype(np.uint64) << np.uint64(32)) | ints[
-                :, k_eff:
-            ].astype(np.uint64)
+            keys = (ints[:, :k_eff].astype(np.uint64) << np.uint64(32)) | ints[:, k_eff:].astype(np.uint64)
             results = [
-                [
-                    (int(keys[qi, j]), float(scores[qi, j]))
-                    for j in range(k_eff)
-                    if np.isfinite(scores[qi, j])
-                ]
+                [(int(keys[qi, j]), float(scores[qi, j])) for j in range(k_eff) if np.isfinite(scores[qi, j])]
                 for qi in range(len(texts))
             ]
+            self._note_post(t, t_fetch)
             return ServeResult(results, meta={"index_generation": gen0})
 
         return self._handle(complete, qtok, mask, n_real)
 
-    def _submit_ivf(self, texts, ids, mask, n_real: int, k: int):
+    def _submit_ivf(self, texts, ids, mask, n_real: int, k: int, t_start: int, deadline, z, launches: int):
         index = self.index
         with index._lock, self._lock:
             gen0 = self.index_generation()
@@ -174,36 +264,36 @@ class FusedEncodeSearch:
                 index.maybe_retrain_async()
             k_eff = min(k, len(index))
             tail, tail_dev = index._tail_snapshot_device()
-            z, qtok = self._embed(ids, mask)
-            s, slots, t_s, t_i = index._search_device(
-                z, k_eff, index.probe_count(), tail_dev, serve=True
+
+            def launch():
+                zz, qtok = (z, None) if z is not None else self._embed(ids, mask)
+                s, slots, t_s, t_i = index._search_device(zz, k_eff, index.probe_count(), tail_dev, serve=True)
+                packed = torch.cat([_f32_bits(s), slots, _f32_bits(t_s), t_i], dim=1)
+                return to_host(packed), qtok, s.shape[1], t_s.shape[1]
+
+            fetch, qtok, k_main, k_tail = retry_call(
+                "ivf.dispatch", launch, deadline=deadline, policy=_LOCKED_DISPATCH_RETRY
             )
-            k_main, k_tail = s.shape[1], t_s.shape[1]
-            fetch = to_host(torch.cat([_f32_bits(s), slots, _f32_bits(t_s), t_i], dim=1))
             keys_by_slot = index._keys_by_slot  # dispatch-time snapshot
-        record_dispatch("serve_ivf")
+        record_dispatch("serve_ivf", shards=launches)
+        t_dispatch = self._note_dispatch("ivf", t_start, n_real, ids.shape[0], tail=len(tail))
 
         def complete() -> List[List[Tuple[int, float]]]:
-            arr = fetch()[:n_real]
-            record_fetch("serve_ivf")
+            arr, t_fetch, t = self._fetch(fetch, "serve_ivf", "ivf", n_real, t_dispatch, deadline)
             scores = np.ascontiguousarray(arr[:, :k_main]).view(np.float32)
             slot_cols = arr[:, k_main : 2 * k_main]
-            t_scores = np.ascontiguousarray(
-                arr[:, 2 * k_main : 2 * k_main + k_tail]
-            ).view(np.float32)
+            t_scores = np.ascontiguousarray(arr[:, 2 * k_main : 2 * k_main + k_tail]).view(np.float32)
             t_idx = arr[:, 2 * k_main + k_tail :]
             results = [
-                merge_stage1_row(
-                    scores[qi], slot_cols[qi], t_scores[qi], t_idx[qi],
-                    keys_by_slot, tail, k,
-                )
+                merge_stage1_row(scores[qi], slot_cols[qi], t_scores[qi], t_idx[qi], keys_by_slot, tail, k)
                 for qi in range(len(texts))
             ]
+            self._note_post(t, t_fetch)
             return ServeResult(results, meta={"index_generation": gen0})
 
         return self._handle(complete, qtok, mask, n_real)
 
     def __call__(
-        self, texts: Sequence[str], k: Optional[int] = None
+        self, texts: Sequence[str], k: Optional[int] = None, deadline: Optional[Deadline] = None
     ) -> List[List[Tuple[int, float]]]:
-        return self.submit(texts, k)()
+        return self.submit(texts, k, deadline=deadline)()

@@ -8,7 +8,11 @@ Also: the port imports neither JAX, Flax nor the reference package, and
 its entry points refuse to run without CUDA unless asked for the CPU."""
 
 import ast
+import os
 import pathlib
+import subprocess
+import sys
+import textwrap
 
 import jax
 import jax.numpy as jnp
@@ -165,13 +169,26 @@ def test_port_imports_no_jax_flax_or_reference():
     files = sorted((_ROOT / "pathway_tpu_torch").rglob("*.py")) + [_ROOT / "chip_smoke.py"]
     names = {str(f.relative_to(_ROOT / "pathway_tpu_torch")) for f in files[:-1]}
     assert {
+        "cache/embedding.py",
+        "cache/keys.py",
+        "cache/result.py",
+        "cache/store.py",
+        "config.py",
         "index/forward.py",
         "models/cross_encoder.py",
         "models/packing.py",
+        "observe/histogram.py",
+        "observe/recorder.py",
+        "observe/slo.py",
+        "observe/trace.py",
         "ops/dispatch_counter.py",
         "ops/maxsim.py",
         "ops/retrieve_rerank.py",
-        "robust.py",
+        "robust/deadline.py",
+        "robust/degrade.py",
+        "robust/inject.py",
+        "robust/retry.py",
+        "serve/scheduler.py",
     } <= names
     bad = [
         (str(f.relative_to(_ROOT)), name)
@@ -180,6 +197,45 @@ def test_port_imports_no_jax_flax_or_reference():
         if name.split(".")[0] in ("jax", "jaxlib", "flax", "pathway_tpu")
     ]
     assert bad == []
+
+
+def test_port_import_leaves_reference_registries_unchanged():
+    """Importing every module of the port (in a fresh interpreter, after
+    the reference's registries exist) adds no knob to
+    ``pathway_tpu.config`` and no family or provider to
+    ``pathway_tpu.observe``."""
+    modules = sorted(
+        "pathway_tpu_torch." + ".".join(f.relative_to(_ROOT / "pathway_tpu_torch").with_suffix("").parts)
+        for f in (_ROOT / "pathway_tpu_torch").rglob("*.py")
+        if f.name != "__init__.py"
+    )
+    script = textwrap.dedent(
+        f"""
+        import importlib
+        from pathway_tpu import config, observe
+        from pathway_tpu.observe import recorder
+
+        def state():
+            return (
+                sorted(config.registry()),
+                {{n: sorted(s) for n, s in recorder._hists.items()}},
+                {{n: sorted(s) for n, s in recorder._counters.items()}},
+                {{n: sorted(s) for n, s in recorder._gauges.items()}},
+                len(recorder._providers),
+            )
+
+        before = state()
+        for name in {modules!r}:
+            importlib.import_module(name)
+        assert state() == before, "the port changed a registry of the reference"
+        print("ok", len(before[0]))
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=_ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "JAX_PLATFORMS": "cpu"},
+    )
+    assert out.returncode == 0 and out.stdout.startswith("ok"), out.stderr[-2000:]
 
 
 def test_entry_points_refuse_cpu_fallback():
