@@ -76,7 +76,29 @@ Phases, in order; any failure exits non-zero:
    reset time serves are clean again.  Printed: queries/s and p50 / p90
    per concurrency and arm, unique queries per batch, dedup rate, the
    card's busy share at c16 with the scheduler on, and queries/s and p50
-   at c1 and c16 with the observe layer on and off.
+   at c1 and c16 with the observe layer on and off;
+10. decode: the default ``TextGenerator`` (256 wide, 4 layers, 4 heads,
+   d_ff 1024, max_length 256, vocab 32768, bf16, seeded init) with a
+   ``PrefixKVCache(block=16)``, and an f32 twin of its state dict, on the
+   traffic of bench.py phase_continuous_decode / phase_speculative_decode
+   (16 prompts, the even half sharing a rerank-style prefix and ending at
+   their own 4th greedy token; half the requests sampled at T = 0.8 with
+   per-request seeds).  The row-invariant LayerNorm and readout kernels
+   (``csrc/decode_rows.cu``) are held against their plain versions and
+   timed.  Checked: f32 KV decode == legacy re-attend on all 16 prompts;
+   every ``ContinuousDecoder`` request (16 slots, chunk 32, width 96) at
+   c1 / c4 / c16 == its solo ``generate``, as is every call-level one; no
+   device-to-host sync in the c16 step loop; a warm prefix join == a cold
+   one with prefill tokens reused; one slot reused over EOS leaves gives
+   solo tokens; 256 saturated requests at budget 64, spec_k 16 off and on,
+   all == solo, at most 2 + 2 dispatches and fetches per round and 1 + 1
+   per plain chunk; 32 requests drafted by the reduced-layer trunk, all ==
+   solo; a 32-slot int8 pool: spec-on == spec-off, warm ==
+   cold, its K/V bytes within the 16-slot bf16 pool's; both row kernels
+   launched.  Printed: tokens/s and TTLT p50 / p90 per arm and
+   concurrency, slots per chunk, busy share at c16, tokens per lane-round
+   and draft sources, bf16-vs-int8 drift, pool bytes, prefill and step
+   ms per dispatch.
 
 The card's name and power limit, then the JSON record of the kernels,
 then ``{"ok": true, "device": {...}}`` are the last three lines; the
@@ -1005,6 +1027,424 @@ def scheduler_phase(encoder, ivf, docs, pipe, tag: str):
     return launches, sched_kernel
 
 
+DEC_SLOTS = 16  # phase 10: the engine of bench.py phase_continuous_decode
+DEC_BUCKET = 32
+DEC_WIDTH = 96
+DEC_BUDGET = 32
+DEC_CONC = (1, 4, 16)
+DEC_REQS = {1: 4, 4: 8, 16: 16}  # the call-level arm serializes on the host
+DEC_C16_REQS = 64  # the busy-share and sync-debug drives
+SPEC_K = 16  # phase_speculative_decode
+SPEC_BUDGET = 64
+SPEC_REQS = 256
+I8_SLOTS = 32
+I8_REQS = 64
+SAMPLE_TEMP = 0.8
+LN_ATOL = 1e-5  # f32 statistics summed in another order than torch's mean
+READOUT_ATOL = 1e-4  # f32 dot products of 256 terms in another order
+_SHARED = (
+    "rerank the following passages for the query about incremental "
+    "dataflow serving latency and freshness guarantees "
+)
+_TOPICS = (
+    "vector index maintenance", "stream joins", "exactly once",
+    "window aggregation", "kafka offsets", "snapshot replay",
+    "sharded state", "commit ticks", "mesh collectives",
+    "tokenizer ingest", "cross encoders", "packing rows",
+)
+
+
+def decode_prompts():
+    """The 16 prompts of bench.py phase_continuous_decode: the even half
+    shares the rerank-style prefix."""
+    return [
+        (_SHARED if i % 2 == 0 else "standalone question about ") + _TOPICS[i % len(_TOPICS)] + f" variant {i}"
+        for i in range(16)
+    ]
+
+
+@torch.no_grad()
+def rows_kernels(gen, dev, tag: str):
+    """The two row kernels of the decode path against their plain
+    versions at the shapes the engine gives them (a 16-slot step and a
+    16-row, 32-token prefill; the 16-lane readout), timed with L2 cold.
+    Returns the records of the kernels line (launches filled in later)."""
+    import torch.nn.functional as F
+
+    from pathway_tpu_torch.ops.decode_rows import (
+        layer_norm_reference, layer_norm_rows, tied_readout, tied_readout_reference,
+    )
+
+    d = gen.config.d_model
+    ln = gen.module.blocks[0].ln_0
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    ln_err = 0.0
+    for shape in ((DEC_SLOTS, 1, d), (DEC_SLOTS, 32, d), (3, 5, d)):
+        x = (torch.randn(*shape, generator=g, device=dev) * 3).to(torch.bfloat16)
+        got32 = layer_norm_rows(x, ln.weight, ln.bias, torch.float32)
+        want32 = layer_norm_reference(x, ln.weight, ln.bias, torch.float32)
+        got16 = layer_norm_rows(x, ln.weight, ln.bias, torch.bfloat16).float()
+        torch.cuda.synchronize()
+        ln_err = max(ln_err, float((got32 - want32).abs().max()))
+        # the bf16 output is the f32 value rounded: within one bf16 ulp of it
+        if ln_err > LN_ATOL or bool(((got16 - want32).abs() > want32.abs() * 2.0**-8 + 1e-6).any()):
+            raise AssertionError(f"layer_norm_rows {shape}: f32 err {ln_err}, or bf16 beyond one ulp")
+    x = (torch.randn(DEC_SLOTS, 1, d, generator=g, device=dev) * 3).to(torch.bfloat16)
+    ln_ms = timed_ms(lambda: layer_norm_rows(x, ln.weight, ln.bias, torch.bfloat16), reps=20, flush=flush)
+    ln_plain_ms = timed_ms(lambda: layer_norm_reference(x, ln.weight, ln.bias, torch.bfloat16), reps=20, flush=flush)
+    x32 = x.float()
+    ln_lib_ms = timed_ms(lambda: F.layer_norm(x32, (d,), ln.weight, ln.bias, 1e-6), reps=20, flush=flush)
+    ln_kernel_ms, _ = kernel_time(lambda: layer_norm_rows(x, ln.weight, ln.bias, torch.bfloat16), reps=20)
+    rows_ = DEC_SLOTS
+    ln_bytes = rows_ * d * (2 + 2) + 2 * d * 4
+    ln_ops = 8 * rows_ * d
+    ln_bound = max(ln_bytes / PEAK_BYTES_PER_S, ln_ops / 67e12) * 1e3
+    table = gen._table
+    V = table.shape[0]
+    ro_err = 0.0
+    for M in (1, DEC_SLOTS, DEC_SLOTS * SPEC_K, 13):
+        h = torch.randn(M, d, generator=g, device=dev).to(torch.bfloat16)
+        got = tied_readout(h, table)
+        want = tied_readout_reference(h, table)
+        torch.cuda.synchronize()
+        ro_err = max(ro_err, float((got - want).abs().max()))
+        # row invariance, the reason the kernel exists: row 0 alone equals
+        # row 0 computed with the others
+        if M > 1 and not torch.equal(tied_readout(h[:1], table)[0], got[0]):
+            raise AssertionError(f"tied_readout: row 0 of {M} rows differs from row 0 alone")
+    if ro_err > READOUT_ATOL:
+        raise AssertionError(f"tied_readout: max abs err {ro_err} > {READOUT_ATOL}")
+    h = torch.randn(DEC_SLOTS, d, generator=g, device=dev).to(torch.bfloat16)
+    # why the two kernels exist: torch's own f32 readout and row mean of
+    # row 0, alone and among 16 rows (printed, not checked: torch's choice)
+    torch_moved = int((tied_readout_reference(h[:1], table)[0] != tied_readout_reference(h, table)[0]).sum())
+    x16 = torch.randn(DEC_SLOTS * 16, d, generator=g, device=dev)
+    mean_moved = int(sum(
+        bool(x16[i : i + 1].mean(-1)[0] != x16.mean(-1)[i]) for i in range(DEC_SLOTS)
+    ))
+    ro_ms = timed_ms(lambda: tied_readout(h, table), reps=20, flush=flush)
+    ro_plain_ms = timed_ms(lambda: tied_readout_reference(h, table), reps=20, flush=flush)
+    h32 = h.float()
+    ro_lib_ms = timed_ms(lambda: F.linear(h32, table), reps=20, flush=flush)
+    ro_kernel_ms, _ = kernel_time(lambda: tied_readout(h, table), reps=20)
+    ro_bytes = V * d * 4 + DEC_SLOTS * d * 2 + DEC_SLOTS * V * 4
+    ro_ops = 2 * DEC_SLOTS * V * d
+    ro_bound = max(ro_bytes / PEAK_BYTES_PER_S, ro_ops / 67e12) * 1e3
+    del flush
+    log(
+        f"decode row kernels {tag}: layer_norm_rows [{DEC_SLOTS}, 1, {d}] bf16 {ln_ms:.4f} ms between CUDA events, "
+        f"kernel alone {ln_kernel_ms:.4f} ms (plain {ln_plain_ms:.4f}, F.layer_norm {ln_lib_ms:.4f}, bound "
+        f"{ln_bound:.6f} ms bytes), f32 err {ln_err:.3e}; tied_readout [{DEC_SLOTS}, {d}] x [{V}, {d}] {ro_ms:.4f} ms, "
+        f"kernel alone {ro_kernel_ms:.4f} ms (plain {ro_plain_ms:.4f}, F.linear {ro_lib_ms:.4f}, bound "
+        f"{ro_bound:.4f} ms bytes), err {ro_err:.3e}, row 0 bit-identical alone and among 16 / 256 / 13 rows; "
+        f"torch alone vs among {DEC_SLOTS} rows: f32 readout of row 0 differs in {torch_moved} of {V} logits, "
+        f"row mean differs in {mean_moved} of {DEC_SLOTS} rows (of {DEC_SLOTS * 16})"
+    )
+    common = {"route": "cuda", "source": "pathway_tpu_torch/csrc/decode_rows.cu", "port_side": True}
+    return [
+        {"name": "layer_norm_rows", **common,
+         "replaces": "pathway_tpu/models/transformer.py:278 (XLA nn.LayerNorm of the KV twin; no Pallas kernel)",
+         "launches": 0, "max_abs_err": ln_err, "ms": ln_ms, "kernels_ms": ln_kernel_ms, "plain_ms": ln_plain_ms,
+         "bound_ms": ln_bound,
+         "bound_by": "bytes" if ln_bytes / PEAK_BYTES_PER_S >= ln_ops / 67e12 else "operations",
+         "library_ms": ln_lib_ms},
+        {"name": "tied_readout", **common,
+         "replaces": "pathway_tpu/models/generator.py:574 (XLA readout einsum; no Pallas kernel)",
+         "launches": 0, "max_abs_err": ro_err, "ms": ro_ms, "kernels_ms": ro_kernel_ms, "plain_ms": ro_plain_ms,
+         "bound_ms": ro_bound,
+         "bound_by": "bytes" if ro_bytes / PEAK_BYTES_PER_S >= ro_ops / 67e12 else "operations",
+         "library_ms": ro_lib_ms},
+    ]
+
+
+def decode_phase(tag: str):
+    """Phase 10: generator decode at the default model's full width.
+    Returns the records of the decode path's row kernels, with their
+    launches in the engine arms."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathway_tpu_torch.cache import PrefixKVCache
+    from pathway_tpu_torch.models.generator import TextGenerator
+    from pathway_tpu_torch.ops import decode_rows, dispatch_counter
+    from pathway_tpu_torch.serve import ContinuousDecoder
+    from pathway_tpu_torch.serve import decode as decode_mod
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    kv = PrefixKVCache(block=16)
+    gen = TextGenerator(kv_cache=kv, eos_id=None, seed=2)  # 256 wide, 4 layers, vocab 32768, bf16
+    gen32 = TextGenerator(dtype=torch.float32, kv_cache=None, eos_id=None, seed=2)
+    gen32.module.load_state_dict(gen.module.state_dict())
+    kernels = rows_kernels(gen, dev, tag)
+    prompts = decode_prompts()
+
+    # -- f32: KV decode == the legacy re-attend ---------------------------------
+    kv32 = gen32.generate(prompts, max_new_tokens=DEC_BUDGET, use_kv=True)
+    legacy32 = gen32.generate(prompts, max_new_tokens=DEC_BUDGET, use_kv=False)
+    bad = [i for i, (a, b) in enumerate(zip(kv32, legacy32)) if a != b]
+    if bad:
+        raise AssertionError(f"f32 KV decode differs from the legacy re-attend on prompts {bad}")
+    log(f"decode f32 twin {tag}: KV decode == legacy re-attend, token for token, on all {len(prompts)} prompts "
+        f"({DEC_BUDGET} tokens each)")
+
+    # EOS-heavy short half: each even prompt's 4th greedy token is its EOS
+    eos_of = {}
+    for i, out in enumerate(gen.generate(prompts, max_new_tokens=SPEC_BUDGET)):
+        toks = [int(t.strip("<>")) for t in out.split()]
+        if i % 2 == 0 and len(toks) > 4:
+            eos_of[i] = toks[3]
+
+    def request(j: int, budget: int):
+        i = j % len(prompts)
+        temp = SAMPLE_TEMP if i % 4 in (2, 3) else 0.0
+        return prompts[i], budget, eos_of.get(i), temp, i
+
+    def call_level(req):
+        p, budget, eos, temp, seed = req
+        return gen.generate([p], max_new_tokens=budget, eos_id=eos, temperature=temp, seed=seed)[0]
+
+    solo_memo = {}
+
+    def solo(req):
+        if req not in solo_memo:
+            solo_memo[req] = call_level(req)
+        return solo_memo[req]
+
+    def submit(eng, req):
+        p, budget, eos, temp, seed = req
+        return eng.submit(p, max_new_tokens=budget, eos_id=eos, temperature=temp, seed=seed)
+
+    def saturated(eng, reqs):
+        t0 = time.perf_counter()
+        tickets = [submit(eng, r) for r in reqs]
+        outs = [t.result(timeout=TICKET_TIMEOUT_S) for t in tickets]
+        return time.perf_counter() - t0, outs
+
+    def n_tokens(outs):
+        return sum(len(str(o).split()) for o in outs)
+
+    def check_same(outs, reqs, what):
+        bad = [j for j, (o, r) in enumerate(zip(outs, reqs)) if str(o) != solo(r) or getattr(o, "degraded", ())]
+        if bad:
+            j = bad[0]
+            raise AssertionError(f"{what}: {len(bad)} of {len(reqs)} requests differ from solo generate; "
+                                 f"first {reqs[j][0]!r} T={reqs[j][3]}: {str(outs[j])[:80]} vs {solo(reqs[j])[:80]}")
+
+    def hist_delta(h, before):
+        c, s = h.count - before[0], h.sum_seconds - before[1]
+        return (1e3 * s / c if c else float("nan")), c
+
+    # warm the shapes of both arms and the prefix cache off the clock
+    eng = ContinuousDecoder(gen, slots=DEC_SLOTS, step_bucket=DEC_BUCKET, kv_width=DEC_WIDTH, name="smoke-decode")
+    reqs16 = [request(j, DEC_BUDGET) for j in range(16)]
+    for r in reqs16:
+        solo(r)
+    saturated(eng, reqs16)
+    drive(lambda r: submit(eng, r).result(timeout=TICKET_TIMEOUT_S), [request(j, DEC_BUDGET) for j in range(32)], 16)
+
+    # -- the counted main path: engine arms, spec arms, int8 arms -------------------
+    decode_rows.layer_norm_rows.launches = 0
+    decode_rows.tied_readout.launches = 0
+    pre0 = (decode_mod._H_PREFILL.count, decode_mod._H_PREFILL.sum_seconds)
+    step0 = (decode_mod._H_STEP.count, decode_mod._H_STEP.sum_seconds)
+    lines = []
+    try:
+        for conc in DEC_CONC:
+            reqs = [request(j, DEC_BUDGET) for j in range(DEC_REQS[conc])]
+            r_call, l_call, o_call = drive(call_level, reqs, conc)
+            st0 = dict(eng.pool_stats)
+            r_eng, l_eng, o_eng = drive(lambda r: submit(eng, r).result(timeout=TICKET_TIMEOUT_S), reqs, conc)
+            check_same(o_call, reqs, f"call-level c{conc}")
+            check_same(o_eng, reqs, f"engine c{conc}")
+            tok = n_tokens(o_eng)
+            chunks = eng.pool_stats["chunks"] - st0["chunks"]
+            occ = (eng.pool_stats["occupancy_sum"] - st0["occupancy_sum"]) / max(chunks, 1)
+            lines.append(
+                f"c{conc}: call-level {tok * r_call / len(reqs):.1f} tokens/s, TTLT p50 {np.percentile(l_call, 50):.3f} "
+                f"p90 {np.percentile(l_call, 90):.3f} ms; engine {tok * r_eng / len(reqs):.1f} tokens/s, TTLT p50 "
+                f"{np.percentile(l_eng, 50):.3f} p90 {np.percentile(l_eng, 90):.3f} ms, {occ:.2f} slots per chunk "
+                f"({chunks} chunks); {len(reqs)} requests, {tok} tokens"
+            )
+        log(f"decode closed loop {tag} (budget {DEC_BUDGET}, 16 slots, chunk {DEC_BUCKET}, width {DEC_WIDTH}, "
+            f"half the prompts sampled at T={SAMPLE_TEMP}; every request == its solo generate): " + "; ".join(lines))
+
+        # device busy share of the c16 engine arm, then no host sync in it
+        reqs = [request(j, DEC_BUDGET) for j in range(DEC_C16_REQS)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            drive(lambda r: submit(eng, r).result(timeout=TICKET_TIMEOUT_S), reqs, 16)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev_ms = sum(
+            getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+        ) / 1e3
+        busy = f"{100 * dev_ms / wall_ms:.1f}% busy" if dev_ms > 0 else "device time not measured (no CUDA events traced)"
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                _, _, o_sync = drive(lambda r: submit(eng, r).result(timeout=TICKET_TIMEOUT_S), reqs, 16)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check_same(o_sync, reqs, "engine c16 under sync debug mode")
+        syncs = [str(w.message)[:120] for w in caught if "synchroniz" in str(w.message).lower()]
+        log(f"decode engine c16 {tag}: device kernels {dev_ms:.3f} ms in a {wall_ms:.3f} ms wall ({busy}); "
+            f"{len(syncs)} device-to-host syncs under set_sync_debug_mode")
+        if syncs:
+            raise AssertionError(f"hidden host sync in the decode step loop: {syncs[:3]}")
+
+        # warm prefix join == cold, bf16
+        p1 = _SHARED * 2 + "what is incremental computation"
+        p2 = _SHARED * 2 + "how does the scheduler coalesce"
+        kv.clear()
+        cold = eng.submit(p2, max_new_tokens=DEC_BUDGET).result(timeout=TICKET_TIMEOUT_S)
+        kv.clear()
+        kv.stats_tokens.update(reused=0, computed=0)
+        eng.submit(p1, max_new_tokens=DEC_BUDGET).result(timeout=TICKET_TIMEOUT_S)
+        warm = eng.submit(p2, max_new_tokens=DEC_BUDGET).result(timeout=TICKET_TIMEOUT_S)
+        reused = kv.stats_tokens["reused"]
+        if str(warm) != str(cold) or reused <= 0 or str(warm) != gen.generate([p2], max_new_tokens=DEC_BUDGET)[0]:
+            raise AssertionError(f"bf16 warm prefix join: warm == cold {str(warm) == str(cold)}, reused {reused}")
+    finally:
+        eng.stop()
+
+    # slot reuse after an EOS leave: one slot, every request takes it over
+    base = [int(t.strip("<>")) for t in gen.generate([prompts[1]], max_new_tokens=10)[0].split()]
+    one = ContinuousDecoder(gen, slots=1, step_bucket=4, kv_width=DEC_WIDTH, name="smoke-decode-reuse")
+    try:
+        seq = [prompts[1], prompts[4], prompts[7], prompts[1]]
+        outs = [one.submit(p, max_new_tokens=10, eos_id=base[1]).result(timeout=TICKET_TIMEOUT_S) for p in seq]
+        for p, o in zip(seq, outs):
+            if str(o) != gen.generate([p], max_new_tokens=10, eos_id=base[1])[0]:
+                raise AssertionError(f"slot reuse after EOS: {p!r} differs from solo")
+        if one.pool_stats["finished"] != len(seq):
+            raise AssertionError(f"slot reuse: {one.pool_stats}")
+    finally:
+        one.stop()
+    log(f"decode {tag}: bf16 warm prefix join == cold ({reused} prefill tokens reused); a single slot reused "
+        f"after {len(seq)} EOS leaves gives each request its solo tokens")
+
+    # -- speculative arms: spec-off vs spec-on, saturated ------------------------------
+    specs = {}
+    for k in (0, SPEC_K):
+        specs[k] = ContinuousDecoder(gen, slots=DEC_SLOTS, step_bucket=DEC_BUCKET, kv_width=DEC_WIDTH, spec_k=k,
+                                     name=f"smoke-spec{k}")
+    # the reduced-layer trunk draft, which the n-gram miner leaves idle on
+    # this traffic: every round drafts through it
+    specs["trunk"] = ContinuousDecoder(gen, slots=DEC_SLOTS, step_bucket=DEC_BUCKET, kv_width=DEC_WIDTH,
+                                       spec_k=SPEC_K, draft="trunk", name="smoke-spec-trunk")
+    try:
+        sreqs = [request(j, SPEC_BUDGET) for j in range(SPEC_REQS)]
+        for k, e in specs.items():
+            saturated(e, sreqs[:16])  # warm shapes and the suffix corpus
+        _, o_trunk = saturated(specs["trunk"], sreqs[:32])
+        check_same(o_trunk, sreqs[:32], "spec-on, trunk drafts")
+        tr = specs["trunk"].pool_stats
+        trunk_round = 1.0 + tr["draft_accepted"] / max(tr["draft_offered"] / (SPEC_K - 1), 1e-9)
+        sp0 = dict(specs[SPEC_K].pool_stats)
+        src0 = dict(specs[SPEC_K]._draft_sources)
+        off0 = specs[0].pool_stats["chunks"]
+        with dispatch_counter.DispatchCounter() as off_counter:
+            w_off, o_off = saturated(specs[0], sreqs)
+        off_chunks = specs[0].pool_stats["chunks"] - off0
+        off_by = {(kind, t): sum(1 for e in off_counter.events if e == (kind, t)) for kind in ("dispatch", "fetch")
+                  for t in ("decode_step", "decode_draft", "decode_verify")}
+        if (off_chunks <= 0 or off_by[("dispatch", "decode_step")] != off_chunks
+                or off_by[("fetch", "decode_step")] != off_chunks or off_by[("dispatch", "decode_verify")]):
+            raise AssertionError(f"plain chunk budget: {off_chunks} chunks, events {off_by}")
+        with dispatch_counter.DispatchCounter() as counter:
+            w_on, o_on = saturated(specs[SPEC_K], sreqs)
+        check_same(o_off, sreqs, "spec-off")
+        check_same(o_on, sreqs, "spec-on")
+        st = specs[SPEC_K].pool_stats
+        rounds = st["spec_rounds"] - sp0["spec_rounds"]
+        chunks = st["chunks"] - sp0["chunks"]
+        by = {}
+        for kind, t in counter.events:
+            by[(kind, t)] = by.get((kind, t), 0) + 1
+        spec_d = by.get(("dispatch", "decode_draft"), 0) + by.get(("dispatch", "decode_verify"), 0)
+        spec_f = by.get(("fetch", "decode_draft"), 0) + by.get(("fetch", "decode_verify"), 0)
+        plain = chunks - rounds
+        if (rounds <= 0 or spec_d > 2 * rounds or spec_f > 2 * rounds or by.get(("dispatch", "decode_verify"), 0) != rounds
+                or by.get(("dispatch", "decode_step"), 0) != plain or by.get(("fetch", "decode_step"), 0) != plain):
+            raise AssertionError(f"spec dispatch budget: {rounds} rounds, {plain} plain chunks, events {by}")
+        d_acc = st["draft_accepted"] - sp0["draft_accepted"]
+        d_off = st["draft_offered"] - sp0["draft_offered"]
+        acc_round = 1.0 + d_acc / max(d_off / (SPEC_K - 1), 1e-9)
+        sources = {key: specs[SPEC_K]._draft_sources[key] - src0[key] for key in src0}
+        tok = n_tokens(o_on)
+        bf_bytes = specs[SPEC_K].hbm_components()
+        log(
+            f"decode spec {tag} (k={SPEC_K}, budget {SPEC_BUDGET}, {SPEC_REQS} requests saturated, 16 slots; "
+            f"spec-on == spec-off == solo): spec-off {tok / w_off:.1f} tokens/s, spec-on {tok / w_on:.1f} tokens/s; "
+            f"{rounds} rounds + {plain} plain chunks, {acc_round:.2f} tokens per lane-round, draft sources {sources}; "
+            f"dispatches + fetches per round <= {spec_d / rounds:.2f} + {spec_f / rounds:.2f}; spec-off "
+            f"{off_chunks} chunks, 1 + 1 each; trunk drafts (D = {specs['trunk']._draft_layers} layers, 32 requests) "
+            f"== solo at {trunk_round:.2f} tokens per lane-round over {tr['spec_rounds']} rounds"
+        )
+    finally:
+        for e in specs.values():
+            e.stop()
+
+    # -- int8 pool: 32 slots in the bytes of the 16-slot bf16 pool ---------------------
+    i8 = {}
+    for k in (0, SPEC_K):
+        i8[k] = ContinuousDecoder(gen, slots=I8_SLOTS, step_bucket=DEC_BUCKET, kv_width=DEC_WIDTH, spec_k=k,
+                                  kv_quant="int8", name=f"smoke-int8-spec{k}")
+    try:
+        i8_bytes = i8[SPEC_K].hbm_components()
+        ireqs = sreqs[:I8_REQS]
+        for e in i8.values():
+            saturated(e, ireqs[:16])
+        w_i8_off, o_i8_off = saturated(i8[0], ireqs)
+        w_i8, o_i8 = saturated(i8[SPEC_K], ireqs)
+        if [str(o) for o in o_i8] != [str(o) for o in o_i8_off] or any(o.degraded for o in o_i8):
+            raise AssertionError("int8: spec-on differs from spec-off")
+        if i8[SPEC_K].pool_stats["spec_rounds"] <= 0:
+            raise AssertionError("int8 spec arm ran no speculative round")
+        drift = sum(1 for a, b in zip(o_i8, o_on[:I8_REQS]) if str(a) != str(b))
+        kv.clear()
+        cold = i8[0].submit(p2, max_new_tokens=DEC_BUDGET).result(timeout=TICKET_TIMEOUT_S)
+        kv.clear()
+        kv.stats_tokens.update(reused=0, computed=0)
+        i8[0].submit(p1, max_new_tokens=DEC_BUDGET).result(timeout=TICKET_TIMEOUT_S)
+        warm = i8[0].submit(p2, max_new_tokens=DEC_BUDGET).result(timeout=TICKET_TIMEOUT_S)
+        if str(warm) != str(cold) or kv.stats_tokens["reused"] <= 0:
+            raise AssertionError(f"int8 warm prefix join differs from cold (reused {kv.stats_tokens['reused']})")
+    finally:
+        for e in i8.values():
+            e.stop()
+    bf_total, i8_total = sum(bf_bytes.values()), sum(i8_bytes.values())
+    ratio = i8_total / bf_total
+    pool_i8 = i8_bytes["kv_pool"] - I8_SLOTS * 2 * 8  # without the sampling keys
+    pool_bf = bf_bytes["kv_pool"] - DEC_SLOTS * 2 * 8
+    if pool_i8 > pool_bf or ratio > 1.02:
+        raise AssertionError(f"int8 pool of {I8_SLOTS} slots: {i8_bytes} vs bf16 {bf_bytes}")
+    pre_ms, pre_n = hist_delta(decode_mod._H_PREFILL, pre0)
+    step_ms, step_n = hist_delta(decode_mod._H_STEP, step0)
+    for rec, fn in zip(kernels, (decode_rows.layer_norm_rows, decode_rows.tied_readout)):
+        rec["launches"] = fn.launches
+        if fn.launches <= 0:
+            raise AssertionError(f"{rec['name']} was not launched on the decode path")
+    log(
+        f"decode int8 {tag}: {I8_SLOTS} slots, spec-on == spec-off, warm == cold; spec-on {n_tokens(o_i8) / w_i8:.1f} "
+        f"tokens/s ({I8_REQS} requests, spec-off {n_tokens(o_i8_off) / w_i8_off:.1f}); bf16-vs-int8 drift: "
+        f"{drift} of {I8_REQS} requests differ; pool bytes bf16 {DEC_SLOTS} slots {bf_bytes} = {bf_total}, int8 "
+        f"{I8_SLOTS} slots {i8_bytes} = {i8_total} ({ratio:.4f}x; K/V alone {pool_i8} vs {pool_bf})"
+    )
+    log(
+        f"decode phase {tag}: prefill {pre_ms:.3f} ms per dispatch ({pre_n}), step chunk / verify {step_ms:.3f} ms per "
+        f"dispatch ({step_n}) from pathway_generator_phase_seconds; row kernel launches: "
+        f"layer_norm_rows {kernels[0]['launches']}, tied_readout {kernels[1]['launches']}; "
+        f"{time.perf_counter() - t_phase:.1f} s"
+    )
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1242,6 +1682,9 @@ def main() -> int:
     sched_launches, sched_kernel = scheduler_phase(encoder, ivf, docs, cascade, tag)
     worst_err = max([worst_err] + [r["max_abs_err"] for r in sched_kernel])
 
+    # -- 10. generator decode, counted --------------------------------------------
+    decode_kernels = decode_phase(tag)
+
     record = {
         "kernels": [
             {
@@ -1270,7 +1713,8 @@ def main() -> int:
                     {key: r[key] for key in ("B", "p", "distinct_clusters", "max_abs_err", "ms", "kernels_ms", "bound_ms", "bound_by")}
                     for r in sched_kernel
                 ],
-            }
+            },
+            *decode_kernels,
         ]
     }
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_run:.1f} s")

@@ -14,8 +14,12 @@ tier of ``RetrieveRerankPipeline``: MaxSim over the device-resident
 serve front ``serve.ServeScheduler`` (coalescing, the ``cache/`` result
 and embedding tiers, the ``robust/`` retry, breaker and fault-injection
 layer, the ``observe/`` recorder, traces and SLO shedding, and the knob
-table ``config.py``).  The IVF shortlist rescore is a hand-written CUDA
-kernel (``csrc/ivf_rescore.cu``).
+table ``config.py``); and generator decode: ``models.generator.TextGenerator``
+(KV-cache and legacy decode, the ``cache.PrefixKVCache`` tier) under
+``serve.ContinuousDecoder`` (slot pool, speculative rounds, int8 K/V).
+The IVF shortlist rescore is a hand-written CUDA kernel
+(``csrc/ivf_rescore.cu``); the decode path's LayerNorm and readout are
+port-side CUDA kernels (``csrc/decode_rows.cu``).
 """
 
 from .device import DEFAULT_DTYPE, resolve_device

@@ -196,6 +196,11 @@ class CacheTier:
             if entry is not None:
                 self._bytes -= entry.nbytes
 
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._bytes = 0
+
     def _drop_locked(self, key: Any, entry: _Entry) -> None:
         self._entries.pop(key, None)
         self._bytes -= entry.nbytes

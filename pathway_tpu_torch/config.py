@@ -93,6 +93,33 @@ _knob("cache.embed_bytes", "PATHWAY_CACHE_EMBED_BYTES", "int", 64 << 20,
 _knob("cache.embed_ttl_s", "PATHWAY_CACHE_EMBED_TTL_S", "float", 0.0,
       "embedding-tier TTL in seconds (0 = no expiry)", lo=0.0, hi=86_400.0)
 
+# generator decode (models/generator.py, serve/decode.py)
+_knob("decode.step_bucket", "PATHWAY_DECODE_STEP_BUCKET", "int", 8,
+      "decode steps one chunk dispatch advances", lo=1, hi=128)
+_knob("decode.slots", "PATHWAY_DECODE_SLOTS", "int", 8,
+      "continuous-decode slot-pool size", lo=1, hi=1024)
+_knob("decode.kv_width", "PATHWAY_DECODE_KV_WIDTH", "int", 0,
+      "slot-pool context width override (0 = model max_len)", lo=0, hi=1_048_576)
+_knob("decode.kv_quant", "PATHWAY_DECODE_KV_QUANT", "enum", "bf16",
+      "slot-pool K/V storage", choices=("bf16", "int8"))
+_knob("decode.spec_k", "PATHWAY_DECODE_SPEC_K", "int", 0,
+      "speculation depth per verify dispatch (0 = off)", lo=0, hi=16)
+_knob("decode.draft", "PATHWAY_DECODE_DRAFT", "enum", "auto",
+      "speculative draft source", choices=("auto", "ngram", "trunk"))
+_knob("decode.draft_layers", "PATHWAY_DECODE_DRAFT_LAYERS", "int", 0,
+      "reduced-layer draft-trunk depth (0 = half the trunk)", lo=0, hi=1024)
+_knob("generator.eos", "PATHWAY_GENERATOR_EOS", "str", "",
+      "EOS token id for early stop (empty/none = no EOS handling)")
+_knob("generator.kv", "PATHWAY_GENERATOR_KV", "bool", True,
+      "KV-cache decode (off = the legacy full re-attend)")
+_knob("cache.kv", "PATHWAY_CACHE_KV", "bool", True, "tier-2 generator prefix-KV cache")
+_knob("cache.kv_bytes", "PATHWAY_CACHE_KV_BYTES", "int", 256 << 20,
+      "prefix-KV-tier byte budget", lo=0, hi=1 << 40)
+_knob("cache.kv_ttl_s", "PATHWAY_CACHE_KV_TTL_S", "float", 0.0,
+      "prefix-KV-tier TTL in seconds (0 = no expiry)", lo=0.0, hi=86_400.0)
+_knob("cache.kv_block", "PATHWAY_CACHE_KV_BLOCK", "int", 32,
+      "prefix-KV block size in tokens (key-chain granularity)", lo=1, hi=4096)
+
 # observability (observe/)
 _knob("observe.enabled", "PATHWAY_OBSERVE", "bool", True,
       "flight recorder + tracing master switch")

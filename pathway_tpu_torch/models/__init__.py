@@ -1,2 +1,3 @@
-"""Models of the port: tokenizer, encoder trunk, cross-encoder, sequence
-packing, parameter bridge."""
+"""Models of the port: tokenizer, encoder trunk and its decode twins,
+cross-encoder, generator and its sampling RNG, sequence packing,
+parameter bridge."""

@@ -29,7 +29,7 @@ from torch import nn
 
 from .transformer import Dense, TransformerConfig
 
-__all__ = ["cross_encoder_params_from_flax", "init_encoder_", "params_from_flax"]
+__all__ = ["cross_encoder_params_from_flax", "generator_params_from_flax", "init_encoder_", "params_from_flax"]
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -76,6 +76,20 @@ def cross_encoder_params_from_flax(
         sd[f"{name}.weight"] = _t(tree[name]["kernel"]).t().contiguous()
         sd[f"{name}.bias"] = _t(tree[name]["bias"])
     return sd
+
+
+def generator_params_from_flax(
+    tree: Mapping[str, Any], config: TransformerConfig
+) -> Dict[str, torch.Tensor]:
+    """Flax tree of the reference's ``TextGenerator`` (a causal trunk
+    with no pool, so the trunk's tree) -> state dict of the port's
+    trunk, which the generator's KV and slot twins share.  The readout
+    has no parameters of its own: it is ``h.float() @
+    tok_embed.float().T``."""
+    extra = set(tree) - {"tok_embed", "pos_embed", "final_ln"} - {f"block_{i}" for i in range(config.n_layers)}
+    if extra:
+        raise ValueError(f"not a generator tree: unexpected {sorted(extra)}")
+    return params_from_flax(tree, config)
 
 
 @torch.no_grad()

@@ -43,15 +43,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.decode_rows import layer_norm_rows
+from ..ops.kv_quant import dequantize_kv, quantize_kv
+
 __all__ = [
     "Dense",
     "EncoderBlock",
     "LayerNorm",
     "MlpBlock",
     "SelfAttention",
+    "KVTransformerDecoder",
+    "SlotKVDecoder",
     "TransformerConfig",
     "TransformerEncoder",
     "gelu_tanh",
+    "kv_forward",
     "masked_mean_pool",
     "normalized_token_states",
     "resolve_heads",
@@ -272,3 +278,125 @@ class TransformerEncoder(nn.Module):
         if pool != "mean":
             raise ValueError(f"unknown pool {pool!r}")
         return masked_mean_pool(x, mask)
+
+
+def _kv_attention(
+    attn: SelfAttention,
+    h: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    write_pos: torch.Tensor,
+    q_pos: torch.Tensor,
+    active: Optional[torch.Tensor],
+    k_scales: Optional[torch.Tensor],
+    v_scales: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """One layer's incremental attention; ``k_cache`` / ``v_cache`` are
+    ``[B, T, H, hd]`` views written in place."""
+    cfg = attn.cfg
+    B, Ln, _ = h.shape
+    H = cfg.n_heads
+    hd = cfg.d_model // H
+    T = k_cache.shape[1]
+    q = attn.query(h).view(B, Ln, H, hd)
+    k_new = attn.key(h).view(B, Ln, H, hd)
+    v_new = attn.value(h).view(B, Ln, H, hd)
+    if k_scales is not None:
+        k_new = quantize_kv(k_new, k_scales)
+        v_new = quantize_kv(v_new, v_scales)
+    # the write window [start, start + Ln), start clamped into [0, T - Ln]
+    start = torch.clamp(write_pos.long(), 0, T - Ln)
+    cols = start[:, None] + torch.arange(Ln, device=h.device)
+    rows = torch.arange(B, device=h.device)[:, None]
+    if active is not None:
+        keep = ~active[:, None, None, None]
+        k_new = torch.where(keep, k_cache[rows, cols], k_new)
+        v_new = torch.where(keep, v_cache[rows, cols], v_new)
+    k_cache[rows, cols] = k_new
+    v_cache[rows, cols] = v_new
+    if k_scales is not None:
+        k_att = dequantize_kv(k_cache, k_scales, cfg.dtype)
+        v_att = dequantize_kv(v_cache, v_scales, cfg.dtype)
+    else:
+        k_att, v_att = k_cache, v_cache
+    scores = torch.matmul(q.transpose(1, 2), k_att.permute(0, 2, 3, 1)).float() / math.sqrt(hd)
+    allowed = torch.arange(T, device=h.device)[None, None, :] <= q_pos.long()[:, :, None]
+    scores = scores.masked_fill(~allowed[:, None], torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
+    out = torch.matmul(probs, v_att.transpose(1, 2)).transpose(1, 2).reshape(B, Ln, cfg.d_model)
+    return attn.out(out)
+
+
+def kv_forward(
+    trunk: "TransformerEncoder",
+    ids_new: torch.Tensor,
+    positions: torch.Tensor,
+    k_caches: torch.Tensor,
+    v_caches: torch.Tensor,
+    write_pos: torch.Tensor,
+    q_pos: torch.Tensor,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    active: Optional[torch.Tensor] = None,
+    layers: Optional[int] = None,
+):
+    """``Ln`` new tokens ``ids_new [B, Ln]`` at ``positions [B, Ln]``
+    through the causal ``trunk`` against ``k_caches`` / ``v_caches``
+    ``[B, n_layers, T, H, hd]``: returns ``(final-LN hidden [B, Ln, d],
+    k_caches, v_caches)``, the buffers written in place (see the module
+    docstring for ``write_pos``, ``q_pos``, ``active``, ``layers`` and the
+    int8 scales)."""
+    cfg = trunk.config
+    dt = cfg.dtype
+    x = trunk.tok_embed(ids_new).to(dt) + trunk.pos_embed(positions).to(dt)
+    n = cfg.n_layers if layers is None else layers
+    for i in range(n):
+        blk = trunk.blocks[i]
+        h = layer_norm_rows(x, blk.ln_0.weight, blk.ln_0.bias, dt)
+        x = x + _kv_attention(
+            blk.attn, h, k_caches[:, i], v_caches[:, i], write_pos, q_pos, active,
+            None if k_scales is None else k_scales[i],
+            None if v_scales is None else v_scales[i],
+        )
+        x = x + blk.mlp(layer_norm_rows(x, blk.ln_1.weight, blk.ln_1.bias, dt))
+    x = layer_norm_rows(x, trunk.final_ln.weight, trunk.final_ln.bias, dt)
+    return x, k_caches, v_caches
+
+
+class KVTransformerDecoder(TransformerEncoder):
+    """The incremental twin over the causal trunk's state dict:
+    ``forward(ids_new, positions, k_caches, v_caches, write_pos, q_pos,
+    k_scales=None, v_scales=None)`` -> ``(hidden, k_caches, v_caches)``
+    (prefill: ``Ln`` = the prompt suffix, ``write_pos`` = the cached
+    prefix length; step: ``Ln = 1``).  ``quant=True`` takes int8 buffers
+    and the scales."""
+
+    def __init__(self, config: TransformerConfig, quant: bool = False):
+        super().__init__(replace(config, pool="none"))
+        self.quant = quant
+
+    def forward(self, ids_new, positions, k_caches, v_caches, write_pos, q_pos, k_scales=None, v_scales=None):
+        if self.quant != (k_scales is not None):
+            raise ValueError("int8 buffers need k_scales / v_scales, bf16 / f32 ones none")
+        return kv_forward(self, ids_new, positions, k_caches, v_caches, write_pos, q_pos, k_scales, v_scales)
+
+
+class SlotKVDecoder(TransformerEncoder):
+    """The slot-pool twin: the batch is a pool of persistent slots and
+    only ``active`` lanes move their K/V; ``layers=D`` runs the first
+    ``D`` blocks plus ``final_ln``."""
+
+    def __init__(self, config: TransformerConfig, quant: bool = False, layers: Optional[int] = None):
+        super().__init__(replace(config, pool="none"))
+        self.quant = quant
+        self.layers = layers
+
+    def forward(
+        self, ids_new, positions, k_pool, v_pool, write_pos, q_pos, active, k_scales=None, v_scales=None
+    ):
+        if self.quant != (k_scales is not None):
+            raise ValueError("int8 buffers need k_scales / v_scales, bf16 / f32 ones none")
+        return kv_forward(
+            self, ids_new, positions, k_pool, v_pool, write_pos, q_pos, k_scales, v_scales,
+            active=active, layers=self.layers,
+        )

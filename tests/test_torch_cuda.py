@@ -277,3 +277,92 @@ def test_cuda_ivf_background_retrain():
     ivf.n_probe = ivf._centroids.shape[0]
     got = ivf.search(data[1536::16], k=1)
     assert [row[0][0] for row in got] == list(range(1536, 2048, 16))
+
+
+def _decode_prompts(n=8):
+    shared = "rerank the following passages for the query about incremental dataflow serving "
+    return [(shared if i % 2 == 0 else "standalone question about ") + f"topic {i} variant {i}" for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_cuda_decode_rows_match_plain_and_are_row_invariant():
+    dev = _cuda()
+    from pathway_tpu_torch.ops.decode_rows import (
+        layer_norm_reference, layer_norm_rows, tied_readout, tied_readout_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = torch.rand(256, generator=g, device=dev) + 0.5
+    b = torch.randn(256, generator=g, device=dev) * 0.1
+    table = torch.randn(32768, 256, generator=g, device=dev) * 0.02
+    for rows in (1, 16, 256, 13):
+        x = (torch.randn(rows, 256, generator=g, device=dev) * 3).to(torch.bfloat16)
+        got = layer_norm_rows(x, w, b, torch.float32)
+        torch.testing.assert_close(got, layer_norm_reference(x, w, b, torch.float32), atol=1e-5, rtol=0)
+        assert torch.equal(layer_norm_rows(x[:1], w, b, torch.float32)[0], got[0])
+        logits = tied_readout(x, table)
+        torch.testing.assert_close(logits, tied_readout_reference(x, table), atol=1e-4, rtol=0)
+        assert torch.equal(tied_readout(x[:1], table)[0], logits[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec_k", [0, 8])
+def test_cuda_engine_requests_equal_solo_generate(spec_k):
+    _cuda()
+    from pathway_tpu_torch.cache import PrefixKVCache
+    from pathway_tpu_torch.models.generator import TextGenerator
+    from pathway_tpu_torch.serve import ContinuousDecoder
+
+    gen = TextGenerator(kv_cache=PrefixKVCache(block=16), eos_id=None)
+    cases = [(p, 0.0 if i % 2 == 0 else 0.8, i) for i, p in enumerate(_decode_prompts())]
+    want = [gen.generate([p], max_new_tokens=24, temperature=t, seed=s)[0] for p, t, s in cases]
+    eng = ContinuousDecoder(gen, slots=4, step_bucket=8, kv_width=96, spec_k=spec_k)
+    try:
+        got = [str(t()) for t in [eng.submit(p, max_new_tokens=24, temperature=t, seed=s) for p, t, s in cases]]
+        again = [str(t()) for t in [eng.submit(p, max_new_tokens=24, temperature=t, seed=s) for p, t, s in cases]]
+    finally:
+        eng.stop()
+    assert got == want and again == want
+
+
+@pytest.mark.cuda
+def test_cuda_int8_engine_spec_invariant():
+    _cuda()
+    from pathway_tpu_torch.models.generator import TextGenerator
+    from pathway_tpu_torch.serve import ContinuousDecoder
+
+    gen = TextGenerator(kv_cache=None, eos_id=None)
+    outs = []
+    for spec_k in (0, 8):
+        eng = ContinuousDecoder(gen, slots=8, step_bucket=8, kv_width=96, spec_k=spec_k, kv_quant="int8")
+        try:
+            outs.append([str(o) for o in eng.generate(_decode_prompts(), max_new_tokens=24)])
+        finally:
+            eng.stop()
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+def test_cuda_decode_step_loop_makes_no_host_sync():
+    _cuda()
+    import warnings
+
+    from pathway_tpu_torch.models.generator import TextGenerator
+    from pathway_tpu_torch.serve import ContinuousDecoder
+
+    gen = TextGenerator(kv_cache=None, eos_id=None)
+    eng = ContinuousDecoder(gen, slots=8, step_bucket=8, kv_width=96, spec_k=8)
+    try:
+        eng.generate(_decode_prompts(), max_new_tokens=16)  # warm
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                tickets = [eng.submit(p, max_new_tokens=16, temperature=0.5 * (i % 2), seed=i)
+                           for i, p in enumerate(_decode_prompts())]
+                [t() for t in tickets]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    finally:
+        eng.stop()
+    assert not [w for w in caught if "synchroniz" in str(w.message).lower()]

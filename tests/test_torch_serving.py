@@ -27,6 +27,7 @@ from pathway_tpu.ops.serving import FusedEncodeSearch as RefServe
 from pathway_tpu_torch.index import ForwardIndex
 from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
 from pathway_tpu_torch.models.encoder import SentenceEncoder
+from pathway_tpu_torch.models.generator import TextGenerator
 from pathway_tpu_torch.ops.ivf import IvfKnnIndex
 from pathway_tpu_torch.ops.knn import DeviceKnnIndex
 from pathway_tpu_torch.ops.serving import FusedEncodeSearch
@@ -171,23 +172,29 @@ def test_port_imports_no_jax_flax_or_reference():
     assert {
         "cache/embedding.py",
         "cache/keys.py",
+        "cache/prefix.py",
         "cache/result.py",
         "cache/store.py",
         "config.py",
         "index/forward.py",
         "models/cross_encoder.py",
+        "models/generator.py",
         "models/packing.py",
+        "models/prng.py",
         "observe/histogram.py",
         "observe/recorder.py",
         "observe/slo.py",
         "observe/trace.py",
+        "ops/decode_rows.py",
         "ops/dispatch_counter.py",
+        "ops/kv_quant.py",
         "ops/maxsim.py",
         "ops/retrieve_rerank.py",
         "robust/deadline.py",
         "robust/degrade.py",
         "robust/inject.py",
         "robust/retry.py",
+        "serve/decode.py",
         "serve/scheduler.py",
     } <= names
     bad = [
@@ -246,6 +253,7 @@ def test_entry_points_refuse_cpu_fallback():
         lambda: DeviceKnnIndex(8),
         lambda: IvfKnnIndex(8),
         lambda: CrossEncoderModel(dimension=8, n_layers=1, n_heads=2, vocab_size=64),
+        lambda: TextGenerator(dimension=8, n_layers=1, n_heads=2, vocab_size=64, kv_cache=None),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
