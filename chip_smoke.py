@@ -3,6 +3,9 @@
 NVIDIA GPU:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare ROOT   # the package under ROOT alone: host
+                                           # us per row-kernel wrapper call and
+                                           # engine c16 decode tokens/s
 
 Phases, in order; any failure exits non-zero:
 
@@ -31,7 +34,10 @@ Phases, in order; any failure exits non-zero:
    move into free slab slots in the background (in-place slab and bias
    writes; rows whose preferred clusters are full stay in the tail), and
    a full-probe IVF serve of 64 absorbed documents must rank each one's
-   own key first;
+   own key first; then 8 fresh rows ride the exact tail and the tail
+   upload fails past its 3 attempts (``ivf.tail_upload`` armed): the serve
+   must return full resident-only rows flagged ``tail_skipped``, and the
+   next serve each tail row's own key first;
 7. retrain: a host-row ``IvfKnnIndex`` of 32,768 encoded documents is
    built, then 8,256 more are added (past ``rebuild_fraction`` = 0.25):
    the background retrain must install a new layout of all 41,024 rows,
@@ -83,9 +89,18 @@ Phases, in order; any failure exits non-zero:
    traffic of bench.py phase_continuous_decode / phase_speculative_decode
    (16 prompts, the even half sharing a rerank-style prefix and ending at
    their own 4th greedy token; half the requests sampled at T = 0.8 with
-   per-request seeds).  The row-invariant LayerNorm and readout kernels
-   (``csrc/decode_rows.cu``) are held against their plain versions and
-   timed.  Checked: f32 KV decode == legacy re-attend on all 16 prompts;
+   per-request seeds).  The row kernels (``csrc/decode_rows.cu``) are held
+   against their plain versions: the readout within 1e-4 at M = 1, 13,
+   16, 32, 256 and 512 rows with the first and last row bit-identical to
+   the row alone, the LayerNorm within 1e-5, and the fused residual add +
+   LayerNorm ``torch.equal`` to the add then ``layer_norm_rows`` (step and
+   prefill shapes, bf16 and f32); each is timed alone (``torch.profiler``)
+   and between CUDA events, with L2 cold (rewritten flush; for the
+   readout also a read flush) and warm, beside ``F.linear`` /
+   ``F.layer_norm``; the host microseconds per wrapper call are printed,
+   and the kernels one 16-lane step launches, with the fused LayerNorms
+   and with the adds launched apart.  Checked: f32 KV decode == legacy
+   re-attend on all 16 prompts;
    every ``ContinuousDecoder`` request (16 slots, chunk 32, width 96) at
    c1 / c4 / c16 == its solo ``generate``, as is every call-level one; no
    device-to-host sync in the c16 step loop; a warm prefix join == a cold
@@ -94,8 +109,10 @@ Phases, in order; any failure exits non-zero:
    all == solo, at most 2 + 2 dispatches and fetches per round and 1 + 1
    per plain chunk; 32 requests drafted by the reduced-layer trunk, all ==
    solo; a 32-slot int8 pool: spec-on == spec-off, warm ==
-   cold, its K/V bytes within the 16-slot bf16 pool's; both row kernels
-   launched.  Printed: tokens/s and TTLT p50 / p90 per arm and
+   cold, its K/V bytes within the 16-slot bf16 pool's; the fused LayerNorm
+   and the readout launched, the readout from the step, verify and
+   prefill programs (launches printed by path and row count).  Printed:
+   tokens/s and TTLT p50 / p90 per arm and
    concurrency, slots per chunk, busy share at c16, tokens per lane-round
    and draft sources, bf16-vs-int8 drift, pool bytes, prefill and step
    ms per dispatch.
@@ -110,6 +127,7 @@ printing any result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -351,23 +369,65 @@ def rescore_edge_cases(rescore, plain, dev) -> float:
     return worst
 
 
-def kernel_time(fn, reps: int):
-    """Device time of ``fn``'s kernels alone, without the gaps between
-    them (``torch.profiler``): (ms per call, kernel launches per call)."""
+def profiled_kernels(fn, reps: int, flush: torch.Tensor | None = None, clean: bool = False):
+    """``(kernel name, device us, launches)`` of ``reps`` calls of ``fn``
+    (``torch.profiler``), after one call outside the window.  With
+    ``flush`` each call starts with L2 cold: the buffer is rewritten
+    (``zero_``: L2 left full of dirty lines, whose write-back then shares
+    the device memory with ``fn``) or, with ``clean``, read (``sum``: L2
+    left full of clean lines); the flush kernels are left out."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if flush is not None:
+                flush.sum() if clean else flush.zero_()
             fn()
         torch.cuda.synchronize()
-    events = [
-        e for e in prof.key_averages()
-        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-    ]
-    total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
-    return total_us / 1e3 / reps, sum(e.count for e in events) / reps
+    out = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        key = e.key.lower()
+        if flush is not None and ("fill" in key or "at::native::reduce_kernel" in key):
+            continue
+        out.append((key, getattr(e, "self_device_time_total", 0.0), e.count))
+    return out
+
+
+def counted_kernels(fn, reps: int, flush: torch.Tensor | None = None, clean: bool = False,
+                    include: str | None = None, exclude: tuple = ()):
+    """(device us, launches) of the kernels of ``profiled_kernels`` whose
+    names contain ``include`` (every kernel when None) and none of
+    ``exclude``.  The profiler can drop the events of a window, never add
+    any, and each call launches at least one kernel: a window that counts
+    fewer than ``reps`` launches is measured again (3 windows at most),
+    and the one that counts the most is kept."""
+    best = (-1, 0.0)
+    for _ in range(3):
+        kept = [
+            (us, n) for key, us, n in profiled_kernels(fn, reps, flush, clean)
+            if (include is None or include in key) and not any(x in key for x in exclude)
+        ]
+        best = max(best, (sum(n for _, n in kept), sum(us for us, _ in kept)))
+        if best[0] >= reps:
+            break
+    return best[1], best[0]
+
+
+def kernel_time(fn, reps: int):
+    """Device time of ``fn``'s kernels alone, without the gaps between
+    them: (ms per call, kernel launches per call)."""
+    us, launches = counted_kernels(fn, reps)
+    return us / 1e3 / reps, launches / reps
+
+
+def alone_ms(fn, reps: int, flush: torch.Tensor | None = None, include: str | None = None,
+             exclude: tuple = (), clean: bool = False) -> float:
+    """Device ms per call of ``fn``'s kernels alone (``counted_kernels``)."""
+    return counted_kernels(fn, reps, flush, clean, include, exclude)[0] / 1e3 / reps
 
 
 def same_ranking(want, got, tie=1e-5, atol=1e-4) -> bool:
@@ -1063,22 +1123,99 @@ def decode_prompts():
     ]
 
 
+def host_us(fn, reps: int = 200, repeats: int = 7) -> float:
+    """Host microseconds per call of ``fn`` (the launch path, no device
+    wait inside a timed loop): the least of ``repeats`` loops of ``reps``
+    calls, each followed by a synchronize, since the host is shared."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return best / reps * 1e6
+
+
+def rows_host_line(decode_rows, d: int, dev) -> str:
+    """Host microseconds per call of the row kernels' wrappers at the decode
+    step's shapes ([16, 1, d] bf16 LayerNorm, [16, d] readout over a
+    [32768, d] f32 table); with the fused entry when the module has it."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    x = (torch.randn(DEC_SLOTS, 1, d, generator=g, device=dev) * 3).to(torch.bfloat16)
+    delta = torch.randn(DEC_SLOTS, 1, d, generator=g, device=dev).to(torch.bfloat16)
+    w, b = torch.rand(d, generator=g, device=dev) + 0.5, torch.randn(d, generator=g, device=dev) * 0.1
+    table = torch.randn(32768, d, generator=g, device=dev) * 0.02
+    h = x[:, 0]
+    parts = [
+        f"layer_norm_rows {host_us(lambda: decode_rows.layer_norm_rows(x, w, b, torch.bfloat16)):.2f} us",
+        f"x + delta then layer_norm_rows {host_us(lambda: decode_rows.layer_norm_rows(x + delta, w, b, torch.bfloat16)):.2f} us",
+        f"tied_readout {host_us(lambda: decode_rows.tied_readout(h, table)):.2f} us",
+    ]
+    if hasattr(decode_rows, "add_layer_norm_rows"):
+        parts.append(
+            f"add_layer_norm_rows {host_us(lambda: decode_rows.add_layer_norm_rows(x, delta, w, b, torch.bfloat16)):.2f} us"
+        )
+    return "; ".join(parts)
+
+
+def engine_c16_line() -> str:
+    """Decode tokens/s of the default generator's engine (16 slots, chunk
+    32, width 96) under 16 closed-loop callers: 3 passes of 64 requests
+    (budget 32, half sampled at T = 0.8) after a 32-request warm-up."""
+    from pathway_tpu_torch.cache import PrefixKVCache
+    from pathway_tpu_torch.models.generator import TextGenerator
+    from pathway_tpu_torch.serve import ContinuousDecoder
+
+    gen = TextGenerator(kv_cache=PrefixKVCache(block=16), eos_id=None, seed=2)
+    with torch.no_grad():
+        step_us = {mode: host_us(lambda: fn(*args), reps=20, repeats=5)
+                   for mode in ("greedy", "sampled") for fn, args in [step_program(gen, gen.device, mode == "greedy")]}
+    prompts = decode_prompts()
+    reqs = list(range(DEC_C16_REQS))
+    eng = ContinuousDecoder(gen, slots=DEC_SLOTS, step_bucket=DEC_BUCKET, kv_width=DEC_WIDTH, name="smoke-compare")
+
+    def one(j):
+        temp = SAMPLE_TEMP if j % 4 in (2, 3) else 0.0
+        return eng.submit(prompts[j % len(prompts)], max_new_tokens=DEC_BUDGET, temperature=temp,
+                          seed=j % len(prompts)).result(timeout=TICKET_TIMEOUT_S)
+
+    try:
+        drive(one, reqs[:32], 16)
+        rates = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, _, outs = drive(one, reqs, 16)
+            rates.append(sum(len(str(o).split()) for o in outs) / (time.perf_counter() - t0))
+    finally:
+        eng.stop()
+    return (f"host us per 16-lane step {step_us['greedy']:.1f} greedy, {step_us['sampled']:.1f} sampled; "
+            f"{len(reqs)} requests, budget {DEC_BUDGET}, tokens/s per pass " + ", ".join(f"{r:.1f}" for r in rates))
+
+
 @torch.no_grad()
 def rows_kernels(gen, dev, tag: str):
-    """The two row kernels of the decode path against their plain
-    versions at the shapes the engine gives them (a 16-slot step and a
-    16-row, 32-token prefill; the 16-lane readout), timed with L2 cold.
-    Returns the records of the kernels line (launches filled in later)."""
+    """The row kernels of the decode path against their plain versions at
+    the shapes the engine gives them, timed alone and between CUDA events
+    with L2 cold and warm, beside one library call each.  Returns the
+    records of the kernels line (launches filled in later)."""
     import torch.nn.functional as F
 
+    from pathway_tpu_torch.ops import decode_rows
     from pathway_tpu_torch.ops.decode_rows import (
-        layer_norm_reference, layer_norm_rows, tied_readout, tied_readout_reference,
+        add_layer_norm_reference, add_layer_norm_rows, layer_norm_reference, layer_norm_rows, tied_readout,
+        tied_readout_reference,
     )
 
     d = gen.config.d_model
     ln = gen.module.blocks[0].ln_0
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+
+    # -- LayerNorm: plain entry vs its plain version; fused entry == add + plain entry
     ln_err = 0.0
     for shape in ((DEC_SLOTS, 1, d), (DEC_SLOTS, 32, d), (3, 5, d)):
         x = (torch.randn(*shape, generator=g, device=dev) * 3).to(torch.bfloat16)
@@ -1090,72 +1227,191 @@ def rows_kernels(gen, dev, tag: str):
         # the bf16 output is the f32 value rounded: within one bf16 ulp of it
         if ln_err > LN_ATOL or bool(((got16 - want32).abs() > want32.abs() * 2.0**-8 + 1e-6).any()):
             raise AssertionError(f"layer_norm_rows {shape}: f32 err {ln_err}, or bf16 beyond one ulp")
+    fused_cases = 0
+    for shape in ((DEC_SLOTS, 1, d), (DEC_SLOTS, 32, d)):  # a step, a 16-row 32-token prefill
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(*shape, generator=g, device=dev) * 3).to(dtype)
+            delta = torch.randn(*shape, generator=g, device=dev).to(dtype)
+            for out_dtype in (torch.bfloat16, torch.float32):
+                s, y = add_layer_norm_rows(x, delta, ln.weight, ln.bias, out_dtype)
+                s2 = x + delta
+                y2 = layer_norm_rows(s2, ln.weight, ln.bias, out_dtype)
+                torch.cuda.synchronize()
+                if not (torch.equal(s, s2) and torch.equal(y, y2)):
+                    raise AssertionError(f"add_layer_norm_rows {shape} {dtype} -> {out_dtype} differs from the two steps")
+                fused_cases += 1
+            ln_err = max(ln_err, float((y.float() - add_layer_norm_reference(x, delta, ln.weight, ln.bias, torch.float32)[1]).abs().max()))
     x = (torch.randn(DEC_SLOTS, 1, d, generator=g, device=dev) * 3).to(torch.bfloat16)
-    ln_ms = timed_ms(lambda: layer_norm_rows(x, ln.weight, ln.bias, torch.bfloat16), reps=20, flush=flush)
-    ln_plain_ms = timed_ms(lambda: layer_norm_reference(x, ln.weight, ln.bias, torch.bfloat16), reps=20, flush=flush)
+    delta = torch.randn(DEC_SLOTS, 1, d, generator=g, device=dev).to(torch.bfloat16)
     x32 = x.float()
-    ln_lib_ms = timed_ms(lambda: F.layer_norm(x32, (d,), ln.weight, ln.bias, 1e-6), reps=20, flush=flush)
-    ln_kernel_ms, _ = kernel_time(lambda: layer_norm_rows(x, ln.weight, ln.bias, torch.bfloat16), reps=20)
+    ln_t = {}
+    for key, fl in (("cold", flush), ("warm", None)):
+        ln_t[f"events_{key}"] = timed_ms(lambda: layer_norm_rows(x, ln.weight, ln.bias, torch.bfloat16), reps=20, flush=fl)
+        ln_t[f"alone_{key}"] = alone_ms(lambda: layer_norm_rows(x, ln.weight, ln.bias, torch.bfloat16), 20, fl,
+                                         include="layer_norm_rows", exclude=("add_",))
+        ln_t[f"fused_events_{key}"] = timed_ms(lambda: add_layer_norm_rows(x, delta, ln.weight, ln.bias, torch.bfloat16),
+                                               reps=20, flush=fl)
+        ln_t[f"fused_alone_{key}"] = alone_ms(lambda: add_layer_norm_rows(x, delta, ln.weight, ln.bias, torch.bfloat16),
+                                              20, fl, include="add_layer_norm_rows")
+        ln_t[f"two_step_alone_{key}"] = alone_ms(lambda: layer_norm_rows(x + delta, ln.weight, ln.bias, torch.bfloat16), 20, fl)
+        ln_t[f"library_alone_{key}"] = alone_ms(lambda: F.layer_norm(x32, (d,), ln.weight, ln.bias, 1e-6), 20, fl)
+        ln_t[f"library_events_{key}"] = timed_ms(lambda: F.layer_norm(x32, (d,), ln.weight, ln.bias, 1e-6), reps=20, flush=fl)
+    ln_plain_ms = timed_ms(lambda: add_layer_norm_reference(x, delta, ln.weight, ln.bias, torch.bfloat16), reps=20, flush=flush)
     rows_ = DEC_SLOTS
-    ln_bytes = rows_ * d * (2 + 2) + 2 * d * 4
-    ln_ops = 8 * rows_ * d
-    ln_bound = max(ln_bytes / PEAK_BYTES_PER_S, ln_ops / 67e12) * 1e3
+    ln_bytes = rows_ * d * 2 * 4 + 2 * d * 4  # x, delta read; s, y written (bf16); w, b
+    ln_ops = 9 * rows_ * d
+    ln_bound = max(ln_bytes / PEAK_BYTES_PER_S, ln_ops / PEAK_F32_FLOPS) * 1e3
+
+    # -- readout: every row count the decode path gives it, row invariance
     table = gen._table
     V = table.shape[0]
     ro_err = 0.0
-    for M in (1, DEC_SLOTS, DEC_SLOTS * SPEC_K, 13):
+    ro_ms = {}
+    for M in (1, 13, DEC_SLOTS, I8_SLOTS, DEC_SLOTS * SPEC_K, I8_SLOTS * SPEC_K):
         h = torch.randn(M, d, generator=g, device=dev).to(torch.bfloat16)
         got = tied_readout(h, table)
         want = tied_readout_reference(h, table)
         torch.cuda.synchronize()
         ro_err = max(ro_err, float((got - want).abs().max()))
-        # row invariance, the reason the kernel exists: row 0 alone equals
-        # row 0 computed with the others
-        if M > 1 and not torch.equal(tied_readout(h[:1], table)[0], got[0]):
-            raise AssertionError(f"tied_readout: row 0 of {M} rows differs from row 0 alone")
+        # row invariance, the reason the kernel exists: the first and the
+        # last row equal the same row computed alone
+        for r in sorted({0, M - 1}):
+            if not torch.equal(tied_readout(h[r : r + 1], table)[0], got[r]):
+                raise AssertionError(f"tied_readout: row {r} of {M} rows differs from the row alone")
+        if M in (DEC_SLOTS, DEC_SLOTS * SPEC_K):
+            h32 = h.float()
+            rec = {}
+            for key, fl in (("cold", flush), ("warm", None)):
+                rec[f"events_{key}"] = timed_ms(lambda: tied_readout(h, table), reps=20, flush=fl)
+                rec[f"alone_{key}"] = alone_ms(lambda: tied_readout(h, table), 20, fl, include="tied_readout")
+                rec[f"library_alone_{key}"] = alone_ms(lambda: F.linear(h32, table), 20, fl)
+                rec[f"library_events_{key}"] = timed_ms(lambda: F.linear(h32, table), reps=20, flush=fl)
+            rec["alone_clean"] = alone_ms(lambda: tied_readout(h, table), 20, flush, include="tied_readout", clean=True)
+            rec["library_alone_clean"] = alone_ms(lambda: F.linear(h32, table), 20, flush, clean=True)
+            rec["plain"] = timed_ms(lambda: tied_readout_reference(h, table), reps=20, flush=flush)
+            n_bytes = V * d * 4 + M * d * 2 + M * V * 4
+            n_ops = 2 * M * V * d
+            rec["bound"] = max(n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_F32_FLOPS) * 1e3
+            rec["bound_by"] = "bytes" if n_bytes / PEAK_BYTES_PER_S >= n_ops / PEAK_F32_FLOPS else "operations"
+            ro_ms[M] = rec
     if ro_err > READOUT_ATOL:
         raise AssertionError(f"tied_readout: max abs err {ro_err} > {READOUT_ATOL}")
     h = torch.randn(DEC_SLOTS, d, generator=g, device=dev).to(torch.bfloat16)
-    # why the two kernels exist: torch's own f32 readout and row mean of
-    # row 0, alone and among 16 rows (printed, not checked: torch's choice)
+    # why the kernels exist: torch's own f32 readout and row mean of row 0,
+    # alone and among 16 rows (printed, not checked: torch's choice)
     torch_moved = int((tied_readout_reference(h[:1], table)[0] != tied_readout_reference(h, table)[0]).sum())
     x16 = torch.randn(DEC_SLOTS * 16, d, generator=g, device=dev)
     mean_moved = int(sum(
         bool(x16[i : i + 1].mean(-1)[0] != x16.mean(-1)[i]) for i in range(DEC_SLOTS)
     ))
-    ro_ms = timed_ms(lambda: tied_readout(h, table), reps=20, flush=flush)
-    ro_plain_ms = timed_ms(lambda: tied_readout_reference(h, table), reps=20, flush=flush)
-    h32 = h.float()
-    ro_lib_ms = timed_ms(lambda: F.linear(h32, table), reps=20, flush=flush)
-    ro_kernel_ms, _ = kernel_time(lambda: tied_readout(h, table), reps=20)
-    ro_bytes = V * d * 4 + DEC_SLOTS * d * 2 + DEC_SLOTS * V * 4
-    ro_ops = 2 * DEC_SLOTS * V * d
-    ro_bound = max(ro_bytes / PEAK_BYTES_PER_S, ro_ops / 67e12) * 1e3
     del flush
+    host = rows_host_line(decode_rows, d, dev)
+    step, verify = ro_ms[DEC_SLOTS], ro_ms[DEC_SLOTS * SPEC_K]
     log(
-        f"decode row kernels {tag}: layer_norm_rows [{DEC_SLOTS}, 1, {d}] bf16 {ln_ms:.4f} ms between CUDA events, "
-        f"kernel alone {ln_kernel_ms:.4f} ms (plain {ln_plain_ms:.4f}, F.layer_norm {ln_lib_ms:.4f}, bound "
-        f"{ln_bound:.6f} ms bytes), f32 err {ln_err:.3e}; tied_readout [{DEC_SLOTS}, {d}] x [{V}, {d}] {ro_ms:.4f} ms, "
-        f"kernel alone {ro_kernel_ms:.4f} ms (plain {ro_plain_ms:.4f}, F.linear {ro_lib_ms:.4f}, bound "
-        f"{ro_bound:.4f} ms bytes), err {ro_err:.3e}, row 0 bit-identical alone and among 16 / 256 / 13 rows; "
-        f"torch alone vs among {DEC_SLOTS} rows: f32 readout of row 0 differs in {torch_moved} of {V} logits, "
-        f"row mean differs in {mean_moved} of {DEC_SLOTS} rows (of {DEC_SLOTS * 16})"
+        f"decode row kernels {tag}: LayerNorm [{DEC_SLOTS}, 1, {d}] bf16, f32 err {ln_err:.3e}; add_layer_norm_rows == "
+        f"x + delta then layer_norm_rows (torch.equal, s and y) in {fused_cases} cases (step and 16 x 32 prefill, bf16 "
+        f"and f32 in and out); alone cold / warm: fused {ln_t['fused_alone_cold']:.4f} / {ln_t['fused_alone_warm']:.4f} ms, "
+        f"layer_norm_rows {ln_t['alone_cold']:.4f} / {ln_t['alone_warm']:.4f}, add + layer_norm_rows "
+        f"{ln_t['two_step_alone_cold']:.4f} / {ln_t['two_step_alone_warm']:.4f}, F.layer_norm (f32 in) "
+        f"{ln_t['library_alone_cold']:.4f} / {ln_t['library_alone_warm']:.4f}; between events cold / warm: fused "
+        f"{ln_t['fused_events_cold']:.4f} / {ln_t['fused_events_warm']:.4f}, layer_norm_rows {ln_t['events_cold']:.4f} / "
+        f"{ln_t['events_warm']:.4f}, F.layer_norm {ln_t['library_events_cold']:.4f} / {ln_t['library_events_warm']:.4f}; "
+        f"plain add + LayerNorm {ln_plain_ms:.4f}; bound {ln_bound:.6f} ms (bytes)"
+    )
+    for M, rec in ro_ms.items():
+        log(
+            f"decode row kernels {tag}: tied_readout [{M}, {d}] x [{V}, {d}] alone cold / clean-cold / warm "
+            f"{rec['alone_cold']:.4f} / {rec['alone_clean']:.4f} / {rec['alone_warm']:.4f} ms, between events cold / warm "
+            f"{rec['events_cold']:.4f} / {rec['events_warm']:.4f}; F.linear alone {rec['library_alone_cold']:.4f} / "
+            f"{rec['library_alone_clean']:.4f} / {rec['library_alone_warm']:.4f}, between events "
+            f"{rec['library_events_cold']:.4f} / {rec['library_events_warm']:.4f}; plain {rec['plain']:.4f}; bound "
+            f"{rec['bound']:.4f} ms ({rec['bound_by']})"
+        )
+    log(
+        f"decode row kernels {tag}: tied_readout err {ro_err:.3e} at M = 1 / 13 / {DEC_SLOTS} / {I8_SLOTS} / "
+        f"{DEC_SLOTS * SPEC_K} / {I8_SLOTS * SPEC_K}, first and last row bit-identical alone and among M rows; "
+        f"torch alone vs among {DEC_SLOTS} rows: f32 readout of row 0 differs in {torch_moved} of {V} logits, row mean "
+        f"differs in {mean_moved} of {DEC_SLOTS} rows (of {DEC_SLOTS * 16}); host us per wrapper call: {host}"
     )
     common = {"route": "cuda", "source": "pathway_tpu_torch/csrc/decode_rows.cu", "port_side": True}
     return [
         {"name": "layer_norm_rows", **common,
-         "replaces": "pathway_tpu/models/transformer.py:278 (XLA nn.LayerNorm of the KV twin; no Pallas kernel)",
-         "launches": 0, "max_abs_err": ln_err, "ms": ln_ms, "kernels_ms": ln_kernel_ms, "plain_ms": ln_plain_ms,
-         "bound_ms": ln_bound,
-         "bound_by": "bytes" if ln_bytes / PEAK_BYTES_PER_S >= ln_ops / 67e12 else "operations",
-         "library_ms": ln_lib_ms},
+         "entries": "add_layer_norm_rows (the decode path's: each LayerNorm with its residual add) and layer_norm_rows",
+         "replaces": "pathway_tpu/models/transformer.py:278 (XLA nn.LayerNorm and residual add of the KV twin; "
+                     "no Pallas kernel)",
+         "launches": 0, "max_abs_err": ln_err, "ms": ln_t["fused_events_cold"],
+         "kernels_ms": ln_t["fused_alone_cold"], "kernels_warm_ms": ln_t["fused_alone_warm"],
+         "plain_ms": ln_plain_ms, "bound_ms": ln_bound,
+         "bound_by": "bytes" if ln_bytes / PEAK_BYTES_PER_S >= ln_ops / PEAK_F32_FLOPS else "operations",
+         "library_ms": ln_t["library_events_cold"], "library_alone_ms": ln_t["library_alone_cold"],
+         "plain_entry_kernels_ms": ln_t["alone_cold"], "two_step_kernels_ms": ln_t["two_step_alone_cold"]},
         {"name": "tied_readout", **common,
          "replaces": "pathway_tpu/models/generator.py:574 (XLA readout einsum; no Pallas kernel)",
-         "launches": 0, "max_abs_err": ro_err, "ms": ro_ms, "kernels_ms": ro_kernel_ms, "plain_ms": ro_plain_ms,
-         "bound_ms": ro_bound,
-         "bound_by": "bytes" if ro_bytes / PEAK_BYTES_PER_S >= ro_ops / 67e12 else "operations",
-         "library_ms": ro_lib_ms},
+         "launches": 0, "max_abs_err": ro_err, "ms": step["events_cold"], "kernels_ms": step["alone_cold"],
+         "kernels_warm_ms": step["alone_warm"], "kernels_clean_cold_ms": step["alone_clean"],
+         "library_alone_clean_ms": step["library_alone_clean"], "plain_ms": step["plain"], "bound_ms": step["bound"],
+         "bound_by": step["bound_by"], "library_ms": step["library_events_cold"],
+         "library_alone_ms": step["library_alone_cold"],
+         "verify_shape": {"M": DEC_SLOTS * SPEC_K, "kernels_ms": verify["alone_cold"],
+                          "kernels_warm_ms": verify["alone_warm"], "kernels_clean_cold_ms": verify["alone_clean"],
+                          "ms": verify["events_cold"],
+                          "library_alone_ms": verify["library_alone_cold"], "plain_ms": verify["plain"],
+                          "bound_ms": verify["bound"], "bound_by": verify["bound_by"]}},
     ]
+
+
+def step_program(gen, dev, greedy: bool):
+    """The engine's slot step program for a 16-slot pool (chunk 1), with
+    arguments that keep every lane live: ``(fn, args)``."""
+    cfg = gen.config
+    S, H = DEC_SLOTS, cfg.n_heads
+    pk = torch.zeros((S, cfg.n_layers, DEC_WIDTH, H, cfg.d_model // H), dtype=cfg.dtype, device=dev)
+    args = (
+        pk, torch.zeros_like(pk), torch.arange(S, device=dev) + 5, torch.full((S,), 8, device=dev),
+        torch.ones(S, dtype=torch.bool, device=dev), torch.full((S,), 100, device=dev),
+        torch.zeros((S, 2), dtype=torch.int64, device=dev), torch.full((S,), 0.0 if greedy else SAMPLE_TEMP, device=dev),
+        torch.full((S,), -1, device=dev), greedy,
+    )
+    return gen._slot_step_fn(S, DEC_WIDTH, 1), args
+
+
+@torch.no_grad()
+def step_launches(gen, dev, greedy: bool):
+    """CUDA kernels one 16-lane decode step launches (the engine's slot
+    step program, chunk 1, every lane live), counted with ``torch.profiler``
+    in turns (fused, apart, apart, fused): ((with each LayerNorm fused with
+    its residual add, with the add and the LayerNorm launched apart as
+    before the fused entry), the launches that differ, by kernel)."""
+    from pathway_tpu_torch.models import transformer
+    from pathway_tpu_torch.ops.decode_rows import layer_norm_rows
+
+    fn, args = step_program(gen, dev, greedy)
+
+    def count():
+        counts = {}
+        for key, _, n in profiled_kernels(lambda: fn(*args), 1):
+            counts[key] = counts.get(key, 0) + n
+        return counts
+
+    fused_entry = transformer.add_layer_norm_rows
+
+    def apart(x, delta, weight, bias, out_dtype):
+        s = x + delta
+        return s, layer_norm_rows(s, weight, bias, out_dtype)
+
+    runs = {"fused": [], "apart": []}
+    for mode in ("fused", "apart", "apart", "fused"):
+        transformer.add_layer_norm_rows = apart if mode == "apart" else fused_entry
+        try:
+            runs[mode].append(count())
+        finally:
+            transformer.add_layer_norm_rows = fused_entry
+    # the profiler can drop events of a run, never add them: the larger count of each mode
+    totals = {mode: max(sum(c.values()) for c in counts) for mode, counts in runs.items()}
+    fused, apart_ = (max(runs[m], key=lambda c: sum(c.values())) for m in ("fused", "apart"))
+    diff = {k[:60]: apart_.get(k, 0) - fused.get(k, 0) for k in set(fused) | set(apart_)
+            if apart_.get(k, 0) != fused.get(k, 0)}
+    return (totals["fused"], totals["apart"]), diff
 
 
 def decode_phase(tag: str):
@@ -1245,8 +1501,41 @@ def decode_phase(tag: str):
     saturated(eng, reqs16)
     drive(lambda r: submit(eng, r).result(timeout=TICKET_TIMEOUT_S), [request(j, DEC_BUDGET) for j in range(32)], 16)
 
+    # launches per 16-lane step, counted from the step program (greedy and
+    # sampled), with the fused LayerNorms and with the add launched apart
+    launches_step, step_diff = {}, {}
+    for mode in ("greedy", "sampled"):
+        launches_step[mode], step_diff[mode] = step_launches(gen, dev, greedy=mode == "greedy")
+    if any(n <= 0 for pair in launches_step.values() for n in pair):
+        raise AssertionError(f"no launches counted in a decode step: {launches_step}")
+    log(
+        f"decode step {tag}: one 16-lane step launches {launches_step['greedy'][0]} kernels greedy, "
+        f"{launches_step['sampled'][0]} sampled, with each LayerNorm fused with its residual add; "
+        f"{launches_step['greedy'][1]} / {launches_step['sampled'][1]} with the add launched apart "
+        f"({launches_step['greedy'][1] - launches_step['greedy'][0]} / "
+        f"{launches_step['sampled'][1] - launches_step['sampled'][0]} fewer; the larger of 2 counts each; the kernels "
+        f"that differ, apart minus fused: {step_diff['greedy']})"
+    )
+
     # -- the counted main path: engine arms, spec arms, int8 arms -------------------
+    from pathway_tpu_torch.models import generator as generator_mod
+
+    readout_by_path = {}
+    counted_readout = generator_mod.tied_readout
+
+    def classified_readout(h, table):
+        """The generator's readout, with its launches split by caller."""
+        where = sys._getframe(1).f_code.co_qualname
+        path = ("verify" if "_slot_verify_fn" in where else "step" if "_slot_step_fn" in where
+                else "prefill" if "_slot_prefill_fn" in where else "draft" if "_slot_draft_fn" in where
+                else "solo")
+        rows = h.numel() // h.shape[-1]
+        readout_by_path[(path, rows)] = readout_by_path.get((path, rows), 0) + 1
+        return counted_readout(h, table)
+
+    generator_mod.tied_readout = classified_readout
     decode_rows.layer_norm_rows.launches = 0
+    decode_rows.add_layer_norm_rows.launches = 0
     decode_rows.tied_readout.launches = 0
     pre0 = (decode_mod._H_PREFILL.count, decode_mod._H_PREFILL.sum_seconds)
     step0 = (decode_mod._H_STEP.count, decode_mod._H_STEP.sum_seconds)
@@ -1424,12 +1713,22 @@ def decode_phase(tag: str):
     pool_bf = bf_bytes["kv_pool"] - DEC_SLOTS * 2 * 8
     if pool_i8 > pool_bf or ratio > 1.02:
         raise AssertionError(f"int8 pool of {I8_SLOTS} slots: {i8_bytes} vs bf16 {bf_bytes}")
+    generator_mod.tied_readout = counted_readout
     pre_ms, pre_n = hist_delta(decode_mod._H_PREFILL, pre0)
     step_ms, step_n = hist_delta(decode_mod._H_STEP, step0)
-    for rec, fn in zip(kernels, (decode_rows.layer_norm_rows, decode_rows.tied_readout)):
-        rec["launches"] = fn.launches
-        if fn.launches <= 0:
-            raise AssertionError(f"{rec['name']} was not launched on the decode path")
+    ln_launches = {"add_layer_norm_rows": decode_rows.add_layer_norm_rows.launches,
+                   "layer_norm_rows": decode_rows.layer_norm_rows.launches}
+    kernels[0]["launches"] = sum(ln_launches.values())
+    kernels[0]["launches_by_entry"] = ln_launches
+    kernels[1]["launches"] = decode_rows.tied_readout.launches
+    by_path = {}
+    for (path, rows), n in sorted(readout_by_path.items()):
+        by_path.setdefault(path, {})[rows] = n
+    kernels[1]["launches_by_path"] = {path: sum(v.values()) for path, v in by_path.items()}
+    kernels[1]["launches_by_rows"] = {f"{path} M={rows}": n for (path, rows), n in sorted(readout_by_path.items())}
+    missing = [p for p in ("step", "verify", "prefill") if not by_path.get(p)]
+    if missing or ln_launches["add_layer_norm_rows"] <= 0 or kernels[1]["launches"] <= 0:
+        raise AssertionError(f"decode path launches: readout by path {by_path}, LayerNorm {ln_launches}")
     log(
         f"decode int8 {tag}: {I8_SLOTS} slots, spec-on == spec-off, warm == cold; spec-on {n_tokens(o_i8) / w_i8:.1f} "
         f"tokens/s ({I8_REQS} requests, spec-off {n_tokens(o_i8_off) / w_i8_off:.1f}); bf16-vs-int8 drift: "
@@ -1439,8 +1738,9 @@ def decode_phase(tag: str):
     log(
         f"decode phase {tag}: prefill {pre_ms:.3f} ms per dispatch ({pre_n}), step chunk / verify {step_ms:.3f} ms per "
         f"dispatch ({step_n}) from pathway_generator_phase_seconds; row kernel launches: "
-        f"layer_norm_rows {kernels[0]['launches']}, tied_readout {kernels[1]['launches']}; "
-        f"{time.perf_counter() - t_phase:.1f} s"
+        f"add_layer_norm_rows {ln_launches['add_layer_norm_rows']}, layer_norm_rows {ln_launches['layer_norm_rows']}, "
+        f"tied_readout {kernels[1]['launches']} (by path {kernels[1]['launches_by_path']}; by rows "
+        f"{kernels[1]['launches_by_rows']}); {time.perf_counter() - t_phase:.1f} s"
     )
     return kernels
 
@@ -1449,6 +1749,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--compare":
+        # the package under another checkout's root, alone (two trees are
+        # compared in one run on one card, in turns)
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        from pathway_tpu_torch.ops import decode_rows
+
+        where = os.path.relpath(decode_rows.__file__)
+        log(f"host us per wrapper call, {where}: " + rows_host_line(decode_rows, 256, torch.device(DEVICE)))
+        log(f"engine c16, {where}: " + engine_c16_line())
+        return 0
     from pathway_tpu_torch.kernels.build import build_all
     from pathway_tpu_torch.models.encoder import SentenceEncoder
     from pathway_tpu_torch.ops.ivf import IvfKnnIndex
@@ -1670,6 +1980,39 @@ def main() -> int:
     )
     if found != BATCH:
         raise AssertionError(f"full-probe serve found {found}/{BATCH} absorbed keys")
+
+    # the exact-tail rung: a tail upload that fails past its retries serves
+    # resident-only, flagged tail_skipped, and the next serve uploads again
+    from pathway_tpu_torch.robust import inject
+
+    tail_docs = [t + " tail" for t in corpus(8, seed=SEED + 9)]
+    tail_keys = [(1 << 61) + i for i in range(len(tail_docs))]
+    with torch.no_grad():
+        tail_vecs = encoder.encode_to_device(tail_docs).cpu().numpy()
+    n_tail0 = len(ivf._tail)
+    if n_tail0 + len(tail_docs) >= ivf.absorb_threshold:
+        raise AssertionError(f"tail check: {n_tail0} rows already in the tail")
+    ivf.add(tail_keys, tail_vecs)
+    serve_tail = FusedEncodeSearch(encoder, ivf, k=K)
+    inject.arm("ivf.tail_upload", "raise", times=3)  # every attempt of one serve
+    try:
+        skipped = serve_tail(tail_docs)
+        flagged = ivf.tail_degraded
+    finally:
+        inject.disarm("ivf.tail_upload")
+    recovered = serve_tail(tail_docs)
+    leaked = sum(1 for row in skipped for key, _ in row if key in set(tail_keys))
+    first = sum(1 for row, key in zip(recovered, tail_keys) if row and row[0][0] == key)
+    log(
+        f"tail upload rung {tag}: {len(tail_docs)} rows in the exact tail (beside {n_tail0}), 3 injected "
+        f"ivf.tail_upload failures: flags {skipped.degraded}, tail_degraded {flagged}, {leaked} tail keys served, "
+        f"{sum(len(r) for r in skipped)} resident rows; next serve: flags {recovered.degraded}, its own tail key "
+        f"first on {first}/{len(tail_docs)} rows"
+    )
+    if (skipped.degraded != ("tail_skipped",) or not flagged or leaked or any(len(r) != K for r in skipped)
+            or not recovered.ok or ivf.tail_degraded or first != len(tail_docs)):
+        raise AssertionError("the exact-tail rung did not serve resident-only and then recover")
+    ivf.remove(tail_keys)
 
     # -- 7. background retrain --------------------------------------------------
     retrain_phase(encoder, docs, doc_vecs, keys, tag)

@@ -120,6 +120,12 @@ _knob("cache.kv_ttl_s", "PATHWAY_CACHE_KV_TTL_S", "float", 0.0,
 _knob("cache.kv_block", "PATHWAY_CACHE_KV_BLOCK", "int", 32,
       "prefix-KV block size in tokens (key-chain granularity)", lo=1, hi=4096)
 
+# forward index (index/forward.py)
+_knob("forward.tokens", "PATHWAY_FORWARD_TOKENS", "int", 16,
+      "forward-index pooled doc-row budget T'", lo=1, hi=4096)
+_knob("forward.quant", "PATHWAY_FORWARD_QUANT", "enum", "int8",
+      "forward-index row storage (parity oracle pins this)", choices=("int8", "none"))
+
 # observability (observe/)
 _knob("observe.enabled", "PATHWAY_OBSERVE", "bool", True,
       "flight recorder + tracing master switch")
@@ -143,6 +149,8 @@ _knob("observe.slo_latency_objective", "PATHWAY_SLO_LATENCY_OBJECTIVE", "float",
       "serve-latency SLO objective fraction", lo=0.5, hi=0.99999)
 _knob("observe.slo_availability", "PATHWAY_SLO_AVAILABILITY", "float", 0.999,
       "availability SLO objective fraction", lo=0.5, hi=0.99999)
+_knob("observe.slo_ttlt_ms", "PATHWAY_SLO_TTLT_MS", "float", 2000.0,
+      "decode TTLT SLO threshold in ms", lo=1.0, hi=600_000.0)
 _knob("observe.slo_fast_window_s", "PATHWAY_SLO_FAST_WINDOW_S", "float", 300.0,
       "fast burn-rate window in seconds", lo=0.05, hi=86_400.0)
 _knob("observe.slo_slow_window_s", "PATHWAY_SLO_SLOW_WINDOW_S", "float", 3600.0,

@@ -19,25 +19,35 @@
   top-k (``ops/maxsim.py``) launches under the lock, retried under the
   ``forward.gather`` site; one packed int32 result is copied to pinned
   host memory, and the completion fires ``forward.gather.fetch``.
-  Nothing syncs the device.
+  Nothing syncs the device;
+- **knobs and faults**: ``tokens_per_doc`` / ``quant`` default to the
+  ``forward.tokens`` / ``forward.quant`` knobs (a bad ``quant`` falls
+  back to the knob, as in the reference); the plan fires
+  ``forward.absorb`` and the commit ``forward.upload``.  A failed pass
+  is logged once, counted on ``pathway_forward_absorb_failures_total``
+  and leaves the documents out of the index (``add`` returns 0): the
+  late-interaction stage degrades, serving goes on.  Every 8th absorb
+  audits its int8 rows (``pathway_forward_quant_abs_err``); the
+  ``pathway_forward_*`` families are scraped from ``observe_metrics``.
 
-``ShardedForwardIndex`` and the env knobs of the reference are not
-ported yet.
+``ShardedForwardIndex`` is not ported yet.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import config, observe
 from ..device import to_host, upload
 from ..ops.dispatch_counter import record_dispatch, record_fetch
 from ..ops.maxsim import maxsim_topk
-from ..robust import RetryPolicy, inject, retry_call
+from ..robust import RetryPolicy, inject, log_once, retry_call
 
 __all__ = ["ForwardIndex", "ForwardUnavailable", "audit_quant_error", "pool_token_states"]
 
@@ -45,6 +55,10 @@ __all__ = ["ForwardIndex", "ForwardUnavailable", "audit_quant_error", "pool_toke
 _AUDIT_EVERY = 8
 # the gather launches under the index lock: its retry budget stays short
 _GATHER_RETRY = RetryPolicy(attempts=3, base_delay_s=0.002, max_delay_s=0.02)
+
+# absorb wall time (plan + commit) and the locked device-write part
+_H_ABSORB = observe.histogram("pathway_forward_absorb_seconds")
+_H_UPLOAD = observe.histogram("pathway_forward_upload_seconds")
 
 
 class ForwardUnavailable(RuntimeError):
@@ -108,21 +122,20 @@ def audit_quant_error(pooled, q, scales, nvalid, quant: bool) -> torch.Tensor:
 class ForwardIndex:
     """Forward index over a port ``SentenceEncoder``, on the encoder's
     device.  ``add(keys, texts)`` ingests; ``gather_submit`` is the serve
-    entry of ``LateInteractionStage``."""
+    entry of ``LateInteractionStage``.  ``tokens_per_doc`` and ``quant``
+    default to the ``forward.tokens`` / ``forward.quant`` knobs."""
 
     def __init__(
         self,
         encoder,
-        tokens_per_doc: int = 16,
-        quant: str = "int8",
+        tokens_per_doc: Optional[int] = None,
+        quant: Optional[str] = None,
         initial_capacity: int = 1024,
     ):
-        if quant not in ("int8", "none"):
-            raise ValueError(f"quant must be 'int8' or 'none', got {quant!r}")
         self.encoder = encoder
         self.device = encoder.device
-        self.tokens_per_doc = int(tokens_per_doc)
-        self.quant = quant
+        self.tokens_per_doc = int(tokens_per_doc or config.get("forward.tokens"))
+        self.quant = quant if quant in ("int8", "none") else config.get("forward.quant")
         self.dimension = int(encoder.config.d_model)
         self._lock = threading.RLock()
         self._capacity = 0
@@ -146,7 +159,17 @@ class ForwardIndex:
         # the stream of the last gather: commits write after it
         self._serve_stream = None
         self._quant_abs_err: Optional[float] = None
-        self.stats = {"absorbs": 0, "gathers": 0, "gather_missing": 0}
+        self.stats = {
+            "absorbs": 0,
+            "docs_absorbed": 0,
+            "absorb_failures": 0,
+            "upload_failures": 0,
+            "gathers": 0,
+            "gather_candidates": 0,
+            "gather_missing": 0,
+        }
+        self._observe_id = observe.next_id()
+        observe.register_provider(self)
 
     # -- introspection ------------------------------------------------------
     def __len__(self) -> int:
@@ -175,16 +198,35 @@ class ForwardIndex:
     # -- ingest -------------------------------------------------------------
     def add(self, keys: Sequence[int], texts: Sequence[str]) -> int:
         """Ingest documents (plan off the lock, commit under it); upserts
-        overwrite in place.  Returns the number of documents committed."""
+        overwrite in place.  Returns the number of documents committed:
+        0 when the plan or the commit failed (logged once, counted, the
+        documents stay out until a later ``add``)."""
         keys = [int(k) for k in keys]
         if not keys:
             return 0
+        t0 = time.perf_counter_ns()
         with self._lock:
             versions = {k: self._key_version.get(k, 0) for k in keys}
-        plan = self._plan_absorb(keys, texts)
-        plan["versions"] = versions
-        with self._lock:
-            n = self._commit_absorb(plan)
+        try:
+            plan = self._plan_absorb(keys, texts)
+            plan["versions"] = versions
+        except Exception as exc:  # noqa: BLE001 - degrade, never die: counted and logged
+            with self._lock:
+                self.stats["absorb_failures"] += 1
+            log_once(f"forward.absorb:{type(exc).__name__}",
+                     "forward-index absorb plan failed (%r); documents stay out of the forward index", exc)
+            return 0
+        try:
+            with self._lock:
+                n = self._commit_absorb(plan)
+        except Exception as exc:  # noqa: BLE001 - degrade, never die: counted and logged
+            with self._lock:
+                self.stats["upload_failures"] += 1
+                self.stats["absorb_failures"] += 1
+            log_once(f"forward.upload:{type(exc).__name__}",
+                     "forward-index commit upload failed (%r); documents stay out of the forward index", exc)
+            return 0
+        _H_ABSORB.observe_ns(time.perf_counter_ns() - t0)
         if plan["audit"] is not None:
             self._quant_abs_err = float(plan["audit"])  # one scalar, off the lock
         return n
@@ -192,6 +234,7 @@ class ForwardIndex:
     @torch.no_grad()
     def _plan_absorb(self, keys: List[int], texts: Sequence[str]) -> Dict[str, Any]:
         """Encode + pool + quantize one ingest batch (lock-free)."""
+        inject.fire("forward.absorb")  # fault site: the off-lock plan
         tokens, mask, n = self.encoder.encode_token_states(texts)
         quant = self.quant == "int8"
         q, scales, nvalid, pooled = pool_token_states(
@@ -240,6 +283,8 @@ class ForwardIndex:
         high = self._next_slot + fresh_needed
         try:
             self._grow_to(high)
+            inject.fire("forward.upload")  # fault site: the locked device writes
+            t0 = time.perf_counter_ns()
             rows = upload(live_rows, self.device)
             slots_dev = upload(slots[live_rows], self.device)
             on_stream = contextlib.nullcontext()
@@ -258,6 +303,7 @@ class ForwardIndex:
         except BaseException:
             self._free.extend(popped)  # no leaked free slots on failure
             raise
+        _H_UPLOAD.observe_ns(time.perf_counter_ns() - t0)
         nvalid_host = plan["nvalid_host"]
         for i in live_rows.tolist():
             key, slot = keys[i], int(slots[i])
@@ -277,6 +323,7 @@ class ForwardIndex:
         self._next_slot = max(self._next_slot, high)
         self.generation += 1
         self.stats["absorbs"] += 1
+        self.stats["docs_absorbed"] += int(live_rows.size)
         return int(live_rows.size)
 
     def _release_slot(self, slot: int) -> None:
@@ -453,8 +500,10 @@ class ForwardIndex:
                 policy=_GATHER_RETRY,
             )
             self.stats["gathers"] += 1
+            self.stats["gather_candidates"] += n_cand
             self.stats["gather_missing"] += n_missing
         record_dispatch("rerank_maxsim")
+        observe.record_occupancy("forward_gather", n_cand, B * Kc)
 
         def complete():
             inject.fire("forward.gather.fetch", deadline=deadline)
@@ -466,3 +515,26 @@ class ForwardIndex:
             return scores, arr[:, k_out:]
 
         return complete, missing
+
+    # -- flight-recorder provider ---------------------------------------------
+    def observe_metrics(self):
+        """Scrape-time ``pathway_forward_*`` samples: residency gauges
+        from live state, ingest and gather counters from ``stats``
+        (lock-free reads)."""
+        labels = {"index": str(self._observe_id)}
+        n = len(self._slot_of_key)
+        yield ("gauge", "pathway_forward_docs", labels, n)
+        yield ("gauge", "pathway_forward_rows_resident", labels, n * self.tokens_per_doc)
+        yield ("gauge", "pathway_forward_tokens_stored", labels, self._tokens_stored)
+        yield ("gauge", "pathway_forward_hbm_bytes", labels, self.hbm_bytes())
+        yield ("gauge", "pathway_forward_compression_ratio", labels, self.compression_ratio())
+        if self._quant_abs_err is not None:
+            yield ("gauge", "pathway_forward_quant_abs_err", labels, self._quant_abs_err)
+        for kind in ("absorbs", "docs_absorbed", "gathers"):
+            yield ("counter", f"pathway_forward_{kind}_total", labels, self.stats[kind])
+        for site in ("absorb", "upload"):
+            yield ("counter", "pathway_forward_absorb_failures_total", {**labels, "site": site},
+                   self.stats[f"{site}_failures"])
+        for kind in ("candidates", "missing"):
+            yield ("counter", "pathway_forward_gather_rows_total", {**labels, "kind": kind},
+                   self.stats[f"gather_{kind}"])

@@ -1,13 +1,18 @@
 """SentenceEncoder — batched text -> embedding (counterpart of
 ``pathway_tpu/models/encoder.py``: the constructor, ``encode_to_device``,
-``encode`` and the batch buckets).
+``encode``, the packed encode and the batch buckets).
 
 Batches are tokenized on the host, padded to a bucketed batch size, and
 run through one eager forward of the trunk; the result stays on the
 device for ``DeviceKnnIndex.add_from_device``.  ``encode_token_states``
 is the doc-side token-state export of the forward index: the same
-module with its pool skipped, per-token L2-normalized.  Checkpoints, HF
-import, the packed encode and the embedding cache are not ported yet.
+module with its pool skipped, per-token L2-normalized.
+``encode_packed_to_device`` packs short documents into shared rows
+(``models/packing.py``, block-diagonal attention) and returns the same
+``[n, d]`` embeddings.  Every forward dispatches under
+``retry_call("encoder.dispatch", ...)``, the reference's retry and fault
+site.  Checkpoints, HF import and the encoder's own embedding cache are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +22,10 @@ from typing import Any, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import observe
 from ..device import DEFAULT_DTYPE, resolve_device, upload
+from ..robust import retry_call
+from .packing import pack_rows, pad_packed_rows, seg_bucket
 from .params import init_encoder_, params_from_flax
 from .tokenizer import HashTokenizer
 from .transformer import (
@@ -80,16 +88,16 @@ class SentenceEncoder:
     def get_embedding_dimension(self) -> int:
         return self.config.d_model
 
+    def _normalized(self, out: torch.Tensor) -> torch.Tensor:
+        if self.normalize:
+            out = out / torch.clamp(torch.linalg.vector_norm(out, dim=-1, keepdim=True), min=1e-9)
+        return out
+
     @torch.no_grad()
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Pooled (and, with ``normalize``, L2-normalized) f32 embeddings
         of a tokenized batch already on the device."""
-        out = self.module(ids, mask)
-        if self.normalize:
-            out = out / torch.clamp(
-                torch.linalg.vector_norm(out, dim=-1, keepdim=True), min=1e-9
-            )
-        return out
+        return self._normalized(self.module(ids, mask))
 
     def encode_to_device(self, texts: Sequence[str]) -> torch.Tensor:
         """Batch encode with the result left on the device ([n, d] f32)."""
@@ -99,11 +107,39 @@ class SentenceEncoder:
             return torch.zeros((0, self.config.d_model), device=self.device)
         padded = list(texts) + [""] * (_bucket(n) - n)
         ids, mask = self.tokenizer.encode_batch(padded)
-        out = self.forward(
-            torch.from_numpy(ids).to(self.device),
-            torch.from_numpy(mask).to(self.device),
-        )
+        observe.record_occupancy("encoder", n, ids.shape[0])
+        ids_t, mask_t = upload(ids, self.device), upload(mask, self.device)
+        out = retry_call("encoder.dispatch", self.forward, ids_t, mask_t)
         return out[:n]
+
+    @torch.no_grad()
+    def encode_packed_to_device(self, texts: Sequence[str]) -> torch.Tensor:
+        """Encode with sequence packing: tokenized documents share rows of
+        ``max_len`` tokens (best-fit decreasing, at most 8 per row) with
+        block-diagonal attention and per-document positions.  Returns
+        ``[n, d]`` f32 on the device, aligned with ``texts``."""
+        texts = ["" if t is None else str(t) for t in texts]
+        n = len(texts)
+        if n == 0:
+            return torch.zeros((0, self.config.d_model), device=self.device)
+        L = self.config.max_len
+        ids_b, mask_b = self.tokenizer.encode_batch(texts)
+        lens = np.minimum(np.asarray(mask_b).sum(axis=1), L).astype(np.int64)
+        ids, _mask, segments, positions, doc_slots, n_seg = pack_rows(np.asarray(ids_b), lens, L)
+        rows_real = ids.shape[0]
+        Rb = _bucket(rows_real)
+        observe.record_occupancy("encoder_packed", rows_real, Rb)
+        ids, segments, positions = pad_packed_rows(ids, segments, positions, Rb)
+        S = seg_bucket(n_seg)
+        dev = self.device
+        ids_t, seg_t, pos_t = upload(ids, dev), upload(segments, dev), upload(positions, dev)
+
+        def packed():
+            return self._normalized(self.module(ids_t, seg_t > 0, segments=seg_t, positions=pos_t, n_segments=S))
+
+        pooled = retry_call("encoder.dispatch", packed)  # [Rb, S, d]
+        flat_ix = torch.as_tensor([r * S + seg for r, seg in doc_slots], dtype=torch.int64)
+        return pooled.reshape(Rb * S, -1).index_select(0, flat_ix.to(dev))
 
     @torch.no_grad()
     def encode_token_states(self, texts: Sequence[str]):
@@ -119,9 +155,12 @@ class SentenceEncoder:
             return empty, np.zeros((0, L), np.int32), 0
         padded = list(texts) + [""] * (_bucket(n) - n)
         ids, mask = self.tokenizer.encode_batch(padded, pad_to=L)
-        mask_t = upload(mask, self.device)
-        hidden = self.module(upload(ids, self.device), mask_t, pool="none")
-        return normalized_token_states(hidden, mask_t), mask, n
+        ids_t, mask_t = upload(ids, self.device), upload(mask, self.device)
+
+        def token_states():
+            return normalized_token_states(self.module(ids_t, mask_t, pool="none"), mask_t)
+
+        return retry_call("encoder.dispatch", token_states), mask, n
 
     def encode(self, texts: Sequence[str]) -> np.ndarray:
         """Batch encode: [n] strings -> [n, d] float32 numpy."""

@@ -29,8 +29,16 @@ reference's sequence packing): several short sequences share one row;
 token l attends token m iff both carry the same nonzero segment id
 (block-diagonal attention, the segment mask replacing the key mask),
 positions restart per sequence, and the output is the per-segment
-masked mean pool ``[B, n_segments, d]`` f32.  The KV/slot decode twins
-are not ported yet.
+masked mean pool ``[B, n_segments, d]`` f32.
+
+KV / slot decode twins (``kv_forward``): ``Ln`` new tokens per row attend
+to per-layer K/V buffers ``[B, T, H, hd]`` written in place at
+``write_pos`` (clamped into ``[0, T - Ln]``, as ``dynamic_update_slice``
+clamps); ``q_pos`` masks each query to the positions at or before it;
+``active`` leaves inactive lanes' K/V untouched; ``layers`` runs the
+first blocks only (the draft trunk); int8 buffers take per-(layer, head,
+channel) scales.  Their LayerNorms, each with the residual add before
+it, run through the row-invariant kernels of ``ops/decode_rows.py``.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.decode_rows import layer_norm_rows
+from ..ops.decode_rows import add_layer_norm_rows
 from ..ops.kv_quant import dequantize_kv, quantize_kv
 
 __all__ = [
@@ -348,19 +356,25 @@ def kv_forward(
     int8 scales)."""
     cfg = trunk.config
     dt = cfg.dtype
-    x = trunk.tok_embed(ids_new).to(dt) + trunk.pos_embed(positions).to(dt)
     n = cfg.n_layers if layers is None else layers
+    # every LayerNorm takes the residual add before it in the same launch
+    # (``add_layer_norm_rows``): the embedding sum, then per block the
+    # attention and MLP residuals, the last one feeding ``final_ln``
+    lns = [ln for blk in trunk.blocks[:n] for ln in (blk.ln_0, blk.ln_1)] + [trunk.final_ln]
+    x, h = add_layer_norm_rows(
+        trunk.tok_embed(ids_new).to(dt), trunk.pos_embed(positions).to(dt), lns[0].weight, lns[0].bias, dt
+    )
     for i in range(n):
         blk = trunk.blocks[i]
-        h = layer_norm_rows(x, blk.ln_0.weight, blk.ln_0.bias, dt)
-        x = x + _kv_attention(
+        a = _kv_attention(
             blk.attn, h, k_caches[:, i], v_caches[:, i], write_pos, q_pos, active,
             None if k_scales is None else k_scales[i],
             None if v_scales is None else v_scales[i],
         )
-        x = x + blk.mlp(layer_norm_rows(x, blk.ln_1.weight, blk.ln_1.bias, dt))
-    x = layer_norm_rows(x, trunk.final_ln.weight, trunk.final_ln.bias, dt)
-    return x, k_caches, v_caches
+        x, h = add_layer_norm_rows(x, a, blk.ln_1.weight, blk.ln_1.bias, dt)
+        ln = lns[2 * i + 2]
+        x, h = add_layer_norm_rows(x, blk.mlp(h), ln.weight, ln.bias, dt)
+    return h, k_caches, v_caches
 
 
 class KVTransformerDecoder(TransformerEncoder):

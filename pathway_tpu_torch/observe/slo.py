@@ -14,8 +14,11 @@ snapshots taken at each evaluation, throttled to one per
 probe: True while a ``shed=True`` spec fires.  A fault at the
 ``slo.evaluate`` site serves the last document marked stale.
 
-The reference's decode-TTLT and ingest-freshness specs wait for the
-port's generator and live-ingest slices.
+``default_specs`` holds serve latency and availability (both shed) and
+the observe-only ``decode_ttlt`` objective over
+``pathway_generator_ttlt_seconds`` (``observe.slo_ttlt_ms``).  The
+reference's ingest-freshness spec waits for the port's live-ingest
+slice.
 """
 
 from __future__ import annotations
@@ -111,7 +114,8 @@ class SloSpec:
 
 
 def default_specs() -> List[SloSpec]:
-    """Serve latency and serve availability, both shed-enabled."""
+    """Serve latency and serve availability, both shed-enabled; decode
+    TTLT, observe-only."""
     return [
         SloSpec(
             "serve_latency", "latency",
@@ -128,6 +132,13 @@ def default_specs() -> List[SloSpec]:
             total_hist="pathway_serve_request_seconds",
             shed=True,
             description="1 - degraded fraction (every ladder rung counts)",
+        ),
+        SloSpec(
+            "decode_ttlt", "latency",
+            objective=0.99,
+            hist="pathway_generator_ttlt_seconds",
+            threshold_s=config.get("observe.slo_ttlt_ms") * 1e-3,
+            description="decode requests at/under the TTLT threshold",
         ),
     ]
 

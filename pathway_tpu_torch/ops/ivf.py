@@ -32,13 +32,19 @@
   ``live_mask``, and keys the snapshot never saw stay in the exact tail.
   An index built by ``build_from_matrix`` keeps only the streamed rows on
   the host and never retrains.  Serving continues on the old layout
-  until the install.
+  until the install;
+- **faults and metrics**, as in the reference: absorb and retrain fire
+  ``ivf.absorb`` / ``ivf.retrain``, retry a bounded number of times and
+  observe ``pathway_ivf_{absorb,retrain}_seconds``; the exact-tail upload
+  retries under ``ivf.tail_upload`` and, past its budget, leaves the
+  serve resident-only (``tail_degraded``, ``tail_skipped``); the index
+  is a provider of the ``pathway_ivf_*`` samples and reports its device
+  bytes in ``hbm_bytes``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -46,7 +52,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import observe
 from ..device import resolve_device
+from ..observe import trace
+from ..robust import TAIL_SKIPPED, RetryPolicy, inject, log_once, record_degraded, retry_call
 from .ivf_rescore import rescore_shortlist
 from .knn import normalize_metric
 
@@ -54,10 +63,15 @@ __all__ = ["IvfKnnIndex"]
 
 _PREF_CHUNK = 131072
 # failed background absorbs and retrains retry a bounded number of
-# times with backoff
-_MAINT_ATTEMPTS = 3
-_MAINT_BASE_DELAY_S = 0.05
-_log = logging.getLogger(__name__)
+# times with backoff (the reference's schedule)
+_MAINT_RETRY = RetryPolicy(attempts=3, base_delay_s=0.05, max_delay_s=1.0)
+# the serve-path tail upload runs under the index lock: its whole retry
+# budget stays in the low milliseconds
+_TAIL_RETRY = RetryPolicy(attempts=3, base_delay_s=0.002, max_delay_s=0.02)
+
+# maintenance wall time, observed after the lock sections
+_H_ABSORB = observe.histogram("pathway_ivf_absorb_seconds")
+_H_RETRAIN = observe.histogram("pathway_ivf_retrain_seconds")
 
 
 def _kmeans(
@@ -198,12 +212,50 @@ class IvfKnnIndex:
             "sync_builds": 0,
             "retrains": 0,
             "absorbs": 0,
+            "tail_cache_hits": 0,
+            "tail_cache_misses": 0,
             "absorb_failures": 0,
             "retrain_failures": 0,
         }
+        # True while the last tail upload failed past its retries (serves
+        # then run resident-only, flagged tail_skipped); cleared by the
+        # next successful upload or cache hit
+        self.tail_degraded = False
         # result-visibility generation: bumped on every mutation that can
         # change what a serve returns
         self.generation = 0
+        self._observe_id = observe.next_id()
+        observe.register_provider(self)
+
+    def hbm_bytes(self) -> Dict[str, int]:
+        """Device bytes by component: the built structure (slabs, bias,
+        centroids) and the cached exact-tail upload."""
+        resident = sum(
+            t.numel() * t.element_size() for t in (self._slabs, self._bias, self._centroids) if t is not None
+        )
+        cache = self._tail_cache
+        tail = 0 if cache is None else cache[1].numel() * cache[1].element_size()
+        return {"resident": resident, "tail": tail}
+
+    def observe_metrics(self):
+        """Scrape-time ``pathway_ivf_*`` samples: structure gauges from
+        live state, maintenance and tail-cache counters from ``stats``
+        (lock-free reads; a scrape never takes the index lock)."""
+        labels = {"index": str(self._observe_id)}
+        centroids = self._centroids
+        yield ("gauge", "pathway_ivf_nlist", labels, 0 if centroids is None else int(centroids.shape[0]))
+        yield ("gauge", "pathway_ivf_resident_vectors", labels, len(self))
+        yield ("gauge", "pathway_ivf_tail_size", labels, len(self._tail))
+        for kind in ("sync_builds", "retrains", "absorbs"):
+            yield ("counter", "pathway_ivf_maintenance_total", {**labels, "kind": kind}, self.stats[kind])
+        # legacy alias of the absorb failure count, as the reference keeps it
+        yield ("counter", "pathway_ivf_maintenance_total", {**labels, "kind": "absorb_errors"},
+               self.stats["absorb_failures"])
+        for kind in ("absorb", "retrain"):
+            yield ("counter", "pathway_ivf_maintenance_failures_total", {**labels, "kind": kind},
+                   self.stats[f"{kind}_failures"])
+        for result, key in (("hit", "tail_cache_hits"), ("miss", "tail_cache_misses")):
+            yield ("counter", "pathway_ivf_tail_cache_total", {**labels, "result": result}, self.stats[key])
 
     def __len__(self) -> int:
         if self._slabs is None:
@@ -323,29 +375,34 @@ class IvfKnnIndex:
 
     def _retrain_bg(self) -> None:
         """Background retrain: snapshot the host rows under the lock,
-        train a layout off it, install under it.  A failed pass is logged
-        once, counted in ``stats["retrain_failures"]`` and retried from a
-        fresh snapshot a bounded number of times; serving stays on the
-        old layout and a later ``add`` re-arms it."""
+        train a layout off it, install under it (the ``ivf.retrain``
+        fault site fires first).  A failed pass is logged once per
+        exception type, counted in ``stats["retrain_failures"]`` and
+        retried from a fresh snapshot a bounded number of times; serving
+        stays on the old layout and a later ``add`` re-arms it."""
         try:
-            for attempt in range(_MAINT_ATTEMPTS):
+            for attempt in range(_MAINT_RETRY.attempts):
                 try:
+                    inject.fire("ivf.retrain")
                     with self._lock:
                         snapshot = dict(self._rows)
                     if not snapshot:
                         return
+                    t0 = time.perf_counter_ns()
                     built = self._train_layout(snapshot)
                     with self._lock:
                         self._install(built, snapshot)
                         self.stats["retrains"] += 1
+                    _H_RETRAIN.observe_ns(time.perf_counter_ns() - t0)
                     return
                 except Exception as exc:  # noqa: BLE001 - counted, logged, retried
                     with self._lock:
                         self.stats["retrain_failures"] += 1
-                    if self.stats["retrain_failures"] == 1:
-                        _log.warning("IVF background retrain failed (%r); retrying", exc)
-                    if attempt + 1 < _MAINT_ATTEMPTS:
-                        time.sleep(_MAINT_BASE_DELAY_S * 2**attempt)
+                    log_once(f"ivf.retrain:{type(exc).__name__}",
+                             "IVF background retrain failed (%r); retrying with backoff", exc)
+                    if attempt + 1 >= _MAINT_RETRY.attempts:
+                        return
+                    time.sleep(_MAINT_RETRY.delay_s("ivf.retrain", attempt + 1))
         finally:
             self._retraining = False
 
@@ -559,8 +616,9 @@ class IvfKnnIndex:
         ``stats["absorb_failures"]`` and retried from a fresh snapshot a
         bounded number of times; the next ``add`` re-arms it after that."""
         try:
-            for attempt in range(_MAINT_ATTEMPTS):
+            for attempt in range(_MAINT_RETRY.attempts):
                 try:
+                    t0 = time.perf_counter_ns()
                     with self._lock:
                         snap = self._absorb_snapshot()
                     if snap is None:
@@ -568,14 +626,16 @@ class IvfKnnIndex:
                     plan = self._plan_absorb(snap)
                     with self._lock:
                         self._commit_absorb(snap, plan)
+                    _H_ABSORB.observe_ns(time.perf_counter_ns() - t0)
                     return
                 except Exception as exc:  # noqa: BLE001 - counted, logged, retried
                     with self._lock:
                         self.stats["absorb_failures"] += 1
-                    if self.stats["absorb_failures"] == 1:
-                        _log.warning("IVF background absorb failed (%r); retrying", exc)
-                    if attempt + 1 < _MAINT_ATTEMPTS:
-                        time.sleep(_MAINT_BASE_DELAY_S * 2**attempt)
+                    log_once(f"ivf.absorb:{type(exc).__name__}",
+                             "IVF background absorb failed (%r); retrying with backoff", exc)
+                    if attempt + 1 >= _MAINT_RETRY.attempts:
+                        return
+                    time.sleep(_MAINT_RETRY.delay_s("ivf.absorb", attempt + 1))
         finally:
             self._absorbing = False
 
@@ -605,6 +665,7 @@ class IvfKnnIndex:
         cluster are ranked by a stable sort, as the reference does, so
         the slots match it integer for integer.  The placed rows are
         uploaded here, off the lock, ready for the commit."""
+        inject.fire("ivf.absorb")  # fault site: the off-lock plan
         data = snap["data"]
         t = data.shape[0]
         M_pad, C_pad = snap["M_pad"], snap["C_pad"]
@@ -732,10 +793,37 @@ class IvfKnnIndex:
     def _tail_snapshot_device(self) -> Tuple[List[int], torch.Tensor]:
         """Device flavor of ``_tail_snapshot`` (caller holds the lock),
         cached until the tail changes: steady serving with an unchanged
-        tail uploads nothing."""
-        if self._tail_cache is None:
-            tail, mat = self._tail_snapshot()
-            self._tail_cache = (tail, torch.from_numpy(mat).to(self.device, self.dtype))
+        tail uploads nothing.  The upload retries briefly under
+        ``ivf.tail_upload``; past its budget the serve runs resident-only
+        (an empty tail, ``tail_degraded`` set, ``tail_skipped`` counted)
+        and nothing is cached, so the next serve uploads again."""
+        cache = self._tail_cache
+        if cache is not None:
+            self.stats["tail_cache_hits"] += 1
+            self.tail_degraded = False
+            return cache
+        self.stats["tail_cache_misses"] += 1
+        t_up0 = time.perf_counter_ns()
+        tail, mat = self._tail_snapshot()
+        try:
+            dev_mat = retry_call(
+                "ivf.tail_upload", lambda: torch.from_numpy(mat).to(self.device, self.dtype), policy=_TAIL_RETRY
+            )
+        except Exception as exc:  # noqa: BLE001 - the degradation ladder's tail rung
+            log_once(f"ivf.tail_upload:{type(exc).__name__}",
+                     "IVF exact-tail upload failed (%r); serving resident-only (tail_skipped)", exc)
+            record_degraded(TAIL_SKIPPED)
+            self.tail_degraded = True
+            t = trace.current()
+            if t is not None:
+                t.add_span("ivf.tail_upload", t_up0, time.perf_counter_ns(), status=TAIL_SKIPPED,
+                           error=type(exc).__name__)
+            return [], torch.zeros((0, self.dimension), dtype=self.dtype, device=self.device)
+        self.tail_degraded = False
+        t = trace.current()
+        if t is not None:
+            t.add_span("ivf.tail_upload", t_up0, time.perf_counter_ns(), rows=len(tail))
+        self._tail_cache = (tail, dev_mat)
         return self._tail_cache
 
     # -- search --------------------------------------------------------------

@@ -36,7 +36,9 @@ Each submit books one dispatch and each completion one fetch
 (``ops/dispatch_counter.py``).  The launch retries under the site
 ``serve.dispatch`` (exact) or ``ivf.dispatch`` (IVF) with a short
 schedule, because it runs under the index and serve locks; the
-completion fires ``serve.fetch``.  Stage timings land on
+completion fires ``serve.fetch``.  An IVF serve whose exact-tail upload
+failed past its retries (``IvfKnnIndex._tail_snapshot_device``) returns
+the resident rows flagged ``tail_skipped``.  Stage timings land on
 ``pathway_serve_stage_seconds{stage}`` and, with the same clock reads, on
 the active trace (``stage1.dispatch`` / ``stage1.fetch`` /
 ``stage1.postprocess``).  The sharded path is not ported yet.
@@ -56,7 +58,7 @@ from ..cache import embedding_cache_from_env
 from ..device import to_host, upload
 from ..models.transformer import masked_mean_pool, normalized_token_states
 from ..observe import trace
-from ..robust import Deadline, RetryPolicy, ServeResult, inject, retry_call
+from ..robust import TAIL_SKIPPED, Deadline, RetryPolicy, ServeResult, inject, retry_call
 from .dispatch_counter import record_dispatch, record_fetch
 from .ivf import merge_stage1_row
 from .knn import _bucket
@@ -264,6 +266,8 @@ class FusedEncodeSearch:
                 index.maybe_retrain_async()
             k_eff = min(k, len(index))
             tail, tail_dev = index._tail_snapshot_device()
+            # the ladder's tail rung: counted by the snapshot itself
+            tail_skipped = index.tail_degraded
 
             def launch():
                 zz, qtok = (z, None) if z is not None else self._embed(ids, mask)
@@ -289,7 +293,9 @@ class FusedEncodeSearch:
                 for qi in range(len(texts))
             ]
             self._note_post(t, t_fetch)
-            return ServeResult(results, meta={"index_generation": gen0})
+            return ServeResult(
+                results, degraded=(TAIL_SKIPPED,) if tail_skipped else (), meta={"index_generation": gen0}
+            )
 
         return self._handle(complete, qtok, mask, n_real)
 

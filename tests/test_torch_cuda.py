@@ -1,8 +1,10 @@
 """Port tests that need an NVIDIA GPU and nvcc: the CUDA rescore kernels
 against their plain version, the IVF serve path through them, an absorb
 and a background retrain on the card, the forward-index gather (against
-the NumPy MaxSim, and without a device-to-host sync) and the packed
-cross-encoder against the unpacked one.  They skip
+the NumPy MaxSim, and without a device-to-host sync), the packed
+cross-encoder against the unpacked one, and the decode path's row
+kernels (readout row invariance at every row count, the fused residual
+add + LayerNorm equal to the two steps).  They skip
 without a card.  This file imports neither JAX nor the reference, so on
 a machine without JAX it runs as
 
@@ -303,6 +305,62 @@ def test_cuda_decode_rows_match_plain_and_are_row_invariant():
         logits = tied_readout(x, table)
         torch.testing.assert_close(logits, tied_readout_reference(x, table), atol=1e-4, rtol=0)
         assert torch.equal(tied_readout(x[:1], table)[0], logits[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,V", [(256, 32768), (99, 4099), (1536, 1000)])
+def test_cuda_tied_readout_rows_invariant_at_every_row_count(d, V):
+    """The tiled readout against its plain version at M = 1 / 13 / 16 /
+    32 / 256, f32 and bf16 rows, V not a multiple of the tile, d off the
+    16-byte width (99) and at the widest row (1536); the first and the
+    last row of every call equal the same row computed alone."""
+    dev = _cuda()
+    from pathway_tpu_torch.ops.decode_rows import tied_readout, tied_readout_reference
+
+    g = torch.Generator(device=dev).manual_seed(d)
+    table = torch.randn(V, d, generator=g, device=dev) * 0.02
+    for M in (1, 13, 16, 32, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            h = torch.randn(M, d, generator=g, device=dev).to(dtype)
+            got = tied_readout(h, table)
+            torch.testing.assert_close(got, tied_readout_reference(h, table), atol=1e-4, rtol=0)
+            for r in {0, M - 1}:
+                assert torch.equal(tied_readout(h[r : r + 1], table)[0], got[r]), (M, dtype, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(16, 1, 256), (16, 32, 256), (3, 5, 99), (2, 1, 1536)])
+def test_cuda_add_layer_norm_equals_add_then_layer_norm(dtype, shape):
+    dev = _cuda()
+    from pathway_tpu_torch.ops.decode_rows import add_layer_norm_rows, layer_norm_reference, layer_norm_rows
+
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    d = shape[-1]
+    x = (torch.randn(*shape, generator=g, device=dev) * 3).to(dtype)
+    delta = torch.randn(*shape, generator=g, device=dev).to(dtype)
+    w = torch.rand(d, generator=g, device=dev) + 0.5
+    b = torch.randn(d, generator=g, device=dev) * 0.1
+    for out_dtype in (torch.bfloat16, torch.float32):
+        s, y = add_layer_norm_rows(x, delta, w, b, out_dtype)
+        assert torch.equal(s, x + delta)
+        assert torch.equal(y, layer_norm_rows(x + delta, w, b, out_dtype))
+    torch.testing.assert_close(y, layer_norm_reference(s, w, b, torch.float32), atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_row_wrappers_refuse_strided_tensors():
+    dev = _cuda()
+    from pathway_tpu_torch.ops.decode_rows import add_layer_norm_rows, layer_norm_rows, tied_readout
+
+    x = torch.randn(16, 512, device=dev)[:, ::2]
+    w, b = torch.ones(256, device=dev), torch.zeros(256, device=dev)
+    with pytest.raises(ValueError):
+        tied_readout(x, torch.randn(64, 256, device=dev))
+    with pytest.raises(ValueError):
+        layer_norm_rows(x, w, b, torch.float32)
+    with pytest.raises(ValueError):
+        add_layer_norm_rows(x, x, w, b, torch.float32)
 
 
 @pytest.mark.cuda
