@@ -6,6 +6,8 @@ NVIDIA GPU:
     python3 chip_smoke.py --compare ROOT   # the package under ROOT alone: host
                                            # us per row-kernel wrapper call and
                                            # engine c16 decode tokens/s
+    python3 chip_smoke.py --framing        # host seconds of the warm-state
+                                           # framing, plain against bulk
 
 Phases, in order; any failure exits non-zero:
 
@@ -115,7 +117,34 @@ Phases, in order; any failure exits non-zero:
    tokens/s and TTLT p50 / p90 per arm and
    concurrency, slots per chunk, busy share at c16, tokens per lane-round
    and draft sources, bf16-vs-int8 drift, pool bytes, prefill and step
-   ms per dispatch.
+   ms per dispatch;
+11. live ingest (bench.py phase_live_ingest): a ``LiveIngestRunner``
+   embeds connector commits into the 1M IVF index and the phase-8
+   forward index while phase 9's scheduler serves the cascade at c16:
+   128 single-query requests, 8 commits of 8 fresh documents 10 ms
+   apart, a unique sentinel in the middle commit; then a burst of 4,096
+   documents in commits of 64 (past ``absorb_threshold``: an absorb
+   writes slabs in place while the MaxSim pipeline serves).  Checked:
+   every batch lands, nothing dropped, the generation grew, the
+   sentinel is retrievable and its ingest trace kept; stage 1 + MaxSim
+   stay within 2 dispatches + 2 fetches per batch under the burst; the
+   rescore kernel launched in the drives and agrees with its plain
+   version on the absorbed rows' probes; 64 absorbed documents at full
+   probe each rank their own key first; under a real freshness burn (a
+   paused backlog past 50 ms) ``freshness`` fires, every ``high``
+   request is clean and ``low`` ones are shed only with shed on.
+   Printed: staleness and serve p50 / p99, ingest docs/s, busy share,
+   plane on / off serve p50 per interleaved round;
+12. warm state (bench.py ``phase_serve_fabric``'s cold ingest): cold
+   bring-up (encode 65,536 documents, ``IvfKnnIndex.add``, first search)
+   against a ``WarmStateManager`` snapshot of IVF, forward index, result
+   and embedding caches to a ``FileBackend`` restored into fresh
+   instances plus a first search.  Checked: 64 queries served
+   bit-identically to the writer (fused, embedding-cache and MaxSim
+   paths; stage-1 outputs ``torch.equal``), warm faster than cold, a
+   corrupted newest chunk restored from the older snapshot and counted
+   ``crc``; then the 1M IVF index snapshotted and restored (bytes and
+   seconds printed), 64 serves bit-identical.
 
 The card's name and power limit, then the JSON record of the kernels,
 then ``{"ok": true, "device": {...}}`` are the last three lines; the
@@ -276,6 +305,7 @@ def rescore_at_path_shape(ivf, args, dev):
         err = compare_rescore(rescore_shortlist, ivf_rescore_reference, *args)
         flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
         ms = timed_ms(lambda: rescore_shortlist(*args), reps=20, flush=flush)
+        library_ms, library_gather_ms = library_rescore_ms(ivf, probe, zq, flush)
         # the two kernels alone (probe inversion + rescore), L2 cold: the
         # event window above also holds any host gap before the launch
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -291,7 +321,27 @@ def rescore_at_path_shape(ivf, args, dev):
     return {
         "max_abs_err": err, "ms": ms, "kernels_ms": kernels_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "distinct_clusters": distinct, "bytes": n_bytes, "B": probe.shape[0], "p": probe.shape[1],
+        "library_ms": library_ms, "library_with_gather_ms": library_gather_ms,
     }
+
+
+def library_rescore_ms(ivf, probe, q, flush):
+    """The library's rescore at these probes, L2 cold: ``baddbmm`` over
+    slabs and bias gathered beforehand (gather not timed), and gather +
+    ``baddbmm`` together."""
+    B, p = probe.shape
+    M, d_pad = ivf._M_pad, ivf._d_pad
+    pl = probe.long()
+    qcol = q.reshape(B, -1, 1)
+
+    def gather_baddbmm():
+        return torch.baddbmm(ivf._bias[pl].reshape(B, p * M, 1), ivf._slabs[pl].reshape(B, p * M, d_pad), qcol)
+
+    rows = ivf._slabs[pl].reshape(B, p * M, d_pad)
+    bias_g = ivf._bias[pl].reshape(B, p * M, 1)
+    library_ms = timed_ms(lambda: torch.baddbmm(bias_g, rows, qcol), reps=5, flush=flush)
+    del rows, bias_g
+    return library_ms, timed_ms(gather_baddbmm, reps=5, flush=flush)
 
 
 def rescore_line(ivf, r) -> str:
@@ -300,7 +350,8 @@ def rescore_line(ivf, r) -> str:
         f"{r['distinct_clusters']} distinct clusters probed: max_abs_err={r['max_abs_err']:.3e}, "
         f"kernel {r['ms']:.4f} ms between CUDA events, "
         + (f"its 2 kernels alone {r['kernels_ms']:.4f} ms, " if r["kernels_ms"] is not None else "its kernels alone not measured, ")
-        + f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e9:.4f} GB)"
+        + f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e9:.4f} GB); baddbmm over slabs gathered "
+        f"beforehand {r['library_ms']:.4f} ms, gather + baddbmm {r['library_with_gather_ms']:.4f} ms"
     )
 
 
@@ -747,7 +798,7 @@ def rerank_phase(encoder, ivf, docs, keys, tag: str):
     )
     for name, pipe in modes.items():
         log(f"profile rerank {name} {tag}: " + profile_serve(pipe, calls[:3]))
-    return rr_launches, rr_kernel, modes["cascade"]
+    return rr_launches, rr_kernel, modes, fwd
 
 class RecordingTarget:
     """Forwards the scheduler's batches to a pipeline and keeps each
@@ -1745,6 +1796,699 @@ def decode_phase(tag: str):
     return kernels
 
 
+LI_CALLERS = 16  # phase 11: the c16 drive of bench.py phase_live_ingest
+LI_REQUESTS = 128
+LI_COMMITS = 8
+LI_PER_COMMIT = 8
+LI_BURST = 4096  # past absorb_threshold: an absorb runs while serves do
+LI_BURST_COMMIT = 64
+LI_ROUNDS = 3  # interleaved pairs of the plane and shed A/Bs
+LI_SHED_BACKOFF_S = 0.1  # a shed caller waits this long before its next request, as after a retry-after
+SENTINEL = "the zanzibar quorum ledger reconciles nightly freshness audits"
+
+
+def live_drive(sched, pool, n: int, priority_of=None, feeder=None, until=None, shed_backoff_s=0.0):
+    """``LI_CALLERS`` closed-loop callers serving single queries from
+    ``pool`` (plus an optional feeder thread sharing their barrier); with
+    ``until``, callers go on past ``n`` requests until it is set; a caller
+    whose request was shed waits ``shed_backoff_s`` before its next one.
+    Returns (latencies ms, shed flags, priorities) in request order."""
+    done = []
+    errors = []
+    lock = threading.Lock()
+    barrier = threading.Barrier(LI_CALLERS + (feeder is not None))
+
+    def worker(t: int):
+        try:
+            barrier.wait(timeout=60)
+            i = t
+            while i < n or (until is not None and not until.is_set()):
+                prio = priority_of(i) if priority_of else None
+                t0 = time.perf_counter()
+                res = sched.submit([pool[(i * 7) % len(pool)]], K, priority=prio).result(timeout=TICKET_TIMEOUT_S)
+                lat = (time.perf_counter() - t0) * 1e3
+                shed = bool(res.meta.get("shed"))
+                if not shed and (res.degraded or not res[0]):
+                    raise AssertionError(f"request {i}: degraded {res.degraded}, {len(res[0])} rows")
+                with lock:
+                    done.append((i, lat, shed, prio))
+                if shed:
+                    time.sleep(shed_backoff_s)
+                i += LI_CALLERS
+        except Exception as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    def feed():
+        try:
+            feeder(barrier)
+        except Exception as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+        finally:
+            if until is not None:
+                until.set()
+
+    threads = [threading.Thread(target=worker, args=(t,), daemon=True) for t in range(LI_CALLERS)]
+    if feeder is not None:
+        threads.append(threading.Thread(target=feed, daemon=True))
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"live drive: {errors[:3]} (alive: {sum(t.is_alive() for t in threads)})")
+    done.sort()
+    return np.asarray([d[1] for d in done], np.float64), [d[2] for d in done], [d[3] for d in done]
+
+
+def stored_bytes(backend, prefix: str) -> int:
+    keys = backend.list_keys(prefix + "/")
+    if hasattr(backend, "root"):
+        return sum(os.path.getsize(backend._path(k)) for k in keys)
+    return sum(len(backend.get(k)) for k in keys)
+
+
+def device_busy(prof, wall_ms: float) -> str:
+    dev_ms = sum(
+        getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+    ) / 1e3
+    if dev_ms <= 0:
+        return "busy share not measured (no CUDA events traced)"
+    return f"device kernels {dev_ms:.3f} ms in a {wall_ms:.3f} ms wall ({100 * dev_ms / wall_ms:.1f}% busy)"
+
+
+def delta_quantile_ms(h, before_counts, q: float, minus=None) -> float:
+    """Bucket-bound estimate of the ``q`` quantile (ms) of the
+    observations a histogram took since ``before_counts``, less the
+    bucket counts ``minus``."""
+    from pathway_tpu_torch.observe import bucket_bounds_s
+
+    delta = [a - b for a, b in zip(h.snapshot()[0], before_counts)]
+    if minus is not None:
+        delta = [d - m for d, m in zip(delta, minus)]
+    cut, cum = q * sum(delta), 0
+    for bound, c in zip(bucket_bounds_s(), delta):
+        cum += c
+        if c and cum >= cut:
+            return bound * 1e3
+    return float("nan")
+
+
+def stage_marks(ingest_mod):
+    """(count, sum ns) of the freshness histograms, for ``stage_means``."""
+    hists = {"freshness": ingest_mod._H_FRESH, **ingest_mod._H_STAGE}
+    return {name: h.snapshot()[1:] for name, h in hists.items()}
+
+
+def stage_means(ingest_mod, before, minus=None) -> str:
+    """Mean ms per observation of each freshness histogram since
+    ``before`` (queue wait and freshness per document, the rest per
+    batch), less the (sum ns, count) deltas ``minus``."""
+    now = stage_marks(ingest_mod)
+    parts = []
+    for name, (sum_ns, n) in now.items():
+        d_sum, d_n = sum_ns - before[name][0], n - before[name][1]
+        if minus is not None:
+            d_sum, d_n = d_sum - minus[name][0], d_n - minus[name][1]
+        parts.append(f"{name} {d_sum / d_n * 1e-6:.3f} ms" if d_n else f"{name} -")
+    return ", ".join(parts)
+
+
+def live_ingest_phase(encoder, ivf, docs, modes, fwd, tag: str):
+    """Phase 11: live ingest into the 1M IVF index and the forward index
+    under c16 scheduled serve; returns the rescore launches of its drives
+    and the kernel's record at a stage-1 call made after the absorb."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathway_tpu_torch import config as port_config
+    from pathway_tpu_torch.observe import slo as slo_mod
+    from pathway_tpu_torch.observe import trace as trace_mod
+    from pathway_tpu_torch.ops import dispatch_counter
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+    from pathway_tpu_torch.serve import LiveIngestRunner, ServeScheduler
+    from pathway_tpu_torch.serve import ingest as ingest_mod
+
+    t_phase = time.perf_counter()
+    # a fresh SLO engine: the burn of earlier phases' injected faults is
+    # not this traffic's, and it would hold the runner's backpressure on
+    slo_mod.reset()
+    cascade, maxsim = modes["cascade"], modes["maxsim"]
+    pool = [" ".join(docs[(i * 9973) % N_DOCS].split()[:8]) for i in range(32)]
+    fresh_texts = corpus(LI_BURST + 4096, seed=SEED + 11)  # every arm's fresh documents
+    taken = [0]
+
+    def fresh_rows(n: int):
+        """New (key, text) rows, registered with the pipelines' document
+        text so stage 2 can score them once retrievable."""
+        rows = []
+        for _ in range(n):
+            i = taken[0]
+            taken[0] += 1
+            key, text = (1 << 60) + i, fresh_texts[i] + " fresh"
+            cascade.doc_text[key] = text
+            rows.append((key, text))
+        return rows
+
+    def scheduler(target):
+        return ServeScheduler(target, window_us=SCHED_WINDOW_US, max_batch=SCHED_MAX_BATCH, result_cache=None)
+
+    # -- ingest alone: 1,024 documents in commits of 64, no serve --
+    t_arm = time.perf_counter()
+    marks = stage_marks(ingest_mod)
+    runner = LiveIngestRunner(encoder, ivf, fwd, name="smoke-alone")
+    conn = runner.connector("smoke-alone-0")
+    t0 = time.perf_counter()
+    for _ in range(0, 1024, LI_BURST_COMMIT):
+        conn.insert_rows(fresh_rows(LI_BURST_COMMIT))
+        conn.commit()
+    if not runner.flush(timeout=300.0):
+        raise AssertionError("ingest alone did not land")
+    alone_s = time.perf_counter() - t0
+    runner.stop()
+    log(
+        f"ingest alone {tag}: 1024 documents in commits of {LI_BURST_COMMIT} in {alone_s:.3f} s "
+        f"({1024 / alone_s:.0f} docs/s, host clock), {runner.stats['batches']} batches; stage means "
+        f"{stage_means(ingest_mod, marks)}; SLOs firing {list(slo_mod.firing_specs())}; "
+        f"{time.perf_counter() - t_arm:.1f} s"
+    )
+
+    # -- the combined drive: 128 requests from 16 callers, 8 commits of 8 --
+    t_arm = time.perf_counter()
+    marks = stage_marks(ingest_mod)
+    fresh_counts = ingest_mod._H_FRESH.snapshot()[0]
+    runner = LiveIngestRunner(encoder, ivf, fwd, name="smoke-live")
+    conn = runner.connector("smoke-live-0")
+    gen0 = ivf.generation
+    sentinel_key = (1 << 60) - 1
+    cascade.doc_text[sentinel_key] = SENTINEL
+    sentinel = {}
+
+    def route_sentinel():
+        """The middle commit's sentinel arrives routed from a peer host,
+        stamped at that host's commit 1 ms further back than the
+        freshness threshold: its batch, alone in the queue (flushed before
+        and after), is the one batch past the threshold, so its trace is
+        force-kept.  Its observations are left out of the staleness
+        quantiles and the stage means."""
+        if not runner.flush(timeout=60.0):
+            raise AssertionError("the commits before the sentinel did not land")
+        before, marks0 = ingest_mod._H_FRESH.snapshot()[0], stage_marks(ingest_mod)
+        stale_ns = int(port_config.get("observe.slo_freshness_ms") * 1e6) + 1_000_000
+        runner.ingest_routed([(sentinel_key, SENTINEL, time.perf_counter_ns() - stale_ns)], connector="smoke-sentinel")
+        if not runner.flush(timeout=60.0):
+            raise AssertionError("the sentinel did not land")
+        sentinel["excluded"] = [a - b for a, b in zip(ingest_mod._H_FRESH.snapshot()[0], before)]
+        sentinel["marks"] = {
+            name: (a[0] - marks0[name][0], a[1] - marks0[name][1]) for name, a in stage_marks(ingest_mod).items()
+        }
+        sentinel["traces"] = [
+            t for t in trace_mod.snapshot_traces()["traces"]
+            if t["kind"] == "ingest" and "smoke-sentinel" in t["attrs"].get("connectors", ())
+        ]
+
+    def feeder(barrier):
+        barrier.wait(timeout=60)
+        for c in range(LI_COMMITS):
+            conn.insert_rows(fresh_rows(LI_PER_COMMIT))
+            conn.commit(offsets={"0": (c + 1) * LI_PER_COMMIT})
+            if c == LI_COMMITS // 2:
+                route_sentinel()
+            time.sleep(0.01)
+
+    sched = scheduler(cascade)
+    try:
+        live_drive(sched, pool, 2 * LI_CALLERS)  # settle the compositions
+        rescore_shortlist.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            lats, _, _ = live_drive(sched, pool, LI_REQUESTS, feeder=feeder)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        sched.stop()
+    landed = runner.flush(timeout=120.0)
+    stats = runner.stats
+    p50_ms = delta_quantile_ms(ingest_mod._H_FRESH, fresh_counts, 0.5, minus=sentinel["excluded"])
+    p99_ms = delta_quantile_ms(ingest_mod._H_FRESH, fresh_counts, 0.99, minus=sentinel["excluded"])
+    got = cascade([SENTINEL], K)
+    kept = [t["keep_reason"] for t in sentinel["traces"]]
+    found = sentinel_key in [key for key, _ in got[0]]
+    log(
+        f"live ingest, c{LI_CALLERS} scheduled cascade (window {SCHED_WINDOW_US:.0f} us, max_batch "
+        f"{SCHED_MAX_BATCH}) over the 1M IVF index with {LI_COMMITS} commits of {LI_PER_COMMIT} fresh documents "
+        f"10 ms apart {tag}: serve p50 {np.percentile(lats, 50):.3f} ms p99 {np.percentile(lats, 99):.3f} ms "
+        f"({LI_REQUESTS} requests); staleness (arrival to retrievable) p50 {p50_ms:.3f} ms p99 {p99_ms:.3f} ms "
+        f"(bucket bounds); runner {stats}; generation {gen0} -> {ivf.generation}; sentinel retrievable {found}, "
+        f"its batch's ingest trace kept {kept}; stage means {stage_means(ingest_mod, marks, sentinel['marks'])}; "
+        f"{device_busy(prof, wall_ms)}; SLOs firing {list(slo_mod.firing_specs())}; "
+        f"{time.perf_counter() - t_arm:.1f} s"
+    )
+    if not landed or stats["dropped"] or ivf.generation <= gen0 or not found or kept != ["forced"]:
+        raise AssertionError(f"live ingest: flushed {landed}, stats {stats}, sentinel {found}, its trace kept {kept}")
+
+    # -- burst: 4,096 documents in commits of 64 while the MaxSim pipeline
+    # serves; the tail passes absorb_threshold and the absorb runs under
+    # the serves; each batch stays within stage 1 + MaxSim's 2 + 2 --
+    t_arm = time.perf_counter()
+    marks = stage_marks(ingest_mod)
+    absorbs0 = ivf.stats["absorbs"]
+    burst_keys = []
+    during_absorb = [0]
+    t_burst = {}
+
+    def burst_feeder(barrier):
+        barrier.wait(timeout=60)
+        t_burst["start"] = time.perf_counter()
+        for _ in range(0, LI_BURST, LI_BURST_COMMIT):
+            rows = fresh_rows(LI_BURST_COMMIT)
+            burst_keys.extend(k for k, _ in rows)
+            conn.insert_rows(rows)
+            conn.commit()
+        if not runner.flush(timeout=300.0):
+            raise AssertionError("the burst did not land")
+        t_burst["landed"] = time.perf_counter()
+        wait_maintenance(ivf, timeout_s=120.0)
+
+    class Watch:
+        """Counts requests answered while the IVF absorb was running."""
+
+        def __init__(self, target):
+            self.target, self.k = target, target.k
+
+        def __getattr__(self, name):
+            return getattr(self.target, name)
+
+        def submit(self, texts, k=None, deadline=None, n_requests=1):
+            handle = self.target.submit(texts, k, deadline=deadline, n_requests=n_requests)
+
+            def complete():
+                out = handle()
+                if ivf._absorbing:
+                    during_absorb[0] += 1
+                return out
+
+            complete.advance = handle.advance
+            return complete
+
+    sched = scheduler(Watch(maxsim))
+    try:
+        with dispatch_counter.DispatchCounter() as counter:
+            lats_b, _, _ = live_drive(sched, pool, LI_REQUESTS, feeder=burst_feeder, until=threading.Event())
+        batches = sched.stats["batches"] + sched.stats["solo"]
+    finally:
+        sched.stop()
+    wait_maintenance(ivf, timeout_s=120.0)
+    launches = rescore_shortlist.launches
+    docs_s = len(burst_keys) / (t_burst["landed"] - t_burst["start"])
+    log(
+        f"live ingest burst {tag}: {len(burst_keys)} documents in commits of {LI_BURST_COMMIT}, landed at "
+        f"{docs_s:.0f} docs/s (embed + IVF and forward commits, host clock); {ivf.stats['absorbs'] - absorbs0} "
+        f"absorb(s) ran, {during_absorb[0]} of {len(lats_b)} scheduled MaxSim requests answered during one; serve "
+        f"p50 {np.percentile(lats_b, 50):.3f} ms p99 {np.percentile(lats_b, 99):.3f} ms; {counter.dispatches} "
+        f"dispatches + {counter.fetches} fetches for {batches} batches; rescore launches in the drives "
+        f"{launches}; stage means {stage_means(ingest_mod, marks)}; SLOs firing {list(slo_mod.firing_specs())}; "
+        f"{time.perf_counter() - t_arm:.1f} s"
+    )
+    if ivf.stats["absorbs"] <= absorbs0 or ivf.stats["absorb_failures"]:
+        raise AssertionError(f"the burst ran no absorb: {ivf.stats}")
+    if counter.dispatches > 2 * batches or counter.fetches > 2 * batches:
+        raise AssertionError(f"{counter.dispatches} dispatches + {counter.fetches} fetches for {batches} batches")
+    if launches <= 0:
+        raise AssertionError("the drives under ingest launched no rescore kernel")
+
+    # -- absorbed rows served alone at full probe, and the kernel against its
+    # plain version on the slabs the absorb wrote in place --
+    placed = [k for k in burst_keys if k in ivf._slot_of_key]
+    if len(placed) < BATCH:
+        raise AssertionError(f"only {len(placed)} burst rows were absorbed into slab slots")
+    probe_keys = placed[:: max(1, len(placed) // BATCH)][:BATCH]
+    texts = [cascade.doc_text[k] for k in probe_keys]
+    C = ivf._centroids.shape[0]
+    ivf.n_probe = C
+    try:
+        rows = FusedEncodeSearch(encoder, ivf, k=K)(texts)
+    finally:
+        ivf.n_probe = None
+    first = sum(1 for row, key in zip(rows, probe_keys) if row and row[0][0] == key)
+    kernel = rescore_at_path_shape(ivf, stage1_rescore_args(maxsim.retriever, ivf, texts[:RR_QUERIES]), torch.device(DEVICE))
+    log(
+        f"after the burst {tag}: {len(placed)} of {len(burst_keys)} rows in slab slots, {len(ivf._tail)} in the tail; "
+        f"full-probe serve (n_probe={C}) ranks the absorbed key first on {first}/{BATCH}; kernel ivf_rescore vs "
+        f"plain over the absorbed rows' probes {rescore_line(ivf, kernel)}"
+    )
+    if first != BATCH:
+        raise AssertionError(f"full-probe serve found {first}/{BATCH} absorbed keys")
+
+    # -- freshness plane on / off: serve p50 of interleaved pairs --
+    t_arm = time.perf_counter()
+    plane = {True: [], False: []}
+    for r in range(LI_ROUNDS):
+        for on in ((True, False) if r % 2 == 0 else (False, True)):
+            arm = LiveIngestRunner(encoder, ivf, fwd, name=f"smoke-ab-{r}-{int(on)}", freshness_plane=on)
+            arm_conn = arm.connector("ab-0")
+
+            def ab_feeder(barrier, arm_conn=arm_conn):
+                barrier.wait(timeout=60)
+                for _ in range(6):
+                    arm_conn.insert_rows(fresh_rows(LI_PER_COMMIT))
+                    arm_conn.commit()
+                    time.sleep(0.005)
+
+            sched = scheduler(cascade)
+            try:
+                live_drive(sched, pool, 2 * LI_CALLERS)
+                lat_ab, _, _ = live_drive(sched, pool, LI_REQUESTS, feeder=ab_feeder)
+            finally:
+                sched.stop()
+                arm.flush(timeout=120.0)
+                arm.stop()
+            plane[on].append(float(np.percentile(lat_ab, 50)))
+    ratios = [a / b for a, b in zip(plane[True], plane[False])]
+    log(
+        f"freshness plane on / off, serve p50 per interleaved round {tag}: on {[round(x, 3) for x in plane[True]]} "
+        f"ms, off {[round(x, 3) for x in plane[False]]} ms, ratios {[round(x, 4) for x in ratios]} (spread "
+        f"{min(ratios):.4f}-{max(ratios):.4f}, host clock); {time.perf_counter() - t_arm:.1f} s"
+    )
+
+    # -- shed A/B under a real freshness burn: a paused runner's backlog ages
+    # past a 50 ms threshold; low requests are shed only with shed on, and
+    # a shed caller backs off before its next request --
+    runner.stop()
+    os.environ["PATHWAY_SLO_FRESHNESS_MS"] = "50"
+    backlog = None
+    try:
+        engine = slo_mod.set_engine(None)
+        engine.evaluate(max_age_s=0.0)
+        backlog = LiveIngestRunner(encoder, ivf, fwd, name="smoke-backlog", autostart=False)
+        bconn = backlog.connector("backlog-0")
+        bconn.insert_rows(fresh_rows(32))
+        bconn.commit()
+        time.sleep(0.12)
+        engine.evaluate(max_age_s=0.0)
+        firing = slo_mod.firing_specs()
+        if "freshness" not in firing or not slo_mod.should_shed():
+            raise AssertionError(f"a paused backlog past the threshold did not fire freshness: {firing}")
+        high_p99 = {True: [], False: []}
+        n_shed = {True: 0, False: 0}
+        for r in range(LI_ROUNDS):
+            for shed_on in ((True, False) if r % 2 == 0 else (False, True)):
+                os.environ["PATHWAY_SERVE_SHED"] = "1" if shed_on else "0"
+                sched = scheduler(cascade)
+                try:
+                    lat_s, sheds, prios = live_drive(
+                        sched, pool, LI_REQUESTS, priority_of=lambda i: "low" if i % 2 else "high",
+                        shed_backoff_s=LI_SHED_BACKOFF_S,
+                    )
+                finally:
+                    sched.stop()
+                if any(sh for sh, pr in zip(sheds, prios) if pr == "high"):
+                    raise AssertionError("a high-priority request was shed")
+                if shed_on != any(sheds):
+                    raise AssertionError(f"shed {'on' if shed_on else 'off'}: {sum(sheds)} requests shed")
+                n_shed[shed_on] += sum(sheds)
+                high_p99[shed_on].append(float(np.percentile([l for l, pr in zip(lat_s, prios) if pr == "high"], 99)))
+    finally:
+        for name in ("PATHWAY_SLO_FRESHNESS_MS", "PATHWAY_SERVE_SHED"):
+            os.environ.pop(name, None)
+        if backlog is not None:
+            backlog.start()
+            backlog.flush(timeout=120.0)
+            backlog.stop()
+        slo_mod.reset()
+    log(
+        f"shed A/B under a freshness burn (paused backlog of 32 past 50 ms; firing {list(firing)}; shed callers back "
+        f"off {LI_SHED_BACKOFF_S * 1e3:.0f} ms) {tag}: high p99 "
+        f"per round shed on {[round(x, 3) for x in high_p99[True]]} ms, off {[round(x, 3) for x in high_p99[False]]} "
+        f"ms; low requests shed {n_shed[True]} (on) / {n_shed[False]} (off); every high request clean; phase "
+        f"{time.perf_counter() - t_phase:.1f} s"
+    )
+    return launches, kernel
+
+
+def stage1_outputs(retriever, ivf, texts):
+    """The IVF stage-1 device outputs (scores, slots, tail scores, tail
+    ids) of one batch, for ``torch.equal`` between two indexes.  A check,
+    not the path: its rescore launch is taken back off the count."""
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+    from pathway_tpu_torch.ops.knn import _bucket
+
+    ids, mask = retriever.encoder.tokenizer.encode_batch(texts)
+    pad = np.zeros((_bucket(len(ids)) - len(ids), ids.shape[1]), ids.dtype)
+    launches = rescore_shortlist.launches
+    with torch.no_grad():
+        z, _ = retriever._embed(np.concatenate([ids, pad]), np.concatenate([mask, pad]))
+        with ivf._lock:
+            _tail, tail_dev = ivf._tail_snapshot_device()
+            out = ivf._search_device(z, K, ivf.probe_count(), tail_dev, serve=True)
+    rescore_shortlist.launches = launches
+    return out
+
+
+class Timed:
+    """A warm-state component whose capture and install are timed."""
+
+    def __init__(self, component):
+        self.component, self.capture_s, self.install_s = component, 0.0, 0.0
+
+    def warm_state(self):
+        t0 = time.perf_counter()
+        state = self.component.warm_state()
+        self.capture_s += time.perf_counter() - t0
+        return state
+
+    def load_warm_state(self, state):
+        t0 = time.perf_counter()
+        out = self.component.load_warm_state(state)
+        torch.cuda.synchronize()
+        self.install_s += time.perf_counter() - t0
+        return out
+
+
+def timed_line(total_s: float, comps, attr: str) -> str:
+    parts = ", ".join(f"{name} {getattr(c, attr):.3f} s" for name, c in comps.items())
+    rest = total_s - sum(getattr(c, attr) for c in comps.values())
+    what = "pickle + frame + write" if attr == "capture_s" else "read + CRC scan + unpickle"
+    return f"{attr.split('_')[0]} {parts}; {what} {rest:.3f} s"
+
+
+def warm_state_phase(encoder, ivf, docs, keys, fwd, doc_text, tag: str):
+    """Phase 12: cold bring-up (encode + build + first search) against a
+    warm restore of IVF, forward index and both cache tiers from a
+    ``FileBackend``; then the 1M IVF index itself.  Returns the rescore
+    launches of its serves."""
+    import shutil
+    import tempfile
+
+    from pathway_tpu_torch import observe
+    from pathway_tpu_torch.cache import EmbeddingCache, ResultCache
+    from pathway_tpu_torch.index import ForwardIndex
+    from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+    from pathway_tpu_torch.ops.retrieve_rerank import RetrieveRerankPipeline
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+    from pathway_tpu_torch.persistence import FileBackend, MemoryBackend
+    from pathway_tpu_torch.serve import WarmStateManager
+
+    t_phase = time.perf_counter()
+    rescore_shortlist.launches = 0
+    queries = [" ".join(docs[(i * 7919 + 3) % N_DOCS].split()[::2]) for i in range(BATCH)]
+
+    # -- cold: encode the corpus, add, first search (the build) --
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = IvfKnnIndex(DIM, metric="cos")
+    vecs = np.concatenate([encoder.encode(docs[i : i + ENCODE_CHUNK]) for i in range(0, N_DOCS, ENCODE_CHUNK)])
+    cold.add(keys[:N_DOCS], vecs)
+    cold.search(encoder.encode(queries[:2]), k=K)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    wait_maintenance(cold)
+
+    def stack(ivf_x, fwd_x, ec):
+        return (
+            FusedEncodeSearch(encoder, ivf_x, k=K, embed_cache=None),
+            FusedEncodeSearch(encoder, ivf_x, k=K, embed_cache=ec),
+            RetrieveRerankPipeline(
+                FusedEncodeSearch(encoder, ivf_x, k=RR_CANDIDATES, embed_cache=None), doc_text=doc_text, k=K,
+                candidates=RR_CANDIDATES, forward_index=fwd_x,
+            ),
+        )
+
+    rc, ec = ResultCache(), EmbeddingCache()
+    writer = stack(cold, fwd, ec)
+    want = [list(w(queries)) for w in writer]  # fills the embedding cache
+    for q, row in zip(queries, want[2]):
+        rc.put_row(q, cold.generation, K, row)
+    want_dev = stage1_outputs(writer[0], cold, queries)
+
+    fail_crc = observe.counter("pathway_warmstate_restore_failures_total", kind="crc")
+    with tempfile.TemporaryDirectory(prefix="warmstate-") as tmp:
+        backend = FileBackend(tmp)
+        comps = {name: Timed(c) for name, c in (("ivf", cold), ("forward", fwd), ("result_cache", rc),
+                                                ("embedding_cache", ec))}
+        t0 = time.perf_counter()
+        prefix = WarmStateManager(backend, name="replica0", components=comps).snapshot()
+        t_snap = time.perf_counter() - t0
+        if prefix is None:
+            raise AssertionError("the warm-state snapshot was skipped")
+        snap_bytes = stored_bytes(backend, prefix)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replica = {
+            "ivf": IvfKnnIndex(DIM, metric="cos"),
+            "forward": ForwardIndex(encoder, tokens_per_doc=16, quant="int8"),
+            "result_cache": ResultCache(),
+            "embedding_cache": EmbeddingCache(),
+        }
+        timed = {name: Timed(c) for name, c in replica.items()}
+        report = WarmStateManager(FileBackend(tmp), name="replica0", components=timed).restore()
+        t_restore = time.perf_counter() - t0
+        replica["ivf"].search(encoder.encode(queries[:2]), k=K)
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+        if not report.restored:
+            raise AssertionError(f"warm restore failed: {report}")
+        reader = stack(replica["ivf"], replica["forward"], replica["embedding_cache"])
+        hits0 = replica["embedding_cache"].stats["hits"]
+        got = [list(r(queries)) for r in reader]
+        got_dev = stage1_outputs(reader[0], replica["ivf"], queries)
+        cached = replica["result_cache"].get_rows([(q, replica["ivf"].generation) for q in queries], K)
+        same = [g == w for g, w in zip(got, want)]
+        dev_equal = all(torch.equal(a, b) for a, b in zip(got_dev, want_dev))
+        emb_hits = replica["embedding_cache"].stats["hits"] - hits0
+
+        # a corrupted newest chunk falls back to the older snapshot
+        mgr = WarmStateManager(backend, name="fallback", components={"ivf": cold}, keep=2)
+        older, _newer = mgr.snapshot(), mgr.snapshot()
+        key = f"{mgr._snap_prefix(mgr._list_seqs()[-1])}/ivf"
+        blob = bytearray(backend.get(key))
+        blob[len(blob) // 2] ^= 0xFF
+        backend.put(key, bytes(blob))
+        crc0 = fail_crc.value
+        fallback = WarmStateManager(backend, name="fallback", components={"ivf": IvfKnnIndex(DIM, metric="cos")}).restore()
+        crc_counted = fail_crc.value - crc0
+    log(
+        f"warm state {tag}: cold bring-up (encode {N_DOCS} docs + IVF add + first search) {t_cold:.3f} s; snapshot "
+        f"of IVF + forward index ({len(fwd)} docs) + result cache ({len(rc._tier)}) + embedding cache ({len(ec)}) to "
+        f"a FileBackend {snap_bytes / 1e6:.1f} MB in {t_snap:.3f} s; warm restore + first search {t_warm:.3f} s "
+        f"(warm_vs_cold {t_cold / t_warm:.2f}x); snapshot {timed_line(t_snap, comps, 'capture_s')}; restore "
+        f"{timed_line(t_restore, timed, 'install_s')}; {BATCH} queries bit-identical to the writer: fused {same[0]}, "
+        f"embedding-cache path {same[1]} ({emb_hits} hits), MaxSim pipeline {same[2]}, stage-1 device outputs "
+        f"torch.equal {dev_equal}; result cache rows equal {cached == want[2]}; corrupted newest chunk: restored "
+        f"{fallback.restored} from the older snapshot {fallback.snapshot == older}, crc failures counted {crc_counted}"
+    )
+    if not all(same) or not dev_equal or cached != want[2] or emb_hits != BATCH:
+        raise AssertionError("the warm-restored stack does not serve bit-identically to the writer")
+    if t_warm >= t_cold:
+        raise AssertionError(f"warm restore {t_warm:.3f} s is not faster than cold bring-up {t_cold:.3f} s")
+    if not fallback.restored or fallback.snapshot != older or crc_counted != 1:
+        raise AssertionError(f"CRC fallback: {fallback}, crc counted {crc_counted}")
+    del cold, replica, writer, reader, vecs
+
+    # -- the 1M IVF index itself --
+    wait_maintenance(ivf)
+    want = FusedEncodeSearch(encoder, ivf, k=K)(queries)
+    with tempfile.TemporaryDirectory(prefix="warmstate-1m-") as tmp:
+        need = 3 * ivf._slabs.numel() * ivf._slabs.element_size()
+        free = shutil.disk_usage(tmp).free
+        # the snapshot is written where the temporary directory has room for it
+        backend = FileBackend(tmp) if free > need else MemoryBackend()
+        where = type(backend).__name__
+        t0 = time.perf_counter()
+        big_w = {"ivf": Timed(ivf)}
+        prefix = WarmStateManager(backend, name="ivf1m", components=big_w, keep=1).snapshot()
+        t_snap = time.perf_counter() - t0
+        if prefix is None:
+            raise AssertionError("the 1M snapshot was skipped")
+        snap_bytes = stored_bytes(backend, prefix)
+        t0 = time.perf_counter()
+        big = IvfKnnIndex(DIM, metric="cos")
+        big_r = {"ivf": Timed(big)}
+        report = WarmStateManager(backend, name="ivf1m", components=big_r).restore()
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        del backend
+    got = FusedEncodeSearch(encoder, big, k=K)(queries)
+    dev_equal = all(torch.equal(a, b) for a, b in zip(
+        stage1_outputs(FusedEncodeSearch(encoder, big, k=K), big, queries),
+        stage1_outputs(FusedEncodeSearch(encoder, ivf, k=K), ivf, queries),
+    ))
+    identical = list(got) == list(want)
+    launches = rescore_shortlist.launches
+    log(
+        f"warm state, the 1M IVF index ({len(ivf)} rows, C={ivf._centroids.shape[0]} M_pad={ivf._M_pad}) {tag}: "
+        f"snapshot {snap_bytes / 1e9:.3f} GB to a {where} "
+        f"({free / 1e9:.1f} GB free in the temporary directory) in {t_snap:.3f} s ({timed_line(t_snap, big_w, 'capture_s')}), "
+        f"restore {t_restore:.3f} s ({timed_line(t_restore, big_r, 'install_s')}; {report.restored}); {BATCH} serves bit-identical {identical}, stage-1 device outputs torch.equal "
+        f"{dev_equal}; rescore launches of this phase's serves {launches} (its stage-1 output checks not counted); phase {time.perf_counter() - t_phase:.1f} s"
+    )
+    if not report.restored or not identical or not dev_equal:
+        raise AssertionError("the restored 1M index does not serve bit-identically")
+    del big
+    return launches
+
+
+FRAMING_BYTES = (1_334_500_000, 3_356_000_000)  # phase 12's two snapshots
+
+
+def framing_compare_line(n_bytes: int) -> str:
+    """Host seconds to frame, and to scan and join, a payload of
+    ``n_bytes`` cut into ``warmstate.chunk_bytes`` chunks as a snapshot
+    section is: plain (``frame`` per copied chunk, joined; ``scan``, then
+    join) against bulk (``frame_all`` over views, CRCs on 8 threads;
+    ``scan_views``, then join), in turns plain, bulk, bulk, plain.  Both
+    must give the same blob and the payload back."""
+    from pathway_tpu_torch import config as port_config
+    from pathway_tpu_torch.persistence.framing import frame, frame_all, scan, scan_views
+
+    chunk = port_config.get("warmstate.chunk_bytes")
+    payload = np.random.default_rng(SEED).bytes(n_bytes)
+
+    def plain():
+        t0 = time.perf_counter()
+        blob = b"".join(frame(payload[o : o + chunk]) for o in range(0, n_bytes, chunk))
+        t1 = time.perf_counter()
+        back = b"".join(scan(blob)[0])
+        return blob, back == payload, (t1 - t0, time.perf_counter() - t1)
+
+    def bulk():
+        t0 = time.perf_counter()
+        view = memoryview(payload)
+        blob = frame_all([view[o : o + chunk] for o in range(0, n_bytes, chunk)])
+        t1 = time.perf_counter()
+        back = b"".join(scan_views(blob)[0])
+        return blob, back == payload, (t1 - t0, time.perf_counter() - t1)
+
+    times = {"plain": [], "bulk": []}
+    blobs, ok = {}, True
+    for name in ("plain", "bulk", "bulk", "plain"):
+        blob, back_ok, secs = (plain if name == "plain" else bulk)()
+        ok = ok and back_ok
+        times[name].append(secs)
+        if name not in blobs:
+            blobs[name] = blob
+        del blob
+    same = blobs["plain"] == blobs["bulk"]
+    del blobs
+    if not (ok and same):
+        raise AssertionError(f"framing: payload back {ok}, same blob {same}")
+
+    def turns(name):
+        return ", ".join(f"{f:.3f} / {sc:.3f}" for f, sc in times[name])
+
+    return (
+        f"{n_bytes / 1e9:.3f} GB in {chunk} B chunks, host seconds frame / scan + join per turn: plain "
+        f"{turns('plain')}; bulk {turns('bulk')}; same blob and payload back True"
+    )
+
+
+_SHAPE_KEYS = (
+    "B", "p", "distinct_clusters", "max_abs_err", "ms", "kernels_ms", "bound_ms", "bound_by", "library_ms",
+    "library_with_gather_ms",
+)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1758,6 +2502,14 @@ def main() -> int:
         where = os.path.relpath(decode_rows.__file__)
         log(f"host us per wrapper call, {where}: " + rows_host_line(decode_rows, 256, torch.device(DEVICE)))
         log(f"engine c16, {where}: " + engine_c16_line())
+        return 0
+    if sys.argv[1:] == ["--framing"]:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        )
+        log(f"card: {smi.stdout.strip()}")
+        for n_bytes in FRAMING_BYTES:
+            log(f"warm-state framing on this host ({os.cpu_count()} cores): " + framing_compare_line(n_bytes))
         return 0
     from pathway_tpu_torch.kernels.build import build_all
     from pathway_tpu_torch.models.encoder import SentenceEncoder
@@ -1839,19 +2591,8 @@ def main() -> int:
         flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
         kernel_ms = timed_ms(lambda: rescore_shortlist(*args), reps=20, flush=flush)
         plain_ms = timed_ms(lambda: ivf_rescore_reference(*args), reps=5, flush=flush)
-        pl = probe.long()
+        library_ms, library_gather_ms = library_rescore_ms(ivf, probe, q, flush)
         d_pad = ivf._d_pad
-        qcol = q.reshape(BATCH, -1, 1)
-
-        def gather_baddbmm():
-            rows_ = ivf._slabs[pl].reshape(BATCH, p * M, d_pad)
-            return torch.baddbmm(ivf._bias[pl].reshape(BATCH, p * M, 1), rows_, qcol)
-
-        rows = ivf._slabs[pl].reshape(BATCH, p * M, d_pad)
-        bias_g = ivf._bias[pl].reshape(BATCH, p * M, 1)
-        library_ms = timed_ms(lambda: torch.baddbmm(bias_g, rows, qcol), reps=5, flush=flush)
-        del rows, bias_g
-        library_gather_ms = timed_ms(gather_baddbmm, reps=5, flush=flush)
         # the same probes over bf16 slabs (a bf16 copy of the index's slabs)
         slabs16 = ivf._slabs.to(torch.bfloat16)
         args16 = (probe, q, slabs16, ivf._bias)
@@ -2018,7 +2759,8 @@ def main() -> int:
     retrain_phase(encoder, docs, doc_vecs, keys, tag)
 
     # -- 8. rerank: the main path's stage 2, counted ----------------------------
-    rr_launches, rr_kernel, cascade = rerank_phase(encoder, ivf, docs, keys, tag)
+    rr_launches, rr_kernel, modes, fwd = rerank_phase(encoder, ivf, docs, keys, tag)
+    cascade = modes["cascade"]
     worst_err = max(worst_err, rr_kernel["max_abs_err"])
 
     # -- 9. the serve front over the cascade, counted ---------------------------
@@ -2028,6 +2770,13 @@ def main() -> int:
     # -- 10. generator decode, counted --------------------------------------------
     decode_kernels = decode_phase(tag)
 
+    # -- 11. live ingest under c16 serve, counted -----------------------------------
+    li_launches, li_kernel = live_ingest_phase(encoder, ivf, docs, modes, fwd, tag)
+    worst_err = max(worst_err, li_kernel["max_abs_err"])
+
+    # -- 12. warm state: cold vs warm bring-up, the 1M index restored -------------
+    ws_launches = warm_state_phase(encoder, ivf, docs, keys, fwd, cascade.doc_text, tag)
+
     record = {
         "kernels": [
             {
@@ -2035,8 +2784,11 @@ def main() -> int:
                 "route": "cuda",
                 "source": "pathway_tpu_torch/csrc/ivf_rescore.cu",
                 "replaces": "pathway_tpu/ops/ivf_pallas.py:37",
-                "launches": launches + rr_launches + sched_launches,
-                "launches_by_path": {"serve": launches, "rerank": rr_launches, "scheduler": sched_launches},
+                "launches": launches + rr_launches + sched_launches + li_launches + ws_launches,
+                "launches_by_path": {
+                    "serve": launches, "rerank": rr_launches, "scheduler": sched_launches,
+                    "ingest": li_launches, "warmstate": ws_launches,
+                },
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,
                 "plain_ms": plain_ms,
@@ -2052,10 +2804,12 @@ def main() -> int:
                 "rerank_shape_kernels_ms": rr_kernel["kernels_ms"],
                 "rerank_shape_bound_ms": rr_kernel["bound_ms"],
                 "rerank_shape_bound_by": rr_kernel["bound_by"],
+                "rerank_shape_library_ms": rr_kernel["library_ms"],
+                "rerank_shape_library_with_gather_ms": rr_kernel["library_with_gather_ms"],
                 "scheduler_shapes": [
-                    {key: r[key] for key in ("B", "p", "distinct_clusters", "max_abs_err", "ms", "kernels_ms", "bound_ms", "bound_by")}
-                    for r in sched_kernel
+                    {key: r[key] for key in _SHAPE_KEYS} for r in sched_kernel
                 ],
+                "after_absorb_shape": {key: li_kernel[key] for key in _SHAPE_KEYS},
             },
             *decode_kernels,
         ]

@@ -4,20 +4,27 @@
 An embedding depends on the tokenizer and the encoder's weights, not on
 the index, so it survives every generation bump: a known query skips the
 stage-1 trunk forward even after an absorb invalidated its result-cache
-entry.  Entries are ``[d]`` f32 rows on the encoder's device; the serve
-path stacks cached rows with one bucketed encode of the misses
-(``ops/serving.py`` ``_cached_embeddings``).  A row is charged its
+entry.  Entries are ``[d]`` f32 rows on the encoder's device;
+``encode_rows`` stacks cached rows with one bucketed encode of the misses
+for both producers, the serve path (``ops/serving.py``) and the plain
+encode (``models/encoder.py``).  A row is charged its
 ``nbytes`` (``d * 4``, the reference's count for its ``[d]`` f32 row), so
-eviction order matches the reference's.  The tier is per encoder.
+eviction order matches the reference's.  The tier is per encoder.  Its
+warm state carries the rows as host numpy arrays (the reference's
+format); a restore uploads them to ``device``, else to the device of
+the rows it last held, else the CUDA device.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .. import config
+from ..device import resolve_device
+from ..robust import retry_call
 from .keys import token_ids_key
 from .store import CacheTier, cache_enabled
 
@@ -29,7 +36,8 @@ class EmbeddingCache:
     checksumming a device row would be a host sync)."""
 
     def __init__(self, max_bytes: Optional[int] = None, ttl_s: Optional[float] = None,
-                 max_entries: Optional[int] = None):
+                 max_entries: Optional[int] = None, device=None):
+        self._device = None if device is None else resolve_device(device)
         if max_bytes is None:
             max_bytes = config.get("cache.embed_bytes")
         if ttl_s is None:
@@ -40,6 +48,12 @@ class EmbeddingCache:
     @property
     def stats(self):
         return self._tier.stats
+
+    def __len__(self) -> int:
+        return len(self._tier)
+
+    def clear(self) -> None:
+        self._tier.clear()
 
     def row_key(self, ids_row: np.ndarray, mask_row: np.ndarray, space: str = "") -> bytes:
         """``space`` names the producer's value space, so rows of two
@@ -63,8 +77,53 @@ class EmbeddingCache:
                 misses.append(i)
         return rows, misses, keys
 
+    def encode_rows(
+        self, ids: np.ndarray, mask: np.ndarray, n_real: int, embed: Callable, bucket: Callable[[int], int],
+        space: str, site: str, deadline=None,
+    ) -> Tuple[torch.Tensor, int]:
+        """``[n_real, d]`` device rows of a tokenized batch: cached rows
+        where the token ids are known, ONE ``embed(ids, mask)`` of the
+        misses padded with zero rows to the producer's ``bucket`` (retried
+        under ``site``), composed on the device.  Returns ``(rows, misses)``; fresh rows are stored
+        as copies of their own (a view would keep the miss batch alive)."""
+        rows, misses, keys = self.lookup_rows(ids, mask, n_real, deadline=deadline, space=space)
+        fresh = {}
+        if misses:
+            n_pad = bucket(len(misses)) - len(misses)
+            z = retry_call(
+                site, embed,
+                np.concatenate([ids[misses], np.zeros((n_pad, ids.shape[1]), ids.dtype)]),
+                np.concatenate([mask[misses], np.zeros((n_pad, mask.shape[1]), mask.dtype)]),
+                deadline=deadline,
+            )
+            for j, i in enumerate(misses):
+                fresh[i] = z[j].clone()
+                self.put_row(keys[i], fresh[i], deadline=deadline)
+        return torch.stack([rows[i] if rows[i] is not None else fresh[i] for i in range(n_real)]), len(misses)
+
     def put_row(self, key: bytes, row: Any, deadline=None) -> bool:
+        if self._device is None and isinstance(row, torch.Tensor):
+            self._device = row.device
         return self._tier.put(key, row, nbytes=getattr(row, "nbytes", 64), deadline=deadline)
+
+    def warm_state(self) -> dict:
+        """Picklable snapshot: the rows fetched to host numpy arrays (on
+        the snapshot cadence, never on a serve)."""
+        entries = [
+            (k, v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v), nbytes)
+            for k, v, nbytes in self._tier.warm_entries()
+        ]
+        return {"kind": "embedding_cache", "entries": entries}
+
+    def load_warm_state(self, state: dict) -> int:
+        """Upload the snapshot's rows and replay them through ``put``;
+        restored rows are bit-identical to the writer's."""
+        if state.get("kind") != "embedding_cache":
+            raise ValueError(f"not an embedding-cache warm state: {state.get('kind')!r}")
+        dev = self._device or resolve_device(None)
+        return self._tier.load_warm_entries(
+            [(k, torch.from_numpy(np.array(v)).to(dev), nbytes) for k, v, nbytes in state["entries"]]
+        )
 
 
 def embedding_cache_from_env() -> Optional[EmbeddingCache]:

@@ -64,6 +64,15 @@ class ResultCache:
         # ~32 B per (key, score) pair + entry overhead
         return self._tier.put(result_key(text, generation, k), row, nbytes=64 + 32 * len(row), deadline=deadline)
 
+    def warm_state(self) -> dict:
+        """Picklable snapshot of the live rows (host lists already)."""
+        return {"kind": "result_cache", "entries": self._tier.warm_entries()}
+
+    def load_warm_state(self, state: dict) -> int:
+        if state.get("kind") != "result_cache":
+            raise ValueError(f"not a result-cache warm state: {state.get('kind')!r}")
+        return self._tier.load_warm_entries(state["entries"])
+
 
 def result_cache_from_env() -> Optional[ResultCache]:
     """The scheduler's default tier 0: on unless ``PATHWAY_CACHE=0`` or

@@ -201,6 +201,25 @@ class CacheTier:
             self._entries.clear()
             self._bytes = 0
 
+    def warm_entries(self) -> List[Any]:
+        """``(key, value, nbytes)`` of the live, unexpired entries in LRU
+        order, oldest first, so a replay keeps the eviction order.
+        Values by reference: an owner whose values are device tensors
+        converts them for the snapshot."""
+        now = time.monotonic()
+        with self._lock:
+            return [
+                (k, e.value, e.nbytes)
+                for k, e in self._entries.items()
+                if e.expires_at is None or now < e.expires_at
+            ]
+
+    def load_warm_entries(self, entries: List[Any]) -> int:
+        """Replay ``warm_entries()`` through ``put``: fingerprints are
+        recomputed and TTL clocks restart.  Returns the entries accepted
+        (a failed put is a cold key, never an error)."""
+        return sum(1 for k, v, nbytes in entries if self.put(k, v, nbytes=nbytes))
+
     def _drop_locked(self, key: Any, entry: _Entry) -> None:
         self._entries.pop(key, None)
         self._bytes -= entry.nbytes

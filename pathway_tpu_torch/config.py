@@ -93,6 +93,24 @@ _knob("cache.embed_bytes", "PATHWAY_CACHE_EMBED_BYTES", "int", 64 << 20,
 _knob("cache.embed_ttl_s", "PATHWAY_CACHE_EMBED_TTL_S", "float", 0.0,
       "embedding-tier TTL in seconds (0 = no expiry)", lo=0.0, hi=86_400.0)
 
+# live ingest (serve/ingest.py)
+_knob("ingest.batch_docs", "PATHWAY_INGEST_BATCH_DOCS", "int", 32,
+      "max documents one ingest embed/absorb batch carries", lo=1, hi=4096)
+_knob("ingest.poll_ms", "PATHWAY_INGEST_POLL_MS", "float", 5.0,
+      "ingest loop idle poll interval in ms", lo=0.1, hi=60_000.0)
+_knob("ingest.queue_cap", "PATHWAY_INGEST_QUEUE_CAP", "int", 4096,
+      "pending-document queue capacity (connector commits block past it)", lo=1, hi=1_048_576)
+_knob("ingest.backpressure_ms", "PATHWAY_INGEST_BACKPRESSURE_MS", "float", 25.0,
+      "absorb-cadence yield when serve latency is the binding SLO", lo=0.0, hi=60_000.0)
+
+# durable warm state (serve/warmstate.py)
+_knob("warmstate.interval_s", "PATHWAY_WARMSTATE_INTERVAL_S", "float", 60.0,
+      "warm-state snapshot cadence in seconds (0 = manual only)", lo=0.0, hi=86_400.0)
+_knob("warmstate.chunk_bytes", "PATHWAY_WARMSTATE_CHUNK_BYTES", "int", 1_048_576,
+      "CRC-framed snapshot chunk size in bytes", lo=4096, hi=1_073_741_824)
+_knob("warmstate.keep", "PATHWAY_WARMSTATE_KEEP", "int", 2,
+      "committed snapshot generations retained per store", lo=1, hi=1024)
+
 # generator decode (models/generator.py, serve/decode.py)
 _knob("decode.step_bucket", "PATHWAY_DECODE_STEP_BUCKET", "int", 8,
       "decode steps one chunk dispatch advances", lo=1, hi=128)
@@ -151,6 +169,10 @@ _knob("observe.slo_availability", "PATHWAY_SLO_AVAILABILITY", "float", 0.999,
       "availability SLO objective fraction", lo=0.5, hi=0.99999)
 _knob("observe.slo_ttlt_ms", "PATHWAY_SLO_TTLT_MS", "float", 2000.0,
       "decode TTLT SLO threshold in ms", lo=1.0, hi=600_000.0)
+_knob("observe.slo_freshness_ms", "PATHWAY_SLO_FRESHNESS_MS", "float", 5000.0,
+      "ingest freshness SLO threshold in ms (arrival to retrievable)", lo=1.0, hi=86_400_000.0)
+_knob("observe.slo_freshness_objective", "PATHWAY_SLO_FRESHNESS_OBJECTIVE", "float", 0.99,
+      "freshness SLO objective fraction", lo=0.5, hi=0.99999)
 _knob("observe.slo_fast_window_s", "PATHWAY_SLO_FAST_WINDOW_S", "float", 300.0,
       "fast burn-rate window in seconds", lo=0.05, hi=86_400.0)
 _knob("observe.slo_slow_window_s", "PATHWAY_SLO_SLOW_WINDOW_S", "float", 3600.0,

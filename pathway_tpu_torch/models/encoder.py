@@ -11,8 +11,10 @@ module with its pool skipped, per-token L2-normalized.
 (``models/packing.py``, block-diagonal attention) and returns the same
 ``[n, d]`` embeddings.  Every forward dispatches under
 ``retry_call("encoder.dispatch", ...)``, the reference's retry and fault
-site.  Checkpoints, HF import and the encoder's own embedding cache are
-not ported yet.
+site.  ``set_embed_cache`` arms the tier-1 embedding cache on the plain
+encode path: cached rows skip the forward, the misses encode in one
+bucketed forward, and the rows compose on the device.  Checkpoints and
+HF import are not ported yet.
 """
 
 from __future__ import annotations
@@ -84,6 +86,7 @@ class SentenceEncoder:
         else:
             module.load_state_dict(params_from_flax(params, self.config))
         self.module = module.to(self.device).eval()
+        self.embed_cache = None
 
     def get_embedding_dimension(self) -> int:
         return self.config.d_model
@@ -99,6 +102,27 @@ class SentenceEncoder:
         of a tokenized batch already on the device."""
         return self._normalized(self.module(ids, mask))
 
+    def set_embed_cache(self, cache) -> None:
+        """Arm the tier-1 embedding cache (``EmbeddingCache`` or None) on
+        ``encode_to_device``: its rows are this encoder's own earlier
+        outputs, on its device."""
+        self.embed_cache = cache
+
+    def _cached_encode_rows(self, ids: np.ndarray, mask: np.ndarray, n: int) -> torch.Tensor:
+        """Per-row lookup keyed on token ids in the ``encode:<normalize>``
+        space, ONE bucketed forward for the misses under the
+        ``encoder.dispatch`` retry, composition on the device."""
+
+        def embed(ids_m, mask_m):
+            return self.forward(upload(ids_m, self.device), upload(mask_m, self.device))
+
+        out, misses = self.embed_cache.encode_rows(
+            ids, mask, n, embed, _bucket, space=f"encode:{int(self.normalize)}", site="encoder.dispatch"
+        )
+        if misses:
+            observe.record_occupancy("encoder", misses, _bucket(misses))
+        return out
+
     def encode_to_device(self, texts: Sequence[str]) -> torch.Tensor:
         """Batch encode with the result left on the device ([n, d] f32)."""
         texts = ["" if t is None else str(t) for t in texts]
@@ -107,6 +131,8 @@ class SentenceEncoder:
             return torch.zeros((0, self.config.d_model), device=self.device)
         padded = list(texts) + [""] * (_bucket(n) - n)
         ids, mask = self.tokenizer.encode_batch(padded)
+        if self.embed_cache is not None:
+            return self._cached_encode_rows(np.asarray(ids), np.asarray(mask), n)
         observe.record_occupancy("encoder", n, ids.shape[0])
         ids_t, mask_t = upload(ids, self.device), upload(mask, self.device)
         out = retry_call("encoder.dispatch", self.forward, ids_t, mask_t)

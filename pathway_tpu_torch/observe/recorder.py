@@ -273,8 +273,9 @@ def render_prometheus() -> List[str]:
 def snapshot() -> Dict[str, Any]:
     """JSON-able view: histogram summaries (count, sum, p50/p95/p99
     bucket bounds), counters, gauges (provider samples included), a
-    per-tier cache column (samples labeled ``tier``), ring health and
-    the recent event ring."""
+    per-tier cache column (samples labeled ``tier``), a per-runner
+    ingest column (samples labeled ``ingest``), ring health and the
+    recent event ring."""
     hist_items, counter_items, gauge_items = _copy_tables()
     hists = {}
     for name, series in hist_items.items():
@@ -289,13 +290,18 @@ def snapshot() -> Dict[str, Any]:
             }
     counters = {n + _fmt_labels(k): c.value for n, s in counter_items.items() for k, c in s.items()}
     gauges = {n + _fmt_labels(k): g.value for n, s in gauge_items.items() for k, g in s.items()}
+    # provider samples labeled tier=... (cache tiers) and ingest=...
+    # (live-ingest runners) also land in a column per tier / runner
     caches: Dict[str, Dict[str, float]] = {}
+    ingests: Dict[str, Dict[str, float]] = {}
     for kind, name, key, value in _provider_samples():
         (counters if kind == "counter" else gauges)[name + _fmt_labels(key)] = value
-        tier = dict(key).get("tier")
-        if tier is not None:
-            rest = tuple((lk, lv) for lk, lv in key if lk != "tier")
-            caches.setdefault(tier, {})[name + _fmt_labels(rest)] = value
+        labels = dict(key)
+        for label, column in (("tier", caches), ("ingest", ingests)):
+            owner = labels.get(label)
+            if owner is not None:
+                rest = tuple((lk, lv) for lk, lv in key if lk != label)
+                column.setdefault(owner, {})[name + _fmt_labels(rest)] = value
     events, total = _ring.snapshot()
     return {
         "enabled": _hist_mod.enabled,
@@ -304,6 +310,7 @@ def snapshot() -> Dict[str, Any]:
         "counters": counters,
         "gauges": gauges,
         "caches": {k: caches[k] for k in sorted(caches)},
+        "ingest": {k: ingests[k] for k in sorted(ingests)},
         "events": [
             {"ts": e[0], "kind": e[1], "tag": e[2], "dur_ns": e[3], **(e[4] or {})} for e in events
         ],

@@ -4,21 +4,27 @@ of ``pathway_tpu/observe/slo.py``), read from the port's recorder.
 - ``kind="latency"``: the share of a histogram family's events at or
   under ``threshold_s`` (snapped up to the power-of-two bucket bound);
 - ``kind="availability"``: 1 - bad / total, bad from a counter family
-  summed over its label sets, total from a histogram family's count.
+  summed over its label sets, total from a histogram family's count;
+- ``kind="freshness"``: latency-shaped over the ingest plane's
+  ``pathway_freshness_seconds`` (arrival to retrievable), plus every
+  document a live ingest runner still holds past the threshold, counted
+  as a bad event now: the burn rises while a backlog ages, not only
+  after it lands.
 
 The burn rate of a window is its error ratio over the error budget
 ``1 - objective``; a spec fires when its fast AND slow windows both burn
 past ``observe.slo_burn``.  Windows difference cumulative (good, total)
 snapshots taken at each evaluation, throttled to one per
 ``observe.slo_tick_s``.  ``should_shed()`` is the scheduler's admission
-probe: True while a ``shed=True`` spec fires.  A fault at the
-``slo.evaluate`` site serves the last document marked stale.
+probe: True while a ``shed=True`` spec fires; ``firing_specs()`` names
+the firing objectives, so the ingest runner can tell a serve-latency
+burn (yield absorb cadence) from a freshness burn.  ``observe.slo``
+(read at import) and ``set_shed_advisory`` switch both probes.  A fault
+at the ``slo.evaluate`` site serves the last document marked stale.
 
-``default_specs`` holds serve latency and availability (both shed) and
-the observe-only ``decode_ttlt`` objective over
-``pathway_generator_ttlt_seconds`` (``observe.slo_ttlt_ms``).  The
-reference's ingest-freshness spec waits for the port's live-ingest
-slice.
+``default_specs`` holds serve latency, serve availability and ingest
+freshness (all shed) and the observe-only ``decode_ttlt`` objective
+over ``pathway_generator_ttlt_seconds`` (``observe.slo_ttlt_ms``).
 """
 
 from __future__ import annotations
@@ -32,7 +38,19 @@ from . import recorder as _recorder
 from .histogram import N_BUCKETS, bucket_bounds_s
 from .recorder import counter, register_provider
 
-__all__ = ["SloEngine", "SloSpec", "default_specs", "engine", "record_shed_advised", "reset", "should_shed"]
+__all__ = [
+    "SloEngine",
+    "SloSpec",
+    "default_specs",
+    "engine",
+    "firing_specs",
+    "record_shed_advised",
+    "reset",
+    "set_engine",
+    "set_shed_advisory",
+    "shed_advisory_enabled",
+    "should_shed",
+]
 
 _C_EVALS = counter("pathway_slo_evaluations_total")
 _C_DROPPED = counter("pathway_slo_evaluations_dropped_total")
@@ -72,9 +90,32 @@ def _family_counter_total(name: str) -> int:
     return sum(c.value for c in series)
 
 
+def _good_under_threshold(name: str, threshold_s: float) -> Tuple[int, int, float]:
+    """(good, total, effective threshold) of a latency objective: good =
+    events whose bucket bound is at or under the threshold snapped up."""
+    bounds = bucket_bounds_s()
+    cut = next((i for i, b in enumerate(bounds) if b >= threshold_s), len(bounds) - 1)
+    counts, total = _family_hist_counts(name)
+    return sum(counts[: cut + 1]), total, bounds[cut]
+
+
+def _overdue_pending(threshold_s: float) -> int:
+    """Documents a live ingest runner has held longer than the freshness
+    threshold: budget already spent that no histogram has seen yet."""
+    from ..serve.ingest import ingest_runners  # serve/ingest.py imports this module
+
+    n = 0
+    for runner in ingest_runners():
+        try:
+            n += runner.overdue_pending(threshold_s)
+        except Exception:  # noqa: BLE001 - a runner mid-teardown counts nothing
+            continue
+    return n
+
+
 class SloSpec:
-    """One objective: ``latency`` needs ``hist`` + ``threshold_s``;
-    ``availability`` needs ``bad`` + ``total_hist``."""
+    """One objective: ``latency`` and ``freshness`` need ``hist`` +
+    ``threshold_s``; ``availability`` needs ``bad`` + ``total_hist``."""
 
     __slots__ = ("name", "kind", "objective", "hist", "threshold_s", "bad", "total_hist", "shed", "description")
 
@@ -83,10 +124,10 @@ class SloSpec:
         threshold_s: Optional[float] = None, bad: Optional[str] = None,
         total_hist: Optional[str] = None, shed: bool = False, description: str = "",
     ):
-        if kind not in ("latency", "availability"):
+        if kind not in ("latency", "availability", "freshness"):
             raise ValueError(f"unknown SLO kind {kind!r}")
-        if kind == "latency" and (hist is None or threshold_s is None):
-            raise ValueError("latency spec needs hist + threshold_s")
+        if kind in ("latency", "freshness") and (hist is None or threshold_s is None):
+            raise ValueError(f"{kind} spec needs hist + threshold_s")
         if kind == "availability" and (bad is None or total_hist is None):
             raise ValueError("availability spec needs bad + total_hist")
         if not 0.0 < objective < 1.0:
@@ -104,18 +145,21 @@ class SloSpec:
     def counts(self) -> Tuple[int, int, Optional[float]]:
         """Cumulative (good, total, effective threshold or None)."""
         if self.kind == "latency":
-            bounds = bucket_bounds_s()
-            cut = next((i for i, b in enumerate(bounds) if b >= float(self.threshold_s)), len(bounds) - 1)
-            counts, total = _family_hist_counts(self.hist)
-            return sum(counts[: cut + 1]), total, bounds[cut]
+            return _good_under_threshold(self.hist, float(self.threshold_s))
+        if self.kind == "freshness":
+            good, total, eff = _good_under_threshold(self.hist, float(self.threshold_s))
+            # overdue residents add bad events to the total only; once
+            # they land the histogram holds them (the windows difference
+            # cumulative snapshots, so nothing counts twice)
+            return good, total + _overdue_pending(float(self.threshold_s)), eff
         total = _family_hist_counts(self.total_hist)[1]
         bad = min(_family_counter_total(self.bad), total)
         return total - bad, total, None
 
 
 def default_specs() -> List[SloSpec]:
-    """Serve latency and serve availability, both shed-enabled; decode
-    TTLT, observe-only."""
+    """Serve latency, serve availability and ingest freshness, all
+    shed-enabled; decode TTLT, observe-only."""
     return [
         SloSpec(
             "serve_latency", "latency",
@@ -139,6 +183,15 @@ def default_specs() -> List[SloSpec]:
             hist="pathway_generator_ttlt_seconds",
             threshold_s=config.get("observe.slo_ttlt_ms") * 1e-3,
             description="decode requests at/under the TTLT threshold",
+        ),
+        SloSpec(
+            "freshness", "freshness",
+            objective=config.get("observe.slo_freshness_objective"),
+            hist="pathway_freshness_seconds",
+            threshold_s=config.get("observe.slo_freshness_ms") * 1e-3,
+            shed=True,
+            description="documents retrievable within the freshness "
+            "threshold (overdue pending docs count against it)",
         ),
     ]
 
@@ -262,6 +315,7 @@ class SloEngine:
 
 _engine_lock = threading.Lock()
 _engine: Optional[SloEngine] = None
+_shed_on = config.get("observe.slo")
 
 
 def engine() -> SloEngine:
@@ -274,10 +328,29 @@ def engine() -> SloEngine:
         return _engine
 
 
+def set_engine(specs: Optional[List[SloSpec]]) -> SloEngine:
+    """Install a fresh engine over ``specs`` (None: the default specs,
+    re-read from the knobs)."""
+    global _engine
+    with _engine_lock:
+        _engine = SloEngine(specs)
+        register_provider(_engine)
+        return _engine
+
+
+def shed_advisory_enabled() -> bool:
+    return _shed_on
+
+
+def set_shed_advisory(flag: bool) -> None:
+    """Switch the shed and firing probes (``observe.slo`` at import)."""
+    global _shed_on
+    _shed_on = bool(flag)
+
+
 def should_shed() -> bool:
-    """True while a shed-enabled objective fires; never raises, and off
-    under ``observe.slo`` = 0."""
-    if not config.get("observe.slo"):
+    """True while a shed-enabled objective fires; never raises."""
+    if not _shed_on:
         return False
     try:
         return engine().should_shed()
@@ -287,6 +360,18 @@ def should_shed() -> bool:
 
 def record_shed_advised() -> None:
     _C_SHED_ADVISED.inc()
+
+
+def firing_specs() -> Tuple[str, ...]:
+    """Names of the objectives firing in the throttled evaluation (the
+    ingest runner's backpressure probe); empty while the probes are off."""
+    if not _shed_on:
+        return ()
+    try:
+        doc = engine().evaluate()
+    except Exception:  # noqa: BLE001 - a failed probe reads as quiet
+        return ()
+    return tuple(name for name, row in doc.get("slos", {}).items() if row.get("state") == "firing")
 
 
 def reset() -> None:

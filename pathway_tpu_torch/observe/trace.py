@@ -11,13 +11,15 @@ cascade's ``stage.<name>`` spans, ``stage2.pack_dispatch`` /
 ``stage2.rtt``).  Spans carry explicit timestamps: the serve path reuses
 the clock reads it takes for its histograms.
 
-The keep decision runs at ``finish``: degraded, deadline expired, slow
-(the ``observe.trace_slow_pct`` quantile of
-``pathway_serve_request_seconds`` once it holds 64 observations), or
-linked from a kept rider.  Kept traces land in a bounded LRU store
-(``snapshot_traces`` / ``get_trace``); the rest wait in a bounded pending
-ring.  The ``trace.record`` / ``trace.export`` fault sites drop spans or
-exports (counted), never a serve.
+The keep decision runs at ``finish``: forced, degraded, deadline
+expired, slow (the ``observe.trace_slow_pct`` quantile, once it holds 64
+observations, of ``pathway_serve_request_seconds`` for request traces
+and of ``pathway_freshness_seconds`` for the ingest runner's
+``kind="ingest"`` batch traces), or linked from a kept rider.  Kept
+traces land in a bounded LRU store (``snapshot_traces`` /
+``get_trace``); the rest wait in a bounded pending ring.  The
+``trace.record`` / ``trace.export`` fault sites drop spans or exports
+(counted), never a serve.
 """
 
 from __future__ import annotations
@@ -56,6 +58,10 @@ _sample = config.get("observe.trace_sample")
 
 # request latency: the tail sampler's "slow" source and the exemplar family
 _H_REQUEST = histogram("pathway_serve_request_seconds")
+# arrival to retrievable, observed per document by serve/ingest.py: the
+# "slow" source of kind="ingest" traces
+_H_INGEST = histogram("pathway_freshness_seconds")
+_SLOW_HISTS = {"request": _H_REQUEST, "ingest": _H_INGEST}
 _C_SPANS_DROPPED = counter("pathway_trace_spans_dropped_total")
 _C_SAMPLED_OUT = counter("pathway_trace_sampled_out_total")
 _C_EXPORT_FAILURES = counter("pathway_trace_export_failures_total")
@@ -227,8 +233,9 @@ def _keep_reason(ctx: TraceContext, dur_ns: int) -> Optional[str]:
         return "degraded"
     if ctx.deadline is not None and ctx.deadline.expired():
         return "deadline"
-    if ctx.kind == "request" and _H_REQUEST.count >= _SLOW_MIN_COUNT:
-        q = _H_REQUEST.quantile_s(_SLOW_PCT)
+    h = _SLOW_HISTS.get(ctx.kind)
+    if h is not None and h.count >= _SLOW_MIN_COUNT:
+        q = h.quantile_s(_SLOW_PCT)
         if q is not None and dur_ns * 1e-9 >= q:
             return "slow"
     return None

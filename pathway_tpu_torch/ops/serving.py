@@ -121,27 +121,15 @@ class FusedEncodeSearch:
         return z, qtok
 
     def _cached_embeddings(self, ids: np.ndarray, mask: np.ndarray, n_real: int, deadline=None):
-        """Tier-1 lookup for a padded batch: cached rows where the token
-        ids are known, ONE bucketed encode of the misses (retried under
-        ``serve.dispatch``), stacked into ``[B, d]`` with zero pad rows.
-        Returns ``(z, encoded)``; fresh rows are stored as copies of
-        their own (a view would keep the whole miss batch alive)."""
-        cache = self.embed_cache
-        B, L = ids.shape
-        rows, misses, row_keys = cache.lookup_rows(
-            ids, mask, n_real, deadline=deadline, space=f"serve:{self.index.metric}"
+        """Tier-1 lookup for a padded batch (``EmbeddingCache.encode_rows``
+        in the ``serve:<metric>`` space, misses retried under
+        ``serve.dispatch``), with zero pad rows up to ``[B, d]``.
+        Returns ``(z, encoded)``."""
+        B = ids.shape[0]
+        z, misses = self.embed_cache.encode_rows(
+            ids, mask, n_real, lambda i, m: self._embed(i, m)[0], _bucket, space=f"serve:{self.index.metric}",
+            site="serve.dispatch", deadline=deadline,
         )
-        fresh = {}
-        if misses:
-            n_miss = len(misses)
-            pad = np.zeros((_bucket(n_miss) - n_miss, L), ids.dtype)
-            ids_m = np.concatenate([ids[misses], pad])
-            mask_m = np.concatenate([mask[misses], pad])
-            z_m = retry_call("serve.dispatch", lambda: self._embed(ids_m, mask_m)[0], deadline=deadline)
-            for j, i in enumerate(misses):
-                fresh[i] = z_m[j].clone()
-                cache.put_row(row_keys[i], fresh[i], deadline=deadline)
-        z = torch.stack([rows[i] if rows[i] is not None else fresh[i] for i in range(n_real)])
         if B > n_real:
             z = torch.cat([z, z.new_zeros((B - n_real, z.shape[1]))])
         return z, bool(misses)

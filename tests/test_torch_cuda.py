@@ -189,6 +189,33 @@ def test_cuda_ivf_absorb_writes_slabs_in_place():
     assert [row[0][0] for row in got] == list(range(10_000, 10_064))
 
 
+@pytest.mark.cuda
+def test_cuda_ivf_serve_after_a_tail_change_makes_no_host_sync():
+    """Live ingest changes the exact tail between serves: the next serve
+    uploads it again without a device-to-host sync."""
+    dev = _cuda()
+    from pathway_tpu_torch.models.encoder import SentenceEncoder
+    from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+
+    enc = SentenceEncoder(dimension=64, n_layers=2, n_heads=4, max_length=32, vocab_size=4096)
+    docs = [f"document {i} about topic {i % 37} and item {i % 11}" for i in range(1200)]
+    ivf = IvfKnnIndex(64, device=dev)
+    ivf.build_from_matrix(list(range(1000)), enc.encode_to_device(docs[:1000]).float())
+    serve = FusedEncodeSearch(enc, ivf, k=5)
+    for i in range(1000, 1200, 100):
+        ivf.add(list(range(i, i + 100)), enc.encode(docs[i : i + 100]))
+        serve(docs[:4])  # warm every shape and the allocator
+    ivf.add([5000], enc.encode(["a fresh tail row"]))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        done = serve.submit(docs[:4])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ivf.stats["tail_cache_misses"] >= 3 and len(done()) == 4
+
+
 def _forward_stack(dev):
     from pathway_tpu_torch.index import ForwardIndex
     from pathway_tpu_torch.models.encoder import SentenceEncoder

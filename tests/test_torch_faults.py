@@ -15,7 +15,10 @@ value), the per-instance ``index`` label left out) and knob values.
    provider and the int8 audit gauge;
 4. every encoder forward dispatches under ``encoder.dispatch`` (plain,
    packed and token-state encodes);
-5. ``default_specs`` carries the observe-only ``decode_ttlt`` objective.
+5. ``default_specs`` carries the observe-only ``decode_ttlt`` objective;
+6. ``default_specs`` carries the shed-enabled ``freshness`` objective: the
+   port's list equals the reference's by name, kind, objective,
+   threshold, series and shed flag.
 """
 
 import numpy as np
@@ -313,3 +316,22 @@ def test_fault5_decode_ttlt_objective_as_reference(ttlt_ms, monkeypatch):
         rows.append((first, second["slos"]["decode_ttlt"], second["should_shed"], spec.threshold_s))
     assert rows[0] == rows[1]
     assert rows[1][1]["total"] == 6 and rows[1][2] is False
+
+
+# -- fault 6: the ingest freshness objective ---------------------------------------------
+
+
+def _spec_fields(specs):
+    return [(s.name, s.kind, s.objective, s.threshold_s, s.hist, s.bad, s.total_hist, s.shed) for s in specs]
+
+
+@pytest.mark.parametrize("env", [{}, {"PATHWAY_SLO_FRESHNESS_MS": "250", "PATHWAY_SLO_FRESHNESS_OBJECTIVE": "0.95"},
+                                 {"PATHWAY_SLO_FRESHNESS_MS": "0", "PATHWAY_SLO_FRESHNESS_OBJECTIVE": "fresh"}])
+def test_fault6_default_specs_as_reference(env, monkeypatch):
+    for name in ("PATHWAY_SLO_FRESHNESS_MS", "PATHWAY_SLO_FRESHNESS_OBJECTIVE"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    want = _spec_fields(ref_slo.default_specs())
+    assert _spec_fields(slo.default_specs()) == want
+    assert ("freshness", "freshness") in [row[:2] for row in want]
