@@ -4,8 +4,9 @@ NVIDIA GPU:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare ROOT   # the package under ROOT alone: host
-                                           # us per row-kernel wrapper call and
-                                           # engine c16 decode tokens/s
+                                           # us per row-kernel wrapper call,
+                                           # engine c16 decode tokens/s and the
+                                           # c16 scheduled cascade's q/s
     python3 chip_smoke.py --framing        # host seconds of the warm-state
                                            # framing, plain against bulk
 
@@ -144,7 +145,39 @@ Phases, in order; any failure exits non-zero:
    paths; stage-1 outputs ``torch.equal``), warm faster than cold, a
    corrupted newest chunk restored from the older snapshot and counted
    ``crc``; then the 1M IVF index snapshotted and restored (bytes and
-   seconds printed), 64 serves bit-identical.
+   seconds printed), 64 serves bit-identical;
+13. tuning (bench.py ``phase_self_tuning``): phase 9's scheduler over
+   the cascade at c16 with the knob table's live coalescing window and a
+   result cache, 256 requests of the bench's shifting workload (2/3 of
+   the first half on 4 hot queries, then a cold tail over 96), static
+   defaults against a background ``Tuner`` ticking every 50 ms, each
+   arm after an unmeasured pass.  Checked: every batch books one solo
+   serve's dispatches and fetches with the tuner live; every query ranks
+   alike in both arms (within 3e-2); ``revert()`` restores
+   ``config.snapshot()``, the live tier budgets and the profiler stride;
+   an armed ``tuner.adjust`` fault freezes and reverts the tuner.
+   Printed: q/s, p50 and p99 per arm, the knob trajectory, the tuned /
+   static q/s ratio, and ``config.get`` against a raw environment parse
+   as a share of the tuned p50;
+14. profiling (bench.py ``phase_profiling_overhead``): the same stack
+   with the profiler at stride 1 and a 10 Hz scraper (ledger sample and
+   SLO document) against all of it off, 5 alternated pairs; one window
+   of that stack, an encode and IVF search of its 32 queries and two
+   short decode drives (plain steps, trunk-drafted speculation) under
+   ``torch.profiler``; a 262,144 x 384 exact index built for the ledger
+   cross-check; the in-place-write guard armed strict over absorbs into
+   an index of the encoded documents under c16 stage-1 serves.
+   Checked: 2 + 2 per batch at stride 1 (one solo serve's count); device
+   time attributed to ``ivf.search``, ``encoder.forward``,
+   ``rerank.stage2`` and ``generator.slot_{prefill,step,draft,verify}``;
+   the ledger delta within 10% of ``torch.cuda.memory_allocated``'s;
+   no violation over the absorbs, and a planted use of a snapshot taken
+   before an absorb caught.  Printed: the added p50 with its spread
+   (not a gate), the per-callable attribution beside ``torch.profiler``'s
+   busy share of the window, the ledger by subsystem.
+
+Every shape-census tripwire runs strict from the start
+(``PATHWAY_RECOMPILE_STRICT=1``); after phase 14 none may have tripped.
 
 The card's name and power limit, then the JSON record of the kernels,
 then ``{"ok": true, "device": {...}}`` are the last three lines; the
@@ -1245,6 +1278,51 @@ def engine_c16_line() -> str:
         eng.stop()
     return (f"host us per 16-lane step {step_us['greedy']:.1f} greedy, {step_us['sampled']:.1f} sampled; "
             f"{len(reqs)} requests, budget {DEC_BUDGET}, tokens/s per pass " + ", ".join(f"{r:.1f}" for r in rates))
+
+
+def serve_c16_line() -> str:
+    """Queries/s and p50 of phase 9's c16 scheduled cascade (window 5,000
+    us, 16 unique per batch, no result cache) on a stack of the 65,536
+    encoded documents alone: 3 passes of 192 requests after a warm pass.
+    Uses only entry points every slice of the port has."""
+    from pathway_tpu_torch.index import ForwardIndex
+    from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
+    from pathway_tpu_torch.models.encoder import SentenceEncoder
+    from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+    from pathway_tpu_torch.ops.retrieve_rerank import RetrieveRerankPipeline
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+    from pathway_tpu_torch.serve import ServeScheduler
+
+    encoder = SentenceEncoder(dimension=DIM, n_layers=6, n_heads=6, max_length=128, vocab_size=32768, seed=SEED,
+                              dtype=torch.bfloat16)
+    docs, keys = corpus(N_DOCS), keys_for(N_DOCS)
+    vecs = torch.cat([encoder.encode_to_device(docs[i : i + ENCODE_CHUNK]) for i in range(0, N_DOCS, ENCODE_CHUNK)])
+    ivf = IvfKnnIndex(DIM, metric="cos")
+    ivf.build_from_matrix(keys, vecs.float())
+    fwd = ForwardIndex(encoder, tokens_per_doc=16, quant="int8")
+    for i in range(0, N_DOCS, FWD_CHUNK):
+        fwd.add(keys[i : i + FWD_CHUNK], docs[i : i + FWD_CHUNK])
+    ce = CrossEncoderModel(dimension=256, n_layers=4, n_heads=4, max_length=256, vocab_size=32768, seed=SEED + 1,
+                           dtype=torch.bfloat16)
+    pipe = RetrieveRerankPipeline(FusedEncodeSearch(encoder, ivf, k=RR_CANDIDATES), ce, dict(zip(keys, docs)), k=K,
+                                  candidates=RR_CANDIDATES, forward_index=fwd, cascade=K)
+    pool = [" ".join(docs[(i * 9973) % N_DOCS].split()[:8]) for i in range(64)]
+    reqs = [pool[i % 4] if i % 2 == 0 else pool[(i * 7) % 64] for i in range(192)]
+    for q in pool:
+        pipe([q], K)
+    for b in range(2, SCHED_MAX_BATCH + 1):
+        pipe(sorted(set(reqs))[:b], K)
+    passes = []
+    for _ in range(4):
+        sched = ServeScheduler(pipe, window_us=SCHED_WINDOW_US, max_batch=SCHED_MAX_BATCH, result_cache=None)
+        try:
+            qps, lats, _ = scheduled_drive(sched, reqs, 16)
+        finally:
+            sched.stop()
+        passes.append((round(qps, 1), round(float(np.percentile(lats, 50)), 3)))
+    passes = passes[1:]  # the first pass warms batch compositions
+    return (f"{len(reqs)} requests per pass: {float(np.mean([q for q, _ in passes])):.1f} q/s, p50 "
+            f"{float(np.median([p for _, p in passes])):.3f} ms (q/s, p50 per pass {passes})")
 
 
 @torch.no_grad()
@@ -2429,6 +2507,452 @@ def warm_state_phase(encoder, ivf, docs, keys, fwd, doc_text, tag: str):
     return launches
 
 
+ST_POOL = 96  # phase 13: bench.py phase_self_tuning's shifting workload
+ST_CONC = 16
+ST_REQUESTS = 256  # conc * 16, the bench's count
+ST_TICK_S = 0.05
+ST_LOOKUPS = 50_000
+PO_POOL = 32  # phase 14: bench.py phase_profiling_overhead
+PO_ROUNDS = 5
+PO_REQUESTS = 128  # conc * 8, the bench's count
+PO_LEDGER_ROWS = 262_144  # the structure built for the ledger-vs-allocator delta (~0.4 GB)
+GUARD_ABSORB_THRESHOLD = 512
+GUARD_ABSORBS = 6
+
+
+def scheduled_drive(sched, reqs, conc: int):
+    """``conc`` closed-loop callers through ``sched``: (q/s, latencies
+    ms, rows per request)."""
+    return drive(lambda q: sched.submit([q], K).result(timeout=TICKET_TIMEOUT_S), reqs, conc)
+
+
+def tuning_phase(docs, pipe, tag: str) -> int:
+    """Phase 13 (bench.py ``phase_self_tuning``): the c16 scheduler over
+    the cascade with the knob table's live coalescing window, a result
+    cache and the bench's shifting workload, static defaults against a
+    background ``Tuner``.  Returns the rescore launches of its counted
+    drives."""
+    from pathway_tpu_torch import config
+    from pathway_tpu_torch.cache import ResultCache, live_tiers
+    from pathway_tpu_torch.observe import profile
+    from pathway_tpu_torch.observe import slo as slo_mod
+    from pathway_tpu_torch.ops import dispatch_counter
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+    from pathway_tpu_torch.robust import inject
+    from pathway_tpu_torch.serve import ServeScheduler, Tuner
+
+    t_phase = time.perf_counter()
+    slo_mod.reset()  # earlier phases' injected faults leave serve_latency burning
+    pool = [" ".join(docs[(i * 9973) % N_DOCS].split()[:8]) for i in range(ST_POOL)]
+    hot = pool[:4]
+
+    def workload(n: int):
+        # 2/3 of the first half on 4 hot queries, then a cold tail over the pool
+        return [
+            (hot[i % 4] if i % 3 else pool[(i * 7) % 64]) if i < n // 2 else pool[(i * 11 + 5) % len(pool)]
+            for i in range(n)
+        ]
+
+    for q in pool:
+        pipe([q], K)
+    for b in range(2, SCHED_MAX_BATCH + 1):
+        pipe(sorted(set(workload(3 * b)))[:b], K)
+    with dispatch_counter.DispatchCounter() as counter:
+        pipe([pool[0]], K)
+    per_serve = (counter.dispatches, counter.fetches)
+
+    snapshot0 = config.snapshot()
+    stride0 = profile.sample_stride()
+
+    def arm(tuned: bool):
+        config.clear_overrides()
+        reqs = workload(ST_REQUESTS)
+        cache = ResultCache()
+        sched = ServeScheduler(pipe, window_us=None, max_batch=SCHED_MAX_BATCH, result_cache=cache)
+        budgets0 = {id(t): t.max_bytes for t in live_tiers()}
+        tuner, traj = None, []
+        if tuned:
+            tuner = Tuner(interval_s=ST_TICK_S)
+            tick = tuner.tick
+
+            def tick_and_log():
+                applied = tick()
+                if applied:
+                    traj.append((tuner.stats["ticks"], dict(config.overrides())))
+                return applied
+
+            tuner.tick = tick_and_log
+            tuner.start()
+        try:
+            with dispatch_counter.DispatchCounter() as counter:
+                qps, lats, rows = scheduled_drive(sched, reqs, ST_CONC)
+            st = dict(sched.stats)
+        finally:
+            sched.stop()
+            if tuner is not None:
+                tuner.stop()
+        n_batches = st["batches"] + st["solo"]
+        if (counter.dispatches, counter.fetches) != (per_serve[0] * n_batches, per_serve[1] * n_batches):
+            raise AssertionError(f"{'tuned' if tuned else 'static'}: {counter.dispatches} dispatches + "
+                                 f"{counter.fetches} fetches for {n_batches} batches; one serve books {per_serve}")
+        out = {"qps": qps, "lats": lats, "rows": dict(zip(reqs, rows)), "batches": n_batches, "traj": traj,
+               "hits": cache.stats["hits"], "lookups": cache.stats["hits"] + cache.stats["misses"]}
+        if tuner is not None:
+            out.update(ticks=tuner.stats["ticks"], adjustments=tuner.stats["adjustments"],
+                       final=dict(config.overrides()))
+            tuner.revert()
+            budgets = {id(t): t.max_bytes for t in live_tiers()}
+            if config.snapshot() != snapshot0 or any(budgets.get(k, v) != v for k, v in budgets0.items()):
+                raise AssertionError("revert() did not restore config.snapshot() and the live tier budgets")
+            if profile.sample_stride() != stride0:
+                raise AssertionError(f"revert() left the profiler stride at {profile.sample_stride()}")
+        return out
+
+    rescore_shortlist.launches = 0
+    arms = {}
+    for tuned in (False, True):
+        arm(tuned)  # unmeasured pre-pass: batch compositions follow timing
+        arms[tuned] = arm(tuned)
+    launches = rescore_shortlist.launches
+    static, tuned = arms[False], arms[True]
+    differ = [q for q, got in tuned["rows"].items()
+              if got.degraded or not same_ranking(static["rows"][q][0], got[0], tie=SCHED_TOL, atol=SCHED_TOL)]
+    if differ:
+        raise AssertionError(f"tuned rows rank differently from static on {len(differ)} queries: {differ[:3]}")
+    if tuned["ticks"] < 1:
+        raise AssertionError("the tuner never ticked")
+
+    # 2 + 2 on a solo serve with the tuner thread live, as the bench checks
+    live = Tuner(interval_s=ST_TICK_S).start()
+    try:
+        with dispatch_counter.DispatchCounter() as counter:
+            pipe([pool[7]], K)
+    finally:
+        live.stop()
+        live.revert()
+    if (counter.dispatches, counter.fetches) != per_serve:
+        raise AssertionError(f"solo serve with the tuner live: {counter.dispatches} + {counter.fetches}")
+
+    # an armed tuner.adjust fault freezes the tuner and reverts it
+    tier = ResultCache()._tier
+    faulty = Tuner(interval_s=ST_TICK_S)
+    faulty.tick()  # baseline of the signals
+    faulty.revert()
+    tier.stats["hits"] += 100
+    tier.stats["evictions"] += 20
+    moved = faulty.tick()
+    budget_moved = tier.max_bytes
+    inject.arm("tuner.adjust", "raise")
+    try:
+        frozen_tick = faulty.tick()
+    finally:
+        inject.disarm("tuner.adjust")
+    if not (moved >= 1 and frozen_tick == 0 and faulty.frozen and config.overrides() == {}
+            and tier.max_bytes == config.get("cache.result_bytes") != budget_moved and faulty.tick() == 0):
+        raise AssertionError(f"tuner.adjust fault: moved {moved}, tick {frozen_tick}, frozen {faulty.frozen}, "
+                             f"overrides {config.overrides()}")
+
+    # config.get against a raw environment parse, priced per request at
+    # the one live window read per batch
+    t0 = time.perf_counter()
+    for _ in range(ST_LOOKUPS):
+        config.get("serve.coalesce_us")
+    get_s = (time.perf_counter() - t0) / ST_LOOKUPS
+    t0 = time.perf_counter()
+    for _ in range(ST_LOOKUPS):
+        float(os.environ.get("PATHWAY_SERVE_COALESCE_US") or 2000.0)
+    raw_s = (time.perf_counter() - t0) / ST_LOOKUPS
+    p50 = {t: float(np.percentile(a["lats"], 50)) for t, a in arms.items()}
+    p99 = {t: float(np.percentile(a["lats"], 99)) for t, a in arms.items()}
+    reads_per_req = tuned["batches"] / ST_REQUESTS
+    share = get_s * reads_per_req / (p50[True] * 1e-3)
+    traj = "; ".join(f"tick {tick}: {ov}" for tick, ov in tuned["traj"][:8])
+    log(
+        f"self-tuning c{ST_CONC} over the cascade ({ST_REQUESTS} requests, shifting workload, live window, result "
+        f"cache) {tag}: static {static['qps']:.1f} q/s p50 {p50[False]:.3f} ms p99 {p99[False]:.3f} ms "
+        f"({static['batches']} batches, hit rate {static['hits'] / max(static['lookups'], 1):.3f}); tuned "
+        f"{tuned['qps']:.1f} q/s p50 {p50[True]:.3f} ms p99 {p99[True]:.3f} ms ({tuned['batches']} batches, hit rate "
+        f"{tuned['hits'] / max(tuned['lookups'], 1):.3f}); tuned / static q/s {tuned['qps'] / static['qps']:.3f}; "
+        f"tuner {tuned['ticks']} ticks, {tuned['adjustments']} adjustments, final {tuned['final']}; trajectory "
+        f"[{traj}{' ...' if len(tuned['traj']) > 8 else ''}]; every query ranks alike in both arms; "
+        f"{per_serve[0]} dispatches + {per_serve[1]} fetches per batch with the tuner live; revert restored the "
+        f"snapshot and tier budgets; a tuner.adjust fault froze and reverted the tuner; config.get "
+        f"{get_s * 1e9:.1f} ns vs raw env parse {raw_s * 1e9:.1f} ns, {reads_per_req:.3f} reads per request = "
+        f"{100 * share:.5f}% of the tuned p50; rescore launches {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s"
+    )
+    return launches
+
+
+def profiling_phase(encoder, ivf, docs, doc_vecs, keys, pipe, tag: str):
+    """Phase 14 (bench.py ``phase_profiling_overhead``): the c16 stack
+    with the profiler at stride 1 and a 10 Hz scraper (ledger + SLO
+    document) against all of it off; the per-callable attribution beside
+    ``torch.profiler``'s busy share; the ledger delta against the
+    allocator's; the armed in-place-write guard under absorbs.  Returns
+    the rescore launches of its drives and the decode row kernels'
+    launches of its decode drive."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from pathway_tpu_torch import observe
+    from pathway_tpu_torch.models.generator import TextGenerator
+    from pathway_tpu_torch.observe import hbm, profile
+    from pathway_tpu_torch.observe import slo as slo_mod
+    from pathway_tpu_torch.ops import decode_rows, dispatch_counter, donation_guard
+    from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+    from pathway_tpu_torch.serve import ContinuousDecoder, ServeScheduler
+
+    t_phase = time.perf_counter()
+    pool = [" ".join(docs[(i * 9973) % N_DOCS].split()[:8]) for i in range(PO_POOL)]
+    for q in pool:
+        pipe([q], K)
+    for b in range(2, SCHED_MAX_BATCH + 1):
+        pipe(sorted(set(pool))[:b], K)
+    with dispatch_counter.DispatchCounter() as counter:
+        pipe([pool[0]], K)
+    per_serve = (counter.dispatches, counter.fetches)
+    stride0 = profile.sample_stride()
+    shed0 = slo_mod.shed_advisory_enabled()
+    rescore_shortlist.launches = 0
+
+    def arm(on: bool, n: int):
+        stop = threading.Event()
+        scraper = None
+        if on:
+            profile.set_sample(1.0)
+            slo_mod.set_shed_advisory(True)
+
+            def scrape():
+                while not stop.is_set():
+                    hbm.sample()
+                    slo_mod.engine().evaluate(max_age_s=0.0)
+                    profile.profile_stats()
+                    stop.wait(0.1)
+
+            scraper = threading.Thread(target=scrape, daemon=True)
+            scraper.start()
+        else:
+            profile.set_sample(0.0)
+            slo_mod.set_shed_advisory(False)
+        sched = ServeScheduler(pipe, window_us=SCHED_WINDOW_US, max_batch=SCHED_MAX_BATCH, result_cache=None)
+        try:
+            _, lats, _ = scheduled_drive(sched, [pool[(i * 7) % PO_POOL] for i in range(n)], ST_CONC)
+        finally:
+            sched.stop()
+            stop.set()
+            if scraper is not None:
+                scraper.join(timeout=5)
+        return lats
+
+    try:
+        # 2 + 2 per batch at stride 1: sampling adds no round trip
+        profile.set_sample(1.0)
+        sched = ServeScheduler(pipe, window_us=SCHED_WINDOW_US, max_batch=SCHED_MAX_BATCH, result_cache=None)
+        try:
+            with dispatch_counter.DispatchCounter() as counter:
+                scheduled_drive(sched, [pool[(i * 7) % PO_POOL] for i in range(PO_REQUESTS)], ST_CONC)
+            n_batches = sched.stats["batches"] + sched.stats["solo"]
+        finally:
+            sched.stop()
+        if (counter.dispatches, counter.fetches) != (per_serve[0] * n_batches, per_serve[1] * n_batches):
+            raise AssertionError(f"stride 1: {counter.dispatches} + {counter.fetches} for {n_batches} batches")
+
+        # paired A/B, arm order alternated per round
+        ratios, p50s = [], {True: [], False: []}
+        for r in range(PO_ROUNDS):
+            round_p50 = {}
+            for on in ((True, False) if r % 2 == 0 else (False, True)):
+                arm(on, 2 * ST_CONC)  # settle after the flip
+                round_p50[on] = float(np.percentile(arm(on, PO_REQUESTS), 50))
+                p50s[on].append(round_p50[on])
+            ratios.append(round_p50[True] / round_p50[False])
+
+        # the attribution window: the c16 stack at stride 1, a stage-1
+        # search and an encode of the pool, and a short decode drive, under
+        # torch.profiler
+        profile.set_sample(1.0)
+        gen = TextGenerator()
+        prompts = decode_prompts()
+        engines = (ContinuousDecoder(gen, slots=DEC_SLOTS, step_bucket=8, kv_width=DEC_WIDTH),
+                   ContinuousDecoder(gen, slots=DEC_SLOTS, step_bucket=8, kv_width=DEC_WIDTH, spec_k=8,
+                                     draft="trunk"))
+        try:
+            for eng in engines:  # warm
+                eng.generate(prompts, max_new_tokens=8)
+            qvecs = encoder.encode(pool)
+            ivf.search(qvecs[:BATCH], k=K)
+            torch.cuda.synchronize()
+            profile.drain(30.0)
+            profile.reset()
+            for kernel in (decode_rows.layer_norm_rows, decode_rows.add_layer_norm_rows, decode_rows.tied_readout):
+                kernel.launches = 0
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                arm(True, PO_REQUESTS)
+                encoder.encode(pool)
+                ivf.search(qvecs, k=K)
+                for eng in engines:
+                    eng.generate(prompts, max_new_tokens=16)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            if not profile.drain(30.0):
+                raise AssertionError("profiler samples still pending 30 s after the window")
+        finally:
+            for eng in engines:
+                eng.stop()
+        decode_launches = {
+            "add_layer_norm_rows": decode_rows.add_layer_norm_rows.launches + decode_rows.layer_norm_rows.launches,
+            "tied_readout": decode_rows.tied_readout.launches,
+        }
+        stats = profile.profile_stats()
+    finally:
+        profile.set_sample(1.0 / stride0 if stride0 else 0.0)
+        slo_mod.set_shed_advisory(shed0)
+    launches = rescore_shortlist.launches
+    need = ("ivf.search", "encoder.forward", "rerank.stage2", "generator.slot_prefill", "generator.slot_step",
+            "generator.slot_draft", "generator.slot_verify")
+    missing = [n for n in need if stats.get(n, {}).get("device_s", 0.0) <= 0.0]
+    if missing:
+        raise AssertionError(f"no attributed device time for {missing}; rows {sorted(stats)}")
+    attributed_s = sum(row["device_s"] for row in stats.values())
+    rows = sorted(stats.items(), key=lambda kv: -kv[1]["device_s"])
+    attribution = ", ".join(
+        f"{name} {row['device_s'] * 1e3:.3f} ms / {row['calls']} calls" for name, row in rows if row["calls"]
+    )
+    added = [100.0 * (r - 1.0) for r in ratios]
+    log(
+        f"profiling overhead c{ST_CONC} over the cascade ({PO_ROUNDS} alternated pairs of {PO_REQUESTS} requests; "
+        f"on = profiler stride 1 + a 10 Hz ledger / SLO scraper) {tag}: added p50 median "
+        f"{float(np.median(added)):+.2f}% (pairs {[round(a, 2) for a in added]}, spread {min(added):+.2f}% .. "
+        f"{max(added):+.2f}%; p50 on {[round(v, 3) for v in p50s[True]]} ms, off {[round(v, 3) for v in p50s[False]]} "
+        f"ms); {per_serve[0]} dispatches + {per_serve[1]} fetches per batch at stride 1 ({n_batches} batches)"
+    )
+    log(
+        f"per-callable attribution (submit -> ready, stride 1; one window: c16 cascade, encode + IVF search of "
+        f"{PO_POOL} queries, 2 x 16 decode requests) {tag}: {attribution}; attributed {attributed_s * 1e3:.3f} ms "
+        f"in a {wall_ms:.3f} ms wall ({100 * attributed_s * 1e3 / wall_ms:.1f}% of it: calls overlap and include "
+        f"queue time); torch.profiler: {device_busy(prof, wall_ms)}; decode row kernel launches {decode_launches}"
+    )
+
+    # the ledger: its delta against the allocator's around a tracked
+    # structure built after warm-up, and the whole sample beside it
+    DeviceKnnIndex(DIM, metric="cos", initial_capacity=1024)
+    gc.collect()
+    torch.cuda.synchronize()
+    s0 = hbm.sample()
+    d0 = hbm.device_bytes()
+    probe_index = DeviceKnnIndex(DIM, metric="cos", initial_capacity=PO_LEDGER_ROWS)
+    torch.cuda.synchronize()
+    s1 = hbm.sample()
+    d1 = hbm.device_bytes()
+    d_ledger, d_device = s1["total_bytes"] - s0["total_bytes"], d1 - d0
+    subsystems = {sub: sum(parts.values()) for sub, parts in s1["subsystems"].items()}
+    log(
+        f"ledger {tag}: building a {PO_LEDGER_ROWS} x {DIM} exact index moved the ledger {d_ledger / 1e6:.3f} MB and "
+        f"torch.cuda.memory_allocated {d_device / 1e6:.3f} MB ({100 * abs(d_device - d_ledger) / d_ledger:.3f}% "
+        f"apart); whole ledger {s1['total_bytes'] / 1e9:.3f} GB against {d1 / 1e9:.3f} GB allocated (the rest: "
+        f"transient tensors, the cuBLAS workspace, untracked copies), watermark {s1['watermark_bytes'] / 1e9:.3f} "
+        f"GB; by subsystem (GB) { {k: round(v / 1e9, 3) for k, v in subsystems.items()} }; resources "
+        f"{ {k: (v['used'], v['capacity'], round(v['exhaustion_eta_s'], 1)) for k, v in s1['resources'].items()} }"
+    )
+    del probe_index
+    if abs(d_device - d_ledger) / d_ledger >= 0.10:
+        raise AssertionError(f"ledger delta {d_ledger} vs allocator delta {d_device}: more than 10% apart")
+
+    # the in-place-write guard, armed strict: absorbs under c16 serve on
+    # an index of the encoded documents, then a planted snapshot
+    os.environ["PATHWAY_DONATION_GUARD"] = "1"
+    os.environ["PATHWAY_DONATION_GUARD_STRICT"] = "1"
+    try:
+        gidx = IvfKnnIndex(DIM, metric="cos", absorb_threshold=GUARD_ABSORB_THRESHOLD)
+        gidx.build_from_matrix(keys[:N_DOCS], doc_vecs.float())
+        # free slots for the absorbs (a remove masks its rows in place)
+        gidx.remove(keys[: 2 * GUARD_ABSORB_THRESHOLD * GUARD_ABSORBS])
+        gserve = FusedEncodeSearch(encoder, gidx, k=K)
+        gserve(pool[:4])
+        fresh = [t + " guarded" for t in corpus(GUARD_ABSORB_THRESHOLD * GUARD_ABSORBS, seed=SEED + 13)]
+        with torch.no_grad():
+            fresh_vecs = encoder.encode_to_device(fresh).float().cpu().numpy()
+        fresh_keys = [(1 << 60) + i for i in range(len(fresh))]
+        absorbs0 = gidx.stats["absorbs"]
+        written0 = donation_guard.stats()["written"].get("ivf.absorb", 0)
+        done = threading.Event()
+
+        def feed():
+            try:
+                for c in range(GUARD_ABSORBS):
+                    lo, hi = c * GUARD_ABSORB_THRESHOLD, (c + 1) * GUARD_ABSORB_THRESHOLD
+                    gidx.add(fresh_keys[lo:hi], fresh_vecs[lo:hi])
+                    wait_maintenance(gidx, 60.0)
+            finally:
+                done.set()
+
+        feeder = threading.Thread(target=feed, daemon=True)
+        feeder.start()
+        n_served = 0
+        while not done.is_set():
+            _, _, rows_ = drive(lambda q: gserve([q]), [pool[(i * 5) % PO_POOL] for i in range(ST_CONC * 4)], ST_CONC)
+            n_served += len(rows_)
+        feeder.join(timeout=120)
+        absorbs = gidx.stats["absorbs"] - absorbs0
+        stats_g = donation_guard.stats()
+        written = stats_g["written"].get("ivf.absorb", 0) - written0
+        if absorbs < 1 or written < 1 or stats_g["violations"]:
+            raise AssertionError(f"guarded absorbs: {absorbs} absorbs, {written} writes, {stats_g['violations']}")
+        # planted: a reference to the live bias taken as a snapshot
+        # without a copy, then an absorb writes it in place
+        planted = gidx._bias
+        donation_guard.stamp("chip_smoke.planted_snapshot", planted)
+        more = [t + " planted" for t in corpus(GUARD_ABSORB_THRESHOLD, seed=SEED + 17)]
+        with torch.no_grad():
+            more_vecs = encoder.encode_to_device(more).float().cpu().numpy()
+        absorbs1 = gidx.stats["absorbs"]
+        gidx.add([(1 << 59) + i for i in range(len(more))], more_vecs)
+        wait_maintenance(gidx, 60.0)
+        if gidx.stats["absorbs"] != absorbs1 + 1:
+            raise AssertionError(f"the planted absorb did not commit: {gidx.stats}")
+        try:
+            donation_guard.guard("chip_smoke.planted_use", planted)
+        except donation_guard.DonationViolation as exc:
+            caught = str(exc)
+        else:
+            raise AssertionError("the planted use of a pre-write snapshot was not caught")
+        if "ivf.absorb" not in caught:
+            raise AssertionError(f"the planted violation names another writer: {caught}")
+    finally:
+        os.environ.pop("PATHWAY_DONATION_GUARD", None)
+        os.environ.pop("PATHWAY_DONATION_GUARD_STRICT", None)
+    log(
+        f"in-place-write guard, armed strict {tag}: {absorbs} absorbs ({written} recorded in-place writes) under "
+        f"{n_served} c{ST_CONC} stage-1 serves with 0 violations; planted snapshot caught: {caught[:120]}; "
+        f"rescore launches of this phase {rescore_shortlist.launches}; phase {time.perf_counter() - t_phase:.1f} s"
+    )
+    return rescore_shortlist.launches, decode_launches
+
+
+def tripwire_census() -> str:
+    """Every shape-census tripwire of the run: none may have tripped,
+    those of collected callables included."""
+    from pathway_tpu_torch import observe
+    from pathway_tpu_torch.ops.recompile_guard import trips
+
+    gauges = observe.snapshot()["gauges"]
+    sigs = {k: v for k, v in gauges.items() if k.startswith("pathway_recompile_signatures")}
+    tripped = [k for k, v in gauges.items() if k.startswith("pathway_recompile_tripped") and v]
+    if tripped or trips():
+        raise AssertionError(f"recompile tripwires tripped: {tripped} {trips()}")
+    by_callable = {}
+    for k, v in sigs.items():
+        name = k.split('callable="', 1)[1].split('"', 1)[0]
+        by_callable[name] = max(by_callable.get(name, 0), int(v))
+    return f"{len(sigs)} live tripwires, none tripped in the run; largest census per callable {by_callable}"
+
+
 FRAMING_BYTES = (1_334_500_000, 3_356_000_000)  # phase 12's two snapshots
 
 
@@ -2500,8 +3024,11 @@ def main() -> int:
         from pathway_tpu_torch.ops import decode_rows
 
         where = os.path.relpath(decode_rows.__file__)
+        if "PATHWAY_PROFILE_SAMPLE" in os.environ:
+            where += f" (PATHWAY_PROFILE_SAMPLE={os.environ['PATHWAY_PROFILE_SAMPLE']})"
         log(f"host us per wrapper call, {where}: " + rows_host_line(decode_rows, 256, torch.device(DEVICE)))
         log(f"engine c16, {where}: " + engine_c16_line())
+        log(f"scheduled cascade c16, {where}: " + serve_c16_line())
         return 0
     if sys.argv[1:] == ["--framing"]:
         smi = subprocess.run(
@@ -2511,6 +3038,8 @@ def main() -> int:
         for n_bytes in FRAMING_BYTES:
             log(f"warm-state framing on this host ({os.cpu_count()} cores): " + framing_compare_line(n_bytes))
         return 0
+    # every shape-census tripwire of the run raises past its budget
+    os.environ["PATHWAY_RECOMPILE_STRICT"] = "1"
     from pathway_tpu_torch.kernels.build import build_all
     from pathway_tpu_torch.models.encoder import SentenceEncoder
     from pathway_tpu_torch.ops.ivf import IvfKnnIndex
@@ -2777,6 +3306,17 @@ def main() -> int:
     # -- 12. warm state: cold vs warm bring-up, the 1M index restored -------------
     ws_launches = warm_state_phase(encoder, ivf, docs, keys, fwd, cascade.doc_text, tag)
 
+    # -- 13. the online tuner against static defaults, counted ---------------------
+    st_launches = tuning_phase(docs, cascade, tag)
+
+    # -- 14. the operator plane's cost and attribution, counted --------------------
+    po_launches, po_decode = profiling_phase(encoder, ivf, docs, doc_vecs, keys, cascade, tag)
+    decode_kernels[0]["launches"] += po_decode["add_layer_norm_rows"]
+    decode_kernels[0]["launches_profiling_phase"] = po_decode["add_layer_norm_rows"]
+    decode_kernels[1]["launches"] += po_decode["tied_readout"]
+    decode_kernels[1]["launches_profiling_phase"] = po_decode["tied_readout"]
+    log(f"shape census: {tripwire_census()}")
+
     record = {
         "kernels": [
             {
@@ -2784,10 +3324,12 @@ def main() -> int:
                 "route": "cuda",
                 "source": "pathway_tpu_torch/csrc/ivf_rescore.cu",
                 "replaces": "pathway_tpu/ops/ivf_pallas.py:37",
-                "launches": launches + rr_launches + sched_launches + li_launches + ws_launches,
+                "launches": launches + rr_launches + sched_launches + li_launches + ws_launches + st_launches
+                + po_launches,
                 "launches_by_path": {
                     "serve": launches, "rerank": rr_launches, "scheduler": sched_launches,
-                    "ingest": li_launches, "warmstate": ws_launches,
+                    "ingest": li_launches, "warmstate": ws_launches, "tuning": st_launches,
+                    "profiling": po_launches,
                 },
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,

@@ -12,7 +12,9 @@ encode (``models/encoder.py``).  A row is charged its
 eviction order matches the reference's.  The tier is per encoder.  Its
 warm state carries the rows as host numpy arrays (the reference's
 format); a restore uploads them to ``device``, else to the device of
-the rows it last held, else the CUDA device.
+the rows it last held, else the CUDA device.  The tier's bytes are on
+the device-memory ledger (``embedding_rows``, with the budget as the
+capacity resource ``embedding_cache_bytes``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from .. import config
 from ..device import resolve_device
+from ..observe import hbm
 from ..robust import retry_call
 from .keys import token_ids_key
 from .store import CacheTier, cache_enabled
@@ -44,6 +47,10 @@ class EmbeddingCache:
             ttl = config.get("cache.embed_ttl_s")
             ttl_s = ttl if ttl > 0 else None
         self._tier = CacheTier("embedding", max_bytes=max_bytes, ttl_s=ttl_s, max_entries=max_entries)
+        # the rows are device tensors: the tier's bytes are device bytes,
+        # and its budget is the ledger's capacity for the exhaustion ETA
+        hbm.track("cache", self, lambda c: {"embedding_rows": c._tier.bytes})
+        hbm.track_resource("embedding_cache_bytes", self, lambda c: c._tier.bytes, lambda c: c._tier.max_bytes)
 
     @property
     def stats(self):

@@ -15,8 +15,9 @@ is always left for the prefill (the first decode logits come from the
 last prompt position's hidden state, which a block does not carry).
 The tier is the port's ``CacheTier("generator_kv")``; reused and
 computed prefill tokens render as ``pathway_cache_prefill_tokens_total``
-on the port's recorder.  The reference's HBM-ledger registration is not
-ported yet.
+on the port's recorder.  The tier's bytes are on the device-memory
+ledger (``prefill_blocks``, with the budget as the capacity resource
+``prefill_cache_bytes``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 
 from .. import config, observe
+from ..observe import hbm
 from .keys import block_chain_keys
 from .store import CacheTier, cache_enabled
 
@@ -51,6 +53,9 @@ class PrefixKVCache:
         # prompt tokens served from cached K/V vs tokens the prefill ran
         self.stats_tokens = {"reused": 0, "computed": 0}
         observe.register_provider(self)
+        # the blocks are device tensors: the tier's bytes are device bytes
+        hbm.track("cache", self, lambda c: {"prefill_blocks": c._tier.bytes})
+        hbm.track_resource("prefill_cache_bytes", self, lambda c: c._tier.bytes, lambda c: c._tier.max_bytes)
 
     @property
     def stats(self):

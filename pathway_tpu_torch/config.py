@@ -11,6 +11,17 @@ falls back to the declared default and an out-of-bounds number clamps
 to the declared bounds, each with one warning, never an exception.
 ``get_site`` resolves the per-site family ``PATHWAY_RETRY_ATTEMPTS_<SITE>``
 of ``robust.retry_attempts``.
+
+The write path is the reference's: every knob carries its mutability
+class.  ``dynamic`` knobs (result-identical performance trade-offs: the
+coalescing window, the step chunk, cache byte budgets, the profiler
+stride) may be moved online by the tuner (``serve/tuner.py``) through
+``set``, always clamped to the declared bounds; ``set`` on a ``static``
+knob raises ``StaticKnobError``.  The override layer wins over the
+environment and over the parse cache, whatever the environment string
+does after the ``set``.  ``auto_pytest`` bools (the strict-mode
+tripwires) default to "on under pytest" and are re-read on every call,
+never cached.
 """
 
 from __future__ import annotations
@@ -21,12 +32,33 @@ import threading
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
-__all__ = ["Knob", "UnknownKnobError", "get", "get_site", "registry"]
+__all__ = [
+    "DYNAMIC",
+    "STATIC",
+    "Knob",
+    "StaticKnobError",
+    "UnknownKnobError",
+    "clear_override",
+    "clear_overrides",
+    "get",
+    "get_site",
+    "overrides",
+    "registry",
+    "set",
+    "snapshot",
+]
 
 _log = logging.getLogger("pathway_tpu_torch.config")
 
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("", "0", "false", "no", "off")
+
+STATIC = "static"
+DYNAMIC = "dynamic"
+
+
+class StaticKnobError(TypeError):
+    """``set`` on a ``static`` knob: the declaration is the tuner's veto."""
 
 
 class UnknownKnobError(KeyError):
@@ -36,8 +68,10 @@ class UnknownKnobError(KeyError):
 @dataclass(frozen=True)
 class Knob:
     """One declared knob: ``kind`` is bool | int | float | str | enum;
-    ``lo``/``hi`` clamp numbers, ``choices`` bound enums, ``site_prefix``
-    names a per-site environment family."""
+    ``lo``/``hi`` clamp numbers, ``choices`` bound enums, ``mutability``
+    is ``static`` or ``dynamic``, ``site_prefix`` names a per-site
+    environment family, and an ``auto_pytest`` bool is on under pytest
+    when unset."""
 
     key: str
     env: str
@@ -47,12 +81,17 @@ class Knob:
     lo: Optional[float] = None
     hi: Optional[float] = None
     choices: Optional[Tuple[str, ...]] = None
+    mutability: str = STATIC
     site_prefix: Optional[str] = None
+    auto_pytest: bool = False
 
 
 _REGISTRY: Dict[str, Knob] = {}
 # key -> (raw env string seen at parse time, typed value)
 _cache: Dict[str, Tuple[Optional[str], Any]] = {}
+# the tuner's layer: key -> typed value (dynamic knobs only, clamped)
+_overrides: Dict[str, Any] = {}
+_overrides_lock = threading.Lock()
 _warned: set = set()
 _warned_lock = threading.Lock()
 
@@ -65,7 +104,7 @@ def _knob(key: str, env: str, kind: str, default: Any, doc: str, **kw: Any) -> N
 
 # serve front (serve/scheduler.py, ops/retrieve_rerank.py)
 _knob("serve.coalesce_us", "PATHWAY_SERVE_COALESCE_US", "float", 2000.0,
-      "scheduler coalescing window in µs (0 = no wait)", lo=0.0, hi=100_000.0)
+      "scheduler coalescing window in µs (0 = no wait)", lo=0.0, hi=100_000.0, mutability=DYNAMIC)
 _knob("serve.max_batch", "PATHWAY_SERVE_MAX_BATCH", "int", 64,
       "cap on unique queries per coalesced device batch", lo=1, hi=4096)
 _knob("serve.deadline_ms", "PATHWAY_SERVE_DEADLINE_MS", "float", 0.0,
@@ -83,29 +122,29 @@ _knob("serve.default_priority", "PATHWAY_SERVE_DEFAULT_PRIORITY", "enum", "norma
 _knob("cache.enabled", "PATHWAY_CACHE", "bool", True, "global cache kill switch")
 _knob("cache.result", "PATHWAY_CACHE_RESULT", "bool", True, "tier-0 result cache")
 _knob("cache.result_bytes", "PATHWAY_CACHE_RESULT_BYTES", "int", 32 << 20,
-      "result-tier byte budget", lo=0, hi=1 << 40)
+      "result-tier byte budget", lo=0, hi=1 << 40, mutability=DYNAMIC)
 _knob("cache.result_ttl_s", "PATHWAY_CACHE_RESULT_TTL_S", "float", 60.0,
       "result-tier TTL in seconds (0 = no expiry)", lo=0.0, hi=86_400.0)
 _knob("cache.embed", "PATHWAY_CACHE_EMBED", "bool", False,
       "tier-1 embedding cache (opt-in: the search-only path changes low-order score bits)")
 _knob("cache.embed_bytes", "PATHWAY_CACHE_EMBED_BYTES", "int", 64 << 20,
-      "embedding-tier byte budget", lo=0, hi=1 << 40)
+      "embedding-tier byte budget", lo=0, hi=1 << 40, mutability=DYNAMIC)
 _knob("cache.embed_ttl_s", "PATHWAY_CACHE_EMBED_TTL_S", "float", 0.0,
       "embedding-tier TTL in seconds (0 = no expiry)", lo=0.0, hi=86_400.0)
 
 # live ingest (serve/ingest.py)
 _knob("ingest.batch_docs", "PATHWAY_INGEST_BATCH_DOCS", "int", 32,
-      "max documents one ingest embed/absorb batch carries", lo=1, hi=4096)
+      "max documents one ingest embed/absorb batch carries", lo=1, hi=4096, mutability=DYNAMIC)
 _knob("ingest.poll_ms", "PATHWAY_INGEST_POLL_MS", "float", 5.0,
-      "ingest loop idle poll interval in ms", lo=0.1, hi=60_000.0)
+      "ingest loop idle poll interval in ms", lo=0.1, hi=60_000.0, mutability=DYNAMIC)
 _knob("ingest.queue_cap", "PATHWAY_INGEST_QUEUE_CAP", "int", 4096,
       "pending-document queue capacity (connector commits block past it)", lo=1, hi=1_048_576)
 _knob("ingest.backpressure_ms", "PATHWAY_INGEST_BACKPRESSURE_MS", "float", 25.0,
-      "absorb-cadence yield when serve latency is the binding SLO", lo=0.0, hi=60_000.0)
+      "absorb-cadence yield when serve latency is the binding SLO", lo=0.0, hi=60_000.0, mutability=DYNAMIC)
 
 # durable warm state (serve/warmstate.py)
 _knob("warmstate.interval_s", "PATHWAY_WARMSTATE_INTERVAL_S", "float", 60.0,
-      "warm-state snapshot cadence in seconds (0 = manual only)", lo=0.0, hi=86_400.0)
+      "warm-state snapshot cadence in seconds (0 = manual only)", lo=0.0, hi=86_400.0, mutability=DYNAMIC)
 _knob("warmstate.chunk_bytes", "PATHWAY_WARMSTATE_CHUNK_BYTES", "int", 1_048_576,
       "CRC-framed snapshot chunk size in bytes", lo=4096, hi=1_073_741_824)
 _knob("warmstate.keep", "PATHWAY_WARMSTATE_KEEP", "int", 2,
@@ -113,7 +152,7 @@ _knob("warmstate.keep", "PATHWAY_WARMSTATE_KEEP", "int", 2,
 
 # generator decode (models/generator.py, serve/decode.py)
 _knob("decode.step_bucket", "PATHWAY_DECODE_STEP_BUCKET", "int", 8,
-      "decode steps one chunk dispatch advances", lo=1, hi=128)
+      "decode steps one chunk dispatch advances", lo=1, hi=128, mutability=DYNAMIC)
 _knob("decode.slots", "PATHWAY_DECODE_SLOTS", "int", 8,
       "continuous-decode slot-pool size", lo=1, hi=1024)
 _knob("decode.kv_width", "PATHWAY_DECODE_KV_WIDTH", "int", 0,
@@ -132,7 +171,7 @@ _knob("generator.kv", "PATHWAY_GENERATOR_KV", "bool", True,
       "KV-cache decode (off = the legacy full re-attend)")
 _knob("cache.kv", "PATHWAY_CACHE_KV", "bool", True, "tier-2 generator prefix-KV cache")
 _knob("cache.kv_bytes", "PATHWAY_CACHE_KV_BYTES", "int", 256 << 20,
-      "prefix-KV-tier byte budget", lo=0, hi=1 << 40)
+      "prefix-KV-tier byte budget", lo=0, hi=1 << 40, mutability=DYNAMIC)
 _knob("cache.kv_ttl_s", "PATHWAY_CACHE_KV_TTL_S", "float", 0.0,
       "prefix-KV-tier TTL in seconds (0 = no expiry)", lo=0.0, hi=86_400.0)
 _knob("cache.kv_block", "PATHWAY_CACHE_KV_BLOCK", "int", 32,
@@ -179,6 +218,14 @@ _knob("observe.slo_slow_window_s", "PATHWAY_SLO_SLOW_WINDOW_S", "float", 3600.0,
       "slow burn-rate window in seconds", lo=0.05, hi=86_400.0)
 _knob("observe.slo_burn", "PATHWAY_SLO_BURN", "float", 14.4,
       "burn-rate multiple that fires the SLO alert", lo=0.1, hi=10_000.0)
+_knob("observe.profile_sample", "PATHWAY_PROFILE_SAMPLE", "float", 0.25,
+      "device-time profiler sampled fraction of calls", lo=0.0, hi=1.0, mutability=DYNAMIC)
+
+# self-tuning (serve/tuner.py)
+_knob("tuner.enabled", "PATHWAY_TUNER", "bool", False,
+      "background knob tuner (adjusts dynamic-class knobs online)")
+_knob("tuner.interval_s", "PATHWAY_TUNER_INTERVAL_S", "float", 2.0,
+      "seconds between tuner control ticks", lo=0.05, hi=3600.0)
 
 # robustness (robust/)
 _knob("robust.faults", "PATHWAY_FAULTS", "str", "",
@@ -195,6 +242,16 @@ _knob("robust.breaker_threshold", "PATHWAY_BREAKER_THRESHOLD", "int", 5,
       "consecutive failures that open a circuit breaker", lo=1, hi=10_000)
 _knob("robust.breaker_reset_s", "PATHWAY_BREAKER_RESET_S", "float", 30.0,
       "open-breaker half-open probe delay in seconds", lo=0.0, hi=86_400.0)
+
+# runtime tripwires (ops/donation_guard.py, ops/recompile_guard.py)
+_knob("ops.donation_guard", "PATHWAY_DONATION_GUARD", "bool", False,
+      "runtime in-place-write tripwire over handed-out snapshots")
+_knob("ops.donation_guard_strict", "PATHWAY_DONATION_GUARD_STRICT", "bool", False,
+      "in-place-write tripwire raises instead of degrade-and-count", auto_pytest=True)
+_knob("ops.recompile_limit", "PATHWAY_RECOMPILE_LIMIT", "int", 128,
+      "shape-signature budget per callable", lo=1, hi=1_000_000)
+_knob("ops.recompile_strict", "PATHWAY_RECOMPILE_STRICT", "bool", False,
+      "recompile tripwire raises instead of warn-once", auto_pytest=True)
 
 
 def _warn_once(tag: str, msg: str, *args: Any) -> None:
@@ -222,6 +279,8 @@ def _clamp_num(knob: Knob, value: float) -> float:
 
 def _parse(knob: Knob, raw: Optional[str]) -> Any:
     """Raw environment string -> typed, clamped value; never raises."""
+    if raw is None and knob.auto_pytest:
+        return "PYTEST_CURRENT_TEST" in os.environ
     if raw is not None:
         s = raw.strip()
         if knob.kind == "bool":
@@ -270,9 +329,15 @@ def _cached(cache_key: str, knob: Knob, raw: Optional[str]) -> Any:
 
 
 def get(key: str) -> Any:
-    """The typed value of one declared knob (environment, else the
-    declared default)."""
+    """The typed value of one declared knob: the tuner's override
+    (dynamic knobs only), else the environment, else the declared
+    default.  ``auto_pytest`` bools are parsed on every call."""
+    ov = _overrides.get(key)
+    if ov is not None:
+        return ov
     knob = _spec(key)
+    if knob.auto_pytest:
+        return _parse(knob, os.environ.get(knob.env))
     return _cached(key, knob, os.environ.get(knob.env))
 
 
@@ -289,6 +354,49 @@ def get_site(key: str, site: str) -> Any:
     if raw is None:
         return get(key)
     return _cached(f"{key}@{env_name}", knob, raw)
+
+
+def set(key: str, value: Any) -> Any:  # noqa: A001 - the module is the namespace
+    """Adjust a ``dynamic`` knob online (the tuner's one write path):
+    the value is clamped to the declared bounds and layered over the
+    environment; returns the applied value.  A ``static`` knob raises
+    ``StaticKnobError``."""
+    knob = _spec(key)
+    if knob.mutability != DYNAMIC:
+        raise StaticKnobError(
+            f"knob {key} ({knob.env}) is static by declaration; the tuner may only adjust dynamic-class knobs"
+        )
+    if knob.kind == "int":
+        applied: Any = int(_clamp_num(knob, int(value)))
+    elif knob.kind == "float":
+        applied = float(_clamp_num(knob, float(value)))
+    else:
+        applied = _parse(knob, str(value))
+    with _overrides_lock:
+        _overrides[key] = applied
+    return applied
+
+
+def clear_override(key: str) -> None:
+    """Drop one override: the knob reverts to the environment / default."""
+    with _overrides_lock:
+        _overrides.pop(key, None)
+
+
+def clear_overrides() -> None:
+    with _overrides_lock:
+        _overrides.clear()
+
+
+def overrides() -> Dict[str, Any]:
+    """Snapshot of the live override layer (key -> applied value)."""
+    with _overrides_lock:
+        return dict(_overrides)
+
+
+def snapshot() -> Dict[str, Any]:
+    """{key: effective typed value} for every declared knob."""
+    return {key: get(key) for key in sorted(_REGISTRY)}
 
 
 def registry() -> Dict[str, Knob]:

@@ -28,7 +28,14 @@
   and leaves the documents out of the index (``add`` returns 0): the
   late-interaction stage degrades, serving goes on.  Every 8th absorb
   audits its int8 rows (``pathway_forward_quant_abs_err``); the
-  ``pathway_forward_*`` families are scraped from ``observe_metrics``.
+  ``pathway_forward_*`` families are scraped from ``observe_metrics``;
+- **operator plane**: pool, audit and MaxSim are attributed by the
+  profiler as ``forward.pool`` / ``forward.audit`` / ``forward.maxsim``,
+  their shape keys go through the ``ForwardIndex`` tripwire, the row
+  buckets are on the device-memory ledger (rows as a capacity resource,
+  ``forward_rows``), and the commit's in-place writes are reported to
+  the in-place-write tripwire, which checks that a warm state taken in
+  is never written.
 
 ``ShardedForwardIndex`` is not ported yet.
 """
@@ -45,8 +52,11 @@ import torch
 
 from .. import config, observe
 from ..device import to_host, upload
+from ..observe import hbm, profile
+from ..ops import donation_guard
 from ..ops.dispatch_counter import record_dispatch, record_fetch
 from ..ops.maxsim import maxsim_topk
+from ..ops.recompile_guard import RecompileTripwire
 from ..robust import RetryPolicy, inject, log_once, retry_call
 
 __all__ = ["ForwardIndex", "ForwardUnavailable", "audit_quant_error", "pool_token_states"]
@@ -170,6 +180,11 @@ class ForwardIndex:
         }
         self._observe_id = observe.next_id()
         observe.register_provider(self)
+        self._tripwire = RecompileTripwire("ForwardIndex")
+        hbm.track("forward", self, lambda ix: {"rows": ix.hbm_bytes()})
+        hbm.track_resource(
+            "forward_rows", self, lambda ix: len(ix), lambda ix: ix._tok.shape[0] if ix._tok is not None else 0
+        )
 
     # -- introspection ------------------------------------------------------
     def __len__(self) -> int:
@@ -237,12 +252,13 @@ class ForwardIndex:
         inject.fire("forward.absorb")  # fault site: the off-lock plan
         tokens, mask, n = self.encoder.encode_token_states(texts)
         quant = self.quant == "int8"
-        q, scales, nvalid, pooled = pool_token_states(
-            tokens, upload(mask, self.device), self.tokens_per_doc, quant
-        )
+        T = self.tokens_per_doc
+        self._tripwire.observe(("pool", tokens.shape[0], tokens.shape[1], T, quant))
+        q, scales, nvalid, pooled = _POOL(tokens, upload(mask, self.device), T, quant)
         audit = None
         if self.stats["absorbs"] % _AUDIT_EVERY == 0:
-            audit = audit_quant_error(pooled, q, scales, nvalid, quant)
+            self._tripwire.observe(("audit", tokens.shape[0], T, quant))
+            audit = _AUDIT(pooled, q, scales, nvalid, quant)
         lens = mask.sum(axis=1).astype(np.int64)
         return {
             "keys": keys,
@@ -300,6 +316,7 @@ class ForwardIndex:
                 self._tok.index_copy_(0, slots_dev, plan["q"].index_select(0, rows))
                 self._scales.index_copy_(0, slots_dev, plan["scales"].index_select(0, rows))
                 self._nvalid.index_copy_(0, slots_dev, plan["nvalid"].index_select(0, rows))
+            donation_guard.note_write("forward.commit", self._tok, self._scales, self._nvalid)
         except BaseException:
             self._free.extend(popped)  # no leaked free slots on failure
             raise
@@ -418,9 +435,14 @@ class ForwardIndex:
         if state["quant"] != self.quant:
             raise ValueError(f"quant mismatch: snapshot {state['quant']!r} vs index {self.quant!r}")
 
+        # the snapshot's arrays are the caller's: never written by this index
+        arrays = [state[n] for n in ("tok", "scales", "nvalid") if isinstance(state[n], np.ndarray)]
+        donation_guard.guard("forward.load_warm_state", *arrays)
+        donation_guard.stamp("forward.load_warm_state", *arrays)
+
         def dev(name):
             a = state[name]
-            return None if a is None else torch.from_numpy(np.array(a)).to(self.device)
+            return None if a is None else torch.from_numpy(np.array(a)).to(self.device)  # a copy: commits write in place
 
         tok, scales, nvalid = dev("tok"), dev("scales"), dev("nvalid")
         with self._lock:
@@ -489,10 +511,12 @@ class ForwardIndex:
             if self.device.type == "cuda":
                 self._serve_stream = torch.cuda.current_stream(self.device)
             slots_dev = upload(slots, self.device)
+            Lq = int(query_tokens.shape[1])
+            self._tripwire.observe(("maxsim", B, Lq, Kc, k_out, self._capacity, self.tokens_per_doc))
             # the launch runs under the index lock: a short retry schedule
             fetch = retry_call(
                 "forward.gather",
-                lambda: to_host(maxsim_topk(
+                lambda: to_host(_MAXSIM(
                     query_tokens, mask_dev, self._tok, self._scales, self._nvalid,
                     slots_dev, k_out, self.quant == "int8",
                 )),
@@ -538,3 +562,9 @@ class ForwardIndex:
         for kind in ("candidates", "missing"):
             yield ("counter", "pathway_forward_gather_rows_total", {**labels, "kind": kind},
                    self.stats[f"gather_{kind}"])
+
+
+# the device steps under the reference's profiler labels
+_POOL = profile.wrap("forward.pool", pool_token_states)
+_AUDIT = profile.wrap("forward.audit", audit_quant_error)
+_MAXSIM = profile.wrap("forward.maxsim", maxsim_topk)

@@ -13,8 +13,11 @@ completion that waits for one pinned host copy.  The launch retries
 under the ``cross_encoder.dispatch`` site and the completion fires
 ``cross_encoder.fetch``; submit-to-ready lands on
 ``pathway_serve_model_seconds{model="cross_encoder"}`` and the active
-trace (``model.cross_encoder``).  The HF-checkpoint path is not ported
-yet.
+trace (``model.cross_encoder``).  The forwards are attributed by the
+profiler as ``cross_encoder.forward`` / ``cross_encoder.packed``, their
+shape keys go through the ``CrossEncoderModel`` tripwire, and the
+module's parameters and buffers are on the device-memory ledger.  The
+HF-checkpoint path is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from torch import nn
 
 from .. import observe
 from ..device import DEFAULT_DTYPE, resolve_device, to_host, upload
-from ..observe import trace
+from ..observe import hbm, profile, trace
+from ..ops.recompile_guard import RecompileTripwire
 from ..robust import inject, retry_call
 from .encoder import _bucket
 from .packing import pack_rows, pad_packed_rows, row_length_bucket, seg_bucket
@@ -112,6 +116,8 @@ class CrossEncoderModel:
         else:
             module.load_state_dict(cross_encoder_params_from_flax(params, self.config))
         self.module = module.to(self.device).eval()
+        self._tripwire = RecompileTripwire("CrossEncoderModel")
+        hbm.track_params("cross_encoder", self)
 
     def predict(self, pairs: Sequence[Tuple[str, str]], packed: Optional[bool] = None) -> np.ndarray:
         """[(query, doc)] -> scores [n] f32 (packed unless ``packed=False``)."""
@@ -134,9 +140,10 @@ class CrossEncoderModel:
         qs = [str(p[0]) for p in pairs] + [""] * (b - n)
         ds = [str(p[1]) for p in pairs] + [""] * (b - n)
         ids, mask = self.tokenizer.encode_batch(qs, pairs=ds)
+        self._tripwire.observe(tuple(ids.shape))
         ids_t, mask_t = upload(ids, self.device), upload(mask, self.device)
         fetch = retry_call(
-            "cross_encoder.dispatch", lambda: to_host(self.module(ids_t, mask_t)), deadline=deadline
+            "cross_encoder.dispatch", lambda: to_host(_FORWARD(self.module, ids_t, mask_t)), deadline=deadline
         )
         return _completion(fetch, n, deadline, lambda arr: arr[:n])
 
@@ -173,9 +180,15 @@ class CrossEncoderModel:
     def _submit_packed(self, pairs, deadline):
         n = len(pairs)
         ids, segments, positions, S, flat_ix = self.packed_inputs(pairs)
+        self._tripwire.observe(("packed", ids.shape[0], ids.shape[1], S))
         fetch = retry_call(
             "cross_encoder.dispatch",
-            lambda: to_host(self.packed_forward(ids, segments, positions, S)),
+            lambda: to_host(_PACKED(self, ids, segments, positions, S)),
             deadline=deadline,
         )
         return _completion(fetch, n, deadline, lambda arr: arr.reshape(-1)[flat_ix][:n])
+
+
+# the forwards under the reference's profiler labels
+_FORWARD = profile.wrap("cross_encoder.forward", lambda module, *a: module(*a))
+_PACKED = profile.wrap("cross_encoder.packed", lambda ce, *a: ce.packed_forward(*a))

@@ -13,8 +13,12 @@ module with its pool skipped, per-token L2-normalized.
 ``retry_call("encoder.dispatch", ...)``, the reference's retry and fault
 site.  ``set_embed_cache`` arms the tier-1 embedding cache on the plain
 encode path: cached rows skip the forward, the misses encode in one
-bucketed forward, and the rows compose on the device.  Checkpoints and
-HF import are not ported yet.
+bucketed forward, and the rows compose on the device.  The three
+forwards are attributed by the profiler as ``encoder.forward``,
+``encoder.token_states`` and ``encoder.packed``, their shape keys (the
+reference's) go through the ``SentenceEncoder`` tripwire, and the
+module's parameters and buffers are on the device-memory ledger.
+Checkpoints and HF import are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import torch
 
 from .. import observe
 from ..device import DEFAULT_DTYPE, resolve_device, upload
+from ..observe import hbm, profile
+from ..ops.recompile_guard import RecompileTripwire
 from ..robust import retry_call
 from .packing import pack_rows, pad_packed_rows, seg_bucket
 from .params import init_encoder_, params_from_flax
@@ -87,6 +93,8 @@ class SentenceEncoder:
             module.load_state_dict(params_from_flax(params, self.config))
         self.module = module.to(self.device).eval()
         self.embed_cache = None
+        self._tripwire = RecompileTripwire("SentenceEncoder")
+        hbm.track_params("encoder", self)
 
     def get_embedding_dimension(self) -> int:
         return self.config.d_model
@@ -114,7 +122,8 @@ class SentenceEncoder:
         ``encoder.dispatch`` retry, composition on the device."""
 
         def embed(ids_m, mask_m):
-            return self.forward(upload(ids_m, self.device), upload(mask_m, self.device))
+            self._tripwire.observe(ids_m.shape)
+            return _FORWARD(self, upload(ids_m, self.device), upload(mask_m, self.device))
 
         out, misses = self.embed_cache.encode_rows(
             ids, mask, n, embed, _bucket, space=f"encode:{int(self.normalize)}", site="encoder.dispatch"
@@ -134,8 +143,9 @@ class SentenceEncoder:
         if self.embed_cache is not None:
             return self._cached_encode_rows(np.asarray(ids), np.asarray(mask), n)
         observe.record_occupancy("encoder", n, ids.shape[0])
+        self._tripwire.observe(tuple(ids.shape))
         ids_t, mask_t = upload(ids, self.device), upload(mask, self.device)
-        out = retry_call("encoder.dispatch", self.forward, ids_t, mask_t)
+        out = retry_call("encoder.dispatch", _FORWARD, self, ids_t, mask_t)
         return out[:n]
 
     @torch.no_grad()
@@ -157,13 +167,10 @@ class SentenceEncoder:
         observe.record_occupancy("encoder_packed", rows_real, Rb)
         ids, segments, positions = pad_packed_rows(ids, segments, positions, Rb)
         S = seg_bucket(n_seg)
+        self._tripwire.observe(("packed", Rb, L, S))
         dev = self.device
         ids_t, seg_t, pos_t = upload(ids, dev), upload(segments, dev), upload(positions, dev)
-
-        def packed():
-            return self._normalized(self.module(ids_t, seg_t > 0, segments=seg_t, positions=pos_t, n_segments=S))
-
-        pooled = retry_call("encoder.dispatch", packed)  # [Rb, S, d]
+        pooled = retry_call("encoder.dispatch", _PACKED, self, ids_t, seg_t, pos_t, S)  # [Rb, S, d]
         flat_ix = torch.as_tensor([r * S + seg for r, seg in doc_slots], dtype=torch.int64)
         return pooled.reshape(Rb * S, -1).index_select(0, flat_ix.to(dev))
 
@@ -181,12 +188,17 @@ class SentenceEncoder:
             return empty, np.zeros((0, L), np.int32), 0
         padded = list(texts) + [""] * (_bucket(n) - n)
         ids, mask = self.tokenizer.encode_batch(padded, pad_to=L)
+        self._tripwire.observe(("tokens",) + tuple(ids.shape))
         ids_t, mask_t = upload(ids, self.device), upload(mask, self.device)
+        return retry_call("encoder.dispatch", _TOKEN_STATES, self, ids_t, mask_t), mask, n
 
-        def token_states():
-            return normalized_token_states(self.module(ids_t, mask_t, pool="none"), mask_t)
+    @torch.no_grad()
+    def _packed_forward(self, ids_t, seg_t, pos_t, S: int) -> torch.Tensor:
+        return self._normalized(self.module(ids_t, seg_t > 0, segments=seg_t, positions=pos_t, n_segments=S))
 
-        return retry_call("encoder.dispatch", token_states), mask, n
+    @torch.no_grad()
+    def _token_states(self, ids_t, mask_t) -> torch.Tensor:
+        return normalized_token_states(self.module(ids_t, mask_t, pool="none"), mask_t)
 
     def encode(self, texts: Sequence[str]) -> np.ndarray:
         """Batch encode: [n] strings -> [n, d] float32 numpy."""
@@ -194,3 +206,9 @@ class SentenceEncoder:
 
     def __call__(self, texts: Sequence[str]) -> np.ndarray:
         return self.encode(texts)
+
+
+# the device steps under the reference's profiler labels
+_FORWARD = profile.wrap("encoder.forward", lambda enc, *a: enc.forward(*a))
+_TOKEN_STATES = profile.wrap("encoder.token_states", lambda enc, *a: enc._token_states(*a))
+_PACKED = profile.wrap("encoder.packed", lambda enc, *a: enc._packed_forward(*a))

@@ -23,14 +23,19 @@ The slot programs (``_slot_prefill_fn``, ``_slot_step_fn``,
 ``_slot_verify_fn``, ``_slot_draft_fn``) are plain functions on tensors
 that write the pool in place.  Each records the reference's shape key in
 ``_fns`` (a census of the shapes the engine used, not a compile cache),
-so the bucketing contract can be tested.  The trunk draft rolls forward
+so the bucketing contract can be tested; a new key goes through the
+``TextGenerator`` tripwire, which bounds the census.  The decode paths
+and slot programs are attributed by the profiler under the reference's
+labels (``generator.decode``, ``generator.kv_decode``,
+``generator.slot_{prefill,step,verify,draft}``).  The trunk draft rolls forward
 on a copy of the pool's first ``D`` layers: the real pool is never
 written by a draft.
 
 Weights: the port's seeded init from ``seed`` (the distributions of the
 Flax init, not its numbers), or the reference's tree through
-``params=`` (``generator_params_from_flax``).  Checkpoints and the HBM
-ledger are not ported yet.
+``params=`` (``generator_params_from_flax``); the module's parameters
+and buffers are on the device-memory ledger.  Checkpoints are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -44,8 +49,10 @@ import torch
 
 from .. import config, observe
 from ..device import DEFAULT_DTYPE, resolve_device, to_host, upload
-from ..ops import dispatch_counter
+from ..observe import hbm, profile
+from ..ops import dispatch_counter, donation_guard
 from ..ops.decode_rows import tied_readout
+from ..ops.recompile_guard import RecompileTripwire
 from ..robust import retry_call
 from . import prng
 from .encoder import _bucket
@@ -111,6 +118,12 @@ def eos_id_from_env() -> Optional[int]:
         return None
 
 
+def _captured(k: torch.Tensor, v: torch.Tensor):
+    """A prefix block captured for the cache, stamped as a snapshot."""
+    donation_guard.stamp("generator.prefix_capture", k, v)
+    return k, v
+
+
 def _sample_lanes(logits: torch.Tensor, temps: torch.Tensor, keys: torch.Tensor, greedy_only: bool):
     """Per-lane next tokens of ``logits [B, V]``: argmax where the lane's
     temperature is <= 0, else a draw from the lane's own key after one
@@ -171,6 +184,7 @@ class TextGenerator:
         self._lock = threading.Lock()
         # shape census: reference shape key -> times used
         self._fns: Dict[tuple, int] = {}
+        self._tripwire = RecompileTripwire(f"TextGenerator[{model}]")
         self._kv_scales = None
         if kv_cache == "env":
             from ..cache import prefix_kv_cache_from_env
@@ -178,10 +192,14 @@ class TextGenerator:
             kv_cache = prefix_kv_cache_from_env()
         self.kv_cache = kv_cache
         self._use_kv = config.get("generator.kv")
+        hbm.track_params("generator", self)
 
     def _census(self, key: tuple) -> None:
         with self._lock:
-            self._fns[key] = self._fns.get(key, 0) + 1
+            seen = self._fns.get(key, 0)
+            self._fns[key] = seen + 1
+        if not seen:
+            self._tripwire.observe(key)
 
     # -- legacy full re-attend decode (parity oracle) -------------------------
     @torch.no_grad()
@@ -279,6 +297,8 @@ class TextGenerator:
         for i in range(rows):
             if i < len(matches):
                 blocks = matches[i][1][:n_pblk]
+                # captured copies: no pool write may have reached them
+                donation_guard.guard("generator.prefix_rows", *(part for blk in blocks for part in blk))
                 ks.append(torch.cat([blk[0] for blk in blocks], dim=1).to(cfg.dtype))
                 vs.append(torch.cat([blk[1] for blk in blocks], dim=1).to(cfg.dtype))
             else:
@@ -309,8 +329,8 @@ class TextGenerator:
         dispatch_counter.record_dispatch("generator")
         toks, kbuf, vbuf = retry_call(
             "generator.dispatch",
-            self._kv_run,
-            b, L_sfx, P, max_new_tokens,
+            _KV_DECODE,
+            self, b, L_sfx, P, max_new_tokens,
             upload(ids[:, P:].astype(np.int64), dev),
             upload(n_lens, dev),
             prefix_k, prefix_v, float(temperature),
@@ -331,7 +351,7 @@ class TextGenerator:
                 self.kv_cache.admit(
                     chain,
                     matched // blk,
-                    lambda j, row=i: (
+                    lambda j, row=i: _captured(
                         kbuf[row, :, j * blk : (j + 1) * blk].clone(),
                         vbuf[row, :, j * blk : (j + 1) * blk].clone(),
                     ),
@@ -394,8 +414,8 @@ class TextGenerator:
             ids_d, mask_d, pos_d, rng, fin = state
             dispatch_counter.record_dispatch("generator")
             toks_c, ids_d, mask_d, pos_d, rng, fin = retry_call(
-                "generator.dispatch", self._decode_chunk,
-                ids_d, mask_d, pos_d, float(temperature), rng, fin, eos_v, c,
+                "generator.dispatch", _DECODE,
+                self, ids_d, mask_d, pos_d, float(temperature), rng, fin, eos_v, c,
             )
             state = (ids_d, mask_d, pos_d, rng, fin)
             # one fetch per chunk: the tokens and the finished mask together
@@ -467,7 +487,7 @@ class TextGenerator:
             pool_v[slots] = vbuf[:n_real]
             return toks, rngs
 
-        return prefill
+        return profile.wrap("generator.slot_prefill", prefill)
 
     def _slot_step_fn(self, S: int, T: int, chunk: int, quant: bool = False):
         """Decode-step CHUNK over the whole pool: ``(pool_k, pool_v, tok
@@ -499,7 +519,7 @@ class TextGenerator:
                 rngs = torch.where(live[:, None], rngs2, rngs)
             return rngs, torch.stack(emitted)
 
-        return run
+        return profile.wrap("generator.slot_step", run)
 
     def _slot_verify_fn(self, S: int, T: int, k: int, quant: bool = False):
         """Speculative VERIFY over the pool in one forward of ``Ln = k``:
@@ -535,7 +555,7 @@ class TextGenerator:
                 rngs = torch.where(live[:, None], rngs2, rngs)
             return rngs, torch.stack(emitted)
 
-        return run
+        return profile.wrap("generator.slot_verify", run)
 
     def _slot_draft_fn(self, S: int, T: int, k_draft: int, D: int, quant: bool = False):
         """Reduced-layer TRUNK draft: ``(pool_k, pool_v, tok [S], pos
@@ -562,4 +582,9 @@ class TextGenerator:
                 out.append(tok)
             return torch.stack(out, dim=1)
 
-        return run
+        return profile.wrap("generator.slot_draft", run)
+
+
+# the solo decode paths under the reference's profiler labels
+_DECODE = profile.wrap("generator.decode", lambda gen, *a: gen._decode_chunk(*a))
+_KV_DECODE = profile.wrap("generator.kv_decode", lambda gen, *a: gen._kv_run(*a))

@@ -2,15 +2,16 @@
 ``pathway_tpu/observe``): stage histograms, counters, gauges and
 providers under the reference's family names (``recorder.py``),
 per-request span trees with tail sampling (``trace.py``) and the SLO
-burn-rate engine behind the scheduler's shed probe (``slo.py``).  The
-registry is the port's own; ``PATHWAY_OBSERVE=0`` or
-``set_enabled(False)`` reduces every record call to a flag check.
-
-The reference's device-time profiler and HBM ledger wait for a later
-slice of the port.
+burn-rate engine behind the scheduler's shed probe (``slo.py``), the
+per-callable device-time profiler (``profile.py``: sampled calls timed
+submit -> ready by CUDA events on a completer thread) and the pull-based
+device-memory ledger (``hbm.py``).  The registry is the port's own;
+``PATHWAY_OBSERVE=0`` or ``set_enabled(False)`` reduces every record
+call to a flag check.  ``snapshot()`` carries ``profile`` and ``hbm``
+columns beside the series.
 """
 
-from . import slo, trace
+from . import hbm, profile, slo, trace
 from .histogram import N_BUCKETS, EventRing, LatencyHistogram, bucket_bounds_s
 from .recorder import (
     Counter,
@@ -39,8 +40,10 @@ __all__ = [
     "counter",
     "emit_span",
     "gauge",
+    "hbm",
     "histogram",
     "next_id",
+    "profile",
     "record_event",
     "record_occupancy",
     "register_provider",

@@ -274,8 +274,9 @@ def snapshot() -> Dict[str, Any]:
     """JSON-able view: histogram summaries (count, sum, p50/p95/p99
     bucket bounds), counters, gauges (provider samples included), a
     per-tier cache column (samples labeled ``tier``), a per-runner
-    ingest column (samples labeled ``ingest``), ring health and the
-    recent event ring."""
+    ingest column (samples labeled ``ingest``), the profiler's
+    per-callable ``profile`` column, the ledger's ``hbm`` column, ring
+    health and the recent event ring."""
     hist_items, counter_items, gauge_items = _copy_tables()
     hists = {}
     for name, series in hist_items.items():
@@ -303,6 +304,11 @@ def snapshot() -> Dict[str, Any]:
                 rest = tuple((lk, lv) for lk, lv in key if lk != label)
                 column.setdefault(owner, {})[name + _fmt_labels(rest)] = value
     events, total = _ring.snapshot()
+    # device-time attribution and the device-memory ledger ride along,
+    # so one read answers who owns device time and who owns its memory
+    from . import hbm as _hbm
+    from . import profile as _profile
+
     return {
         "enabled": _hist_mod.enabled,
         "rings": {r: {"capacity": c, "dropped": d} for r, c, d in _ring_health()},
@@ -311,6 +317,8 @@ def snapshot() -> Dict[str, Any]:
         "gauges": gauges,
         "caches": {k: caches[k] for k in sorted(caches)},
         "ingest": {k: ingests[k] for k in sorted(ingests)},
+        "profile": _profile.profile_stats(),
+        "hbm": _hbm.ledger_stats(),
         "events": [
             {"ts": e[0], "kind": e[1], "tag": e[2], "dur_ns": e[3], **(e[4] or {})} for e in events
         ],

@@ -39,7 +39,14 @@
   retries under ``ivf.tail_upload`` and, past its budget, leaves the
   serve resident-only (``tail_degraded``, ``tail_skipped``); the index
   is a provider of the ``pathway_ivf_*`` samples and reports its device
-  bytes in ``hbm_bytes``.
+  bytes in ``hbm_bytes`` to the device-memory ledger (``observe/hbm.py``);
+- **operator plane**: ``search`` is attributed as ``ivf.search`` by the
+  profiler, its shape keys go through the ``IvfKnnIndex.search``
+  tripwire (the exact tail enters at the reference's padded bucket,
+  ``tail_bucket``), and the in-place writes of absorb and remove are
+  reported to the in-place-write tripwire (``ops/donation_guard.py``),
+  which checks that a serve's dispatch-time ``keys_by_slot`` and a
+  warm state taken in are never written.
 """
 
 from __future__ import annotations
@@ -54,10 +61,12 @@ import torch
 
 from .. import observe
 from ..device import resolve_device
-from ..observe import trace
+from ..observe import hbm, profile, trace
 from ..robust import TAIL_SKIPPED, RetryPolicy, inject, log_once, record_degraded, retry_call
+from . import donation_guard
 from .ivf_rescore import rescore_shortlist
-from .knn import normalize_metric
+from .knn import _bucket, normalize_metric
+from .recompile_guard import RecompileTripwire
 
 __all__ = ["IvfKnnIndex"]
 
@@ -129,6 +138,17 @@ def _balanced_assign(order: np.ndarray, C: int, cap: int):
         assignment[i] = c
         counts[c] += 1
     return assignment, counts
+
+
+def _own_copy(array) -> np.ndarray:
+    """An f32 copy of a snapshot array taken in: the in-place absorb and
+    remove writes must never reach the caller's array."""
+    return np.array(array, np.float32)
+
+
+def _keys_copy(keys_by_slot: np.ndarray) -> np.ndarray:
+    """The copy an absorb writes its new slots into."""
+    return keys_by_slot.copy()
 
 
 def _unit_rows(rows: torch.Tensor) -> torch.Tensor:
@@ -226,6 +246,13 @@ class IvfKnnIndex:
         self.generation = 0
         self._observe_id = observe.next_id()
         observe.register_provider(self)
+        self._tripwire = RecompileTripwire("IvfKnnIndex.search")
+        hbm.track("ivf", self)
+
+    def tail_bucket(self, n: int) -> int:
+        """The reference's padded exact-tail size for ``n`` tail rows (0
+        for none): the shape key a padded tail scan would compile for."""
+        return _bucket(max(n, min(self.absorb_threshold, 8192))) if n else 0
 
     def hbm_bytes(self) -> Dict[str, int]:
         """Device bytes by component: the built structure (slabs, bias,
@@ -327,6 +354,7 @@ class IvfKnnIndex:
             self._bias[arr // self._M_pad, arr % self._M_pad] = float("-inf")
             if self._live_mask is not None:
                 self._live_mask[np.asarray(slots, np.int64)] = False  # absorb may reuse
+            donation_guard.note_write("ivf.remove", self._bias, self._live_mask)
             self._absorb_stuck_at = None  # capacity changed: re-arm absorb
 
     # -- build ---------------------------------------------------------------
@@ -579,11 +607,15 @@ class IvfKnnIndex:
                 f"metric mismatch: snapshot {state['metric']!r} vs index {self.metric!r}"
             )
 
+        # the snapshot's arrays are the caller's: never written by this index
+        arrays = [state.get(n) for n in ("slabs", "bias", "live_mask") if isinstance(state.get(n), np.ndarray)]
+        donation_guard.guard("ivf.load_warm_state", *arrays)
+        donation_guard.stamp("ivf.load_warm_state", *arrays)
+
         def dev(a, dtype):
             if a is None:
                 return None
-            # a copy: the in-place bias writes must not reach the snapshot
-            return torch.from_numpy(np.array(a, np.float32)).to(self.device, dtype)
+            return torch.from_numpy(_own_copy(a)).to(self.device, dtype)
 
         slabs = dev(state["slabs"], self.dtype)
         bias = dev(state["bias"], torch.float32)
@@ -758,12 +790,14 @@ class IvfKnnIndex:
             self._slabs.view(C_pad * M_pad, d_pad).index_copy_(0, slots_dev, vecs_dev)
             self._bias.view(-1).index_fill_(0, slots_dev, 0.0)
         self._live_mask[slots] = True
-        keys_by_slot = self._keys_by_slot.copy()
+        # copy-on-write: an in-flight serve completes through the old map
+        keys_by_slot = _keys_copy(self._keys_by_slot)
         for row_i, slot in zip(placed.tolist(), slots.tolist()):
             key = tail_keys[row_i]
             keys_by_slot[slot] = key
             self._slot_of_key[key] = slot
             del self._tail[key]
+        donation_guard.note_write("ivf.absorb", self._slabs, self._bias, self._live_mask, keys_by_slot)
         self._keys_by_slot = keys_by_slot
         self._tail_cache = None
         self.generation += 1
@@ -878,14 +912,23 @@ class IvfKnnIndex:
                 norms = np.linalg.norm(queries, axis=1, keepdims=True)
                 queries = queries / np.where(norms == 0, 1.0, norms)
             tail, tail_dev = self._tail_snapshot_device()
+            p = self.probe_count(n_probe)
+            self._tripwire.observe(
+                (_bucket(nq), k, p, self.tail_bucket(len(tail)), self._slabs.shape[0], self._M_pad,
+                 self._centroids.shape[0])
+            )
             z = torch.from_numpy(queries).to(self.device)
-            out = self._search_device(z, k, self.probe_count(n_probe), tail_dev, serve=False)
+            out = _SEARCH(self, z, k, p, tail_dev, False)
             keys_by_slot = self._keys_by_slot  # dispatch-time snapshot
         scores, slots, t_scores, t_idx = (t.cpu().numpy() for t in out)
         return [
             merge_stage1_row(scores[qi], slots[qi], t_scores[qi], t_idx[qi], keys_by_slot, tail, k)
             for qi in range(nq)
         ]
+
+
+# the host search under the reference's profiler label
+_SEARCH = profile.wrap("ivf.search", lambda index, *a: index._search_device(*a))
 
 
 def merge_stage1_row(

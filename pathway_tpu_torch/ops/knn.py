@@ -8,6 +8,7 @@ plane and the slot -> key map as two int32 planes (``keys_hi``,
 device.  Add and remove are slot-allocator updates (free list, capacity
 doubling) applied as in-place ``index_copy_`` scatters — the reference
 rebuilds its arrays functionally; nothing here holds an old reference.
+The index reports its bytes to the device-memory ledger (``hbm_bytes``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..observe import hbm
 
 __all__ = ["DeviceKnnIndex", "normalize_metric"]
 
@@ -85,6 +87,13 @@ class DeviceKnnIndex:
         # result-visibility generation: bumped on every mutation that can
         # change what a serve returns
         self.generation = 0
+        hbm.track("knn", self)
+
+    def hbm_bytes(self) -> Dict[str, int]:
+        """Device bytes: the allocated-capacity matrix and the slot
+        planes (validity, key halves)."""
+        planes = sum(t.numel() * t.element_size() for t in (self._valid, self._keys_hi, self._keys_lo))
+        return {"matrix": self._matrix.numel() * self._matrix.element_size(), "planes": planes}
 
     @staticmethod
     def _round_capacity(cap: int) -> int:

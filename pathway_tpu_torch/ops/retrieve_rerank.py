@@ -42,7 +42,7 @@ import torch
 from .. import observe
 from ..device import to_host, upload
 from ..models.encoder import _bucket
-from ..observe import trace
+from ..observe import profile, trace
 from ..robust import (
     LATE_INTERACTION_SKIPPED,
     RERANK_SKIPPED,
@@ -62,6 +62,7 @@ from ..robust import (
 from ..robust import breaker as robust_breaker
 from .dispatch_counter import record_dispatch, record_fetch
 from .maxsim import pack_topk
+from .recompile_guard import RecompileTripwire
 
 __all__ = [
     "CrossEncoderStage",
@@ -335,6 +336,7 @@ class RetrieveRerankPipeline:
                     "mean-pooling TransformerEncoder trunk)"
                 )
         self._lock = threading.Lock()
+        self._tripwire = RecompileTripwire("RetrieveRerankPipeline.stage2")
         self.stats = {"serves": 0, "stage2_pairs": 0, "stage2_rows": 0}
 
     def _default_deadline(self) -> Optional[Deadline]:
@@ -464,13 +466,16 @@ class RetrieveRerankPipeline:
             return ""
         return str(text or "")
 
-    def _compiled_stage2(self, S: int, Q: int, Kc: int, k_out: int):
+    def _compiled_stage2(self, R: int, L: int, S: int, Q: int, Kc: int, k_out: int):
         """The stage-2 step as one function of the packed rows: packed
         cross-encoder forward -> pair scores scattered into the ``[Q,
         Kc]`` ``-inf`` table (``pair_slot[r * S + s] = q * Kc + j`` for a
         real pair, ``Q * Kc`` for a pad segment: a dump cell cut off
         after the scatter) -> per-query top ``k_out`` -> ``[Q, 2 *
-        k_out]`` int32 (score bits, then candidate indices)."""
+        k_out]`` int32 (score bits, then candidate indices).  The shape
+        key goes through the ``RetrieveRerankPipeline.stage2`` tripwire
+        and the step is attributed as ``rerank.stage2``."""
+        self._tripwire.observe((R, L, S, Q, k_out, Kc))
         ce = self.cross_encoder
 
         def fused(ids, segments, positions, pair_slot):
@@ -479,7 +484,7 @@ class RetrieveRerankPipeline:
             table.scatter_(0, pair_slot, flat)
             return pack_topk(table[: Q * Kc].view(Q, Kc), k_out)
 
-        return fused
+        return profile.wrap("rerank.stage2", fused)
 
     @torch.no_grad()
     def _submit_stage2(
@@ -515,7 +520,7 @@ class RetrieveRerankPipeline:
         Rb = ids.shape[0]
         pair_slot = np.full(Rb * S, Qb * Kc, np.int64)  # pad segments: the dump cell
         pair_slot[flat_ix] = slot_ids
-        fn = self._compiled_stage2(S, Qb, Kc, k_out)
+        fn = self._compiled_stage2(Rb, ids.shape[1], S, Qb, Kc, k_out)
         pair_slot_dev = upload(pair_slot, ce.device)
         fetch = retry_call(
             "rerank.dispatch",

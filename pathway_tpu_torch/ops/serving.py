@@ -41,7 +41,14 @@ failed past its retries (``IvfKnnIndex._tail_snapshot_device``) returns
 the resident rows flagged ``tail_skipped``.  Stage timings land on
 ``pathway_serve_stage_seconds{stage}`` and, with the same clock reads, on
 the active trace (``stage1.dispatch`` / ``stage1.fetch`` /
-``stage1.postprocess``).  The sharded path is not ported yet.
+``stage1.postprocess``).  The device steps are attributed by the
+profiler under the reference's labels (``serve.fused_exact`` /
+``serve.exact_search``, ``serve.fused_ivf`` / ``serve.ivf_search`` for
+the search-only twins, ``serve.encode`` for the cache misses' encode),
+their shape keys go through the ``FusedEncodeSearch`` tripwire, and an
+IVF serve's dispatch-time ``keys_by_slot`` is a snapshot the in-place
+absorb must never write (``ops/donation_guard.py``).  The sharded path
+and its ``serve.shard_*`` labels are not ported yet.
 """
 
 from __future__ import annotations
@@ -57,11 +64,13 @@ from .. import observe
 from ..cache import embedding_cache_from_env
 from ..device import to_host, upload
 from ..models.transformer import masked_mean_pool, normalized_token_states
-from ..observe import trace
+from ..observe import profile, trace
 from ..robust import TAIL_SKIPPED, Deadline, RetryPolicy, ServeResult, inject, retry_call
+from . import donation_guard
 from .dispatch_counter import record_dispatch, record_fetch
 from .ivf import merge_stage1_row
 from .knn import _bucket
+from .recompile_guard import RecompileTripwire
 
 __all__ = ["FusedEncodeSearch"]
 
@@ -95,6 +104,7 @@ class FusedEncodeSearch:
         self.embed_cache = embedding_cache_from_env() if embed_cache == "env" else embed_cache
         self._lock = threading.Lock()
         self._ivf = hasattr(index, "_centroids")
+        self._tripwire = RecompileTripwire("FusedEncodeSearch")
 
     def _exporting(self) -> bool:
         module = self.encoder.module
@@ -127,7 +137,7 @@ class FusedEncodeSearch:
         Returns ``(z, encoded)``."""
         B = ids.shape[0]
         z, misses = self.embed_cache.encode_rows(
-            ids, mask, n_real, lambda i, m: self._embed(i, m)[0], _bucket, space=f"serve:{self.index.metric}",
+            ids, mask, n_real, lambda i, m: _ENCODE(self, i, m)[0], _bucket, space=f"serve:{self.index.metric}",
             site="serve.dispatch", deadline=deadline,
         )
         if B > n_real:
@@ -212,13 +222,11 @@ class FusedEncodeSearch:
                 empty = ServeResult([[] for _ in texts], meta={"index_generation": gen0})
                 return self._handle(lambda: empty, None, mask, n_real)
             k_eff = min(k, n_items)
+            self._tripwire.observe((ids.shape[0], ids.shape[1], k, index.capacity, self._exporting(), z is not None))
+            step = _FUSED_EXACT if z is None else _EXACT_SEARCH
 
             def launch():
-                zz, qtok = (z, None) if z is not None else self._embed(ids, mask)
-                s, i = index.score_topk(zz, k_eff)
-                # winners' keys gathered on the device from the int32
-                # planes: completion needs no host slot -> key map
-                packed = torch.cat([_f32_bits(s), index._keys_hi[i], index._keys_lo[i]], dim=1)
+                packed, qtok = step(self, z, ids, mask, k_eff)
                 return to_host(packed), qtok
 
             fetch, qtok = retry_call(
@@ -256,28 +264,36 @@ class FusedEncodeSearch:
             tail, tail_dev = index._tail_snapshot_device()
             # the ladder's tail rung: counted by the snapshot itself
             tail_skipped = index.tail_degraded
+            p = index.probe_count()
+            self._tripwire.observe((
+                "ivf", ids.shape[0], ids.shape[1], k, p, index.tail_bucket(len(tail)), index._slabs.shape[0],
+                index._centroids.shape[0], index._M_pad, self._exporting(), z is not None,
+            ))
+            step = _FUSED_IVF if z is None else _IVF_SEARCH
 
             def launch():
-                zz, qtok = (z, None) if z is not None else self._embed(ids, mask)
-                s, slots, t_s, t_i = index._search_device(zz, k_eff, index.probe_count(), tail_dev, serve=True)
-                packed = torch.cat([_f32_bits(s), slots, _f32_bits(t_s), t_i], dim=1)
-                return to_host(packed), qtok, s.shape[1], t_s.shape[1]
+                packed, qtok, k_main, k_tail = step(self, z, ids, mask, k_eff, p, tail_dev)
+                return to_host(packed), qtok, k_main, k_tail
 
             fetch, qtok, k_main, k_tail = retry_call(
                 "ivf.dispatch", launch, deadline=deadline, policy=_LOCKED_DISPATCH_RETRY
             )
             keys_by_slot = index._keys_by_slot  # dispatch-time snapshot
+            donation_guard.stamp("ivf.serve", keys_by_slot)
         record_dispatch("serve_ivf", shards=launches)
         t_dispatch = self._note_dispatch("ivf", t_start, n_real, ids.shape[0], tail=len(tail))
 
         def complete() -> List[List[Tuple[int, float]]]:
             arr, t_fetch, t = self._fetch(fetch, "serve_ivf", "ivf", n_real, t_dispatch, deadline)
+            slot_keys = keys_by_slot
+            if not donation_guard.guard("ivf.serve", slot_keys):
+                slot_keys = np.array(slot_keys)  # production: no further write reaches this merge
             scores = np.ascontiguousarray(arr[:, :k_main]).view(np.float32)
             slot_cols = arr[:, k_main : 2 * k_main]
             t_scores = np.ascontiguousarray(arr[:, 2 * k_main : 2 * k_main + k_tail]).view(np.float32)
             t_idx = arr[:, 2 * k_main + k_tail :]
             results = [
-                merge_stage1_row(scores[qi], slot_cols[qi], t_scores[qi], t_idx[qi], keys_by_slot, tail, k)
+                merge_stage1_row(scores[qi], slot_cols[qi], t_scores[qi], t_idx[qi], slot_keys, tail, k)
                 for qi in range(len(texts))
             ]
             self._note_post(t, t_fetch)
@@ -287,7 +303,33 @@ class FusedEncodeSearch:
 
         return self._handle(complete, qtok, mask, n_real)
 
+    def _exact_step(self, z, ids, mask, k_eff: int):
+        """Exact stage 1 on the device: ``(packed [B, 3k] int32, qtok)``;
+        the trunk runs here unless ``z`` (the search-only twin) is given."""
+        index = self.index
+        zz, qtok = (z, None) if z is not None else self._embed(ids, mask)
+        s, i = index.score_topk(zz, k_eff)
+        # winners' keys gathered on the device from the int32 planes:
+        # completion needs no host slot -> key map
+        packed = torch.cat([_f32_bits(s), index._keys_hi[i], index._keys_lo[i]], dim=1)
+        return packed, qtok
+
+    def _ivf_step(self, z, ids, mask, k_eff: int, p: int, tail_dev):
+        """IVF stage 1 on the device: ``(packed, qtok, k_main, k_tail)``."""
+        zz, qtok = (z, None) if z is not None else self._embed(ids, mask)
+        s, slots, t_s, t_i = self.index._search_device(zz, k_eff, p, tail_dev, serve=True)
+        packed = torch.cat([_f32_bits(s), slots, _f32_bits(t_s), t_i], dim=1)
+        return packed, qtok, s.shape[1], t_s.shape[1]
+
     def __call__(
         self, texts: Sequence[str], k: Optional[int] = None, deadline: Optional[Deadline] = None
     ) -> List[List[Tuple[int, float]]]:
         return self.submit(texts, k, deadline=deadline)()
+
+
+# the device steps under the reference's profiler labels
+_FUSED_EXACT = profile.wrap("serve.fused_exact", lambda fes, *a: fes._exact_step(*a))
+_EXACT_SEARCH = profile.wrap("serve.exact_search", lambda fes, *a: fes._exact_step(*a))
+_FUSED_IVF = profile.wrap("serve.fused_ivf", lambda fes, *a: fes._ivf_step(*a))
+_IVF_SEARCH = profile.wrap("serve.ivf_search", lambda fes, *a: fes._ivf_step(*a))
+_ENCODE = profile.wrap("serve.encode", lambda fes, *a: fes._embed(*a))

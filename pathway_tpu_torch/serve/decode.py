@@ -45,9 +45,12 @@ tight for any queueing, one whose prompt + budget does not fit
 ``kv_width``, and the overflow past quarantined slots serve SOLO
 through ``generate`` (counted in ``stats["solo"]``).  The
 ``generator.prefill`` / ``generator.step`` / ``generator.slot_free``
-fault sites degrade the affected request only.  ``hbm_bytes`` /
-``hbm_components`` count the pool's tensors; the reference's HBM ledger
-is not ported yet.
+fault sites degrade the affected request only.  ``hbm_components``
+feeds the device-memory ledger (``observe/hbm.py``, with the slots as a
+capacity resource, ``decode_slots``).  Every prefill, step and verify
+writes the pool in place and reports it to the in-place-write tripwire
+(``ops/donation_guard.py``); the prefix blocks captured from the pool
+are copies, stamped as snapshots and checked where a join reads them.
 """
 
 from __future__ import annotations
@@ -63,8 +66,8 @@ import torch
 from .. import config, observe
 from ..device import to_host, upload
 from ..models import prng
-from ..observe import trace
-from ..ops import dispatch_counter
+from ..observe import hbm, trace
+from ..ops import dispatch_counter, donation_guard
 from ..robust import EXTRACTIVE_ANSWER, Deadline, inject, log_once, record_degraded, retry_call
 from .scheduler import _Batch, _CoalescerBase, _Ticket
 
@@ -219,6 +222,8 @@ class ContinuousDecoder(_CoalescerBase):
         super().__init__(
             name=name or f"decode-{observe.next_id()}", window_us=window_us, max_batch=self.slots, autostart=autostart
         )
+        hbm.track("decode", self, lambda d: d.hbm_components())
+        hbm.track_resource("decode_slots", self, lambda d: d.slots - len(d._free), lambda d: d.slots)
 
     def hbm_bytes(self) -> int:
         """Device bytes of the slot pool: K + V buffers and the keys."""
@@ -409,6 +414,7 @@ class ContinuousDecoder(_CoalescerBase):
                 *self._scales(), deadline=deadline,
             )
             dispatch_counter.record_fetch("decode_prefill")
+            donation_guard.note_write("decode.slot_pool", self._pk, self._pv)
             firsts = to_host(toks)()
             t1 = time.perf_counter_ns()
             _H_PREFILL.observe_ns(t1 - t0)
@@ -462,8 +468,11 @@ class ContinuousDecoder(_CoalescerBase):
             v = self._pv[slot, :, jb * blk : (jb + 1) * blk]
             if self._quant:
                 dt = gen.config.dtype
-                return dequantize_kv(k, self._kscale, dt), dequantize_kv(v, self._vscale, dt)
-            return k.clone(), v.clone()
+                block = dequantize_kv(k, self._kscale, dt), dequantize_kv(v, self._vscale, dt)
+            else:
+                block = k.clone(), v.clone()
+            donation_guard.stamp("decode.prefix_capture", *block)
+            return block
 
         gen.kv_cache.admit(chain, matched // blk, capture)
 
@@ -523,6 +532,7 @@ class ContinuousDecoder(_CoalescerBase):
             with trace.use(bctx) if bctx is not None else contextlib.nullcontext():
                 rngs, em = retry_call("generator.step", fn, *args, deadline=deadline)
             dispatch_counter.record_fetch("decode_step")
+            donation_guard.note_write("decode.slot_pool", self._pk, self._pv)
             em = to_host(em)()  # [chunk, S]: the chunk's one fetch
         except Exception as exc:  # noqa: BLE001 - in-flight requests leave with their tokens
             if bctx is not None:
@@ -680,6 +690,7 @@ class ContinuousDecoder(_CoalescerBase):
             with trace.use(bctx) if bctx is not None else contextlib.nullcontext():
                 rngs, em = retry_call("generator.verify", vfn, *args, deadline=deadline)
             dispatch_counter.record_fetch("decode_verify")
+            donation_guard.note_write("decode.slot_pool", self._pk, self._pv)
             em = to_host(em)()  # [k, S]
         except Exception as exc:  # noqa: BLE001 - degrade to the plain chunk
             if bctx is not None:

@@ -4,7 +4,9 @@ and a background retrain on the card, the forward-index gather (against
 the NumPy MaxSim, and without a device-to-host sync), the packed
 cross-encoder against the unpacked one, and the decode path's row
 kernels (readout row invariance at every row count, the fused residual
-add + LayerNorm equal to the two steps).  They skip
+add + LayerNorm equal to the two steps), the profiler's event-timed
+samples on the stream a call launched on, and the device-memory
+ledger's delta against the allocator's.  They skip
 without a card.  This file imports neither JAX nor the reference, so on
 a machine without JAX it runs as
 
@@ -451,3 +453,67 @@ def test_cuda_decode_step_loop_makes_no_host_sync():
     finally:
         eng.stop()
     assert not [w for w in caught if "synchroniz" in str(w.message).lower()]
+
+
+@pytest.mark.cuda
+def test_cuda_profiler_times_samples_on_the_launching_stream():
+    """A sampled call records its event on the stream it launched on (a
+    side stream here) and returns at once; the completer books submit ->
+    ready, so a 20 ms device sleep shows in the sample and not on the
+    calling thread."""
+    dev = _cuda()
+    from pathway_tpu_torch.observe import profile
+
+    stride0 = profile.sample_stride()
+    profile.set_sample(1.0)
+    try:
+        side = torch.cuda.Stream()
+        probe_start, probe_end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(side):
+            probe_start.record()
+            torch.cuda._sleep(20_000_000)
+            probe_end.record()
+        probe_end.synchronize()
+        cycles = int(20_000_000 * 20.0 / probe_start.elapsed_time(probe_end))  # ~20 ms of sleep
+
+        def sleepy():
+            torch.cuda._sleep(cycles)
+            return torch.empty(1, device=dev)
+
+        fn = profile.wrap("test.cuda_side_stream", sleepy)
+        with torch.cuda.stream(side):
+            t0 = time.perf_counter()
+            fn()
+            call_ms = (time.perf_counter() - t0) * 1e3
+        assert profile.drain(10.0)
+        row = profile.profile_stats()["test.cuda_side_stream"]
+        assert row["samples"] == 1
+        assert row["device_s"] >= 0.015, row  # the default stream was idle: a wrong stream reads ~0
+        assert call_ms < 10.0, call_ms  # no wait on the calling thread
+    finally:
+        profile.set_sample(1.0 / stride0 if stride0 else 0.0)
+
+
+@pytest.mark.cuda
+def test_cuda_ledger_delta_agrees_with_the_allocator():
+    """Building a tracked structure after warm-up moves the ledger and
+    ``torch.cuda.memory_allocated`` by the same bytes within 10%."""
+    dev = _cuda()
+    import gc
+
+    from pathway_tpu_torch.observe import hbm
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+
+    DeviceKnnIndex(256, initial_capacity=64, device=dev)
+    gc.collect()
+    torch.cuda.synchronize()
+    ledger0, device0 = hbm.sample()["total_bytes"], hbm.device_bytes()
+    index = DeviceKnnIndex(256, initial_capacity=16384, device=dev)
+    torch.cuda.synchronize()
+    ledger1, device1 = hbm.sample()["total_bytes"], hbm.device_bytes()
+    d_ledger, d_device = ledger1 - ledger0, device1 - device0
+    assert d_ledger >= 16384 * 256 * 4
+    assert abs(d_device - d_ledger) / d_ledger < 0.10, (d_ledger, d_device)
+    del index
+    gc.collect()
+    assert hbm.sample()["total_bytes"] <= ledger0

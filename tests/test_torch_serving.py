@@ -182,14 +182,18 @@ def test_port_imports_no_jax_flax_or_reference():
         "models/generator.py",
         "models/packing.py",
         "models/prng.py",
+        "observe/hbm.py",
         "observe/histogram.py",
+        "observe/profile.py",
         "observe/recorder.py",
         "observe/slo.py",
         "observe/trace.py",
         "ops/decode_rows.py",
         "ops/dispatch_counter.py",
+        "ops/donation_guard.py",
         "ops/kv_quant.py",
         "ops/maxsim.py",
+        "ops/recompile_guard.py",
         "ops/retrieve_rerank.py",
         "parallel/distributed.py",
         "persistence/backends.py",
@@ -201,6 +205,7 @@ def test_port_imports_no_jax_flax_or_reference():
         "serve/decode.py",
         "serve/ingest.py",
         "serve/scheduler.py",
+        "serve/tuner.py",
         "serve/warmstate.py",
     } <= names
     bad = [
