@@ -9,6 +9,8 @@ NVIDIA GPU:
                                            # c16 scheduled cascade's q/s
     python3 chip_smoke.py --framing        # host seconds of the warm-state
                                            # framing, plain against bulk
+    python3 chip_smoke.py --real-weights   # the kernels' build, then phase 15
+                                           # alone (~2 minutes)
 
 Phases, in order; any failure exits non-zero:
 
@@ -176,8 +178,36 @@ Phases, in order; any failure exits non-zero:
    (not a gate), the per-callable attribution beside ``torch.profiler``'s
    busy share of the window, the ledger by subsystem.
 
+15. real weights: two checkpoints at the published shapes of
+   sentence-transformers' all-MiniLM-L6-v2 and of
+   cross-encoder/ms-marco-MiniLM-L-6-v2 (vocab 30,522, hidden 384, 6
+   layers x 12 heads, intermediate 1,536, max positions 512; seeded
+   N(0, 0.02), LayerNorm 1 / 0; the second with a pooler and one label)
+   and a 30,522-line vocab holding every corpus word are written with
+   the port's own safetensors writer into a temporary directory; the HF
+   ``SentenceEncoder`` (f32) encodes the 65,536 documents (tokenize and
+   forward timed apart) into a 1M x 384 IVF index as phase 4's, which
+   ``FusedEncodeSearch`` serves in 110 batches of 64; the HF
+   ``CrossEncoderModel`` reranks through ``RetrieveRerankPipeline``'s
+   host-sorted stage 2 (50 calls of 16 queries, 32 candidates, k = 10),
+   and ``ServeScheduler`` serves that pipeline at c1 / c4 / c16 with phase
+   9's traffic; then the default ``ClipModel`` encodes 4,096 seeded 64 x
+   64 images and their texts, and an ``IvfKnnIndex`` of the image rows is
+   searched by the text rows.  Checked: 256 encoded rows against the same
+   checkpoint on the CPU within 1e-4; no [UNK] in the corpus; the rescore
+   kernel launched once per stage-1 call and equal to its plain version
+   at the HF stage-1 and the CLIP search shapes; on the 65,536-row index
+   at full probe every document's own key first; each rerank serve 2
+   dispatches + 2 fetches (stage 2 ``rerank_stage2_host``) with no flag,
+   its scores ``predict()``'s within 1e-5 and its order a stable sort;
+   ``encode_token_states`` refused, ``ForwardIndex.add`` counted as a
+   failure and a MaxSim pipeline refused, as in the reference; every
+   scheduled row the text served alone within 1e-4 (up to candidates
+   swapped at a stage-1 tie within 1e-4 at the candidate cut); CLIP card
+   against CPU within 3e-2 and its IVF at full probe equal to exact.
+
 Every shape-census tripwire runs strict from the start
-(``PATHWAY_RECOMPILE_STRICT=1``); after phase 14 none may have tripped.
+(``PATHWAY_RECOMPILE_STRICT=1``); after phase 15 none may have tripped.
 
 The card's name and power limit, then the JSON record of the kernels,
 then ``{"ok": true, "device": {...}}`` are the last three lines; the
@@ -3007,6 +3037,366 @@ def framing_compare_line(n_bytes: int) -> str:
     )
 
 
+# -- phase 15: real weights ---------------------------------------------------------
+
+# the published shapes of sentence-transformers' all-MiniLM-L6-v2 (its
+# config.json on the Hugging Face model card), and of
+# cross-encoder/ms-marco-MiniLM-L-6-v2 (the same trunk, a pooler and one
+# label); each model's own max sequence length
+MINILM = dict(
+    vocab_size=30522, hidden_size=384, num_hidden_layers=6, num_attention_heads=12, intermediate_size=1536,
+    max_position_embeddings=512, layer_norm_eps=1e-12, type_vocab_size=2,
+)
+HF_EMBED_MAX_LENGTH = 256
+HF_CROSS_MAX_LENGTH = 512
+HF_ATOL = 1e-4  # card against CPU, f32 with TF32 off on both
+HF_SCORE_ATOL = 1e-5  # a rerank score against predict() of the same pair
+N_CLIP = 4096
+CLIP_ATOL = 3e-2  # bf16
+
+
+def minilm_vocab():
+    """30,522 lines: the five specials, every word of the corpus and of
+    its ``doc<i>`` ids (so documents tokenize to real ids, not [UNK]),
+    then filler lines."""
+    head = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + list(dict.fromkeys(_WORDS)) + ["doc"]
+    head += [f"##{i}" for i in range(10)]
+    return head + [f"[unused{i}]" for i in range(MINILM["vocab_size"] - len(head))]
+
+
+def clip_texts(n: int):
+    rng = np.random.default_rng(SEED + 15)
+    return [" ".join(_WORDS[j] for j in rng.integers(0, len(_WORDS), 6).tolist()) + f" img{i}" for i in range(n)]
+
+
+def ivf_search_rescore_args(ivf, queries: np.ndarray):
+    """The rescore kernel's inputs of one ``IvfKnnIndex.search`` of host
+    ``queries`` (cos metric), made by the search's own steps without
+    launching the kernel: ``(probe, zq, slabs, bias)``."""
+    z = torch.from_numpy(queries / np.linalg.norm(queries, axis=1, keepdims=True)).to(ivf.device)
+    probe = torch.topk(z @ ivf._centroids.t(), ivf.probe_count(), dim=1).indices.to(torch.int32)
+    zq = torch.nn.functional.pad(z, (0, ivf._d_pad - z.shape[1])).contiguous()
+    return probe, zq, ivf._slabs, ivf._bias
+
+
+def real_weights_phase(docs, keys, tag: str):
+    """Phase 15: local BERT checkpoints at MiniLM-L6 width through the
+    embedder, stage 1 on a 1M IVF index, the host-sorted HF rerank and
+    the scheduler, then ``ClipModel`` into an IVF index of image rows.
+    Returns the rescore launches of its counted drives by path and the
+    kernel's records at the HF stage-1 and the CLIP search shapes."""
+    import tempfile
+
+    from pathway_tpu_torch.index import ForwardIndex
+    from pathway_tpu_torch.models.clip import ClipModel
+    from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
+    from pathway_tpu_torch.models.encoder import SentenceEncoder
+    from pathway_tpu_torch.models.hf_import import BertConfig, write_bert_checkpoint
+    from pathway_tpu_torch.ops import dispatch_counter
+    from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+    from pathway_tpu_torch.ops.retrieve_rerank import RetrieveRerankPipeline
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+    from pathway_tpu_torch.serve import ServeScheduler
+
+    dev = torch.device(DEVICE)
+    launches = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- checkpoints, with the port's own writer --------------------------------
+        t0 = time.perf_counter()
+        cfg = BertConfig(**MINILM)
+        vocab = minilm_vocab()
+        emb_dir, ce_dir = os.path.join(tmp, "all-MiniLM-L6-v2"), os.path.join(tmp, "ms-marco-MiniLM-L-6-v2")
+        write_bert_checkpoint(emb_dir, cfg, vocab, seed=SEED + 15)
+        write_bert_checkpoint(ce_dir, cfg, vocab, seed=SEED + 16, n_labels=1)
+        enc = SentenceEncoder(checkpoint_path=emb_dir, max_length=HF_EMBED_MAX_LENGTH)
+        ce = CrossEncoderModel(checkpoint_path=ce_dir, max_length=HF_CROSS_MAX_LENGTH)
+        n_params = sum(p.numel() for p in enc.module.parameters())
+        if not enc.hf or not ce._hf or any(p.dtype != torch.float32 for p in enc.module.parameters()):
+            raise AssertionError("the HF checkpoints did not load as f32 BERT modules")
+        log(
+            f"real weights: 2 seeded checkpoints at all-MiniLM-L6-v2 / ms-marco-MiniLM-L-6-v2 shapes (vocab "
+            f"{cfg.vocab_size}, hidden {cfg.hidden_size}, {cfg.num_hidden_layers} layers x "
+            f"{cfg.num_attention_heads} heads of {cfg.hidden_size // cfg.num_attention_heads}, intermediate "
+            f"{cfg.intermediate_size}; {n_params / 1e6:.2f}M embedder parameters, f32) written with the port's "
+            f"safetensors writer and loaded in {time.perf_counter() - t0:.2f} s"
+        )
+        cpu_enc = SentenceEncoder(checkpoint_path=emb_dir, max_length=HF_EMBED_MAX_LENGTH, device="cpu")
+        cpu_ce = CrossEncoderModel(checkpoint_path=ce_dir, max_length=HF_CROSS_MAX_LENGTH, device="cpu")
+
+    # -- encode the corpus: tokenize and forward timed apart -----------------------
+    tok = enc.tokenizer
+    tok_s = [0.0]
+    encode_batch = tok.encode_batch
+
+    def timed_encode_batch(*a, **kw):
+        t = time.perf_counter()
+        out = encode_batch(*a, **kw)
+        tok_s[0] += time.perf_counter() - t
+        return out
+
+    tok.encode_batch = timed_encode_batch
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        doc_vecs = torch.cat(
+            [enc.encode_to_device(docs[i : i + ENCODE_CHUNK]) for i in range(0, N_DOCS, ENCODE_CHUNK)]
+        )
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+    finally:
+        del tok.encode_batch
+    want = cpu_enc.encode(docs[:ENCODE_CHUNK])
+    enc_err = float(np.abs(doc_vecs[:ENCODE_CHUNK].cpu().numpy() - want).max())
+    unk = sum(int((tok.encode_batch(docs[i : i + 64])[0] == tok.UNK).sum()) for i in range(0, 1024, 64))
+    log(
+        f"HF embedder encode {N_DOCS} docs, f32 {tag}: {N_DOCS / enc_s:.0f} docs/s ({enc_s:.2f} s: host WordPiece "
+        f"tokenize {tok_s[0]:.2f} s, {N_DOCS / tok_s[0]:.0f} docs/s; upload + forward {enc_s - tok_s[0]:.2f} s, "
+        f"{N_DOCS / (enc_s - tok_s[0]):.0f} docs/s); {unk} [UNK] ids in the first 1,024 docs; card vs CPU on "
+        f"{ENCODE_CHUNK} rows max abs err {enc_err:.3e}"
+    )
+    if enc_err > HF_ATOL or unk:
+        raise AssertionError(f"HF encode: card vs CPU {enc_err} > {HF_ATOL}, or {unk} [UNK] ids")
+    if enc.encode_packed_to_device(docs[:4]).shape != (4, DIM):
+        raise AssertionError("HF packed encode did not fall back to the plain encode")
+
+    # -- stage 1: the 1M IVF index, served ------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rand_vecs = torch.randn(N_ROWS - N_DOCS, DIM, generator=gen, device=dev)
+    rand_vecs /= torch.linalg.vector_norm(rand_vecs, dim=1, keepdim=True)
+    t0 = time.perf_counter()
+    ivf = IvfKnnIndex(DIM, metric="cos")
+    ivf.build_from_matrix(keys, torch.cat([doc_vecs, rand_vecs]))
+    del rand_vecs
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    serve = FusedEncodeSearch(enc, ivf, k=K)
+    qidx = [(i * 9973) % N_DOCS for i in range(N_BATCHES * BATCH)]
+    batches = [[docs[j] for j in qidx[b * BATCH : (b + 1) * BATCH]] for b in range(N_BATCHES)]
+    serve(batches[0])  # warm
+    rescore_shortlist.launches = 0
+    lat, hits = [], 0
+    for b, texts in enumerate(batches):
+        t = time.perf_counter()
+        got = serve(texts)
+        lat.append((time.perf_counter() - t) * 1e3)
+        if got.degraded or len(got) != BATCH or any(len(r) != K for r in got):
+            raise AssertionError(f"HF stage 1: wrong shape or degraded {got.degraded}")
+        hits += sum(1 for row, j in zip(got, qidx[b * BATCH :]) if row[0][0] == keys[j])
+    launches["stage1"] = rescore_shortlist.launches
+    if launches["stage1"] != N_BATCHES:
+        raise AssertionError(f"HF stage 1 launched the rescore kernel {launches['stage1']} times")
+    hf_kernel = rescore_at_path_shape(ivf, stage1_rescore_args(serve, ivf, batches[0]), dev)
+    log(
+        f"HF stage 1: IVF over {N_DOCS} HF-encoded docs + {N_ROWS - N_DOCS} seeded unit vectors = {N_ROWS} x "
+        f"{DIM}, built in {build_s:.2f} s (C={ivf._centroids.shape[0]}, n_probe={ivf.probe_count()}); "
+        f"FusedEncodeSearch {N_BATCHES} batches x {BATCH} queries, k={K} {tag}: p50 {np.percentile(lat, 50):.3f} ms "
+        f"p90 {np.percentile(lat, 90):.3f} ms; own key first on {hits}/{N_BATCHES * BATCH} at the default probe; "
+        f"rescore launches {launches['stage1']}; {host_breakdown(serve, batches[:20])}"
+    )
+    log(f"kernel ivf_rescore vs plain at the HF stage-1 shape {rescore_line(ivf, hf_kernel)} {tag}")
+    # full probe on the encoded documents alone: every document's own key first
+    small = IvfKnnIndex(DIM, metric="cos")
+    small.build_from_matrix(keys[:N_DOCS], doc_vecs)
+    small.n_probe = small._centroids.shape[0]
+    host_vecs = doc_vecs.cpu().numpy()
+    first = 0
+    for i in range(0, N_DOCS, 1024):
+        rows = small.search(host_vecs[i : i + 1024], 1)
+        first += sum(1 for j, row in enumerate(rows) if row and row[0][0] == keys[i + j])
+    served = FusedEncodeSearch(enc, small, k=K)(batches[0])
+    served_first = sum(1 for row, j in zip(served, qidx) if row[0][0] == keys[j])
+    log(
+        f"HF full probe (n_probe={small.n_probe}) on the {N_DOCS}-row index {tag}: own key first for "
+        f"{first}/{N_DOCS} stored rows, and for {served_first}/{BATCH} re-encoded documents served"
+    )
+    if first != N_DOCS or served_first != BATCH:
+        raise AssertionError(f"HF full probe: {first}/{N_DOCS}, served {served_first}/{BATCH} own keys first")
+    del small
+
+    # -- rerank: the host-sorted HF stage 2 ---------------------------------------------
+    doc_text = dict(zip(keys[:N_DOCS], docs))
+    pipe = RetrieveRerankPipeline(FusedEncodeSearch(enc, ivf, k=RR_CANDIDATES), ce, doc_text, k=K, candidates=RR_CANDIDATES)
+    n_q = RR_CALLS * RR_QUERIES
+    targets = [(i * 9973 + 1) % N_DOCS for i in range(n_q)]
+    calls = [
+        [" ".join(docs[t].split()[::2]) for t in targets[c * RR_QUERIES : (c + 1) * RR_QUERIES]]
+        for c in range(RR_CALLS)
+    ]
+    pipe(calls[0])  # warm
+    rescore_shortlist.launches = 0
+    rr_lat, mrr = [], 0.0
+    with dispatch_counter.DispatchCounter() as counter:
+        for c, qs in enumerate(calls):
+            t = time.perf_counter()
+            got = pipe(qs)
+            rr_lat.append((time.perf_counter() - t) * 1e3)
+            if got.degraded or len(got) != RR_QUERIES or any(len(r) != K for r in got):
+                raise AssertionError(f"HF rerank: wrong shape or degraded {got.degraded}")
+            for row, target in zip(got, targets[c * RR_QUERIES :]):
+                ranked = [key for key, _ in row]
+                if keys[target] in ranked:
+                    mrr += 1.0 / (ranked.index(keys[target]) + 1)
+    launches["rerank"] = rescore_shortlist.launches
+    tags = [t for _, t in counter.events]
+    if (counter.dispatches, counter.fetches) != (2 * RR_CALLS, 2 * RR_CALLS) or tags.count("rerank_stage2_host") != 2 * RR_CALLS:
+        raise AssertionError(f"HF rerank: {counter.dispatches} + {counter.fetches} for {RR_CALLS} serves")
+    if launches["rerank"] != RR_CALLS:
+        raise AssertionError(f"HF rerank launched the rescore kernel {launches['rerank']} times")
+    # scores are predict() of the same pairs; the order a stable sort of stage 1
+    qs = calls[1]
+    stage1 = pipe.retriever(qs, RR_CANDIDATES)
+    got = pipe(qs)
+    score_err, ties = 0.0, 0
+    for q, row, s1 in zip(qs, got, stage1):
+        scores = ce.predict([(q, doc_text[key]) for key, _ in row])
+        score_err = max(score_err, float(np.abs(scores - np.asarray([s for _, s in row])).max()))
+        pos = {key: j for j, (key, _) in enumerate(s1)}
+        for (ka, sa), (kb, sb) in zip(row, row[1:]):
+            if sb > sa or (sb == sa and pos[kb] < pos[ka]):
+                raise AssertionError(f"HF rerank order is not a stable descending sort: {row}")
+            ties += sb == sa
+    cpu_scores = cpu_ce.predict([(qs[0], doc_text[key]) for key, _ in got[0]])
+    cpu_err = float(np.abs(cpu_scores - np.asarray([s for _, s in got[0]])).max())
+    if score_err > HF_SCORE_ATOL or cpu_err > HF_ATOL:
+        raise AssertionError(f"HF rerank scores: vs predict {score_err} > {HF_SCORE_ATOL} or vs CPU {cpu_err}")
+    # the reference's refusals: no token states from an HF trunk
+    refused = []
+    try:
+        enc.encode_token_states(qs[:1])
+    except NotImplementedError:
+        refused.append("encode_token_states NotImplementedError")
+    fwd = ForwardIndex(enc, tokens_per_doc=16)
+    if fwd.add(keys[:4], docs[:4]) == 0 and fwd.stats["absorb_failures"] == 1:
+        refused.append("ForwardIndex.add absorb failure counted")
+    try:
+        RetrieveRerankPipeline(FusedEncodeSearch(enc, ivf, k=RR_CANDIDATES), doc_text=doc_text, forward_index=fwd)
+    except ValueError:
+        refused.append("MaxSim pipeline ValueError")
+    if len(refused) != 3:
+        raise AssertionError(f"HF trunk with a forward index: only {refused}")
+    stage2 = []
+    for qs in calls[:20]:
+        first_handle = pipe.retriever.submit(qs, RR_CANDIDATES)
+        hits1 = first_handle()
+        t = time.perf_counter()
+        pipe._submit_chain(qs, hits1, K)()
+        stage2.append((time.perf_counter() - t) * 1e3)
+    log(
+        f"HF rerank {RR_CALLS} calls x {RR_QUERIES} queries over the {N_ROWS}-row IVF index, {RR_CANDIDATES} candidates, "
+        f"k={K}, closed loop {tag}: p50 {np.percentile(rr_lat, 50):.3f} ms p90 {np.percentile(rr_lat, 90):.3f} ms, "
+        f"stage 2 alone p50 {np.percentile(stage2, 50):.3f} ms, known-item MRR {mrr / n_q:.4f}; "
+        f"{counter.dispatches} dispatches + {counter.fetches} fetches (2 + 2 per serve, stage 2 booked "
+        f"rerank_stage2_host); scores vs predict() max abs err {score_err:.3e}, vs the CPU {cpu_err:.3e}; "
+        f"order a stable sort ({ties} exact ties); {'; '.join(refused)}; rescore launches {launches['rerank']}"
+    )
+    log(f"profile HF rerank {tag}: " + profile_serve(pipe, calls[:3]))
+
+    # -- the scheduler over that pipeline (phase 9's traffic) ------------------------------
+    pool = [" ".join(docs[(i * 9973) % N_DOCS].split()[:8]) for i in range(64)]
+    hot = pool[:4]
+
+    def workload(n: int):
+        return [hot[i % 4] if i % 2 == 0 else pool[(i * 7) % 64] for i in range(n)]
+
+    solo = {q: pipe([q], K) for q in pool}
+    for b in range(2, SCHED_MAX_BATCH + 1):
+        pipe(sorted(set(workload(3 * b)))[:b], K)
+
+    def at_cut(q, want, got) -> bool:
+        """Rows that differ only by candidates swapped at the stage-1 cut,
+        where stage 1 ties within HF_ATOL (a batch-mate moves an f32
+        embedding by ~1e-7), and agree on every other key."""
+        s1 = pipe.retriever([q], RR_CANDIDATES + 16)[0]
+        cut = s1[RR_CANDIDATES - 1][1]
+        near = {key for key, s in s1 if abs(s - cut) <= HF_ATOL}
+        diff = {key for key, _ in want} ^ {key for key, _ in got}
+        keep = [(key, s) for key, s in want if key not in diff], [(key, s) for key, s in got if key not in diff]
+        return bool(diff) and diff <= near and same_ranking(*keep, tie=HF_ATOL, atol=HF_ATOL)
+
+    launches["scheduler"] = 0
+    lines, checked, cut_rows = [], 0, 0
+    for conc in SCHED_CONC:
+        reqs = workload(max(32, 12 * conc))
+        rescore_shortlist.launches = 0
+        with ServeScheduler(pipe, window_us=SCHED_WINDOW_US, max_batch=SCHED_MAX_BATCH, result_cache=None) as sched:
+            qps, lats, rows = drive(lambda q: sched.submit([q], K).result(timeout=TICKET_TIMEOUT_S), reqs, conc)
+            n_batches = sched.stats["batches"] + sched.stats["solo"]
+        launches["scheduler"] += rescore_shortlist.launches
+        if rescore_shortlist.launches != n_batches:
+            raise AssertionError(f"HF scheduler c{conc}: {rescore_shortlist.launches} rescore launches, {n_batches} batches")
+        for q, got in zip(reqs, rows):
+            if got.degraded:
+                raise AssertionError(f"HF scheduler c{conc}: {q!r} degraded {got.degraded}")
+            if not same_ranking(solo[q][0], got[0], tie=HF_ATOL, atol=HF_ATOL):
+                if not at_cut(q, solo[q][0], got[0]):
+                    raise AssertionError(f"HF scheduler c{conc}: {q!r} got {got[0]}, alone {solo[q][0]}")
+                cut_rows += 1
+        checked += len(rows)
+        lines.append(
+            f"c{conc} ({len(reqs)} requests) {qps:.1f} q/s p50 {np.percentile(lats, 50):.3f} ms "
+            f"p90 {np.percentile(lats, 90):.3f} ms, {n_batches} batches"
+        )
+    log(
+        f"HF scheduler over the HF rerank (window {SCHED_WINDOW_US:.0f} us, max_batch {SCHED_MAX_BATCH}, no result "
+        f"cache) {tag}: " + "; ".join(lines) + f"; {checked} rows equal the text served alone within {HF_ATOL} "
+        f"({cut_rows} of them up to candidates swapped at a stage-1 tie within {HF_ATOL} at the "
+        f"{RR_CANDIDATES}-candidate cut); rescore launches {launches['scheduler']}"
+    )
+    del pipe, serve, ivf, doc_vecs, host_vecs
+    torch.cuda.empty_cache()
+
+    # -- CLIP: image rows in an IVF index, searched by text rows ----------------------------
+    clip = ClipModel()
+    cpu_clip = ClipModel(device="cpu")
+    images = np.random.default_rng(SEED + 17).random((N_CLIP, clip.image_size, clip.image_size, 3), dtype=np.float32)
+    texts = clip_texts(N_CLIP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img_rows = np.concatenate([clip.encode_image(images[i : i + 256]) for i in range(0, N_CLIP, 256)])
+    img_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    txt_rows = np.concatenate([clip.encode_text(texts[i : i + 256]) for i in range(0, N_CLIP, 256)])
+    txt_s = time.perf_counter() - t0
+    img_err = float(np.abs(cpu_clip.encode_image(images[:64]) - img_rows[:64]).max())
+    txt_err = float(np.abs(cpu_clip.encode_text(texts[:64]) - txt_rows[:64]).max())
+    if img_err > CLIP_ATOL or txt_err > CLIP_ATOL or not np.isfinite(img_rows).all():
+        raise AssertionError(f"CLIP card vs CPU: image {img_err}, text {txt_err} > {CLIP_ATOL}")
+    clip_keys = keys_for(N_CLIP)
+    civf = IvfKnnIndex(clip.proj_dim, metric="cos")
+    civf.add(clip_keys, img_rows)
+    civf.build()
+    rescore_shortlist.launches = 0
+    t0 = time.perf_counter()
+    found = [civf.search(txt_rows[i : i + BATCH], K) for i in range(0, N_CLIP, BATCH)]
+    search_s = time.perf_counter() - t0
+    launches["clip"] = rescore_shortlist.launches
+    if launches["clip"] != N_CLIP // BATCH or any(len(r) != K for rows_ in found for r in rows_):
+        raise AssertionError(f"CLIP search: {launches['clip']} rescore launches, or short rows")
+    clip_kernel = rescore_at_path_shape(civf, ivf_search_rescore_args(civf, txt_rows[:BATCH]), dev)
+    # full probe equals the exact top-10 of the same rows
+    civf.n_probe = civf._centroids.shape[0]
+    full = civf.search(txt_rows[:BATCH], K)
+    sims = txt_rows[:BATCH] @ img_rows.T / np.linalg.norm(img_rows, axis=1)[None]
+    order = np.argsort(-sims, axis=1, kind="stable")[:, :K]
+    exact_rows = [[(clip_keys[j], float(sims[qi, j])) for j in order[qi]] for qi in range(BATCH)]
+    mismatched = sum(1 for w, g in zip(exact_rows, full) if not same_ranking(w, g))
+    if mismatched:
+        raise AssertionError(f"CLIP IVF at full probe differs from exact on {mismatched} rows")
+    log(
+        f"CLIP (default ClipModel: 256 wide, 4 layers, 4 heads, 64 x 64 images in 16 x 16 patches, bf16) {tag}: "
+        f"{N_CLIP} seeded images encoded in {img_s:.2f} s ({N_CLIP / img_s:.0f} images/s), their texts in "
+        f"{txt_s:.2f} s; card vs CPU on 64 max abs err image {img_err:.3e} text {txt_err:.3e}; IVF of the image "
+        f"rows (C={civf._centroids.shape[0]}, d={clip.proj_dim}) searched by the {N_CLIP} text rows in "
+        f"{N_CLIP // BATCH} batches of {BATCH}, {search_s:.2f} s; full probe equals exact on {BATCH}/{BATCH} rows; "
+        f"rescore launches {launches['clip']}"
+    )
+    log(f"kernel ivf_rescore vs plain at the CLIP search shape {rescore_line(civf, clip_kernel)} {tag}")
+    log(f"phase 15 in {time.perf_counter() - t_phase:.1f} s")
+    return launches, hf_kernel, clip_kernel
+
+
 _SHAPE_KEYS = (
     "B", "p", "distinct_clusters", "max_abs_err", "ms", "kernels_ms", "bound_ms", "bound_by", "library_ms",
     "library_with_gather_ms",
@@ -3041,6 +3431,18 @@ def main() -> int:
     # every shape-census tripwire of the run raises past its budget
     os.environ["PATHWAY_RECOMPILE_STRICT"] = "1"
     from pathway_tpu_torch.kernels.build import build_all
+
+    if sys.argv[1:] == ["--real-weights"]:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        ).stdout.strip()
+        log(f"card: {smi}")
+        t0 = time.perf_counter()
+        build_all()
+        log(f"build {time.perf_counter() - t0:.1f} s")
+        launches = real_weights_phase(corpus(N_DOCS), keys_for(N_ROWS), f"[{smi}]")[0]
+        log(f"rescore launches {launches}; shape census: {tripwire_census()}")
+        return 0
     from pathway_tpu_torch.models.encoder import SentenceEncoder
     from pathway_tpu_torch.ops.ivf import IvfKnnIndex
     from pathway_tpu_torch.ops.ivf_rescore import ivf_rescore_reference, rescore_shortlist
@@ -3315,6 +3717,10 @@ def main() -> int:
     decode_kernels[0]["launches_profiling_phase"] = po_decode["add_layer_norm_rows"]
     decode_kernels[1]["launches"] += po_decode["tied_readout"]
     decode_kernels[1]["launches_profiling_phase"] = po_decode["tied_readout"]
+
+    # -- 15. real weights: HF BERT checkpoints at MiniLM width, then CLIP, counted --
+    rw_launches, hf_kernel, clip_kernel = real_weights_phase(docs, keys, tag)
+    worst_err = max(worst_err, hf_kernel["max_abs_err"], clip_kernel["max_abs_err"])
     log(f"shape census: {tripwire_census()}")
 
     record = {
@@ -3325,11 +3731,11 @@ def main() -> int:
                 "source": "pathway_tpu_torch/csrc/ivf_rescore.cu",
                 "replaces": "pathway_tpu/ops/ivf_pallas.py:37",
                 "launches": launches + rr_launches + sched_launches + li_launches + ws_launches + st_launches
-                + po_launches,
+                + po_launches + sum(rw_launches.values()),
                 "launches_by_path": {
                     "serve": launches, "rerank": rr_launches, "scheduler": sched_launches,
                     "ingest": li_launches, "warmstate": ws_launches, "tuning": st_launches,
-                    "profiling": po_launches,
+                    "profiling": po_launches, "real_weights": rw_launches,
                 },
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,
@@ -3352,6 +3758,8 @@ def main() -> int:
                     {key: r[key] for key in _SHAPE_KEYS} for r in sched_kernel
                 ],
                 "after_absorb_shape": {key: li_kernel[key] for key in _SHAPE_KEYS},
+                "hf_stage1_shape": {key: hf_kernel[key] for key in _SHAPE_KEYS},
+                "clip_search_shape": {key: clip_kernel[key] for key in _SHAPE_KEYS},
             },
             *decode_kernels,
         ]

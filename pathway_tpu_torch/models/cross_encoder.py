@@ -16,8 +16,15 @@ under the ``cross_encoder.dispatch`` site and the completion fires
 trace (``model.cross_encoder``).  The forwards are attributed by the
 profiler as ``cross_encoder.forward`` / ``cross_encoder.packed``, their
 shape keys go through the ``CrossEncoderModel`` tripwire, and the
-module's parameters and buffers are on the device-memory ledger.  The
-HF-checkpoint path is not ported yet.
+module's parameters and buffers are on the device-memory ledger.
+
+``checkpoint_path`` on an HF ``BertForSequenceClassification`` directory
+(``models/hf_import.py``; the sentence-transformers cross-encoder
+export) loads ``BertCrossEncoderModule``, computing in the checkpoint's
+f32, with the vocab's ``WordPieceTokenizer``.  It takes no segments, so
+it scores unpacked whatever ``packed`` says, with BERT pair segments:
+``type_ids`` are 1 after the first ``[SEP]`` where the mask is set.  A
+``checkpoint_path`` that is not an HF directory raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from ..observe import hbm, profile, trace
 from ..ops.recompile_guard import RecompileTripwire
 from ..robust import inject, retry_call
 from .encoder import _bucket
+from .hf_import import is_hf_checkpoint, load_hf_text_model
 from .packing import pack_rows, pad_packed_rows, row_length_bucket, seg_bucket
 from .params import cross_encoder_params_from_flax, init_encoder_
 from .tokenizer import HashTokenizer
@@ -83,8 +91,9 @@ class CrossEncoderModule(nn.Module):
 
 class CrossEncoderModel:
     """``params``: the reference's Flax tree as numpy arrays (carried over
-    by ``cross_encoder_params_from_flax``); ``None`` uses the port's
-    seeded init from ``seed``."""
+    by ``cross_encoder_params_from_flax``); ``checkpoint_path``: an HF
+    cross-encoder directory; neither uses the port's seeded init from
+    ``seed``."""
 
     def __init__(
         self,
@@ -97,30 +106,41 @@ class CrossEncoderModel:
         dtype: torch.dtype = DEFAULT_DTYPE,
         device=None,
         params: Optional[Mapping[str, Any]] = None,
+        checkpoint_path: Optional[str] = None,
     ):
         self.device = resolve_device(device)
-        self.config = TransformerConfig(
-            vocab_size=vocab_size,
-            d_model=dimension,
-            n_heads=resolve_heads(dimension, n_heads),
-            n_layers=n_layers,
-            d_ff=dimension * 4,
-            max_len=max_length,
-            dtype=dtype,
-            pool="mean",
-        )
-        self.tokenizer = HashTokenizer(vocab_size=vocab_size, max_length=max_length)
-        module = CrossEncoderModule(self.config)
-        if params is None:
-            init_encoder_(module, torch.Generator().manual_seed(seed))
+        self._hf = is_hf_checkpoint(checkpoint_path)
+        if self._hf:
+            module, self.config, self.tokenizer = load_hf_text_model(checkpoint_path, max_length, dtype, cross=True)
+        elif checkpoint_path is not None:
+            raise ValueError(
+                f"checkpoint_path {checkpoint_path!r} is not an HF cross-encoder directory "
+                "(config.json + model.safetensors + vocab.txt)"
+            )
         else:
-            module.load_state_dict(cross_encoder_params_from_flax(params, self.config))
+            self.config = TransformerConfig(
+                vocab_size=vocab_size,
+                d_model=dimension,
+                n_heads=resolve_heads(dimension, n_heads),
+                n_layers=n_layers,
+                d_ff=dimension * 4,
+                max_len=max_length,
+                dtype=dtype,
+                pool="mean",
+            )
+            self.tokenizer = HashTokenizer(vocab_size=vocab_size, max_length=max_length)
+            module = CrossEncoderModule(self.config)
+            if params is None:
+                init_encoder_(module, torch.Generator().manual_seed(seed))
+            else:
+                module.load_state_dict(cross_encoder_params_from_flax(params, self.config))
         self.module = module.to(self.device).eval()
         self._tripwire = RecompileTripwire("CrossEncoderModel")
         hbm.track_params("cross_encoder", self)
 
     def predict(self, pairs: Sequence[Tuple[str, str]], packed: Optional[bool] = None) -> np.ndarray:
-        """[(query, doc)] -> scores [n] f32 (packed unless ``packed=False``)."""
+        """[(query, doc)] -> scores [n] f32 (packed unless ``packed=False``
+        or the module is an HF import)."""
         return self.submit(pairs, packed=packed)()
 
     def submit(self, pairs: Sequence[Tuple[str, str]], packed: Optional[bool] = None, deadline=None):
@@ -129,7 +149,7 @@ class CrossEncoderModel:
         waits for the copy."""
         if not pairs:
             return lambda: np.zeros((0,), np.float32)
-        if packed is None or packed:
+        if (packed is None or packed) and not self._hf:
             return self._submit_packed(pairs, deadline)
         return self._submit_unpacked(pairs, deadline)
 
@@ -141,9 +161,14 @@ class CrossEncoderModel:
         ds = [str(p[1]) for p in pairs] + [""] * (b - n)
         ids, mask = self.tokenizer.encode_batch(qs, pairs=ds)
         self._tripwire.observe(tuple(ids.shape))
-        ids_t, mask_t = upload(ids, self.device), upload(mask, self.device)
+        args = [upload(ids, self.device), upload(mask, self.device)]
+        if self._hf:
+            # BERT pair segments: tokens after the first [SEP] are type 1
+            first_sep = np.argmax(ids == self.tokenizer.SEP, axis=1)
+            type_ids = (np.arange(ids.shape[1])[None, :] > first_sep[:, None]) & (mask > 0)
+            args.append(upload(type_ids.astype(np.int32), self.device))
         fetch = retry_call(
-            "cross_encoder.dispatch", lambda: to_host(_FORWARD(self.module, ids_t, mask_t)), deadline=deadline
+            "cross_encoder.dispatch", lambda: to_host(_FORWARD(self.module, *args)), deadline=deadline
         )
         return _completion(fetch, n, deadline, lambda arr: arr[:n])
 

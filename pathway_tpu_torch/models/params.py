@@ -13,6 +13,13 @@ The cross-encoder's tree (``pathway_tpu`` ``_CrossEncoderModule``) is
 ``trunk/...`` (the tree above) plus the head ``head_dense/{kernel [d, d],
 bias}`` and ``head_out/{kernel [d, 1], bias}``.
 
+The CLIP tree (``pathway_tpu`` ``_ClipModule``) is ``text/...`` (the
+trunk's tree), ``image/{patchify/{kernel [kh, kw, 3, d], bias},
+pos/embedding [L, d], block_{i}/..., LayerNorm_0/{scale, bias}}`` and the
+projections ``text_proj`` / ``image_proj`` ``{kernel [d, p], bias}``.  A
+Flax ``Conv`` kernel is ``[kh, kw, in, out]`` over NHWC; a torch
+``Conv2d`` weight is ``[out, in, kh, kw]`` over NCHW.
+
 A Flax Dense ``kernel`` is ``[in, out]``; a torch ``Linear.weight`` is
 ``[out, in]``, so kernels are transposed.  LayerNorm ``scale`` becomes
 ``weight``.  The bridge takes numpy arrays only (``np.asarray`` of each
@@ -29,11 +36,35 @@ from torch import nn
 
 from .transformer import Dense, TransformerConfig
 
-__all__ = ["cross_encoder_params_from_flax", "generator_params_from_flax", "init_encoder_", "params_from_flax"]
+__all__ = [
+    "clip_params_from_flax",
+    "cross_encoder_params_from_flax",
+    "generator_params_from_flax",
+    "init_clip_",
+    "init_encoder_",
+    "params_from_flax",
+]
 
 
 def _t(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _block_from_flax(blk: Mapping[str, Any], p: str, sd: Dict[str, torch.Tensor]) -> None:
+    """One ``EncoderBlock``'s Flax subtree into ``sd`` under prefix ``p``."""
+    for src, dst in (("LayerNorm_0", "ln_0"), ("LayerNorm_1", "ln_1")):
+        sd[p + dst + ".weight"] = _t(blk[src]["scale"])
+        sd[p + dst + ".bias"] = _t(blk[src]["bias"])
+    dense = {f"attn.{name}": blk["SelfAttention_0"][name] for name in ("query", "key", "value", "out")}
+    dense["mlp.fc0"] = blk["MlpBlock_0"]["Dense_0"]
+    dense["mlp.fc1"] = blk["MlpBlock_0"]["Dense_1"]
+    for dst, leaf in dense.items():
+        _dense(leaf, p + dst, sd)
+
+
+def _dense(leaf: Mapping[str, Any], name: str, sd: Dict[str, torch.Tensor]) -> None:
+    sd[name + ".weight"] = _t(leaf["kernel"]).t().contiguous()
+    sd[name + ".bias"] = _t(leaf["bias"])
 
 
 def params_from_flax(
@@ -49,20 +80,7 @@ def params_from_flax(
         "final_ln.bias": _t(tree["final_ln"]["bias"]),
     }
     for i in range(config.n_layers):
-        blk = tree[f"block_{i}"]
-        p = f"blocks.{i}."
-        for src, dst in (("LayerNorm_0", "ln_0"), ("LayerNorm_1", "ln_1")):
-            sd[p + dst + ".weight"] = _t(blk[src]["scale"])
-            sd[p + dst + ".bias"] = _t(blk[src]["bias"])
-        dense = {
-            f"attn.{name}": blk["SelfAttention_0"][name]
-            for name in ("query", "key", "value", "out")
-        }
-        dense["mlp.fc0"] = blk["MlpBlock_0"]["Dense_0"]
-        dense["mlp.fc1"] = blk["MlpBlock_0"]["Dense_1"]
-        for dst, leaf in dense.items():
-            sd[p + dst + ".weight"] = _t(leaf["kernel"]).t().contiguous()
-            sd[p + dst + ".bias"] = _t(leaf["bias"])
+        _block_from_flax(tree[f"block_{i}"], f"blocks.{i}.", sd)
     return sd
 
 
@@ -73,8 +91,27 @@ def cross_encoder_params_from_flax(
     port's ``CrossEncoderModule``."""
     sd = {f"trunk.{k}": v for k, v in params_from_flax(tree["trunk"], config).items()}
     for name in ("head_dense", "head_out"):
-        sd[f"{name}.weight"] = _t(tree[name]["kernel"]).t().contiguous()
-        sd[f"{name}.bias"] = _t(tree[name]["bias"])
+        _dense(tree[name], name, sd)
+    return sd
+
+
+def clip_params_from_flax(
+    tree: Mapping[str, Any], config: TransformerConfig
+) -> Dict[str, torch.Tensor]:
+    """Flax tree of the reference's ``_ClipModule`` -> state dict of the
+    port's ``ClipModule`` (``models/clip.py``)."""
+    sd = {f"text.{k}": v for k, v in params_from_flax(tree["text"], config).items()}
+    img = tree["image"]
+    # [kh, kw, in, out] -> [out, in, kh, kw]
+    sd["image.patchify.weight"] = _t(img["patchify"]["kernel"]).permute(3, 2, 0, 1).contiguous()
+    sd["image.patchify.bias"] = _t(img["patchify"]["bias"])
+    sd["image.pos.weight"] = _t(img["pos"]["embedding"])
+    for i in range(config.n_layers):
+        _block_from_flax(img[f"block_{i}"], f"image.blocks.{i}.", sd)
+    sd["image.ln.weight"] = _t(img["LayerNorm_0"]["scale"])
+    sd["image.ln.bias"] = _t(img["LayerNorm_0"]["bias"])
+    for name in ("text_proj", "image_proj"):
+        _dense(tree[name], name, sd)
     return sd
 
 
@@ -104,3 +141,18 @@ def init_encoder_(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
         elif isinstance(m, nn.Embedding):
             nn.init.normal_(m.weight, std=0.02, generator=generator)
+
+
+@torch.no_grad()
+def init_clip_(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init of the port's ``ClipModule`` with the Flax
+    distributions: the trunks as ``init_encoder_``; the patchify ``Conv``
+    and the two projections (Flax defaults) LeCun-normal truncated at two
+    standard deviations, zero biases."""
+    init_encoder_(module, generator)
+    for m in (module.image.patchify, module.text_proj, module.image_proj):
+        fan_in = m.weight[0].numel()
+        # Flax's truncated normal keeps the variance 1 / fan_in after the cut
+        std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+        nn.init.zeros_(m.bias)

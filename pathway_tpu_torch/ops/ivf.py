@@ -15,7 +15,9 @@
   ``topk`` picks ``n_probe`` clusters per query, and the probed slabs are
   rescored exactly by ``rescore_shortlist`` (the CUDA kernels on the
   card), plus an exact scan of the rows added since the build (the
-  tail);
+  tail); ``search_oversampled`` filters by over-sampling (the shared
+  loop of ``ops/knn.py``), ``score_flops_fraction`` gives the probed
+  search's share of a brute-force scan's scoring work;
 - **absorb**: once the tail reaches ``absorb_threshold`` rows, ``add``
   starts a background thread that places tail rows into free slab slots
   at their nearest centroid with room (the reference's plan, integer for
@@ -54,7 +56,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,7 +67,7 @@ from ..observe import hbm, profile, trace
 from ..robust import TAIL_SKIPPED, RetryPolicy, inject, log_once, record_degraded, retry_call
 from . import donation_guard
 from .ivf_rescore import rescore_shortlist
-from .knn import _bucket, normalize_metric
+from .knn import _bucket, normalize_metric, oversampled_filtered_search
 from .recompile_guard import RecompileTripwire
 
 __all__ = ["IvfKnnIndex"]
@@ -925,6 +927,23 @@ class IvfKnnIndex:
             merge_stage1_row(scores[qi], slots[qi], t_scores[qi], t_idx[qi], keys_by_slot, tail, k)
             for qi in range(nq)
         ]
+
+    def search_oversampled(
+        self, queries, k: int, accept: Callable[[int], bool], oversample: int = 4, max_rounds: int = 3
+    ) -> List[List[Tuple[int, float]]]:
+        """Filtered search by over-sampling (``DeviceKnnIndex``'s contract,
+        the shared loop of ``ops/knn.py``)."""
+        return oversampled_filtered_search(self, queries, k, accept, oversample=oversample, max_rounds=max_rounds)
+
+    def score_flops_fraction(self) -> float:
+        """Share of a brute-force scan's scoring work a probed search does:
+        the centroid product, the probed slabs and the exact tail over the
+        rows of the build."""
+        if self._slabs is None or len(self) == 0:
+            return 1.0
+        C = self._centroids.shape[0]
+        p = self.n_probe or self._default_probe()
+        return (C + min(p, C) * self._M_pad + len(self._tail)) / max(self._built_n, 1)
 
 
 # the host search under the reference's profiler label

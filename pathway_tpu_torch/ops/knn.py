@@ -1,6 +1,8 @@
 """Device-resident incremental KNN index, single device (counterpart of
 ``pathway_tpu/ops/knn.py``: ``normalize_metric``, the query buckets and
-``DeviceKnnIndex`` without a mesh).
+``DeviceKnnIndex`` without a mesh, with the filtered search surface:
+``search_oversampled``, ``scores_to_distances`` and the shared
+``oversampled_filtered_search`` loop).
 
 The matrix lives on the device as ``[capacity, d]`` with a validity
 plane and the slot -> key map as two int32 planes (``keys_hi``,
@@ -14,7 +16,7 @@ The index reports its bytes to the device-memory ledger (``hbm_bytes``).
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +24,7 @@ import torch
 from ..device import resolve_device
 from ..observe import hbm
 
-__all__ = ["DeviceKnnIndex", "normalize_metric"]
+__all__ = ["DeviceKnnIndex", "normalize_metric", "oversampled_filtered_search"]
 
 
 def normalize_metric(metric) -> str:
@@ -226,3 +228,45 @@ class DeviceKnnIndex:
                         row.append((int(self.slot_to_key[int(idx[qi, j])]), s))
                 out.append(row)
             return out
+
+    def search_oversampled(
+        self, queries, k: int, accept: Callable[[int], bool], oversample: int = 4, max_rounds: int = 3
+    ) -> List[List[Tuple[int, float]]]:
+        """Filtered search by over-sampling: fetch ``oversample * k``, drop
+        the keys ``accept`` rejects, widen until satisfied or the index is
+        exhausted."""
+        return oversampled_filtered_search(self, queries, k, accept, oversample=oversample, max_rounds=max_rounds)
+
+    def scores_to_distances(self, scores: np.ndarray, query_norms: np.ndarray) -> np.ndarray:
+        """Ranking scores -> distances: ``1 - s`` for "cos", ``||q||^2 - s``
+        for "l2sq" (its score is ``2 q.x - ||x||^2``), ``-s`` for "dot"."""
+        if self.metric == "cos":
+            return 1.0 - scores
+        if self.metric == "l2sq":
+            return -(scores - query_norms[:, None] ** 2)
+        return -scores
+
+
+def oversampled_filtered_search(
+    index, queries, k: int, accept: Callable[[int], bool], oversample: int = 4, max_rounds: int = 3
+) -> List[List[Tuple[int, float]]]:
+    """The filtered-search loop over any index with ``search(queries, k)``,
+    ``__len__`` and ``dimension`` (``DeviceKnnIndex``, ``IvfKnnIndex``):
+    fetch ``oversample * k``, keep the accepted keys, and while a full row
+    came back short, search again 4x wider, at most ``max_rounds`` times
+    or until the width covers the index."""
+    nq = np.asarray(queries).reshape(-1, index.dimension).shape[0]
+    results: List[List[Tuple[int, float]]] = [[] for _ in range(nq)]
+    kk = k * oversample
+    for _ in range(max_rounds):
+        rows = index.search(queries, kk)
+        done = True
+        for qi, row in enumerate(rows):
+            accepted = [(key, s) for key, s in row if accept(key)]
+            results[qi] = accepted[:k]
+            if len(accepted) < k and len(row) == kk and len(row) < len(index):
+                done = False
+        if done or kk >= max(len(index), 1):
+            break
+        kk *= 4
+    return results

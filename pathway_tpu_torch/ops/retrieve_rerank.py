@@ -13,13 +13,19 @@ a cascade of pluggable ``RerankStage`` objects re-scores its candidates.
   ``-inf`` table (pad segments dropped), per-query top-k by a stable
   descending sort (``jax.lax.top_k``'s tie order), one packed int32
   result.  Keys without text score against "" and are reported in
-  ``meta["missing_docs"]``.
+  ``meta["missing_docs"]``.  An HF cross-encoder takes no segments: its
+  stage 2 (``_submit_stage2_host``) scores the pairs unpacked through the
+  model's own ``submit`` and sorts each query's candidates on the host
+  (a stable sort, so tied candidates keep their stage-1 order), still one
+  dispatch and one fetch, booked as ``rerank_stage2_host``.
 
 A MaxSim-only serve is 2 dispatches + 2 fetches
 (``ops/dispatch_counter.py``).  A serve's deadline defaults to
 ``deadline_ms``, else ``serve.deadline_ms``; stage 1 gets
 ``stage1_fraction()`` of it.  The stage-2 launch retries under
-``rerank.dispatch``, gated by the cross-encoder's circuit breaker
+``rerank.dispatch`` (one attempt around an HF model's submit, which
+retries inside under ``cross_encoder.dispatch``), gated by the
+cross-encoder's circuit breaker
 (``breaker("cross_encoder")`` unless ``rerank_breaker`` is given), which
 every cross-encoder failure feeds; an open breaker fails fast to the
 ``rerank_skipped`` rung.  A stage that raises (no forward rows, a spent
@@ -77,6 +83,10 @@ OVER_FETCH = 4
 # the stage-2 launch retries briefly: its backoff delays the serve it
 # belongs to and the next batch's stage 2
 _STAGE2_RETRY = RetryPolicy(attempts=3, base_delay_s=0.002, max_delay_s=0.02)
+# the HF host path wraps CrossEncoderModel.submit, whose own launch
+# retries under "cross_encoder.dispatch": one outer attempt keeps the
+# breaker gate and the fault site without multiplying the attempts
+_OUTER_RETRY = RetryPolicy(attempts=1)
 
 _H_S2PACK = observe.histogram("pathway_serve_stage_seconds", stage="stage2_pack")
 _H_S2RTT = observe.histogram("pathway_serve_stage_seconds", stage="stage2_rtt")
@@ -515,6 +525,8 @@ class RetrieveRerankPipeline:
         meta = {"missing_docs": tuple(missing)} if missing else None
         if not pairs:
             return lambda: ([[] for _ in range(nq)], meta)
+        if getattr(ce, "_hf", False):
+            return self._submit_stage2_host(queries, cand_keys, pairs, k_out, Kc, deadline, meta)
         Qb = _bucket(nq)
         ids, segments, positions, S, flat_ix = ce.packed_inputs(pairs)
         Rb = ids.shape[0]
@@ -571,6 +583,59 @@ class RetrieveRerankPipeline:
                 pack_ms=(t_dispatch - t_pack) * 1e-6,
                 rtt_ms=(t_fetch - t_dispatch) * 1e-6,
                 postprocess_ms=(t_done - t_fetch) * 1e-6,
+            )
+            return results, meta
+
+        return complete
+
+    def _submit_stage2_host(self, queries, cand_keys, pairs, k_out: int, width: int, deadline, meta):
+        """Stage 2 of an HF cross-encoder: one unpacked scoring launch
+        (the model's ``submit``, retried under ``rerank.dispatch`` once,
+        gated by the breaker), then each query's first ``width``
+        candidates sorted by descending score on the host, cut to
+        ``k_out``.  Returns a completion -> ``(rows, meta)``."""
+        t_pack = time.perf_counter_ns()
+        # the deadline goes to the model's submit through the lambda, so
+        # its inner retries and its completion check are bounded by it
+        score_done = retry_call(
+            "rerank.dispatch",
+            lambda: self.cross_encoder.submit(pairs, packed=False, deadline=deadline),
+            deadline=deadline,
+            policy=_OUTER_RETRY,
+            breaker=self._breaker,
+        )
+        record_dispatch("rerank_stage2_host")
+        rows = _bucket(len(pairs))  # one row per pair
+        with self._lock:
+            self.stats["stage2_pairs"] += len(pairs)
+            self.stats["stage2_rows"] += rows
+        t_dispatch = time.perf_counter_ns()
+        _H_S2PACK.observe_ns(t_dispatch - t_pack)
+        observe.record_occupancy("stage2", len(pairs), rows)
+
+        def complete():
+            inject.fire("cross_encoder.fetch", deadline=deadline)
+            if deadline is not None:
+                deadline.check("cross_encoder.fetch")
+            flat = score_done()
+            record_fetch("rerank_stage2_host")
+            t_fetch = time.perf_counter_ns()
+            _H_S2RTT.observe_ns(t_fetch - t_dispatch)
+            ct = trace.current()
+            if ct is not None:
+                ct.add_span("stage2.rtt", t_dispatch, t_fetch, exemplar=_H_S2RTT, host=True)
+            results: List[List[Tuple[int, float]]] = []
+            pos = 0
+            for qi in range(len(queries)):
+                n_c = min(len(cand_keys[qi]), width)
+                scored = list(zip(cand_keys[qi][:n_c], flat[pos : pos + n_c].tolist()))
+                pos += n_c
+                scored.sort(key=lambda kv: -kv[1])  # stable: ties keep stage-1 order
+                results.append(scored[:k_out])
+            t_done = time.perf_counter_ns()
+            _H_POST.observe_ns(t_done - t_fetch)
+            observe.record_event(
+                "serve", "rerank_stage2_host", t_done - t_pack, queries=len(queries), pairs=len(pairs)
             )
             return results, meta
 

@@ -63,7 +63,7 @@ import torch
 from .. import observe
 from ..cache import embedding_cache_from_env
 from ..device import to_host, upload
-from ..models.transformer import masked_mean_pool, normalized_token_states
+from ..models.transformer import TransformerEncoder, masked_mean_pool, normalized_token_states
 from ..observe import profile, trace
 from ..robust import TAIL_SKIPPED, Deadline, RetryPolicy, ServeResult, inject, retry_call
 from . import donation_guard
@@ -107,8 +107,10 @@ class FusedEncodeSearch:
         self._tripwire = RecompileTripwire("FusedEncodeSearch")
 
     def _exporting(self) -> bool:
+        """Query token states ride the handle only over the in-framework
+        mean-pooling trunk: an HF module pools inside its forward."""
         module = self.encoder.module
-        return self.export_query_tokens and module.config.pool == "mean"
+        return self.export_query_tokens and isinstance(module, TransformerEncoder) and module.config.pool == "mean"
 
     def index_generation(self) -> int:
         return int(getattr(self.index, "generation", 0))

@@ -5,8 +5,10 @@ the NumPy MaxSim, and without a device-to-host sync), the packed
 cross-encoder against the unpacked one, and the decode path's row
 kernels (readout row invariance at every row count, the fused residual
 add + LayerNorm equal to the two steps), the profiler's event-timed
-samples on the stream a call launched on, and the device-memory
-ledger's delta against the allocator's.  They skip
+samples on the stream a call launched on, the device-memory
+ledger's delta against the allocator's, and the real-weights path (HF
+BERT embedder and cross-encoder, CLIP) on the card against the CPU.
+They skip
 without a card.  This file imports neither JAX nor the reference, so on
 a machine without JAX it runs as
 
@@ -517,3 +519,57 @@ def test_cuda_ledger_delta_agrees_with_the_allocator():
     del index
     gc.collect()
     assert hbm.sample()["total_bytes"] <= ledger0
+
+
+def _bert_dir(tmp_path, n_labels=None):
+    """A seeded MiniLM-shaped BERT (384 wide, 12 heads of 32, 2 layers,
+    a 512-token vocab) written with the port's own safetensors writer."""
+    from pathway_tpu_torch.models.hf_import import BertConfig, write_bert_checkpoint
+
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"w{i}" for i in range(507)]
+    d = str(tmp_path / ("cross" if n_labels else "bert"))
+    write_bert_checkpoint(d, BertConfig(512, 384, 2, 12, 1536, 512), vocab, seed=1, n_labels=n_labels)
+    texts = [" ".join(f"w{(7 * i + j) % 507}" for j in range(3 + i % 40)) for i in range(40)]
+    return d, texts
+
+
+@pytest.mark.cuda
+def test_cuda_hf_encoder_equals_cpu(tmp_path):
+    """The HF trunk on the card, in the checkpoint's f32 with TF32 off:
+    equal to the CPU within 1e-4 on the plain and the (fallback) packed
+    encode."""
+    dev = _cuda()
+    from pathway_tpu_torch.models.encoder import SentenceEncoder
+
+    d, texts = _bert_dir(tmp_path)
+    cpu = SentenceEncoder(checkpoint_path=d, device="cpu").encode(texts)
+    card = SentenceEncoder(checkpoint_path=d, device=dev)
+    np.testing.assert_allclose(card.encode(texts), cpu, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(card.encode_packed_to_device(texts).cpu().numpy(), cpu, atol=1e-4, rtol=0)
+    assert all(p.dtype == torch.float32 and p.device.type == "cuda" for p in card.module.parameters())
+
+
+@pytest.mark.cuda
+def test_cuda_hf_cross_encoder_equals_cpu(tmp_path):
+    dev = _cuda()
+    from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
+
+    d, texts = _bert_dir(tmp_path, n_labels=1)
+    pairs = [(texts[i], texts[-1 - i]) for i in range(20)]
+    cpu = CrossEncoderModel(checkpoint_path=d, device="cpu").predict(pairs)
+    np.testing.assert_allclose(CrossEncoderModel(checkpoint_path=d, device=dev).predict(pairs), cpu, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_clip_equals_cpu():
+    """The default ``ClipModel`` (bf16) on the card against the CPU with
+    the same seeded weights, within 3e-2."""
+    dev = _cuda()
+    from pathway_tpu_torch.models.clip import ClipModel
+
+    rng = np.random.default_rng(0)
+    images = [rng.random((64, 64, 3)).astype(np.float32) for _ in range(6)] + [rng.random((30, 80)).astype(np.float32)]
+    texts = ["a photo of a cat", "stream kernel", ""]
+    cpu, card = ClipModel(device="cpu"), ClipModel(device=dev)
+    np.testing.assert_allclose(card.encode_image(images), cpu.encode_image(images), atol=3e-2, rtol=0)
+    np.testing.assert_allclose(card.encode_text(texts), cpu.encode_text(texts), atol=3e-2, rtol=0)

@@ -493,3 +493,63 @@ def test_port_warm_state_loads_into_reference():
     queries = np.concatenate([fresh[:10], data[::97]])
     for w, g in zip(restored.search(queries, k=10), port.search(queries, k=10)):
         assert_same_ranking(w, g)
+
+
+# -- the filtered search surface ---------------------------------------------------
+
+
+def _filtered_pair(kind, metric):
+    from pathway_tpu.ops.knn import DeviceKnnIndex as RefKnn
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+
+    keys, data, rng = _blobs(seed=21)
+    if kind == "exact":
+        ref, port = RefKnn(32, metric=metric, initial_capacity=4096), DeviceKnnIndex(
+            32, metric=metric, initial_capacity=4096, device="cpu"
+        )
+        ref.add(keys, data)
+        port.add(keys, data)
+    else:
+        ref = RefIvf(dimension=32, n_clusters=16, seed=1, metric=metric)
+        ref.add(keys, data)
+        ref.build()
+        ref.add([5, 6, 7], rng.normal(size=(3, 32)).astype(np.float32))  # an exact tail
+        port = IvfKnnIndex(dimension=32, n_clusters=16, seed=1, metric=metric, device="cpu")
+        port.load_warm_state(ref.warm_state())
+    return ref, port, keys, data
+
+
+@pytest.mark.parametrize("kind,metric", [("exact", "cos"), ("exact", "l2sq"), ("exact", "dot"), ("ivf", "cos")])
+def test_search_oversampled_matches_reference(kind, metric):
+    """Filtered search by over-sampling: a rare filter widens past the
+    first round (and past the probed clusters of an IVF); the rows equal
+    the reference's."""
+    ref, port, keys, data = _filtered_pair(kind, metric)
+    queries = data[::211] + 0.01
+    for accept in (lambda k: k % 2 == 0, lambda k: k % 97 == 0, lambda k: False):
+        for k, oversample, rounds in ((5, 4, 3), (10, 2, 1), (3, 1, 5)):
+            want = ref.search_oversampled(queries, k, accept, oversample=oversample, max_rounds=rounds)
+            got = port.search_oversampled(queries, k, accept, oversample=oversample, max_rounds=rounds)
+            assert [len(r) for r in got] == [len(r) for r in want]
+            for w, g in zip(want, got):
+                assert_same_ranking(w, g)
+                assert all(accept(key) for key, _ in g)
+
+
+@pytest.mark.parametrize("metric", ["cos", "l2sq", "dot"])
+def test_scores_to_distances_matches_reference(metric):
+    ref, port, _, data = _filtered_pair("exact", metric)
+    rng = np.random.default_rng(4)
+    scores = rng.normal(size=(3, 5)).astype(np.float32)
+    norms = np.linalg.norm(data[:3], axis=1)
+    np.testing.assert_array_equal(port.scores_to_distances(scores, norms), ref.scores_to_distances(scores, norms))
+
+
+def test_score_flops_fraction_matches_reference():
+    ref, port, _, _ = _filtered_pair("ivf", "cos")
+    empty = IvfKnnIndex(dimension=32, device="cpu")
+    assert empty.score_flops_fraction() == RefIvf(dimension=32).score_flops_fraction() == 1.0
+    for n_probe in (None, 3, 16, 40):
+        ref.n_probe = port.n_probe = n_probe
+        assert port.score_flops_fraction() == ref.score_flops_fraction()
+    assert 0.0 < port.score_flops_fraction() <= 1.0 + 16 * port._M_pad / len(port)

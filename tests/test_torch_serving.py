@@ -4,8 +4,8 @@ reference's, with the reference's encoder parameters and index state
 carried over.  f32 throughout: keys equal (a swap allowed only between
 scores tied within 1e-5), scores within 1e-4.
 
-Also: the port imports neither JAX, Flax nor the reference package, and
-its entry points refuse to run without CUDA unless asked for the CPU."""
+Also: the port imports neither JAX, Flax nor the reference package (nor
+``transformers``, ``safetensors`` or ``orbax``), and its entry points refuse to run without CUDA unless asked for the CPU."""
 
 import ast
 import os
@@ -25,6 +25,7 @@ from pathway_tpu.ops.ivf import IvfKnnIndex as RefIvf
 from pathway_tpu.ops.knn import DeviceKnnIndex as RefKnn
 from pathway_tpu.ops.serving import FusedEncodeSearch as RefServe
 from pathway_tpu_torch.index import ForwardIndex
+from pathway_tpu_torch.models.clip import ClipModel
 from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
 from pathway_tpu_torch.models.encoder import SentenceEncoder
 from pathway_tpu_torch.models.generator import TextGenerator
@@ -166,6 +167,11 @@ def _imports(path):
             yield node.module
 
 
+# JAX and the reference package, and what the card's machine lacks: the HF
+# runtime, the safetensors package and orbax
+_FORBIDDEN = ("jax", "jaxlib", "flax", "pathway_tpu", "transformers", "safetensors", "orbax")
+
+
 def test_port_imports_no_jax_flax_or_reference():
     files = sorted((_ROOT / "pathway_tpu_torch").rglob("*.py")) + [_ROOT / "chip_smoke.py"]
     names = {str(f.relative_to(_ROOT / "pathway_tpu_torch")) for f in files[:-1]}
@@ -178,10 +184,14 @@ def test_port_imports_no_jax_flax_or_reference():
         "config.py",
         "index/forward.py",
         "io/_offsets.py",
+        "models/clip.py",
         "models/cross_encoder.py",
         "models/generator.py",
+        "models/hf_import.py",
         "models/packing.py",
         "models/prng.py",
+        "models/safetensors.py",
+        "models/wordpiece.py",
         "observe/hbm.py",
         "observe/histogram.py",
         "observe/profile.py",
@@ -212,7 +222,7 @@ def test_port_imports_no_jax_flax_or_reference():
         (str(f.relative_to(_ROOT)), name)
         for f in files
         for name in _imports(f)
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "pathway_tpu")
+        if name.split(".")[0] in _FORBIDDEN
     ]
     assert bad == []
 
@@ -265,6 +275,7 @@ def test_entry_points_refuse_cpu_fallback():
         lambda: IvfKnnIndex(8),
         lambda: CrossEncoderModel(dimension=8, n_layers=1, n_heads=2, vocab_size=64),
         lambda: TextGenerator(dimension=8, n_layers=1, n_heads=2, vocab_size=64, kv_cache=None),
+        lambda: ClipModel(dimension=8, proj_dim=8, n_layers=1, n_heads=2, image_size=16, patch=8, vocab_size=64),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
