@@ -11,6 +11,10 @@ NVIDIA GPU:
                                            # framing, plain against bulk
     python3 chip_smoke.py --real-weights   # the kernels' build, then phase 15
                                            # alone (~2 minutes)
+    python3 chip_smoke.py --sharded        # the kernels' build, phase 4's rows,
+                                           # then phase 16 alone (~1 minute)
+    python3 chip_smoke.py --first-call ROOT...  # the profiler's first sampled
+                                           # call, fresh processes, per root
 
 Phases, in order; any failure exits non-zero:
 
@@ -205,9 +209,30 @@ Phases, in order; any failure exits non-zero:
    scheduled row the text served alone within 1e-4 (up to candidates
    swapped at a stage-1 tie within 1e-4 at the candidate cut); CLIP card
    against CPU within 3e-2 and its IVF at full probe equal to exact.
+16. sharded serve (bench.py ``phase_sharded_serve``): ``ShardedIvfIndex``
+   at 8 and at 1 shard over phase 4's 1M rows (8 logical shards
+   round-robin over the visible cards: on one card, 8 resident
+   partitions), 16 closed-loop single-query callers through
+   ``ServeScheduler`` (window 5,000 us, 16 per batch, no result cache),
+   192 requests over 64 eight-word queries, one unmeasured pass per arm;
+   a ``DeviceKnnIndex`` over an 8-block mesh on the card beside the
+   unsharded one; a ``ShardedForwardIndex`` of the 65,536 documents on
+   the 8-shard group.  Checked: 8 shards == 1 shard bit for bit at full
+   probe in sorted batches of 16; the device tree merge == the host merge;
+   the mesh index's rows equal the unsharded index's and its serves agree
+   within 1e-6 (keys swapped only at a tie within 1e-6 at the cut,
+   counted); the sharded MaxSim table equal to one index's fed the same
+   ingest batches; retrieve -> MaxSim at 2 + 2 healthy and with a shard
+   down (flagged ``shard_skipped``); ``shard.dispatch.7`` armed over 16
+   serves: 16 flagged, 0 errors, then a clean serve; 4,096 fresh rows
+   absorbed under serve, each on its owning shard and first at full
+   probe; the rescore kernel against its plain version at one shard's
+   shape.  Printed: q/s, p50, p99 per arm, the merge's share of a
+   16-query serve (device-merge p50 against host-merge p50, 30 serves
+   each), dispatch ms per shard, the busy share, the device count.
 
 Every shape-census tripwire runs strict from the start
-(``PATHWAY_RECOMPILE_STRICT=1``); after phase 15 none may have tripped.
+(``PATHWAY_RECOMPILE_STRICT=1``); after phase 16 none may have tripped.
 
 The card's name and power limit, then the JSON record of the kernels,
 then ``{"ok": true, "device": {...}}`` are the last three lines; the
@@ -2965,6 +2990,383 @@ def profiling_phase(encoder, ivf, docs, doc_vecs, keys, pipe, tag: str):
     return rescore_shortlist.launches, decode_launches
 
 
+def seeded_unit_rows(dev) -> torch.Tensor:
+    """Phase 4's seeded unit vectors beside the encoded documents."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rows = torch.randn(N_ROWS - N_DOCS, DIM, generator=gen, device=dev)
+    rows /= torch.linalg.vector_norm(rows, dim=1, keepdim=True)
+    return rows
+
+
+def main_rows(tag: str):
+    """Phase 4's encoder, its 65,536 encoded documents and the exact index
+    of those plus the seeded unit vectors (1,000,000 x 384):
+    ``(encoder, docs, doc_vecs, keys, exact)``."""
+    from pathway_tpu_torch.models.encoder import SentenceEncoder
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+
+    encoder = SentenceEncoder(
+        dimension=DIM, n_layers=6, n_heads=6, max_length=128, vocab_size=32768, seed=SEED, dtype=torch.bfloat16,
+    )
+    docs = corpus(N_DOCS)
+    t_tok = time.perf_counter()
+    doc_vecs = torch.cat(
+        [encoder.encode_to_device(docs[i : i + ENCODE_CHUNK]) for i in range(0, N_DOCS, ENCODE_CHUNK)]
+    )
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t_tok
+    rand_vecs = seeded_unit_rows(torch.device(DEVICE))
+    log(
+        f"index rows: {N_DOCS} encoded docs + {N_ROWS - N_DOCS} seeded unit vectors = {N_ROWS} x {DIM}; "
+        f"encode {N_DOCS} docs {t_enc:.2f} s ({N_DOCS / t_enc:.0f} docs/s incl. host tokenize) {tag}"
+    )
+    keys = keys_for(N_ROWS)
+    exact = DeviceKnnIndex(DIM, metric="cos", initial_capacity=N_ROWS)
+    exact.add_from_device(keys[:N_DOCS], doc_vecs)
+    exact.add_from_device(keys[N_DOCS:], rand_vecs)
+    return encoder, docs, doc_vecs, keys, exact
+
+
+def query_ids():
+    """Phase 5's query documents: ``N_BATCHES`` batches of ``BATCH``."""
+    return [(i * 9973) % N_DOCS for i in range(N_BATCHES * BATCH)]
+
+
+def serve_batches(docs):
+    qidx = query_ids()
+    return [[docs[j] for j in qidx[b * BATCH : (b + 1) * BATCH]] for b in range(N_BATCHES)]
+
+
+# -- phase 16: sharded serve -------------------------------------------------------
+SS_SHARDS = 8  # logical shards, round-robin over the visible cards
+SS_CALLERS = 16  # bench.py phase_sharded_serve: 16 closed-loop single-query callers,
+SS_REQUESTS = 192  # 12 requests each over a pool of 64 eight-word queries
+SS_MERGE_REPS = 30  # serves per arm of the merge-share probe
+SS_ABSORB = 4096  # fresh rows absorbed under serve
+SS_TIE = 1e-6  # mesh exact vs unsharded: score tolerance, and the tie a key swap needs
+
+
+def sharded_phase(encoder, exact, serve_exact, docs, doc_vecs, keys, batches, tag: str):
+    """Phase 16: ``ShardedIvfIndex`` at 8 and 1 shards over the 1M rows,
+    ``ShardedForwardIndex`` on the 8-shard group, the mesh-sharded exact
+    index beside the unsharded one; scheduler traffic at c16, the checks
+    of the sharded tier, and the rescore kernel at one shard's shape.
+    Returns (rescore launches of the phase's serves, the kernel record)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathway_tpu_torch import observe
+    from pathway_tpu_torch.index import ForwardIndex, ShardedForwardIndex
+    from pathway_tpu_torch.ops import dispatch_counter
+    from pathway_tpu_torch.ops.ivf import ShardedIvfIndex
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+    from pathway_tpu_torch.ops.retrieve_rerank import RetrieveRerankPipeline
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+    from pathway_tpu_torch.parallel import make_mesh
+    from pathway_tpu_torch.robust import SHARD_SKIPPED, inject
+    from pathway_tpu_torch.serve import ServeScheduler
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    # -- the two IVF arms over phase 4's 1M rows; a shard absorbs past its
+    # share of the single index's threshold --
+    arms = {}
+    for n in (1, SS_SHARDS):
+        t0 = time.perf_counter()
+        idx = ShardedIvfIndex(DIM, metric="cos", n_shards=n, absorb_threshold=SS_ABSORB // n)
+        idx.build_from_matrix(keys, exact._matrix[:N_ROWS])
+        torch.cuda.synchronize()
+        c = idx.shards[0]
+        log(
+            f"sharded IVF {tag}: {n} shard(s) over {len(idx)} rows built in {time.perf_counter() - t0:.2f} s; "
+            f"shard 0: {len(c)} rows, C={c._centroids.shape[0]} C_pad={c._slabs.shape[0]} M_pad={c._M_pad} "
+            f"n_probe={c.probe_count()}; slabs {sum(x._slabs.numel() for x in idx.shards) * 4 / 1e9:.2f} GB"
+        )
+        arms[n] = FusedEncodeSearch(encoder, idx, k=K)
+    s8 = arms[SS_SHARDS]
+    idx8, group = s8.index, s8.index.group
+    log(
+        f"shard group: {group.n_shards} logical shards over {len(group.devices)} visible card(s) "
+        f"(torch.cuda.device_count() = {torch.cuda.device_count()}); the shards occupy {group.spans_devices} "
+        f"card(s): {'more than one card' if group.spans_devices > 1 else 'one card, no cross-card copy'}"
+    )
+
+    # -- traffic: bench.py phase_sharded_serve --
+    pool = [" ".join(docs[(i * 9973) % N_DOCS].split()[:8]) for i in range(64)]
+    reqs = [pool[(i * 7) % len(pool)] for i in range(SS_REQUESTS)]
+    for serve in arms.values():
+        for q in pool:
+            serve([q], K)
+        for b in (2, 4, 8, 16):
+            serve(sorted(set(pool))[:b], K)
+
+    def sched_drive(serve):
+        sched = ServeScheduler(serve, window_us=SCHED_WINDOW_US, max_batch=SCHED_MAX_BATCH, result_cache=None)
+        try:
+            qps, lats, rows = drive(lambda q: sched.submit([q], K).result(timeout=TICKET_TIMEOUT_S), reqs, SS_CALLERS)
+        finally:
+            sched.stop()
+        bad = [r for r in rows if not r or not r[0] or r.degraded]
+        if bad:
+            raise AssertionError(f"sharded drive: {len(bad)} empty or degraded rows, e.g. {bad[0]}")
+        return qps, float(np.percentile(lats, 50)), float(np.percentile(lats, 99))
+
+    def shard_hists():
+        return [
+            observe.histogram("pathway_serve_shard_stage_seconds", stage="dispatch", shard=str(s)).snapshot()
+            for s in range(SS_SHARDS)
+        ]
+
+    rescore_shortlist.launches = 0
+    cells = {}
+    for n, serve in arms.items():
+        sched_drive(serve)  # unmeasured pass
+        before = shard_hists()
+        cells[n] = sched_drive(serve)
+        if n == SS_SHARDS:
+            per_shard_ms = [
+                (a[1] - b[1]) / 1e6 / max(1, a[2] - b[2]) for a, b in zip(shard_hists(), before)
+            ]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched_drive(s8)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log(
+        f"sharded serve c{SS_CALLERS} {tag}, {SS_REQUESTS} requests over 64 queries, k={K}, window "
+        f"{SCHED_WINDOW_US:.0f} us, max_batch {SCHED_MAX_BATCH}, no result cache: "
+        + "; ".join(f"{n} shard(s) {q:.1f} q/s p50 {p50:.3f} ms p99 {p99:.3f} ms" for n, (q, p50, p99) in cells.items())
+        + f"; 8-shard dispatch ms per shard (pathway_serve_shard_stage_seconds, stage=dispatch) "
+        + " ".join(f"{ms:.3f}" for ms in per_shard_ms)
+        + f"; 8-shard drive under torch.profiler: {device_busy(prof, wall_ms)}"
+    )
+
+    # -- 8 shards == 1 shard at full probe, matched composition --
+    for serve in arms.values():
+        for c in serve.index.shards:
+            c.n_probe = c._centroids.shape[0]
+    rows = {}
+    for n, serve in arms.items():
+        with ServeScheduler(serve, window_us=0) as sched:
+            rows[n] = [list(sched.serve(pool[i : i + 16], K)) for i in range(0, 64, 16)]
+    for serve in arms.values():
+        for c in serve.index.shards:
+            c.n_probe = None
+    differ = sum(1 for a, b in zip(rows[1], rows[SS_SHARDS]) for ra, rb in zip(a, b) if ra != rb)
+    log(f"full probe, 64 queries in sorted batches of 16 {tag}: 8 shards vs 1 shard, {differ} rows differ (bit for bit)")
+    if differ:
+        raise AssertionError(f"8-shard serve differs from 1-shard on {differ} rows at full probe")
+
+    # -- merge share and device merge == host merge --
+    probe_q = pool[:16]
+    times = {}
+    same = True
+    for mode in ("device", "host"):
+        s8.shard_host_merge = mode == "host"
+        s8(probe_q, K)
+        samples = []
+        for _ in range(SS_MERGE_REPS):
+            t0 = time.perf_counter()
+            s8(probe_q, K)
+            samples.append((time.perf_counter() - t0) * 1e3)
+        times[mode] = float(np.percentile(samples, 50))
+    for i in range(0, 64, 16):
+        s8.shard_host_merge = False
+        dev_rows = list(s8(pool[i : i + 16], K))
+        s8.shard_host_merge = True
+        same &= dev_rows == list(s8(pool[i : i + 16], K))
+    s8.shard_host_merge = False
+    share = (times["device"] - times["host"]) / times["device"]
+    log(
+        f"merge share {tag}: device tree merge p50 {times['device']:.3f} ms, host merge p50 {times['host']:.3f} ms "
+        f"over {SS_MERGE_REPS} serves of 16 queries: share {100 * share:.2f}%; device merge == host merge on 64 "
+        f"queries: {same}"
+    )
+    if not same:
+        raise AssertionError("the device tree merge differs from the host merge")
+
+    # -- the mesh-sharded exact index against the unsharded one --
+    rand_vecs = seeded_unit_rows(dev)
+    mesh_idx = DeviceKnnIndex(DIM, metric="cos", initial_capacity=N_ROWS, mesh=make_mesh(SS_SHARDS, 1, devices=[dev] * SS_SHARDS))
+    mesh_idx.add_from_device(keys[:N_DOCS], doc_vecs)
+    mesh_idx.add_from_device(keys[N_DOCS:], rand_vecs)
+    del rand_vecs
+    rows_equal = torch.equal(mesh_idx._matrix, exact._matrix)
+    serve_mesh = FusedEncodeSearch(encoder, mesh_idx, k=K)
+    worst = 0.0
+    tie_rows = 0
+    for texts in batches[:4]:
+        for w, g in zip(serve_exact(texts), serve_mesh(texts)):
+            if len(w) != len(g):
+                raise AssertionError(f"mesh exact returned {len(g)} rows where unsharded returned {len(w)}")
+            worst = max([worst] + [abs(a[1] - b[1]) for a, b in zip(w, g)])
+            swaps = [j for j, (a, b) in enumerate(zip(w, g)) if a[0] != b[0]]
+            for j in swaps:
+                near = [w[i][1] for i in (j - 1, j + 1) if 0 <= i < len(w)]
+                if abs(w[j][1] - g[j][1]) > SS_TIE or not (j == len(w) - 1 or any(abs(x - w[j][1]) <= SS_TIE for x in near)):
+                    raise AssertionError(f"mesh exact: key {g[j]} at {j} where unsharded has {w[j]}, no tie")
+            tie_rows += bool(swaps)
+    log(
+        f"mesh exact {tag}: {SS_SHARDS} row blocks of {mesh_idx.capacity // SS_SHARDS} on the card, rows equal "
+        f"the unsharded index's: {rows_equal}; 256 queries: max |score diff| {worst:.3e} (<= {SS_TIE}), "
+        f"{tie_rows} rows with keys swapped at a tie within {SS_TIE}"
+    )
+    if not rows_equal or worst > SS_TIE:
+        raise AssertionError("mesh exact index differs from the unsharded one")
+    del serve_mesh, mesh_idx
+
+    # -- the sharded forward index; the same ingest batches into one index --
+    sfwd = ShardedForwardIndex(encoder, group=group, tokens_per_doc=16, quant="int8")
+    one_fwd = ForwardIndex(encoder, tokens_per_doc=16, quant="int8")
+    t0 = time.perf_counter()
+    for i in range(0, N_DOCS, 8 * FWD_CHUNK):
+        sfwd.add(keys[i : i + 8 * FWD_CHUNK], docs[i : i + 8 * FWD_CHUNK])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    for i in range(0, N_DOCS, 8 * FWD_CHUNK):
+        ck, ct = keys[i : i + 8 * FWD_CHUNK], docs[i : i + 8 * FWD_CHUNK]
+        for _s, at in sorted(group.route(ck).items()):
+            one_fwd.add([ck[j] for j in at], [ct[j] for j in at])
+    if len(sfwd) != N_DOCS or len(one_fwd) != N_DOCS:
+        raise AssertionError(f"forward indexes hold {len(sfwd)} / {len(one_fwd)} of {N_DOCS}")
+    stage1 = FusedEncodeSearch(encoder, idx8, k=RR_CANDIDATES)
+    stage1.export_query_tokens = True
+    calls = [[" ".join(docs[(c * 16 + j) * 4099 % N_DOCS].split()[::2]) for j in range(RR_QUERIES)] for c in range(4)]
+    table_equal = True
+    for qs in calls:
+        handle = stage1.submit(qs, RR_CANDIDATES)
+        cands = [[key for key, _ in row] for row in handle()]
+        (d8, m8), (d1, m1) = (
+            f.gather_submit(handle.query_tokens, handle.query_mask, cands, K, width=RR_CANDIDATES) for f in (sfwd, one_fwd)
+        )
+        (a8, p8), (a1, p1) = d8(), d1()
+        table_equal &= bool(np.array_equal(a8.view(np.int32), a1.view(np.int32)) and np.array_equal(p8, p1) and m8 == m1)
+    pipe = RetrieveRerankPipeline(FusedEncodeSearch(encoder, idx8, k=RR_CANDIDATES), forward_index=sfwd, k=K,
+                                  candidates=RR_CANDIDATES)
+    pipe(calls[0])
+    budget = {}
+    for name, site in (("healthy", None), ("shard 3 down", "shard.dispatch.3")):
+        if site:
+            inject.arm(site, "raise")
+        try:
+            with dispatch_counter.DispatchCounter() as counter:
+                got = pipe(calls[1])
+        finally:
+            if site:
+                inject.disarm(site)
+        want_flags = (SHARD_SKIPPED,) if site else ()
+        if tuple(got.degraded) != want_flags or any(len(r) != K for r in got):
+            raise AssertionError(f"sharded retrieve -> MaxSim {name}: flags {got.degraded}, rows {[len(r) for r in got]}")
+        budget[name] = (counter.dispatches, counter.fetches, counter.physical_dispatches)
+    log(
+        f"sharded forward index {tag}: {N_DOCS} docs over {group.n_shards} shards in {ingest_s:.2f} s "
+        f"({N_DOCS / ingest_s:.0f} docs/s), per shard {[len(c) for c in sfwd.shards]}; MaxSim table == the unsharded "
+        f"index's (same ingest batches), 4 calls of {RR_QUERIES} x {RR_CANDIDATES}: {table_equal}; retrieve -> MaxSim "
+        f"dispatches, fetches (physical launches): "
+        + ", ".join(f"{name} {d} + {f} ({p})" for name, (d, f, p) in budget.items())
+    )
+    if not table_equal or any((d, f) != (2, 2) for d, f, _p in budget.values()):
+        raise AssertionError("sharded forward table or the 2 + 2 budget failed")
+
+    # -- the dead-shard ladder --
+    dead = SS_SHARDS - 1
+    flagged = errors = 0
+    with inject.armed(f"shard.dispatch.{dead}", "raise"):
+        for i in range(16):
+            try:
+                got = s8([pool[i]], K)
+                flagged += SHARD_SKIPPED in got.degraded and bool(got[0])
+            except Exception:  # noqa: BLE001 - counted: the ladder must make this 0
+                errors += 1
+    clean = s8([pool[0]], K)
+    log(
+        f"dead shard {tag}: shard.dispatch.{dead} armed over 16 serves: {flagged}/16 flagged shard_skipped, "
+        f"{errors} errors, skips {group.skips[dead]}; the next serve flags {clean.degraded}"
+    )
+    if flagged != 16 or errors or clean.degraded:
+        raise AssertionError("the dead-shard ladder did not degrade every serve and recover")
+
+    # -- absorb of fresh rows under serve: each lands on its owning shard --
+    fresh = [t + " sharded" for t in corpus(SS_ABSORB, seed=SEED + 16)]
+    fresh_keys = [(1 << 60) + i for i in range(SS_ABSORB)]
+    with torch.no_grad():
+        fresh_vecs = torch.cat(
+            [encoder.encode_to_device(fresh[i : i + ENCODE_CHUNK]) for i in range(0, SS_ABSORB, ENCODE_CHUNK)]
+        ).cpu().numpy()
+    stop, serve_errors, spans = threading.Event(), [], []
+
+    def serve_loop():
+        i = 0
+        while not stop.is_set():
+            t_serve = time.perf_counter()
+            try:
+                got = s8([pool[i % len(pool)]], K)
+                if not got[0]:
+                    serve_errors.append("empty row")
+            except Exception as exc:  # noqa: BLE001 - counted below
+                serve_errors.append(repr(exc))
+            i += 1
+            spans.append((t_serve, time.perf_counter()))
+
+    def served_past(n: int) -> None:
+        t_wait = time.perf_counter()
+        while len(spans) < n and server.is_alive() and time.perf_counter() - t_wait < 60:
+            time.sleep(0.001)
+
+    server = threading.Thread(target=serve_loop, daemon=True)
+    server.start()
+    try:
+        served_past(4)  # the serve loop is warm before the rows land
+        t0 = time.perf_counter()
+        idx8.add(fresh_keys, fresh_vecs)
+        while any(c._absorbing for c in idx8.shards):
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("sharded absorb did not finish within 120 s")
+            time.sleep(0.01)
+        t_done = time.perf_counter()
+        absorb_s = t_done - t0
+        served_past(len(spans) + 4)  # and serves on over the installed rows
+    finally:
+        stop.set()
+        server.join(60)
+    n_during = sum(1 for a, b in spans if a < t_done and b > t0)  # serves overlapping the add and absorbs
+    misplaced = sum(
+        1 for s, c in enumerate(idx8.shards) for key in fresh_keys
+        if (key in c._slot_of_key or key in c._tail) != (group.owner_of(key) == s)
+    )
+    placed = [i for i, key in enumerate(fresh_keys) if key in idx8.shards[group.owner_of(key)]._slot_of_key]
+    for c in idx8.shards:
+        c.n_probe = c._centroids.shape[0]
+    probe_rows = placed[:: max(1, len(placed) // BATCH)][:BATCH]
+    got = s8([fresh[i] for i in probe_rows], K)
+    for c in idx8.shards:
+        c.n_probe = None
+    found = sum(1 for row, i in zip(got, probe_rows) if row and row[0][0] == fresh_keys[i])
+    absorbs = [c.stats["absorbs"] for c in idx8.shards]
+    launches = rescore_shortlist.launches
+    log(
+        f"sharded absorb under serve {tag}: {SS_ABSORB} fresh rows, absorbs per shard {absorbs} in {absorb_s:.3f} s "
+        f"overlapped by {n_during} serves ({len(spans)} in all, {len(serve_errors)} errors); {len(placed)} placed in "
+        f"slab slots, "
+        f"{misplaced} rows off their owning shard; full probe ranks the absorbed key first on "
+        f"{found}/{len(probe_rows)} rows"
+    )
+    if (serve_errors or misplaced or min(absorbs) < 1 or found != len(probe_rows) or len(probe_rows) < BATCH
+            or n_during < 1):
+        raise AssertionError(f"sharded absorb: errors {serve_errors[:3]}, misplaced {misplaced}, found {found}")
+
+    # -- the rescore kernel at one shard's shape (16 queries, shard 0) --
+    child = idx8.shards[0]
+    ids, mask = encoder.tokenizer.encode_batch(probe_q)
+    with torch.no_grad():
+        z, _ = s8._embed(ids, mask)
+        probe = torch.topk(z @ child._centroids.t(), child.probe_count(), dim=1).indices.to(torch.int32)
+        zq = torch.nn.functional.pad(z, (0, child._d_pad - z.shape[1])).contiguous()
+    rec = rescore_at_path_shape(child, (probe, zq, child._slabs, child._bias), dev)
+    log(f"ivf_rescore at one shard's shape {tag}: " + rescore_line(child, rec) + f"; launches in phase 16 {launches}")
+    log(f"phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    return launches, rec
+
+
 def tripwire_census() -> str:
     """Every shape-census tripwire of the run: none may have tripped,
     those of collected callables included."""
@@ -2981,6 +3383,80 @@ def tripwire_census() -> str:
         name = k.split('callable="', 1)[1].split('"', 1)[0]
         by_callable[name] = max(by_callable.get(name, 0), int(v))
     return f"{len(sigs)} live tripwires, none tripped in the run; largest census per callable {by_callable}"
+
+
+# the profiler's first sampled call, in a fresh process per run: the card
+# test's call (a ~20 ms device sleep on a side stream, then a one-element
+# allocation) timed on the host; "prealloc" allocates that element on the
+# side stream beforehand, "unprofiled" leaves the profiler out; then the
+# first robust import, one event made and recorded, one thread started,
+# and the longest stall of the calling thread while another thread waits
+# on an event behind the sleep
+_FIRST_CALL = r"""
+import json, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+variant = sys.argv[2]
+import torch
+from pathway_tpu_torch.observe import profile
+dev = torch.device("cuda")
+side = torch.cuda.Stream()
+a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+with torch.cuda.stream(side):
+    a.record(); torch.cuda._sleep(20_000_000); b.record()
+b.synchronize()
+cycles = int(20_000_000 * 20.0 / a.elapsed_time(b))
+pre = None
+if variant == "prealloc":
+    with torch.cuda.stream(side):
+        pre = torch.empty(1, device=dev)
+    torch.cuda.synchronize()
+def sleepy():
+    torch.cuda._sleep(cycles)
+    return pre if pre is not None else torch.empty(1, device=dev)
+profile.set_sample(1.0)
+fn = sleepy if variant == "unprofiled" else profile.wrap("first.call", sleepy)
+out = {"variant": variant, "robust_loaded_before": "pathway_tpu_torch.robust" in sys.modules}
+for i in range(3):
+    with torch.cuda.stream(side):
+        t0 = time.perf_counter(); fn(); out[f"call{i}_ms"] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize(); profile.drain(10.0)
+if variant == "unprofiled":
+    t0 = time.perf_counter(); from pathway_tpu_torch.robust import inject; inject.any_armed()
+    out["robust_import_ms"] = (time.perf_counter() - t0) * 1e3
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter(); ev = torch.cuda.Event(); ev.record(torch.cuda.current_stream(dev))
+        out["event_make_record_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter(); th = threading.Thread(target=lambda: None); th.start()
+    out["thread_start_ms"] = (time.perf_counter() - t0) * 1e3
+    th.join(); torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(cycles); ev.record()
+    th = threading.Thread(target=ev.synchronize); th.start()
+    last = t0 = time.perf_counter(); gap = 0.0
+    while last - t0 < 0.04:
+        now = time.perf_counter(); gap = max(gap, now - last); last = now
+    th.join()
+    out["sync_stall_ms"] = gap * 1e3
+print(json.dumps(out))
+"""
+
+
+def first_call_lines(roots, reps: int = 2):
+    """One JSON line per fresh process: ``_FIRST_CALL`` for each root and
+    variant, roots in turns."""
+    lines = []
+    for rep in range(reps):
+        for root in roots:
+            for variant in ("profiled", "prealloc", "unprofiled"):
+                got = subprocess.run(
+                    [sys.executable, "-c", _FIRST_CALL, os.path.abspath(root), variant],
+                    capture_output=True, text=True, timeout=300,
+                )
+                if got.returncode != 0:
+                    raise AssertionError(f"first-call probe {root} {variant}: {got.stderr[-2000:]}")
+                lines.append(f"first sampled call, {root}, run {rep}: {got.stdout.strip()}")
+    return lines
 
 
 FRAMING_BYTES = (1_334_500_000, 3_356_000_000)  # phase 12's two snapshots
@@ -3162,9 +3638,7 @@ def real_weights_phase(docs, keys, tag: str):
         raise AssertionError("HF packed encode did not fall back to the plain encode")
 
     # -- stage 1: the 1M IVF index, served ------------------------------------------
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    rand_vecs = torch.randn(N_ROWS - N_DOCS, DIM, generator=gen, device=dev)
-    rand_vecs /= torch.linalg.vector_norm(rand_vecs, dim=1, keepdim=True)
+    rand_vecs = seeded_unit_rows(dev)
     t0 = time.perf_counter()
     ivf = IvfKnnIndex(DIM, metric="cos")
     ivf.build_from_matrix(keys, torch.cat([doc_vecs, rand_vecs]))
@@ -3172,8 +3646,8 @@ def real_weights_phase(docs, keys, tag: str):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     serve = FusedEncodeSearch(enc, ivf, k=K)
-    qidx = [(i * 9973) % N_DOCS for i in range(N_BATCHES * BATCH)]
-    batches = [[docs[j] for j in qidx[b * BATCH : (b + 1) * BATCH]] for b in range(N_BATCHES)]
+    qidx = query_ids()
+    batches = serve_batches(docs)
     serve(batches[0])  # warm
     rescore_shortlist.launches = 0
     lat, hits = [], 0
@@ -3420,6 +3894,14 @@ def main() -> int:
         log(f"engine c16, {where}: " + engine_c16_line())
         log(f"scheduled cascade c16, {where}: " + serve_c16_line())
         return 0
+    if len(sys.argv) >= 3 and sys.argv[1] == "--first-call":
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        )
+        log(f"card: {smi.stdout.strip()}")
+        for line in first_call_lines(sys.argv[2:]):
+            log(line)
+        return 0
     if sys.argv[1:] == ["--framing"]:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
@@ -3432,6 +3914,21 @@ def main() -> int:
     os.environ["PATHWAY_RECOMPILE_STRICT"] = "1"
     from pathway_tpu_torch.kernels.build import build_all
 
+    if sys.argv[1:] == ["--sharded"]:
+        from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        ).stdout.strip()
+        log(f"card: {smi}")
+        t0 = time.perf_counter()
+        build_all()
+        encoder, docs, doc_vecs, keys, exact = main_rows(f"[{smi}]")
+        log(f"build and phase 4's rows {time.perf_counter() - t0:.1f} s")
+        launches = sharded_phase(encoder, exact, FusedEncodeSearch(encoder, exact, k=K), docs, doc_vecs, keys,
+                                 serve_batches(docs), f"[{smi}]")[0]
+        log(f"rescore launches {launches}; shape census: {tripwire_census()}")
+        return 0
     if sys.argv[1:] == ["--real-weights"]:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
@@ -3443,7 +3940,6 @@ def main() -> int:
         launches = real_weights_phase(corpus(N_DOCS), keys_for(N_ROWS), f"[{smi}]")[0]
         log(f"rescore launches {launches}; shape census: {tripwire_census()}")
         return 0
-    from pathway_tpu_torch.models.encoder import SentenceEncoder
     from pathway_tpu_torch.ops.ivf import IvfKnnIndex
     from pathway_tpu_torch.ops.ivf_rescore import ivf_rescore_reference, rescore_shortlist
     from pathway_tpu_torch.ops.knn import DeviceKnnIndex
@@ -3469,30 +3965,7 @@ def main() -> int:
 
     # -- 4. main path at full width ------------------------------------------
     t0 = time.perf_counter()
-    encoder = SentenceEncoder(
-        dimension=DIM, n_layers=6, n_heads=6, max_length=128, vocab_size=32768,
-        seed=SEED, dtype=torch.bfloat16,
-    )
-    docs = corpus(N_DOCS)
-    t_tok = time.perf_counter()
-    doc_vecs = torch.cat(
-        [encoder.encode_to_device(docs[i : i + ENCODE_CHUNK]) for i in range(0, N_DOCS, ENCODE_CHUNK)]
-    )
-    torch.cuda.synchronize()
-    t_enc = time.perf_counter() - t_tok
-    n_rand = N_ROWS - N_DOCS
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    rand_vecs = torch.randn(n_rand, DIM, generator=gen, device=dev)
-    rand_vecs /= torch.linalg.vector_norm(rand_vecs, dim=1, keepdim=True)
-    log(
-        f"index rows: {N_DOCS} encoded docs + {n_rand} seeded unit vectors = {N_ROWS} x {DIM}; "
-        f"encode {N_DOCS} docs {t_enc:.2f} s ({N_DOCS / t_enc:.0f} docs/s incl. host tokenize) {tag}"
-    )
-    keys = keys_for(N_ROWS)
-    exact = DeviceKnnIndex(DIM, metric="cos", initial_capacity=N_ROWS)
-    exact.add_from_device(keys[:N_DOCS], doc_vecs)
-    exact.add_from_device(keys[N_DOCS:], rand_vecs)
-    del rand_vecs
+    encoder, docs, doc_vecs, keys, exact = main_rows(tag)
     torch.cuda.synchronize()
     t_ivf = time.perf_counter()
     ivf = IvfKnnIndex(DIM, metric="cos")
@@ -3511,8 +3984,8 @@ def main() -> int:
         raise AssertionError(f"index sizes {len(exact)}, {len(ivf)} != {N_ROWS}")
 
     # the rescore kernel at the main-path shape: a real batch's probes
-    qidx = [(i * 9973) % N_DOCS for i in range(N_BATCHES * BATCH)]
-    batches = [[docs[j] for j in qidx[b * BATCH : (b + 1) * BATCH]] for b in range(N_BATCHES)]
+    qidx = query_ids()
+    batches = serve_batches(docs)
     with torch.no_grad():
         z = encoder.encode_to_device(batches[0])
         probe = torch.topk(z @ ivf._centroids.t(), p, dim=1).indices.to(torch.int32)
@@ -3721,6 +4194,10 @@ def main() -> int:
     # -- 15. real weights: HF BERT checkpoints at MiniLM width, then CLIP, counted --
     rw_launches, hf_kernel, clip_kernel = real_weights_phase(docs, keys, tag)
     worst_err = max(worst_err, hf_kernel["max_abs_err"], clip_kernel["max_abs_err"])
+
+    # -- 16. sharded serve: 8 logical shards, mesh exact, sharded forward, counted --
+    ss_launches, ss_kernel = sharded_phase(encoder, exact, serve_exact, docs, doc_vecs, keys, batches, tag)
+    worst_err = max(worst_err, ss_kernel["max_abs_err"])
     log(f"shape census: {tripwire_census()}")
 
     record = {
@@ -3731,11 +4208,11 @@ def main() -> int:
                 "source": "pathway_tpu_torch/csrc/ivf_rescore.cu",
                 "replaces": "pathway_tpu/ops/ivf_pallas.py:37",
                 "launches": launches + rr_launches + sched_launches + li_launches + ws_launches + st_launches
-                + po_launches + sum(rw_launches.values()),
+                + po_launches + sum(rw_launches.values()) + ss_launches,
                 "launches_by_path": {
                     "serve": launches, "rerank": rr_launches, "scheduler": sched_launches,
                     "ingest": li_launches, "warmstate": ws_launches, "tuning": st_launches,
-                    "profiling": po_launches, "real_weights": rw_launches,
+                    "profiling": po_launches, "real_weights": rw_launches, "sharded": ss_launches,
                 },
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,
@@ -3760,6 +4237,7 @@ def main() -> int:
                 "after_absorb_shape": {key: li_kernel[key] for key in _SHAPE_KEYS},
                 "hf_stage1_shape": {key: hf_kernel[key] for key in _SHAPE_KEYS},
                 "clip_search_shape": {key: clip_kernel[key] for key in _SHAPE_KEYS},
+                "sharded_shard_shape": {key: ss_kernel[key] for key in _SHAPE_KEYS},
             },
             *decode_kernels,
         ]

@@ -107,6 +107,8 @@ _knob("serve.coalesce_us", "PATHWAY_SERVE_COALESCE_US", "float", 2000.0,
       "scheduler coalescing window in µs (0 = no wait)", lo=0.0, hi=100_000.0, mutability=DYNAMIC)
 _knob("serve.max_batch", "PATHWAY_SERVE_MAX_BATCH", "int", 64,
       "cap on unique queries per coalesced device batch", lo=1, hi=4096)
+_knob("serve.shards", "PATHWAY_SERVE_SHARDS", "int", 0,
+      "serve-side index shard count (0 = caller/device default)", lo=0, hi=4096)
 _knob("serve.deadline_ms", "PATHWAY_SERVE_DEADLINE_MS", "float", 0.0,
       "per-request serve deadline in ms (0 = none)", lo=0.0, hi=600_000.0)
 _knob("serve.stage1_fraction", "PATHWAY_SERVE_STAGE1_FRACTION", "float", 0.6,
@@ -242,6 +244,12 @@ _knob("robust.breaker_threshold", "PATHWAY_BREAKER_THRESHOLD", "int", 5,
       "consecutive failures that open a circuit breaker", lo=1, hi=10_000)
 _knob("robust.breaker_reset_s", "PATHWAY_BREAKER_RESET_S", "float", 30.0,
       "open-breaker half-open probe delay in seconds", lo=0.0, hi=86_400.0)
+
+# device meshes (parallel/mesh.py)
+_knob("parallel.data_shards", "PATHWAY_TPU_DATA_SHARDS", "int", 0,
+      "mesh data-axis size override (0 = derive)", lo=0, hi=65_536)
+_knob("parallel.model_shards", "PATHWAY_TPU_MODEL_SHARDS", "int", 0,
+      "mesh model-axis size override (0 = derive)", lo=0, hi=65_536)
 
 # runtime tripwires (ops/donation_guard.py, ops/recompile_guard.py)
 _knob("ops.donation_guard", "PATHWAY_DONATION_GUARD", "bool", False,

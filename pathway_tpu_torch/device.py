@@ -55,7 +55,7 @@ def to_host(packed: torch.Tensor):
     host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
     host.copy_(packed, non_blocking=True)
     done = torch.cuda.Event()
-    done.record()
+    done.record(torch.cuda.current_stream(packed.device))  # the copy's stream, whichever card
 
     def wait():
         done.synchronize()

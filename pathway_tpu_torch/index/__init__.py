@@ -1,7 +1,8 @@
 """Device-resident forward index of the port (counterpart of
 ``pathway_tpu/index``): compressed per-document token rows stored at
-ingest, gathered and MaxSim-scored at serve time."""
+ingest, gathered and MaxSim-scored at serve time, on one device or
+sharded by document over a ``ShardGroup``."""
 
-from .forward import ForwardIndex, ForwardUnavailable
+from .forward import ForwardIndex, ForwardUnavailable, ShardedForwardIndex
 
-__all__ = ["ForwardIndex", "ForwardUnavailable"]
+__all__ = ["ForwardIndex", "ForwardUnavailable", "ShardedForwardIndex"]

@@ -37,7 +37,9 @@
   the in-place-write tripwire, which checks that a warm state taken in
   is never written.
 
-``ShardedForwardIndex`` is not ported yet.
+``ShardedForwardIndex`` shards the index by document over a
+``ShardGroup`` (see its docstring); each shard is a ``ForwardIndex``
+whose row buckets live on the shard's device.
 """
 
 from __future__ import annotations
@@ -55,11 +57,11 @@ from ..device import to_host, upload
 from ..observe import hbm, profile
 from ..ops import donation_guard
 from ..ops.dispatch_counter import record_dispatch, record_fetch
-from ..ops.maxsim import maxsim_topk
+from ..ops.maxsim import maxsim_table, maxsim_topk, merge_tables
 from ..ops.recompile_guard import RecompileTripwire
 from ..robust import RetryPolicy, inject, log_once, retry_call
 
-__all__ = ["ForwardIndex", "ForwardUnavailable", "audit_quant_error", "pool_token_states"]
+__all__ = ["ForwardIndex", "ForwardUnavailable", "ShardedForwardIndex", "audit_quant_error", "pool_token_states"]
 
 # every Nth absorb re-measures the quantization error on its batch
 _AUDIT_EVERY = 8
@@ -254,7 +256,7 @@ class ForwardIndex:
         quant = self.quant == "int8"
         T = self.tokens_per_doc
         self._tripwire.observe(("pool", tokens.shape[0], tokens.shape[1], T, quant))
-        q, scales, nvalid, pooled = _POOL(tokens, upload(mask, self.device), T, quant)
+        q, scales, nvalid, pooled = _POOL(tokens, upload(mask, tokens.device), T, quant)
         audit = None
         if self.stats["absorbs"] % _AUDIT_EVERY == 0:
             self._tripwire.observe(("audit", tokens.shape[0], T, quant))
@@ -564,7 +566,198 @@ class ForwardIndex:
                    self.stats[f"gather_{kind}"])
 
 
+class _ShardForward(ForwardIndex):
+    """One shard-resident forward partition: the row buckets live on the
+    shard's ``device``.  The absorb plan (encode + pool + quantize) runs
+    on the encoder's device; only its compressed rows move to the shard,
+    at commit."""
+
+    def __init__(self, encoder, device, **kwargs: Any):
+        super().__init__(encoder, **kwargs)
+        self.device = torch.device(device)
+
+    def _commit_absorb(self, plan: Dict[str, Any]) -> int:
+        plan = dict(plan)
+        for field in ("q", "scales", "nvalid"):
+            plan[field] = plan[field].to(self.device)
+        return super()._commit_absorb(plan)
+
+
+class ShardedForwardIndex:
+    """Document-sharded forward index over a ``ShardGroup`` (the sharded
+    IVF index's, so a document's token rows live on the shard that owns
+    its postings).  ``add`` routes each document to its owning shard;
+    ``gather_submit`` keeps ``ForwardIndex``'s contract, so
+    ``LateInteractionStage`` takes it unchanged: each shard scores only
+    the candidates it owns into a ``[B, Kc]`` table (``-inf`` elsewhere,
+    profiler label ``forward.table``), the tables move to the merge
+    device, and one elementwise max + top-k (``forward.table_merge``)
+    packs the result, bit-identical to one unsharded index holding every
+    row.  One logical dispatch of ``shards + 1`` launches and one fetch.
+
+    Faults: ``shard.absorb`` / ``shard.absorb.<s>`` drop one shard's
+    documents from one ``add`` (counted on
+    ``pathway_serve_shard_ingest_drops_total{tier="forward"}``); the
+    table launches retry under ``forward.gather``, the merge under
+    ``shard.merge``."""
+
+    def __init__(
+        self,
+        encoder,
+        group=None,
+        n_shards: Optional[int] = None,
+        devices: Optional[Sequence] = None,
+        tokens_per_doc: Optional[int] = None,
+        quant: Optional[str] = None,
+        initial_capacity: int = 1024,
+    ):
+        from ..parallel.shards import ShardGroup
+
+        self.group = group or ShardGroup(n_shards=n_shards, devices=devices)
+        self.encoder = encoder
+        self.tokens_per_doc = int(tokens_per_doc or config.get("forward.tokens"))
+        self.quant = quant if quant in ("int8", "none") else config.get("forward.quant")
+        self.dimension = int(encoder.config.d_model)
+        self._lock = threading.Lock()
+        self._gen_base = 0
+        self.shards: List[_ShardForward] = [
+            _ShardForward(encoder, self.group.device(s), tokens_per_doc=self.tokens_per_doc, quant=self.quant,
+                          initial_capacity=initial_capacity)
+            for s in range(self.group.n_shards)
+        ]
+        self._tripwire = RecompileTripwire("ShardedForwardIndex")
+        self.stats = {"route_drops": 0, "route_drop_docs": 0}
+        self._observe_id = observe.next_id()
+        observe.register_provider(self)
+
+    def __len__(self) -> int:
+        return sum(len(c) for c in self.shards)
+
+    def __contains__(self, key: int) -> bool:
+        return int(key) in self.shards[self.group.owner_of(key)]
+
+    @property
+    def generation(self) -> int:
+        return self._gen_base + sum(c.generation for c in self.shards)
+
+    def hbm_bytes(self) -> int:
+        return sum(c.hbm_bytes() for c in self.shards)
+
+    def add(self, keys: Sequence[int], texts: Sequence[str]) -> int:
+        """Route each document to its owning shard; returns the number
+        committed.  A faulted shard drops its documents from this call
+        only; the others commit theirs."""
+        keys = [int(k) for k in keys]
+        committed = 0
+        for s, rows in sorted(self.group.route(keys).items()):
+            try:
+                inject.fire(f"shard.absorb.{s}")
+                inject.fire("shard.absorb")
+                committed += self.shards[s].add([keys[i] for i in rows], [texts[i] for i in rows])
+            except Exception as exc:  # noqa: BLE001 - degrade, never die: counted and logged
+                with self._lock:
+                    self.stats["route_drops"] += 1
+                    self.stats["route_drop_docs"] += len(rows)
+                    self._gen_base += 1
+                log_once(f"shard.absorb.forward:{type(exc).__name__}",
+                         "sharded forward ingest to shard %d failed (%r); its documents stay out of the "
+                         "forward index only", s, exc)
+        return committed
+
+    def remove(self, keys: Sequence[int]) -> None:
+        keys = [int(k) for k in keys]
+        for s, rows in sorted(self.group.route(keys).items()):
+            self.shards[s].remove([keys[i] for i in rows])
+
+    @torch.no_grad()
+    def gather_submit(
+        self,
+        query_tokens: Optional[torch.Tensor],
+        query_mask: np.ndarray,
+        cand_keys: List[List[int]],
+        k_out: int,
+        deadline=None,
+        width: Optional[int] = None,
+    ):
+        """``ForwardIndex.gather_submit``'s contract over the shards: a
+        candidate resident on no shard is ``missing`` (the caller backfills
+        it from the previous stage).  Raises ``ForwardUnavailable`` when no
+        candidate is resident anywhere."""
+        if query_tokens is None:
+            raise ForwardUnavailable("no query token states from stage 1")
+        B, Lq = int(query_tokens.shape[0]), int(query_tokens.shape[1])
+        nq = len(cand_keys)
+        longest = max((len(row) for row in cand_keys), default=0)
+        Kc = max(int(width) if width else longest, longest, 1)
+        k_out = min(int(k_out), Kc)
+        if deadline is not None:
+            deadline.check("forward.gather")
+        merge_dev = query_tokens.device
+        mask_dev = upload(np.asarray(query_mask, np.float32), merge_dev)
+        quant = self.quant == "int8"
+        tables: List[torch.Tensor] = []
+        owned = np.zeros((B, Kc), bool)
+        n_cand = sum(len(row) for row in cand_keys)
+        for child in self.shards:
+            with child._lock:
+                if child._tok is None or not child._slot_of_key:
+                    continue
+                slots = np.full((B, Kc), -1, np.int32)
+                for qi, row in enumerate(cand_keys):
+                    for j, key in enumerate(row[:Kc]):
+                        slot = child._slot_of_key.get(int(key))
+                        if slot is not None:
+                            slots[qi, j] = slot
+                            owned[qi, j] = True
+                if not (slots >= 0).any():
+                    continue
+                dev = child.device
+                if dev.type == "cuda":
+                    child._serve_stream = torch.cuda.current_stream(dev)
+                self._tripwire.observe(("table", B, Lq, Kc, child._capacity, self.tokens_per_doc))
+                qtok_s, mask_s, slots_dev = query_tokens.to(dev), mask_dev.to(dev), upload(slots, dev)
+                # launched under the child's lock: a commit writes its rows in place
+                out = retry_call(
+                    "forward.gather",
+                    lambda: _TABLE(qtok_s, mask_s, child._tok, child._scales, child._nvalid, slots_dev, quant),
+                    deadline=deadline,
+                    policy=_GATHER_RETRY,
+                )
+                child.stats["gathers"] += 1
+            tables.append(out)
+        missing = [[j for j in range(len(row[:Kc])) if not owned[qi, j]] for qi, row in enumerate(cand_keys)]
+        if not tables or sum(len(m) for m in missing) >= n_cand:
+            raise ForwardUnavailable("no candidate is resident on any shard")
+        moved = [t.to(merge_dev) for t in tables]
+        self._tripwire.observe(("merge", len(moved), B, Kc, k_out))
+        fetch = retry_call(
+            "shard.merge", lambda: to_host(_TABLE_MERGE(moved, k_out)), deadline=deadline, policy=_GATHER_RETRY
+        )
+        record_dispatch("rerank_maxsim", shards=len(tables) + 1)
+        observe.record_occupancy("forward_gather", n_cand, B * Kc)
+
+        def complete():
+            inject.fire("forward.gather.fetch", deadline=deadline)
+            if deadline is not None:
+                deadline.check("forward.gather.fetch")
+            arr = fetch()[:nq]
+            record_fetch("rerank_maxsim")
+            scores = np.ascontiguousarray(arr[:, :k_out]).view(np.float32)
+            return scores, arr[:, k_out:]
+
+        return complete, missing
+
+    def observe_metrics(self):
+        labels = {"index": str(self._observe_id)}
+        yield ("counter", "pathway_serve_shard_ingest_drops_total", {**labels, "tier": "forward"},
+               self.stats["route_drops"])
+        for s, child in enumerate(self.shards):
+            yield ("gauge", "pathway_serve_shard_forward_docs", {**labels, "shard": str(s)}, len(child))
+
+
 # the device steps under the reference's profiler labels
 _POOL = profile.wrap("forward.pool", pool_token_states)
 _AUDIT = profile.wrap("forward.audit", audit_quant_error)
 _MAXSIM = profile.wrap("forward.maxsim", maxsim_topk)
+_TABLE = profile.wrap("forward.table", maxsim_table)
+_TABLE_MERGE = profile.wrap("forward.table_merge", merge_tables)

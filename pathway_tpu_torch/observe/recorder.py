@@ -274,7 +274,8 @@ def snapshot() -> Dict[str, Any]:
     """JSON-able view: histogram summaries (count, sum, p50/p95/p99
     bucket bounds), counters, gauges (provider samples included), a
     per-tier cache column (samples labeled ``tier``), a per-runner
-    ingest column (samples labeled ``ingest``), the profiler's
+    ingest column (samples labeled ``ingest``), a per-shard column
+    (samples labeled ``shard``; the other labels stay on the key), the profiler's
     per-callable ``profile`` column, the ledger's ``hbm`` column, ring
     health and the recent event ring."""
     hist_items, counter_items, gauge_items = _copy_tables()
@@ -295,10 +296,11 @@ def snapshot() -> Dict[str, Any]:
     # (live-ingest runners) also land in a column per tier / runner
     caches: Dict[str, Dict[str, float]] = {}
     ingests: Dict[str, Dict[str, float]] = {}
+    shards: Dict[str, Dict[str, float]] = {}
     for kind, name, key, value in _provider_samples():
         (counters if kind == "counter" else gauges)[name + _fmt_labels(key)] = value
         labels = dict(key)
-        for label, column in (("tier", caches), ("ingest", ingests)):
+        for label, column in (("tier", caches), ("ingest", ingests), ("shard", shards)):
             owner = labels.get(label)
             if owner is not None:
                 rest = tuple((lk, lv) for lk, lv in key if lk != label)
@@ -317,6 +319,7 @@ def snapshot() -> Dict[str, Any]:
         "gauges": gauges,
         "caches": {k: caches[k] for k in sorted(caches)},
         "ingest": {k: ingests[k] for k in sorted(ingests)},
+        "shards": {k: shards[k] for k in sorted(shards, key=lambda sh: (0, int(sh)) if sh.isdigit() else (1, sh))},
         "profile": _profile.profile_stats(),
         "hbm": _hbm.ledger_stats(),
         "events": [

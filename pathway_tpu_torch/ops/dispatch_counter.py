@@ -14,8 +14,12 @@ cross-encoder stage 2 (``rerank_stage2``).
 
 ``shards=N`` books one logical report that covers N physical launches
 (the embedding-cache path encodes its misses and then searches: one
-logical dispatch of two launches); ``physical_dispatches`` keeps the
-launch count.
+logical dispatch of two launches; a sharded serve encodes, searches
+every shard and merges: one logical dispatch of ``shards + 2``);
+``physical_dispatches`` / ``physical_fetches`` keep the launch counts,
+the recorder exports them on ``pathway_serve_shard_{dispatches,fetches}_total``
+when N > 1, and ``DispatchCounter(mode="physical")`` makes the headline
+``dispatches`` / ``fetches`` the physical counts.
 """
 
 from __future__ import annotations
@@ -33,37 +37,47 @@ MAX_EVENTS = 4096
 
 _install_lock = threading.Lock()
 _active: Optional["DispatchCounter"] = None
-_obs_counters: Dict[Tuple[str, str], observe.Counter] = {}
+_obs_counters: Dict[Tuple[str, str, bool], observe.Counter] = {}
 
 
-def _obs_counter(kind: str, tag: str) -> observe.Counter:
-    c = _obs_counters.get((kind, tag))
+def _obs_counter(kind: str, tag: str, shard: bool = False) -> observe.Counter:
+    c = _obs_counters.get((kind, tag, shard))
     if c is None:
-        c = _obs_counters[(kind, tag)] = observe.counter(f"pathway_serve_{kind}es_total", tag=tag)
+        name = f"pathway_serve_shard_{kind}es_total" if shard else f"pathway_serve_{kind}es_total"
+        c = _obs_counters[(kind, tag, shard)] = observe.counter(name, tag=tag)
     return c
 
 
 class DispatchCounter:
-    """Counts logical dispatches and fetches while installed (``with
-    DispatchCounter() as c:``); ``physical_dispatches`` counts launches;
-    ``events`` keeps the first ``MAX_EVENTS`` ``(kind, tag)`` pairs and
-    ``events_dropped`` the rest."""
+    """Counts dispatches and fetches while installed (``with
+    DispatchCounter() as c:``): logical ones by default, physical ones as
+    the headline counts with ``mode="physical"``;
+    ``physical_dispatches`` / ``physical_fetches`` always count
+    launches and copies; ``events`` keeps the first ``MAX_EVENTS``
+    ``(kind, tag)`` pairs and ``events_dropped`` the rest."""
 
-    def __init__(self) -> None:
+    def __init__(self, mode: str = "logical") -> None:
+        if mode not in ("logical", "physical"):
+            raise ValueError(f"unknown accounting mode {mode!r}")
+        self.mode = mode
         self.dispatches = 0
         self.fetches = 0
         self.physical_dispatches = 0
+        self.physical_fetches = 0
         self.events: List[Tuple[str, str]] = []
         self.events_dropped = 0
         self._lock = threading.Lock()
 
     def _record(self, kind: str, tag: str, shards: int) -> None:
+        physical = max(1, int(shards))
+        headline = physical if self.mode == "physical" else 1
         with self._lock:
             if kind == "dispatch":
-                self.dispatches += 1
-                self.physical_dispatches += max(1, int(shards))
+                self.dispatches += headline
+                self.physical_dispatches += physical
             else:
-                self.fetches += 1
+                self.fetches += headline
+                self.physical_fetches += physical
             if len(self.events) < MAX_EVENTS:
                 self.events.append((kind, tag))
             else:
@@ -92,6 +106,8 @@ def uninstall() -> None:
 
 def _report(kind: str, tag: str, shards: int) -> None:
     _obs_counter(kind, tag).inc()
+    if shards > 1:
+        _obs_counter(kind, tag, shard=True).inc(shards)
     t = _trace.current()
     if t is not None:
         (t.note_dispatch if kind == "dispatch" else t.note_fetch)(tag, shards)

@@ -1,5 +1,6 @@
 """IVF approximate KNN on one device (counterpart of
-``pathway_tpu/ops/ivf.py`` ``IvfKnnIndex``).
+``pathway_tpu/ops/ivf.py`` ``IvfKnnIndex``), and ``ShardedIvfIndex``, one
+``IvfKnnIndex`` per shard of a ``ShardGroup`` (see its docstring).
 
 - **train**: k-means centroids fitted with a matmul + argmax assignment
   on the device and a host segment-mean (the reference's numpy RNG
@@ -70,7 +71,7 @@ from .ivf_rescore import rescore_shortlist
 from .knn import _bucket, normalize_metric, oversampled_filtered_search
 from .recompile_guard import RecompileTripwire
 
-__all__ = ["IvfKnnIndex"]
+__all__ = ["IvfKnnIndex", "ShardedIvfIndex"]
 
 _PREF_CHUNK = 131072
 # failed background absorbs and retrains retry a bounded number of
@@ -972,3 +973,129 @@ def merge_stage1_row(
             seen.add(key)
             dedup.append((key, s))
     return dedup[:k]
+
+
+class ShardedIvfIndex:
+    """Document-sharded IVF over a ``ShardGroup``: one ``IvfKnnIndex``
+    per shard on ``group.device(s)`` (centroids, slabs and exact tail all
+    on the shard's device), routed by the group's ``owner_of(key)``.
+
+    The host API is the single index's (add / remove / build / search /
+    ``search_oversampled`` / ``__len__``); ``FusedEncodeSearch`` sees
+    ``shards`` and ``group`` and serves it by scatter dispatch: one
+    encode, one search launch per shard, one on-device tree merge
+    (``ops/serving.py``).  Maintenance stays shard-local: each child
+    absorbs and retrains on its own threads, on its own device and
+    streams (every tensor of those threads is made on ``child.device``),
+    so the reference's ``_ShardIvf`` device pin has no counterpart here.
+    ``generation`` sums the routing-level counter and the children's.
+
+    Faults: ``shard.absorb`` / ``shard.absorb.<s>`` drop one shard's
+    documents from one ``add`` (``stats["route_drops"]``,
+    ``pathway_serve_shard_ingest_drops_total``); the other shards
+    commit theirs."""
+
+    def __init__(
+        self,
+        dimension: int,
+        metric: str = "cos",
+        group=None,
+        n_shards: Optional[int] = None,
+        devices: Optional[Sequence] = None,
+        **ivf_kwargs: Any,
+    ):
+        from ..parallel.shards import ShardGroup
+
+        self.group = group or ShardGroup(n_shards=n_shards, devices=devices)
+        self.dimension = dimension
+        self.metric = normalize_metric(metric)
+        self.dtype = ivf_kwargs.get("dtype", torch.float32)
+        self._lock = threading.Lock()
+        self._gen_base = 0  # routing-level bumps (dropped ingest)
+        self.shards: List[IvfKnnIndex] = [
+            IvfKnnIndex(dimension, metric=metric, device=self.group.device(s), **ivf_kwargs)
+            for s in range(self.group.n_shards)
+        ]
+        self.stats: Dict[str, int] = {"route_drops": 0, "route_drop_docs": 0}
+        self._observe_id = observe.next_id()
+        observe.register_provider(self)
+
+    def __len__(self) -> int:
+        return sum(len(c) for c in self.shards)
+
+    @property
+    def generation(self) -> int:
+        """Result-visibility generation of the group: every child bump
+        happens under that child's lock."""
+        return self._gen_base + sum(c.generation for c in self.shards)
+
+    @property
+    def tail_degraded(self) -> bool:
+        return any(c.tail_degraded for c in self.shards)
+
+    def add(self, keys: Sequence[int], vectors) -> None:
+        keys = [int(k) for k in keys]
+        if not keys:
+            return
+        vectors = np.asarray(vectors, np.float32).reshape(len(keys), self.dimension)
+        for s, rows in sorted(self.group.route(keys).items()):
+            try:
+                inject.fire(f"shard.absorb.{s}")
+                inject.fire("shard.absorb")
+                self.shards[s].add([keys[i] for i in rows], vectors[rows])
+            except Exception as exc:  # noqa: BLE001 - one shard's round is dropped, counted and logged
+                with self._lock:
+                    self.stats["route_drops"] += 1
+                    self.stats["route_drop_docs"] += len(rows)
+                    self._gen_base += 1
+                log_once(f"shard.absorb:{type(exc).__name__}",
+                         "sharded ingest to shard %d failed (%r); its documents are dropped from this round "
+                         "only", s, exc)
+
+    def remove(self, keys: Sequence[int]) -> None:
+        keys = [int(k) for k in keys]
+        for s, rows in sorted(self.group.route(keys).items()):
+            self.shards[s].remove([keys[i] for i in rows])
+
+    def build(self) -> None:
+        """Synchronous bulk (re)build of every shard."""
+        for child in self.shards:
+            child.build()
+
+    def build_from_matrix(self, keys: Sequence[int], matrix: torch.Tensor) -> None:
+        """Bulk build from a device-resident row matrix ``[n, d]``: each
+        shard's rows (by ``owner_of``) move to its device and go through
+        ``IvfKnnIndex.build_from_matrix`` there."""
+        keys = [int(k) for k in keys]
+        if len(keys) != int(matrix.shape[0]):
+            raise ValueError(f"{len(keys)} keys for {int(matrix.shape[0])} rows")
+        for s, rows in sorted(self.group.route(keys).items()):
+            sel = torch.as_tensor(rows, dtype=torch.int64, device=matrix.device)
+            self.shards[s].build_from_matrix([keys[i] for i in rows], matrix.index_select(0, sel))
+
+    def search(self, queries, k: int, n_probe: Optional[int] = None) -> List[List[Tuple[int, float]]]:
+        """Host search: every nonempty shard's top-k, merged by score
+        (stable, in shard order)."""
+        queries = np.asarray(queries, np.float32).reshape(-1, self.dimension)
+        merged: List[List[Tuple[int, float]]] = [[] for _ in range(queries.shape[0])]
+        for child in self.shards:
+            if len(child) == 0:
+                continue
+            for qi, row in enumerate(child.search(queries, k, n_probe=n_probe)):
+                merged[qi].extend(row)
+        return [sorted(row, key=lambda kv: -kv[1])[:k] for row in merged]
+
+    def search_oversampled(
+        self, queries, k: int, accept: Callable[[int], bool], oversample: int = 4, max_rounds: int = 3
+    ) -> List[List[Tuple[int, float]]]:
+        return oversampled_filtered_search(self, queries, k, accept, oversample=oversample, max_rounds=max_rounds)
+
+    def observe_metrics(self):
+        """Per-shard residency on the ``pathway_serve_shard_*`` family (the
+        children keep their own ``pathway_ivf_*`` series)."""
+        labels = {"index": str(self._observe_id)}
+        yield ("counter", "pathway_serve_shard_ingest_drops_total", labels, self.stats["route_drops"])
+        for s, child in enumerate(self.shards):
+            shard_labels = {**labels, "shard": str(s)}
+            yield ("gauge", "pathway_serve_shard_resident_vectors", shard_labels, len(child))
+            yield ("gauge", "pathway_serve_shard_tail_size", shard_labels, len(child._tail))

@@ -1,8 +1,9 @@
-"""Device-resident incremental KNN index, single device (counterpart of
+"""Device-resident incremental KNN index (counterpart of
 ``pathway_tpu/ops/knn.py``: ``normalize_metric``, the query buckets and
-``DeviceKnnIndex`` without a mesh, with the filtered search surface:
-``search_oversampled``, ``scores_to_distances`` and the shared
-``oversampled_filtered_search`` loop).
+``DeviceKnnIndex`` on one device or row-sharded over a port ``Mesh``,
+with the filtered search surface: ``search_oversampled``,
+``scores_to_distances`` and the shared ``oversampled_filtered_search``
+loop).
 
 The matrix lives on the device as ``[capacity, d]`` with a validity
 plane and the slot -> key map as two int32 planes (``keys_hi``,
@@ -23,6 +24,8 @@ import torch
 
 from ..device import resolve_device
 from ..observe import hbm
+from ..parallel.mesh import global_zeros
+from .topk import sharded_topk
 
 __all__ = ["DeviceKnnIndex", "normalize_metric", "oversampled_filtered_search"]
 
@@ -58,10 +61,17 @@ def _keys_to_planes(keys: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
 
 
 class DeviceKnnIndex:
-    """Incrementally maintained dense KNN index on one device.
+    """Incrementally maintained dense KNN index on one device, or row
+    blocks over the data axis of a port ``Mesh``.
 
     metric: "cos" (vectors L2-normalised at insert; score = cosine sim),
     "l2sq" (score ranks as -squared distance) or "dot".
+
+    With ``mesh``, capacity is a multiple of ``n_shards * 8`` (the
+    reference's ``_round_capacity``, so slots match its mesh index) and
+    slot ``g`` lives in block ``g // (capacity / n_shards)`` on that data
+    shard's device; search scores each block on its device and merges the
+    local top-k on the index's ``device`` (``ops/topk.sharded_topk``).
     """
 
     def __init__(
@@ -71,18 +81,23 @@ class DeviceKnnIndex:
         initial_capacity: int = 1024,
         dtype: torch.dtype = torch.float32,
         device=None,
+        mesh=None,
     ):
         self.dimension = dimension
         self.metric = normalize_metric(metric)
         self.dtype = dtype
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.n_shards = mesh.shape["data"] if mesh is not None else 1
+        # the merge device of a mesh index: its first data shard's
+        self.device = resolve_device(device if mesh is None or device is not None else mesh.data_device(0))
         self._lock = threading.RLock()
-        cap = self._round_capacity(max(initial_capacity, 8))
+        cap = self._round_capacity(max(initial_capacity, self.n_shards * 8))
         self.capacity = cap
-        self._matrix = torch.zeros((cap, dimension), dtype=dtype, device=self.device)
-        self._valid = torch.zeros(cap, dtype=torch.bool, device=self.device)
-        self._keys_hi = torch.zeros(cap, dtype=torch.int32, device=self.device)
-        self._keys_lo = torch.zeros(cap, dtype=torch.int32, device=self.device)
+        # one block per data shard (a single block without a mesh)
+        self._mats = self._zeros((cap, dimension), dtype)
+        self._valids = self._zeros((cap,), torch.bool)
+        self._his = self._zeros((cap,), torch.int32)
+        self._los = self._zeros((cap,), torch.int32)
         self.key_to_slot: Dict[int, int] = {}
         self.slot_to_key = np.zeros(cap, dtype=np.uint64)
         self._free: List[int] = list(range(cap - 1, -1, -1))
@@ -91,36 +106,63 @@ class DeviceKnnIndex:
         self.generation = 0
         hbm.track("knn", self)
 
+    def _zeros(self, shape, dtype) -> List[torch.Tensor]:
+        if self.mesh is None:
+            return [torch.zeros(shape, dtype=dtype, device=self.device)]
+        return global_zeros(shape, dtype, self.mesh)
+
+    def _whole(self, blocks: List[torch.Tensor]) -> torch.Tensor:
+        """A plane as one tensor: the block itself without a mesh, else a
+        copy of the blocks on the merge device."""
+        if len(blocks) == 1:
+            return blocks[0]
+        return torch.cat([b.to(self.device) for b in blocks])
+
+    # the planes as whole tensors (read-only views for a mesh index)
+    _matrix = property(lambda self: self._whole(self._mats))
+    _valid = property(lambda self: self._whole(self._valids))
+    _keys_hi = property(lambda self: self._whole(self._his))
+    _keys_lo = property(lambda self: self._whole(self._los))
+
     def hbm_bytes(self) -> Dict[str, int]:
         """Device bytes: the allocated-capacity matrix and the slot
-        planes (validity, key halves)."""
-        planes = sum(t.numel() * t.element_size() for t in (self._valid, self._keys_hi, self._keys_lo))
-        return {"matrix": self._matrix.numel() * self._matrix.element_size(), "planes": planes}
+        planes (validity, key halves), over every block."""
+        def nbytes(blocks):
+            return sum(t.numel() * t.element_size() for t in blocks)
 
-    @staticmethod
-    def _round_capacity(cap: int) -> int:
-        return ((cap + 7) // 8) * 8
+        return {"matrix": nbytes(self._mats), "planes": nbytes(self._valids) + nbytes(self._his) + nbytes(self._los)}
+
+    def _round_capacity(self, cap: int) -> int:
+        unit = self.n_shards * 8
+        return ((cap + unit - 1) // unit) * unit
 
     def __len__(self) -> int:
         return len(self.key_to_slot)
 
     # -- growth ------------------------------------------------------------
     def _grow(self, needed: int) -> None:
+        """Capacity doubling into new blocks; global row ``g`` keeps its
+        slot and moves to the block of the new layout that holds it."""
         old = self.capacity
         new = self._round_capacity(max(old * 2, old + needed))
+        old_rps, new_rps = old // self.n_shards, new // self.n_shards
 
-        def grown(t: torch.Tensor) -> torch.Tensor:
-            out = torch.zeros((new,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
-            out[:old] = t
+        def grown(blocks: List[torch.Tensor]) -> List[torch.Tensor]:
+            out = self._zeros((new,) + tuple(blocks[0].shape[1:]), blocks[0].dtype)
+            for s, blk in enumerate(blocks):
+                g, g_end = s * old_rps, (s + 1) * old_rps
+                while g < g_end:
+                    t = g // new_rps
+                    end = min(g_end, (t + 1) * new_rps)
+                    out[t][g - t * new_rps : end - t * new_rps] = blk[g - s * old_rps : end - s * old_rps]
+                    g = end
             return out
 
-        self._matrix = grown(self._matrix)
-        self._valid = grown(self._valid)
-        self._keys_hi = grown(self._keys_hi)
-        self._keys_lo = grown(self._keys_lo)
-        self.slot_to_key = np.concatenate(
-            [self.slot_to_key, np.zeros(new - old, dtype=np.uint64)]
-        )
+        self._mats = grown(self._mats)
+        self._valids = grown(self._valids)
+        self._his = grown(self._his)
+        self._los = grown(self._los)
+        self.slot_to_key = np.concatenate([self.slot_to_key, np.zeros(new - old, dtype=np.uint64)])
         self._free.extend(range(new - 1, old - 1, -1))
         self.capacity = new
 
@@ -177,15 +219,23 @@ class DeviceKnnIndex:
             self.generation += 1
 
     def _scatter(self, slots, vectors, valid: bool, hi=None, lo=None) -> None:
-        """In-place row scatter; ``hi``/``lo`` (add path) also update the
-        key planes — removals skip them, the cleared valid flag masks
-        stale keys."""
-        idx = torch.from_numpy(np.asarray(slots, np.int64)).to(self.device)
-        self._matrix.index_copy_(0, idx, vectors.to(self.dtype))
-        self._valid[idx] = valid
-        if hi is not None:
-            self._keys_hi.index_copy_(0, idx, torch.from_numpy(hi).to(self.device))
-            self._keys_lo.index_copy_(0, idx, torch.from_numpy(lo).to(self.device))
+        """In-place row scatter into the owning blocks; ``hi``/``lo`` (add
+        path) also update the key planes — removals skip them, the
+        cleared valid flag masks stale keys."""
+        slots = np.asarray(slots, np.int64)
+        rps = self.capacity // self.n_shards
+        for t, blk in enumerate(self._mats):
+            sel = np.flatnonzero(slots // rps == t) if self.n_shards > 1 else np.arange(len(slots))
+            if sel.size == 0:
+                continue
+            dev = blk.device
+            idx = torch.from_numpy(slots[sel] - t * rps).to(dev)
+            rows = vectors if sel.size == len(slots) else vectors[torch.from_numpy(sel).to(vectors.device)]
+            blk.index_copy_(0, idx, rows.to(dev, self.dtype))
+            self._valids[t][idx] = valid
+            if hi is not None:
+                self._his[t].index_copy_(0, idx, torch.from_numpy(hi[sel]).to(dev))
+                self._los[t].index_copy_(0, idx, torch.from_numpy(lo[sel]).to(dev))
 
     # -- search ------------------------------------------------------------
     def score_topk(self, q: torch.Tensor, k: int):
@@ -194,13 +244,32 @@ class DeviceKnnIndex:
         ``-inf``.  "l2sq" ranks by 2 q.x - ||x||^2.  Products of a bf16
         matrix accumulate in f32, as the reference's
         ``preferred_element_type`` does (through an f32 copy of the
-        matrix)."""
-        m = self._matrix
+        matrix).  A mesh index goes through ``sharded_topk`` (ties in
+        ``lax.top_k``'s order) and returns on ``q``'s device."""
+        if self.mesh is not None:
+            return sharded_topk(self.mesh, q, self._mats, self._valids, k, self.metric, merge_device=q.device)
+        m = self._mats[0]
         scores = q.to(m.dtype).float() @ m.float().t()
         if self.metric == "l2sq":
             scores = 2 * scores - (m.float() * m.float()).sum(dim=1)[None, :]
-        scores = scores.masked_fill(~self._valid[None, :], float("-inf"))
+        scores = scores.masked_fill(~self._valids[0][None, :], float("-inf"))
         return torch.topk(scores, k, dim=1)
+
+    def keys_of(self, slots: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The int32 key planes ``(hi, lo)`` at ``slots`` (any shape),
+        gathered on the device, on ``slots``' device."""
+        if self.mesh is None:
+            return self._his[0][slots], self._los[0][slots]
+        rps = self.capacity // self.n_shards
+        hi = torch.zeros(slots.shape, dtype=torch.int32, device=slots.device)
+        lo = torch.zeros_like(hi)
+        for t in range(self.n_shards):
+            local = slots - t * rps
+            mine = (local >= 0) & (local < rps)
+            at = local.clamp(0, rps - 1).to(self._his[t].device)
+            hi = torch.where(mine, self._his[t][at].to(slots.device), hi)
+            lo = torch.where(mine, self._los[t][at].to(slots.device), lo)
+        return hi, lo
 
     def search(
         self, queries, k: int

@@ -1,6 +1,8 @@
 """Gather + dequantize + MaxSim + top-k over the forward index
 (counterpart of ``pathway_tpu/ops/maxsim.py``: ``_maxsim_table``,
-``build_maxsim_kernel``, ``maxsim_scores_host``).
+``build_maxsim_kernel``, ``build_maxsim_table_kernel`` and
+``build_table_merge_kernel`` of the sharded forward index,
+``maxsim_scores_host``).
 
 The reference compiles this step with XLA, not with a Pallas kernel, so
 the port writes it as plain torch ops; whether it earns a hand kernel is
@@ -22,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["maxsim_scores_host", "maxsim_table", "maxsim_topk", "pack_topk"]
+__all__ = ["maxsim_scores_host", "maxsim_table", "maxsim_topk", "merge_tables", "pack_topk"]
 
 
 def maxsim_table(
@@ -70,6 +72,18 @@ def maxsim_topk(qtok, qmask, tok, scales, nvalid, slots, k_out: int, quantized: 
     """The serve step (the reference's ``build_maxsim_kernel``):
     ``maxsim_table`` then ``pack_topk``."""
     return pack_topk(maxsim_table(qtok, qmask, tok, scales, nvalid, slots, quantized), k_out)
+
+
+def merge_tables(tables, k_out: int) -> torch.Tensor:
+    """The sharded forward index's merge (the reference's
+    ``build_table_merge_kernel``): the elementwise max of ``S`` per-shard
+    ``[B, Kc]`` tables, then ``pack_topk``.  Routing gives every
+    candidate one owning shard, so each cell has at most one finite
+    contributor and the merged table equals one unsharded index's."""
+    table = tables[0]
+    for t in tables[1:]:
+        table = torch.maximum(table, t)
+    return pack_topk(table, k_out)
 
 
 def maxsim_scores_host(

@@ -5,7 +5,10 @@ Named sites, the reference's: ``serve.dispatch``, ``serve.fetch``,
 ``ivf.dispatch``, ``rerank.dispatch``, ``cross_encoder.dispatch``,
 ``cross_encoder.fetch``, ``forward.gather``, ``forward.gather.fetch``,
 ``cache.get``, ``cache.put``, ``trace.record``, ``trace.export``,
-``slo.evaluate``.  A test or an operator arms a site to
+``slo.evaluate``, and the sharded-serve family ``shard.dispatch`` /
+``shard.merge`` / ``shard.absorb``, each also addressable per shard as
+``<site>.<n>`` (``shard.dispatch.3`` kills exactly shard 3 of a group).
+A test or an operator arms a site to
 
 - ``raise`` a ``FaultInjected``,
 - ``delay`` the call (capped at the caller's remaining deadline), or

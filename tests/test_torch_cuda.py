@@ -6,8 +6,10 @@ cross-encoder against the unpacked one, and the decode path's row
 kernels (readout row invariance at every row count, the fused residual
 add + LayerNorm equal to the two steps), the profiler's event-timed
 samples on the stream a call launched on, the device-memory
-ledger's delta against the allocator's, and the real-weights path (HF
-BERT embedder and cross-encoder, CLIP) on the card against the CPU.
+ledger's delta against the allocator's, the real-weights path (HF
+BERT embedder and cross-encoder, CLIP) on the card against the CPU, and
+the sharded serve tier (8 logical shards against 1 through the rescore
+kernel, the mesh-sharded exact index, the sharded forward table).
 They skip
 without a card.  This file imports neither JAX nor the reference, so on
 a machine without JAX it runs as
@@ -573,3 +575,96 @@ def test_cuda_clip_equals_cpu():
     cpu, card = ClipModel(device="cpu"), ClipModel(device=dev)
     np.testing.assert_allclose(card.encode_image(images), cpu.encode_image(images), atol=3e-2, rtol=0)
     np.testing.assert_allclose(card.encode_text(texts), cpu.encode_text(texts), atol=3e-2, rtol=0)
+
+
+def _sharded_stack(n_docs=1200):
+    from pathway_tpu_torch.models.encoder import SentenceEncoder
+
+    enc = SentenceEncoder(dimension=64, n_layers=2, n_heads=4, max_length=32, vocab_size=4096, dtype=torch.float32)
+    docs = [f"document {i} about topic {i % 37} and item {i % 11}" for i in range(n_docs)]
+    return enc, docs, enc.encode(docs)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_serve_equals_one_shard_through_the_kernel():
+    """8 logical shards over the visible cards against 1 at full probe:
+    bit-identical rows at matched composition, one rescore launch per
+    shard per serve, the device merge equal to the host merge, and a
+    steady-state submit without a device-to-host sync."""
+    dev = _cuda()
+    from pathway_tpu_torch.ops.ivf import ShardedIvfIndex
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+    from pathway_tpu_torch.serve import ServeScheduler
+
+    enc, docs, vecs = _sharded_stack()
+    serves = []
+    for n in (1, 8):
+        idx = ShardedIvfIndex(64, n_shards=n, n_probe=10 ** 6)
+        assert all(c.device.type == "cuda" for c in idx.shards)
+        idx.add(range(len(docs)), vecs)
+        idx.build()
+        serves.append(FusedEncodeSearch(enc, idx, k=10))
+    queries = docs[:48:3]
+    rows = []
+    for serve in serves:
+        with ServeScheduler(serve, window_us=0) as sched:
+            rows.append(list(sched.serve(queries, k=10)))
+    assert rows[0] == rows[1]
+    before = rescore_shortlist.launches
+    device = serves[1](queries)
+    assert rescore_shortlist.launches == before + 8
+    serves[1].shard_host_merge = True
+    assert list(serves[1](queries)) == list(device)
+    serves[1].shard_host_merge = False
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        done = serves[1].submit(queries)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert list(done()) == list(device)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_exact_equals_unsharded():
+    """The mesh-sharded exact index (8 row blocks on the card) against the
+    unsharded one: scores within 1e-6, keys equal except between scores
+    tied within 1e-6 (cuBLAS may order a block's sums otherwise)."""
+    dev = _cuda()
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+    from pathway_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(5)
+    vecs = rng.normal(size=(5000, 64)).astype(np.float32)
+    one = DeviceKnnIndex(64, initial_capacity=1024, device=dev)
+    mesh = DeviceKnnIndex(64, initial_capacity=1024, mesh=make_mesh(8, 1, devices=[dev] * 8))
+    for index in (one, mesh):
+        index.add(range(5000), vecs)  # grows past the initial capacity
+        index.remove(range(100, 200))
+    assert len(mesh) == len(one) == 4900  # slots follow each capacity rounding: compared by key below
+    q = rng.normal(size=(16, 64)).astype(np.float32)
+    for w, g in zip(one.search(q, 10), mesh.search(q, 10)):
+        np.testing.assert_allclose([s for _, s in g], [s for _, s in w], atol=1e-6)
+        for j, ((wk, ws), (gk, _)) in enumerate(zip(w, g)):
+            assert wk == gk or any(abs(w[i][1] - ws) <= 1e-6 for i in (j - 1, j + 1) if 0 <= i < len(w))
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_forward_table_equals_unsharded():
+    """The sharded forward index's merged table on the card equals one
+    unsharded index holding every row, float for float."""
+    dev = _cuda()
+    from pathway_tpu_torch.index import ForwardIndex, ShardedForwardIndex
+
+    fwd, qtok, qmask, cands = _forward_stack(dev)
+    sharded = ShardedForwardIndex(fwd.encoder, n_shards=8, tokens_per_doc=8, initial_capacity=64)
+    docs = [f"document {i} about topic {i % 37} and item {i % 11} " + "word " * (i % 19) for i in range(300)]
+    sharded.add(range(300), docs)
+    one = ForwardIndex(fwd.encoder, tokens_per_doc=8, initial_capacity=64)
+    one.add(range(300), docs)
+    d8, m8 = sharded.gather_submit(qtok, qmask, cands, 10, width=20)
+    d1, m1 = one.gather_submit(qtok, qmask, cands, 10, width=20)
+    (s8, p8), (s1, p1) = d8(), d1()
+    np.testing.assert_array_equal(s8.view(np.int32), s1.view(np.int32))
+    np.testing.assert_array_equal(p8, p1)
+    assert m8 == m1

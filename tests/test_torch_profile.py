@@ -262,3 +262,29 @@ def test_import_registers_no_profile_or_ledger_series():
     out = subprocess.run([sys.executable, "-c", script], cwd=_ROOT, capture_output=True, text=True, timeout=300,
                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert out.returncode == 0 and out.stdout.startswith("ok"), out.stderr[-2000:]
+
+
+def test_first_sampled_call_imports_nothing():
+    """``wrap`` resolves the sampling path's fault gate: a fresh process's
+    first sampled call imports no module (the import of ``robust`` cost
+    that call 14-20 ms on the host of an NVIDIA H100 machine)."""
+    script = textwrap.dedent(
+        """
+        import sys
+        import torch
+        from pathway_tpu_torch.observe import profile
+        assert "pathway_tpu_torch.robust" not in sys.modules
+        profile.set_sample(1.0)
+        fn = profile.wrap("test.first_call", lambda: torch.ones(1))
+        before = set(sys.modules)
+        fn()
+        assert set(sys.modules) == before, sorted(set(sys.modules) - before)
+        assert profile.profile_stats()["test.first_call"]["samples"] == 1
+        print("ok")
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=_ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "JAX_PLATFORMS": "cpu"},
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]

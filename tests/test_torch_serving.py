@@ -29,9 +29,10 @@ from pathway_tpu_torch.models.clip import ClipModel
 from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
 from pathway_tpu_torch.models.encoder import SentenceEncoder
 from pathway_tpu_torch.models.generator import TextGenerator
-from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+from pathway_tpu_torch.ops.ivf import IvfKnnIndex, ShardedIvfIndex
 from pathway_tpu_torch.ops.knn import DeviceKnnIndex
 from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+from pathway_tpu_torch.parallel import ShardGroup, make_mesh
 
 from .test_torch_ivf import assert_same_ranking
 
@@ -205,7 +206,10 @@ def test_port_imports_no_jax_flax_or_reference():
         "ops/maxsim.py",
         "ops/recompile_guard.py",
         "ops/retrieve_rerank.py",
+        "ops/topk.py",
         "parallel/distributed.py",
+        "parallel/mesh.py",
+        "parallel/shards.py",
         "persistence/backends.py",
         "persistence/framing.py",
         "robust/deadline.py",
@@ -276,6 +280,9 @@ def test_entry_points_refuse_cpu_fallback():
         lambda: CrossEncoderModel(dimension=8, n_layers=1, n_heads=2, vocab_size=64),
         lambda: TextGenerator(dimension=8, n_layers=1, n_heads=2, vocab_size=64, kv_cache=None),
         lambda: ClipModel(dimension=8, proj_dim=8, n_layers=1, n_heads=2, image_size=16, patch=8, vocab_size=64),
+        lambda: ShardGroup(),
+        lambda: ShardedIvfIndex(8, n_shards=2),
+        lambda: make_mesh(),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
