@@ -13,13 +13,17 @@ NVIDIA GPU:
                                            # alone (~2 minutes)
     python3 chip_smoke.py --sharded        # the kernels' build, phase 4's rows,
                                            # then phase 16 alone (~1 minute)
+    python3 chip_smoke.py --distributed    # the builds, phase 4's rows, then
+                                           # phase 17 alone
     python3 chip_smoke.py --first-call ROOT...  # the profiler's first sampled
                                            # call, fresh processes, per root
 
 Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit from ``nvidia-smi``;
-2. build of every CUDA kernel from ``pathway_tpu_torch/csrc`` (timed);
+2. build of every CUDA kernel from ``pathway_tpu_torch/csrc`` (timed), and
+   of the host batch tokenizer (``csrc/host/tokenize_hash.cc``, ``g++``,
+   timed on its own line);
 3. each kernel against its plain PyTorch version on the card, at edge
    shapes (B = 1, B not a multiple of 8, B = 130, p = C, all probes on one
    cluster, duplicate and out-of-range probes, M and d not multiples of
@@ -230,9 +234,26 @@ Phases, in order; any failure exits non-zero:
    shape.  Printed: q/s, p50, p99 per arm, the merge's share of a
    16-query serve (device-merge p50 against host-merge p50, 30 serves
    each), dispatch ms per shard, the busy share, the device count.
+17. the multi-process plane: (a) the native batch tokenizer's ids equal
+   the Python path's on the 65,536 documents and each 64-query batch;
+   host ms per batch, native against Python, and stage 1's tokenize
+   share; (b) two ranks of this script (``--rank-worker``, torch only)
+   join one cluster through ``parallel/distributed.py`` on the one card
+   (gloo: the ranks share a device), each with 4 logical shards of one
+   8-shard mesh: barrier, broadcast, a faulted broadcast (the local value,
+   counted) and ``agree_generation`` on each rank; a ``DeviceKnnIndex`` of
+   1,000,000 x 384 seeded unit rows made on the card (4 blocks of 125,000
+   rows per rank); top-10 keys and scores of 16 batches of 64 bitwise
+   equal across the ranks and to one process's 8-shard mesh; q/s and the
+   exchange's ms per search printed with the backend; (c)
+   ``SentenceEncoder(mesh=...)`` over 8 logical shards against the
+   unsharded encoder on 4,096 documents (bf16 within 3e-2, f32 within
+   1e-5), docs/s of both; (d) ring attention at B = 1, L = 16,384, 6 heads
+   of 64, 8 blocks of 2,048, causal and not, ~20% of keys masked, against
+   dense attention (f32 within 1e-4, bf16 within 3e-2), ms of both.
 
 Every shape-census tripwire runs strict from the start
-(``PATHWAY_RECOMPILE_STRICT=1``); after phase 16 none may have tripped.
+(``PATHWAY_RECOMPILE_STRICT=1``); after phase 17 none may have tripped.
 
 The card's name and power limit, then the JSON record of the kernels,
 then ``{"ok": true, "device": {...}}`` are the last three lines; the
@@ -3367,6 +3388,311 @@ def sharded_phase(encoder, exact, serve_exact, docs, doc_vecs, keys, batches, ta
     return launches, rec
 
 
+# -- phase 17: the multi-process plane ---------------------------------------------
+DP_RANKS = 2  # processes sharing the one card
+DP_LOCAL_SHARDS = 4  # logical data shards per rank: one 8-shard mesh
+DP_BATCHES = 16  # 64-query batches searched per rank
+DP_TIMEOUT_S = 300.0  # a rank past this is killed and the phase fails
+DP_EXCHANGE_REPS = 50  # all_gathers timed alone
+EM_DOCS = 4096  # SentenceEncoder(mesh=...) documents
+EM_CHUNK = 2048  # per encode call: blocks of 256 rows on 8 shards
+EM_F32_DOCS = 512
+RING_L = 16_384
+RING_BLOCKS = 8
+RING_HEADS = 6
+RING_HD = 64
+RING_F32_ATOL = 1e-4
+RING_BF16_ATOL = 3e-2
+
+
+def dp_rows(dev) -> torch.Tensor:
+    """Phase 17's index: 1,000,000 x 384 seeded unit vectors made on the
+    card, as phase 4 makes its seeded rows."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    rows = torch.randn(N_ROWS, DIM, generator=gen, device=dev)
+    rows /= torch.linalg.vector_norm(rows, dim=1, keepdim=True)
+    return rows
+
+
+def dp_query_rows():
+    return [(i * 9973) % N_ROWS for i in range(DP_BATCHES * BATCH)]
+
+
+def dp_search(index, queries: np.ndarray):
+    """``(keys [n, K] uint64, scores [n, K] f32, seconds per batch)`` of
+    the index's 64-query batches."""
+    keys = np.zeros((len(queries), K), np.uint64)
+    scores = np.zeros((len(queries), K), np.float32)
+    index.search(queries[:BATCH], K)  # warm-up
+    t = time.perf_counter()
+    for b in range(0, len(queries), BATCH):
+        for i, row in enumerate(index.search(queries[b : b + BATCH], K)):
+            keys[b + i] = [key for key, _ in row]
+            scores[b + i] = [s for _, s in row]
+    return keys, scores, (time.perf_counter() - t) / (len(queries) // BATCH)
+
+
+def rank_worker(out_dir: str) -> int:
+    """One rank of phase 17(b): join the cluster from the topology env,
+    check the control plane, build this rank's blocks of the 8-shard
+    ``DeviceKnnIndex`` and search it; keys and scores to
+    ``out_dir/rank<r>.npz``, one ``RESULT`` line."""
+    from pathway_tpu_torch import observe
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+    from pathway_tpu_torch.parallel import distributed as dist
+    from pathway_tpu_torch.parallel.mesh import gather_shards, local_shards, make_mesh
+    from pathway_tpu_torch.persistence import MemoryBackend
+    from pathway_tpu_torch.robust import inject
+    from pathway_tpu_torch.serve.warmstate import WarmStateManager
+
+    dist.maybe_initialize()
+    rank = dist.process_id()
+    degraded = observe.counter("pathway_dist_degraded_total", site="broadcast")
+    checks = {"barrier": dist.barrier("p17-start")}
+    tick = dist.broadcast_obj({"tick": 17} if dist.is_coordinator() else None, name="p17-tick")
+    checks["broadcast"] = tick == {"tick": 17}
+    before = degraded.value
+    with inject.armed("dist.broadcast", "raise", times=1):
+        local = dist.broadcast_obj({"rank": rank}, name="p17-faulted")
+    checks["faulted_broadcast_local"] = local == {"rank": rank} and degraded.value == before + 1
+    checks["agree_generation"] = WarmStateManager(MemoryBackend(), name="p17").agree_generation(
+        17, tag="p17") == (17, True)
+    dev = torch.device(DEVICE)
+    mesh = make_mesh(devices=[dev] * DP_LOCAL_SHARDS)
+    t = time.perf_counter()
+    rows = dp_rows(dev)
+    index = DeviceKnnIndex(DIM, metric="cos", initial_capacity=N_ROWS, mesh=mesh)
+    index.add_from_device(keys_for(N_ROWS), rows)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    queries = rows[dp_query_rows()].cpu().numpy()
+    del rows
+    exchange = observe.histogram("pathway_serve_shard_stage_seconds", stage="exchange", shard="all")
+    n0, s0 = exchange.count, exchange.sum_seconds
+    keys, scores, batch_s = dp_search(index, queries)
+    n_ex = exchange.count - n0
+    # the exchange alone: the same [S_local, B, 2K] f64 candidates staged
+    # from the card with no search between, so no rank waits on the
+    # other's blocks
+    cands = torch.zeros((DP_LOCAL_SHARDS, BATCH, 2 * K), dtype=torch.float64, device=dev)
+    gather_shards(mesh, cands)
+    dist.barrier("p17-exchange")
+    t = time.perf_counter()
+    for _ in range(DP_EXCHANGE_REPS):
+        gather_shards(mesh, cands)
+    alone_ms = (time.perf_counter() - t) * 1e3 / DP_EXCHANGE_REPS
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), keys=keys, scores=scores)
+    checks["done"] = dist.barrier("p17-done")
+    out = {
+        "rank": rank, "ranks": dist.process_count(), "backend": dist.data_backend(), "checks": checks,
+        "shards": mesh.shape["data"], "local": local_shards(mesh),
+        "block_rows": [list(b.shape) for b in index._mats if b is not None],
+        "build_s": build_s, "qps": BATCH / batch_s, "batch_ms": batch_s * 1e3,
+        "exchange_ms": (exchange.sum_seconds - s0) * 1e3 / max(1, n_ex), "exchanges": n_ex,
+        "exchange_alone_ms": alone_ms, "exchange_bytes": cands.numel() * cands.element_size(),
+    }
+    dist.shutdown()
+    print("RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def spawn_ranks(out_dir: str):
+    """Phase 17(b)'s ranks as subprocesses of this script; each one's
+    RESULT.  A rank past ``DP_TIMEOUT_S`` is killed with the others and
+    the phase fails."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(DP_RANKS):
+        env = dict(os.environ, PATHWAY_PROCESSES=str(DP_RANKS), PATHWAY_PROCESS_ID=str(rank),
+                   PATHWAY_COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker", out_dir], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    results, failures = [], []
+    try:
+        for rank, proc in enumerate(procs):
+            try:
+                out, err = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+                status = f"rc={proc.returncode}"
+            except subprocess.TimeoutExpired:
+                for p in procs:
+                    p.kill()
+                out, err = proc.communicate()
+                status = "TIMEOUT"
+            got = [json.loads(line[7:]) for line in out.splitlines() if line.startswith("RESULT ")]
+            if status != "rc=0" or not got:
+                failures.append(f"rank {rank} {status}:\n{out[-2000:]}\n{err[-4000:]}")
+            else:
+                results.append((got[0], err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failures:
+        raise AssertionError("phase 17 ranks failed:\n" + "\n".join(failures))
+    return results
+
+
+def multiprocess_phase(encoder, docs, batches, serve_exact, exact_p50_ms: float, tag: str) -> None:
+    """Phase 17: the native batch tokenizer, two ranks on the one card
+    (control plane and an 8-shard ``DeviceKnnIndex``), the encoder over
+    an 8-shard mesh, and ring attention at 16,384 tokens."""
+    import tempfile
+
+    from pathway_tpu_torch.models.encoder import SentenceEncoder
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+    from pathway_tpu_torch.ops.ring_attention import dense_attention, ring_attention_sharded
+    from pathway_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+
+    # -- (a) the native batch tokenizer against the Python path --
+    tok = encoder.tokenizer
+    for chunk in [docs[i : i + ENCODE_CHUNK] for i in range(0, N_DOCS, ENCODE_CHUNK)] + batches:
+        got, want = tok.encode_batch(chunk), tok._encode_batch_ascii(chunk)
+        if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+            raise AssertionError("native tokenizer ids differ from the Python path")
+    times = {"native": [], "python": []}
+    for _ in range(3):  # alternated passes over the 110 batches (the Python memo warm)
+        for name, fn in (("native", tok.encode_batch), ("python", tok._encode_batch_ascii)):
+            t = time.perf_counter()
+            for texts in batches:
+                fn(texts)
+            times[name].append((time.perf_counter() - t) * 1e3 / len(batches))
+    nat, py = min(times["native"]), min(times["python"])
+    log(
+        f"tokenizer {tag}: native ids == Python ids on {N_DOCS} documents and {len(batches)} batches of {BATCH}; "
+        f"host ms per {BATCH}-query batch (best of 3 alternated passes) native {nat:.4f}, Python {py:.4f} "
+        f"({py / nat:.1f}x); stage-1 tokenize share of the exact serve p50 ({exact_p50_ms:.3f} ms): native "
+        f"{100 * nat / exact_p50_ms:.2f}%, Python {100 * py / exact_p50_ms:.2f}%; "
+        + host_breakdown(serve_exact, batches[:50])
+    )
+
+    # -- (b) two ranks on the one card: control plane and an 8-shard index --
+    with tempfile.TemporaryDirectory() as out_dir:
+        t = time.perf_counter()
+        results = spawn_ranks(out_dir)
+        ranks_s = time.perf_counter() - t
+        per_rank = [np.load(os.path.join(out_dir, f"rank{r}.npz")) for r in range(DP_RANKS)]
+        keys = [p["keys"] for p in per_rank]
+        scores = [p["scores"] for p in per_rank]
+    outs = [r for r, _ in results]
+    why = ""
+    for o, (_, err) in zip(outs, results):
+        said = [line for line in err.splitlines() if "data-plane backend" in line]
+        if not all(o["checks"].values()) or o["backend"] != "gloo" or not said:
+            raise AssertionError(f"rank {o['rank']}: checks {o['checks']}, backend {o['backend']}")
+        why = said[0].split("data-plane backend ", 1)[1]
+        if o["shards"] != DP_RANKS * DP_LOCAL_SHARDS or o["block_rows"] != [[N_ROWS // 8, DIM]] * DP_LOCAL_SHARDS:
+            raise AssertionError(f"rank {o['rank']}: {o['shards']} shards, blocks {o['block_rows']}")
+    rows = dp_rows(dev)
+    one = DeviceKnnIndex(DIM, metric="cos", initial_capacity=N_ROWS, mesh=make_mesh(8, 1, devices=[dev] * 8))
+    one.add_from_device(keys_for(N_ROWS), rows)
+    queries = rows[dp_query_rows()].cpu().numpy()
+    del rows
+    want_keys, want_scores, one_s = dp_search(one, queries)
+    del one
+    all_keys = np.asarray(keys_for(N_ROWS), np.uint64)
+    self_hit = float(np.mean(want_keys[:, 0] == all_keys[dp_query_rows()]))
+    same = [np.array_equal(k, want_keys) and np.array_equal(s.view(np.uint32), want_scores.view(np.uint32))
+            for k, s in zip(keys, scores)]
+    log(
+        f"two ranks on the one card {tag}: data-plane backend {why}; "
+        f"control plane barrier / broadcast / faulted broadcast (local value, counted) / agree_generation "
+        f"passed on both ranks; DeviceKnnIndex {N_ROWS} x {DIM} f32 on a {outs[0]['shards']}-shard mesh, "
+        f"{DP_LOCAL_SHARDS} blocks of {N_ROWS // 8} rows per rank; top-{K} keys and scores of "
+        f"{DP_BATCHES} x {BATCH} queries bitwise equal across ranks and to one process's 8-shard mesh: {same}; "
+        f"self-hit {self_hit:.4f}; per rank (time-slicing one card, a correctness-first number, not a fleet "
+        f"number): "
+        + "; ".join(
+            f"rank {o['rank']} {o['qps']:.1f} q/s ({o['batch_ms']:.3f} ms per {BATCH}-query search), exchange "
+            f"{o['exchange_ms']:.3f} ms per search (all_gather + host staging, waiting for the other rank's "
+            f"blocks included, {o['exchanges']} searches), exchange alone {o['exchange_alone_ms']:.3f} ms "
+            f"({o['exchange_bytes']} bytes per rank, {DP_EXCHANGE_REPS} all_gathers), build {o['build_s']:.2f} s"
+            for o in outs
+        )
+        + f"; one process, 8 shards: {BATCH / one_s:.1f} q/s ({one_s * 1e3:.3f} ms per search); "
+        f"ranks' wall {ranks_s:.1f} s"
+    )
+    if not all(same) or self_hit != 1.0:
+        raise AssertionError(f"2 x 4 shards differ from 1 x 8 (equal per rank: {same}), self-hit {self_hit}")
+
+    # -- (c) SentenceEncoder over the logical 8-shard mesh --
+    mesh8 = make_mesh(8, 1, devices=[dev] * 8)
+    texts = docs[:EM_DOCS]
+
+    def encode_rate(enc, chunk):
+        enc.encode_to_device(texts[:chunk])  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = torch.cat([enc.encode_to_device(texts[i : i + chunk]) for i in range(0, len(texts), chunk)])
+        torch.cuda.synchronize()
+        return out, len(texts) / (time.perf_counter() - t)
+
+    sharded = SentenceEncoder(dimension=DIM, n_layers=6, n_heads=6, max_length=128, vocab_size=32768, seed=SEED,
+                              dtype=torch.bfloat16, device=dev, mesh=mesh8)
+    got, mesh_rate = encode_rate(sharded, EM_CHUNK)
+    want, plain_rate = encode_rate(encoder, EM_CHUNK)
+    bf16_err = float((got - want).abs().max())
+    enc32 = dict(dimension=DIM, n_layers=6, n_heads=6, max_length=128, vocab_size=32768, seed=SEED,
+                 dtype=torch.float32, device=dev)
+    f32_err = float((SentenceEncoder(mesh=mesh8, **enc32).encode_to_device(texts[:EM_F32_DOCS])
+                     - SentenceEncoder(**enc32).encode_to_device(texts[:EM_F32_DOCS])).abs().max())
+    log(
+        f"SentenceEncoder(mesh=8 logical shards on the one card) {tag}: {EM_DOCS} documents in calls of "
+        f"{EM_CHUNK} (blocks of {EM_CHUNK // 8} rows): bf16 max |mesh - unsharded| {bf16_err:.3e} (atol "
+        f"{SCHED_TOL}), f32 over {EM_F32_DOCS} documents {f32_err:.3e} (atol 1e-5); {mesh_rate:.0f} docs/s "
+        f"sharded, {plain_rate:.0f} docs/s unsharded (host tokenize included)"
+    )
+    if not (bf16_err <= SCHED_TOL and f32_err <= 1e-5):
+        raise AssertionError(f"mesh encoder rows differ: bf16 {bf16_err}, f32 {f32_err}")
+
+    # -- (d) ring attention at 16,384 tokens over 8 blocks --
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    q, k, v = (torch.randn(1, RING_L, RING_HEADS, RING_HD, generator=gen, device=dev) for _ in range(3))
+    kv_mask = torch.rand(1, RING_L, generator=gen, device=dev) > 0.2
+    positions = torch.arange(RING_L, device=dev)[None]
+    ring_mesh = Mesh([dev] * RING_BLOCKS, axis_names=("sp",))
+    torch.cuda.empty_cache()
+    parts = []
+    for causal in (False, True):
+        for name, dt, atol in (("f32", torch.float32, RING_F32_ATOL), ("bf16", torch.bfloat16, RING_BF16_ATOL)):
+            args = (q.to(dt), k.to(dt), v.to(dt), kv_mask, positions)
+            ring = ring_attention_sharded(ring_mesh, *args, causal=causal)
+            dense = dense_attention(*args, causal=causal)
+            err = float((ring.float() - dense).abs().max())
+            del dense
+            if not err <= atol:
+                raise AssertionError(f"ring attention {name} causal={causal}: max err {err} > {atol}")
+            ring_ms = timed_ms(lambda: ring_attention_sharded(ring_mesh, *args, causal=causal), reps=3)
+            dense_ms = timed_ms(lambda: dense_attention(*args, causal=causal), reps=2)
+            parts.append(f"{'causal' if causal else 'full'} {name}: max err {err:.2e} (atol {atol}), ring "
+                         f"{ring_ms:.3f} ms, dense {dense_ms:.3f} ms")
+            if name == "f32" and not causal:
+                ks = sorted(profiled_kernels(lambda: ring_attention_sharded(ring_mesh, *args), reps=1),
+                            key=lambda x: -x[1])
+                parts.append(
+                    f"ring f32 kernels alone {sum(us for _, us, _ in ks) / 1e3:.3f} ms in "
+                    f"{sum(n for _, _, n in ks)} launches, top "
+                    + ", ".join(f"{key[:48]} {us / 1e3:.3f} ms x{n}" for key, us, n in ks[:3])
+                )
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(
+        f"ring attention {tag}: B=1 L={RING_L} d_model {RING_HEADS * RING_HD} ({RING_HEADS} heads x {RING_HD}), "
+        f"{RING_BLOCKS} blocks of {RING_L // RING_BLOCKS} on the one card, ~20% of keys masked: "
+        + "; ".join(parts) + f"; peak allocated so far {peak:.1f} GB"
+    )
+    log(f"phase 17 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def tripwire_census() -> str:
     """Every shape-census tripwire of the run: none may have tripped,
     those of collected callables included."""
@@ -3881,6 +4207,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank-worker":
+        return rank_worker(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--compare":
         # the package under another checkout's root, alone (two trees are
         # compared in one run on one card, in turns)
@@ -3929,6 +4257,31 @@ def main() -> int:
                                  serve_batches(docs), f"[{smi}]")[0]
         log(f"rescore launches {launches}; shape census: {tripwire_census()}")
         return 0
+    if sys.argv[1:] == ["--distributed"]:
+        from pathway_tpu_torch.kernels.build import build_host
+        from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        ).stdout.strip()
+        log(f"card: {smi}")
+        t0 = time.perf_counter()
+        build_all()
+        build_host("tokenize_hash")
+        encoder, docs, doc_vecs, keys, exact = main_rows(f"[{smi}]")
+        log(f"build and phase 4's rows {time.perf_counter() - t0:.1f} s")
+        serve_exact = FusedEncodeSearch(encoder, exact, k=K)
+        batches = serve_batches(docs)
+        lat = []
+        for texts in batches[:30]:
+            t = time.perf_counter()
+            serve_exact(texts)
+            lat.append((time.perf_counter() - t) * 1e3)
+        p50 = float(np.percentile(lat, 50))
+        log(f"exact serve p50 {p50:.3f} ms over 30 batches of {BATCH} [{smi}]")
+        multiprocess_phase(encoder, docs, batches, serve_exact, p50, f"[{smi}]")
+        log(f"shape census: {tripwire_census()}")
+        return 0
     if sys.argv[1:] == ["--real-weights"]:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
@@ -3959,6 +4312,11 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build_all()
     log(f"build: {len(libs)} kernel libraries in {time.perf_counter() - t0:.2f} s")
+    from pathway_tpu_torch.kernels.build import build_host
+
+    t0 = time.perf_counter()
+    build_host("tokenize_hash")
+    log(f"build: the host batch tokenizer (g++, csrc/host/tokenize_hash.cc) in {time.perf_counter() - t0:.2f} s")
 
     # -- 3. kernel vs plain at edge shapes ------------------------------------
     worst_err = rescore_edge_cases(rescore_shortlist, ivf_rescore_reference, dev)
@@ -4198,6 +4556,9 @@ def main() -> int:
     # -- 16. sharded serve: 8 logical shards, mesh exact, sharded forward, counted --
     ss_launches, ss_kernel = sharded_phase(encoder, exact, serve_exact, docs, doc_vecs, keys, batches, tag)
     worst_err = max(worst_err, ss_kernel["max_abs_err"])
+
+    # -- 17. the multi-process plane: native tokenizer, two ranks, mesh encoder, ring attention --
+    multiprocess_phase(encoder, docs, batches, serve_exact, pct["exact"][0], tag)
     log(f"shape census: {tripwire_census()}")
 
     record = {

@@ -44,6 +44,12 @@ class ResultCache:
     def stats(self):
         return self._tier.stats
 
+    def __len__(self) -> int:
+        return len(self._tier)
+
+    def clear(self) -> None:
+        self._tier.clear()
+
     def get_rows(self, items: Sequence[Tuple[str, int]], k: int, deadline=None) -> Optional[List[list]]:
         """Rows for a request's ``(text, generation)`` items at ``k``, or
         None unless every text hits."""

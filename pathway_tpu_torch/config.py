@@ -245,6 +245,16 @@ _knob("robust.breaker_threshold", "PATHWAY_BREAKER_THRESHOLD", "int", 5,
 _knob("robust.breaker_reset_s", "PATHWAY_BREAKER_RESET_S", "float", 30.0,
       "open-breaker half-open probe delay in seconds", lo=0.0, hi=86_400.0)
 
+# process cluster (parallel/distributed.py)
+_knob("parallel.processes", "PATHWAY_PROCESSES", "int", 1,
+      "process-cluster size", lo=1, hi=65_536)
+_knob("parallel.process_id", "PATHWAY_PROCESS_ID", "int", 0,
+      "this process's cluster rank", lo=0, hi=65_535)
+_knob("parallel.coordinator_address", "PATHWAY_COORDINATOR_ADDRESS", "str",
+      "", "control-plane coordinator host:port")
+_knob("parallel.first_port", "PATHWAY_FIRST_PORT", "str", "",
+      "first port of the spawned cluster's port range")
+
 # device meshes (parallel/mesh.py)
 _knob("parallel.data_shards", "PATHWAY_TPU_DATA_SHARDS", "int", 0,
       "mesh data-axis size override (0 = derive)", lo=0, hi=65_536)
@@ -336,17 +346,24 @@ def _cached(cache_key: str, knob: Knob, raw: Optional[str]) -> Any:
     return value
 
 
-def get(key: str) -> Any:
+def get(key: str, fallback: Any = None) -> Any:
     """The typed value of one declared knob: the tuner's override
-    (dynamic knobs only), else the environment, else the declared
-    default.  ``auto_pytest`` bools are parsed on every call."""
+    (dynamic knobs only), else the environment, else ``fallback`` (a
+    caller's site default, clamped like the environment), else the
+    declared default.  ``auto_pytest`` bools are parsed on every call."""
     ov = _overrides.get(key)
     if ov is not None:
         return ov
     knob = _spec(key)
+    raw = os.environ.get(knob.env)
     if knob.auto_pytest:
-        return _parse(knob, os.environ.get(knob.env))
-    return _cached(key, knob, os.environ.get(knob.env))
+        return _parse(knob, raw)
+    if raw is None and fallback is not None:
+        if knob.kind in ("int", "float"):
+            out = _clamp_num(knob, fallback)
+            return int(out) if knob.kind == "int" else float(out)
+        return fallback
+    return _cached(key, knob, raw)
 
 
 def get_site(key: str, site: str) -> Any:

@@ -61,7 +61,10 @@ from ..ops.maxsim import maxsim_table, maxsim_topk, merge_tables
 from ..ops.recompile_guard import RecompileTripwire
 from ..robust import RetryPolicy, inject, log_once, retry_call
 
-__all__ = ["ForwardIndex", "ForwardUnavailable", "ShardedForwardIndex", "audit_quant_error", "pool_token_states"]
+__all__ = [
+    "ForwardIndex", "ForwardUnavailable", "ShardedForwardIndex", "audit_quant_error", "forward_quant_mode",
+    "forward_tokens_per_doc", "pool_token_states",
+]
 
 # every Nth absorb re-measures the quantization error on its batch
 _AUDIT_EVERY = 8
@@ -71,6 +74,18 @@ _GATHER_RETRY = RetryPolicy(attempts=3, base_delay_s=0.002, max_delay_s=0.02)
 # absorb wall time (plan + commit) and the locked device-write part
 _H_ABSORB = observe.histogram("pathway_forward_absorb_seconds")
 _H_UPLOAD = observe.histogram("pathway_forward_upload_seconds")
+
+
+def forward_tokens_per_doc(default: int = 16) -> int:
+    """Pooled rows per document ``T'`` from ``forward.tokens``, else
+    ``default``."""
+    return config.get("forward.tokens", fallback=default)
+
+
+def forward_quant_mode(default: str = "int8") -> str:
+    """``forward.quant``: ``int8`` (per-channel scales) or ``none``
+    (f32 rows), else ``default``."""
+    return config.get("forward.quant", fallback=default)
 
 
 class ForwardUnavailable(RuntimeError):
@@ -146,8 +161,8 @@ class ForwardIndex:
     ):
         self.encoder = encoder
         self.device = encoder.device
-        self.tokens_per_doc = int(tokens_per_doc or config.get("forward.tokens"))
-        self.quant = quant if quant in ("int8", "none") else config.get("forward.quant")
+        self.tokens_per_doc = int(tokens_per_doc or forward_tokens_per_doc())
+        self.quant = quant if quant in ("int8", "none") else forward_quant_mode()
         self.dimension = int(encoder.config.d_model)
         self._lock = threading.RLock()
         self._capacity = 0
@@ -443,8 +458,13 @@ class ForwardIndex:
         donation_guard.stamp("forward.load_warm_state", *arrays)
 
         def dev(name):
+            # a copy: commits write in place (on a card the upload is that copy)
             a = state[name]
-            return None if a is None else torch.from_numpy(np.array(a)).to(self.device)  # a copy: commits write in place
+            if a is None:
+                return None
+            if self.device.type == "cpu" or not a.flags.writeable:
+                a = np.array(a)
+            return torch.from_numpy(a).to(self.device)
 
         tok, scales, nvalid = dev("tok"), dev("scales"), dev("nvalid")
         with self._lock:
@@ -615,8 +635,8 @@ class ShardedForwardIndex:
 
         self.group = group or ShardGroup(n_shards=n_shards, devices=devices)
         self.encoder = encoder
-        self.tokens_per_doc = int(tokens_per_doc or config.get("forward.tokens"))
-        self.quant = quant if quant in ("int8", "none") else config.get("forward.quant")
+        self.tokens_per_doc = int(tokens_per_doc or forward_tokens_per_doc())
+        self.quant = quant if quant in ("int8", "none") else forward_quant_mode()
         self.dimension = int(encoder.config.d_model)
         self._lock = threading.Lock()
         self._gen_base = 0

@@ -11,6 +11,15 @@ The output lands in ``pathway_tpu_torch/_build/`` (git-ignored), keyed by
 a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the library already there.  A failed build raises:
 nothing falls back to a kernel's plain version.
+
+Host code in ``csrc/host/<name>.cc`` (the batch tokenizer) builds the
+same way with the host's C++ compiler (``$CXX``, else ``g++``):
+
+    g++ -std=c++17 -O3 -shared -fPIC -o _build/<name>-host-<hash>.so \
+        csrc/host/<name>.cc
+
+Each build writes a temporary file named by its process and renames it
+into place, so concurrent processes (test workers) may race safely.
 """
 
 from __future__ import annotations
@@ -24,7 +33,7 @@ import threading
 from pathlib import Path
 from typing import Dict, List, Sequence
 
-__all__ = ["BuildError", "build_all", "load"]
+__all__ = ["BuildError", "build_all", "build_host", "load", "load_host"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -34,6 +43,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 LINK_FLAGS = ("-ldl",)  # after the source, so the linker keeps it
+HOST_CSRC = CSRC / "host"
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -66,9 +77,12 @@ def _target(name: str) -> Path:
 def _start(nvcc: str, name: str, target: Path):
     """Start nvcc for ``csrc/<name>.cu``; returns (target, tmp path,
     process, command)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"), *LINK_FLAGS]
+    return _spawn([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"), *LINK_FLAGS], target, tmp)
+
+
+def _spawn(cmd: List[str], target: Path, tmp: Path):
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return target, tmp, proc, cmd
 
@@ -113,4 +127,44 @@ def load(name: str) -> ctypes.CDLL:
             lib = _libs.get(name)
             if lib is None:
                 lib = _libs[name] = ctypes.CDLL(str(path))
+    return lib
+
+
+def _cxx() -> str:
+    cxx = os.environ.get("CXX") or "g++"
+    found = shutil.which(cxx)
+    if not found:
+        raise BuildError(f"host C++ compiler {cxx!r} not found (set CXX or install g++)")
+    return found
+
+
+def _host_target(name: str) -> Path:
+    h = hashlib.sha256((HOST_CSRC / f"{name}.cc").read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"{name}-host-{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile ``csrc/host/<name>.cc`` unless its library is current;
+    returns the library path.  Raises ``BuildError`` on failure."""
+    target = _host_target(name)
+    with _lock:
+        if not target.exists():
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_cxx(), *HOST_FLAGS, "-o", str(tmp), str(HOST_CSRC / f"{name}.cc")]
+            _finish(_spawn(cmd, target, tmp))
+    return target
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/host/<name>.cc``, built first if
+    needed."""
+    key = "host:" + name
+    lib = _libs.get(key)
+    if lib is None:
+        path = build_host(name)
+        with _lock:
+            lib = _libs.get(key)
+            if lib is None:
+                lib = _libs[key] = ctypes.CDLL(str(path))
     return lib

@@ -36,10 +36,20 @@ module's parameters and buffers are on the device-memory ledger.
 
 Any other path raises ``ValueError`` naming both formats; it never
 falls back to the seeded init.
+
+``mesh`` (a port ``Mesh``, counterpart of the reference's
+``SentenceEncoder(mesh=...)``): the parameters are replicated on each
+data device of the mesh this process owns, and ``forward`` splits its
+batch into row blocks over "data", each padded to a batch bucket
+(``_bucket``: no new shapes) and run on its shard's device (forward,
+pool, normalize); the rows come back in order on the encoder's
+``device``, through one ``all_gather`` on a mesh across processes.  The
+tripwire sees each block's shape.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 from dataclasses import asdict
@@ -52,6 +62,7 @@ from .. import observe
 from ..device import DEFAULT_DTYPE, resolve_device, upload
 from ..observe import hbm, profile
 from ..ops.recompile_guard import RecompileTripwire
+from ..parallel.mesh import gather_shards, local_shards
 from ..robust import retry_call
 from .hf_import import is_hf_checkpoint, load_hf_text_model
 from .packing import pack_rows, pad_packed_rows, seg_bucket
@@ -89,7 +100,8 @@ class SentenceEncoder:
     """``params``: a Flax parameter tree of numpy arrays from the
     reference (carried over by ``params_from_flax``); ``checkpoint_path``:
     an HF directory or the port's own checkpoint (see the module
-    docstring); neither uses the port's seeded init from ``seed``."""
+    docstring); neither uses the port's seeded init from ``seed``.
+    ``mesh``: split batches over its "data" axis (module docstring)."""
 
     def __init__(
         self,
@@ -104,9 +116,11 @@ class SentenceEncoder:
         device=None,
         params: Optional[Mapping[str, Any]] = None,
         checkpoint_path: Optional[str] = None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
         self.normalize = normalize
+        self.mesh = mesh
         if is_hf_checkpoint(checkpoint_path):
             module, self.config, self.tokenizer = load_hf_text_model(checkpoint_path, max_length, dtype)
         else:
@@ -129,6 +143,14 @@ class SentenceEncoder:
             else:
                 module.load_state_dict(params_from_flax(params, self.config))
         self.module = module.to(self.device).eval()
+        # one replica of the parameters per distinct data device of the mesh
+        self._replicas: Dict[str, torch.nn.Module] = {}
+        if mesh is not None:
+            for s in local_shards(mesh):
+                dev = mesh.data_device(s)
+                if str(dev) not in self._replicas:
+                    same = dev.type == self.device.type and (dev.index or 0) == (self.device.index or 0)
+                    self._replicas[str(dev)] = self.module if same else copy.deepcopy(self.module).to(dev)
         self.embed_cache = None
         self._tripwire = RecompileTripwire("SentenceEncoder")
         hbm.track_params("encoder", self)
@@ -164,7 +186,31 @@ class SentenceEncoder:
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Pooled (and, with ``normalize``, L2-normalized) f32 embeddings
         of a tokenized batch already on the device."""
+        if self.mesh is not None:
+            return self._mesh_forward(ids, mask)
         return self._normalized(self.module(ids, mask))
+
+    def _mesh_forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """``forward`` split into row blocks over the mesh's "data" axis:
+        block ``s`` holds rows ``[s * per, (s + 1) * per)`` padded to
+        ``_bucket(per)`` with fully masked rows."""
+        B, L = ids.shape
+        n = self.mesh.shape["data"]
+        per = -(-B // n)
+        rb = _bucket(per)
+        spans = [(min(B, s * per), min(B, (s + 1) * per)) for s in range(n)]
+        self._tripwire.observe(("block", rb, L))
+        outs = []
+        for s in local_shards(self.mesh):
+            lo, hi = spans[s]
+            dev = self.mesh.data_device(s)
+            bi = torch.zeros((rb, L), dtype=ids.dtype, device=dev)
+            bm = torch.zeros((rb, L), dtype=mask.dtype, device=dev)
+            bi[: hi - lo] = ids[lo:hi].to(dev)
+            bm[: hi - lo] = mask[lo:hi].to(dev)
+            outs.append(self._normalized(self._replicas[str(dev)](bi, bm)).to(self.device))
+        blocks = gather_shards(self.mesh, torch.stack(outs))
+        return torch.cat([blocks[s, : hi - lo] for s, (lo, hi) in enumerate(spans)])
 
     def set_embed_cache(self, cache) -> None:
         """Arm the tier-1 embedding cache (``EmbeddingCache`` or None) on

@@ -138,6 +138,11 @@ def _sample_lanes(logits: torch.Tensor, temps: torch.Tensor, keys: torch.Tensor,
 
 
 class TextGenerator:
+    """Decoder-only generator over the trunk.  Its weights come from
+    ``params`` (a Flax tree of the reference's) or the seeded init;
+    ``checkpoint_path`` is taken for the reference's signature and, as
+    there, names no weights."""
+
     def __init__(
         self,
         model: str = "pathway-mini-lm",
@@ -147,6 +152,7 @@ class TextGenerator:
         max_length: int = 256,
         vocab_size: int = 32768,
         seed: int = 2,
+        checkpoint_path: Optional[str] = None,
         dtype: torch.dtype = DEFAULT_DTYPE,
         kv_cache: Any = "env",
         eos_id: Any = "env",

@@ -2,25 +2,75 @@
 ``pathway_tpu/models/tokenizer.py`` ``HashTokenizer``).
 
 Words and punctuation hash into a fixed id space with XXH3-64 (seed 0).
-The ids equal the reference's for every input: its C++ batch scanner is
-bit-identical to its Python path on ASCII text, and this port follows
-the Python path, with the hash from ``_xxh3`` so that no ``xxhash``
-package is needed.  Word ids are memoised in a bounded dict, since a
-serve batch of 64 queries tokenizes thousands of words.
+The ids equal the reference's for every input.  As in the reference, a
+non-empty all-ASCII batch without ``pairs`` is tokenized by one native
+call (the port's own ``csrc/host/tokenize_hash.cc``, built with ``g++``
+at first use by ``kernels/build.py`` and loaded with ``ctypes``; it
+carries its own XXH3-64) and framed by vectorised numpy; every other
+batch takes the Python path, with the hash from ``_xxh3`` so that no
+``xxhash`` package is needed.  A failed build or load raises: it never
+falls back to the Python path.  ``_encode_batch_ascii`` is the Python
+version of the native path, which the tests hold it against.  Word ids
+of the Python path are memoised in a bounded dict.
 """
 
 from __future__ import annotations
 
+import ctypes
 import re
-from typing import Dict, List, Sequence, Tuple
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..kernels.build import load_host
 from ._xxh3 import xxh3_64
 
-__all__ = ["HashTokenizer"]
+__all__ = ["HashTokenizer", "native_xxh3_64"]
 
 _WORD_RE = re.compile(r"[\w']+|[^\w\s]")
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+
+def _native() -> ctypes.CDLL:
+    """The batch tokenizer's library, built and declared at first use."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = load_host("tokenize_hash")
+            lib.ptt_tokenize_hash.restype = ctypes.c_int32
+            lib.ptt_tokenize_hash.argtypes = [
+                ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+                ctypes.c_void_p, ctypes.c_void_p,
+            ]
+            lib.ptt_xxh3_64.restype = ctypes.c_uint64
+            lib.ptt_xxh3_64.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+            _lib = lib
+        return _lib
+
+
+def native_xxh3_64(data: bytes) -> int:
+    """XXH3-64 (seed 0) of ``data`` by the native library."""
+    return int(_native().ptt_xxh3_64(data, len(data)))
+
+
+def _tokenize_native(texts: Sequence[str], vocab_size: int, reserved: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Word ids of an ASCII batch, flat, and each text's ``[start, end)``
+    in them (``offsets [n + 1]``)."""
+    n = len(texts)
+    blob = "".join(texts).encode("ascii")
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.fromiter(map(len, texts), dtype=np.int64, count=n), out=offsets[1:])
+    ids = np.empty(max(1, len(blob)), dtype=np.int32)
+    tok_off = np.empty(n + 1, dtype=np.int64)
+    rc = _native().ptt_tokenize_hash(
+        blob, offsets.ctypes.data, n, vocab_size, reserved, ids.ctypes.data, tok_off.ctypes.data
+    )
+    if rc != 0:
+        raise RuntimeError(f"ptt_tokenize_hash returned {rc}")
+    return ids, tok_off
 
 
 class HashTokenizer:
@@ -91,7 +141,43 @@ class HashTokenizer:
         Python path: ``encode`` per text, then the row is cut at ``L``,
         SEP and all."""
         max_length = max_length or self.max_length
-        if pairs is None and len(texts) and "".join(map(str, texts)).isascii():
+        if pairs is None and len(texts):
+            texts_s = [t if isinstance(t, str) else str(t) for t in texts]
+            if "".join(texts_s).isascii():
+                return self._encode_batch_native(texts_s, max_length, pad_to)
+        return self._encode_batch_python(texts, pairs, max_length, pad_to)
+
+    def _encode_batch_native(
+        self, texts: Sequence[str], max_length: int, pad_to: Optional[int]
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """An ASCII batch by one native call, framed as the reference's
+        ``_encode_batch_native``: at most ``L - 2`` word ids between CLS
+        and SEP."""
+        n = len(texts)
+        tok_ids, tok_off = _tokenize_native(texts, self.vocab_size, self._RESERVED)
+        trunc = np.minimum(np.diff(tok_off), max_length - 2)
+        longest = int(trunc.max()) + 2
+        L = pad_to or min(max_length, ((longest + 15) // 16) * 16)
+        trunc = np.minimum(trunc, L - 2)
+        ids = np.full((n, L), self.PAD, dtype=np.int32)
+        total = int(trunc.sum())
+        if total:
+            starts = np.cumsum(trunc) - trunc
+            pos = np.arange(total, dtype=np.int64) - np.repeat(starts, trunc)
+            src = np.repeat(tok_off[:-1], trunc) + pos
+            ids[np.repeat(np.arange(n), trunc), pos + 1] = tok_ids[src]
+        ids[:, 0] = self.CLS
+        ids[np.arange(n), trunc + 1] = self.SEP
+        mask = (np.arange(L, dtype=np.int64)[None, :] < (trunc + 2)[:, None]).astype(np.int32)
+        return ids, mask
+
+    def _encode_batch_ascii(
+        self, texts: Sequence[str], max_length: Optional[int] = None, pad_to: Optional[int] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """The Python version of ``_encode_batch_native`` (the tests hold
+        the native path against it)."""
+        max_length = max_length or self.max_length
+        if len(texts):
             words = [self.tokenize(t)[: max_length - 2] for t in texts]
             longest = max(len(w) for w in words) + 2
             L = pad_to or min(max_length, ((longest + 15) // 16) * 16)
@@ -104,6 +190,10 @@ class HashTokenizer:
                 ids[i, len(w) + 1] = self.SEP
                 mask[i, : len(w) + 2] = 1
             return ids, mask
+        return self._encode_batch_python(texts, None, max_length, pad_to)
+
+    def _encode_batch_python(self, texts, pairs, max_length: int, pad_to: Optional[int]):
+        """``encode`` per text, each row cut at ``L``, SEP and all."""
         encoded = [
             self.encode(t, pairs[i] if pairs is not None else None, max_length)
             for i, t in enumerate(texts)

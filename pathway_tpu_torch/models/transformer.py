@@ -22,7 +22,10 @@ here moves every embedding:
 - the masked mean pool sums in ``config.dtype`` before the f32 cast.
 
 Attention is plain torch (matmul, softmax, matmul): the reference
-computes it with XLA, not with a Pallas kernel.
+computes it with XLA, not with a Pallas kernel.  With ``mesh`` and
+``sequence_axis`` set, ``SelfAttention`` splits the sequence over that
+axis and attends by ring attention (``ops/ring_attention.py``), and
+refuses packed segments, as the reference does.
 
 Packed forward (``segments`` / ``positions`` / ``n_segments``, the
 reference's sequence packing): several short sequences share one row;
@@ -53,6 +56,7 @@ from torch import nn
 
 from ..ops.decode_rows import add_layer_norm_rows
 from ..ops.kv_quant import dequantize_kv, quantize_kv
+from ..ops.ring_attention import ring_attention_sharded
 
 __all__ = [
     "Dense",
@@ -94,6 +98,10 @@ class TransformerConfig:
     dtype: Any = torch.bfloat16
     pool: str = "mean"  # mean | cls | none
     causal: bool = False
+    # long context: split the sequence over this axis of ``mesh`` and
+    # attend by ring attention (ops/ring_attention.py)
+    mesh: Any = None
+    sequence_axis: Optional[str] = None
 
 
 def token_state_trunk(config: TransformerConfig) -> "TransformerEncoder":
@@ -189,6 +197,17 @@ class SelfAttention(nn.Module):
         B, L, _ = x.shape
         H = cfg.n_heads
         hd = cfg.d_model // H
+        if cfg.sequence_axis is not None and cfg.mesh is not None:
+            # the ring walks one sequence per row: packed rows would
+            # attend across their documents' boundaries
+            if segments is not None:
+                raise ValueError("packed (segments) forward is not supported with ring/sequence-parallel attention")
+            q, k, v = (proj(x).view(B, L, H, hd) for proj in (self.query, self.key, self.value))
+            positions = torch.arange(L, device=x.device).expand(B, L)
+            out = ring_attention_sharded(
+                cfg.mesh, q, k, v, mask > 0, positions, axis=cfg.sequence_axis, causal=cfg.causal
+            )
+            return self.out(out.reshape(B, L, cfg.d_model))
         # [B, H, L, hd]
         q = self.query(x).view(B, L, H, hd).transpose(1, 2)
         k = self.key(x).view(B, L, H, hd).transpose(1, 2)

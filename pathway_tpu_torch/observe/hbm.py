@@ -45,7 +45,9 @@ import torch
 
 from .recorder import counter, register_provider
 
-__all__ = ["device_bytes", "ledger_stats", "reset", "sample", "track", "track_params", "track_resource"]
+__all__ = [
+    "device_bytes", "ledger_stats", "reset", "sample", "track", "track_params", "track_resource", "tree_nbytes",
+]
 
 _lock = threading.Lock()
 # (subsystem, weakref(obj), fn) with fn(obj) -> {component: bytes}
@@ -110,6 +112,23 @@ def _sample_allowed() -> bool:
         return inject.fired_count("hbm.ledger") == before
     except Exception:  # noqa: BLE001 - any armed fault serves the stale sample
         return False
+
+
+def tree_nbytes(tree: Any) -> int:
+    """Total ``.nbytes`` over nested dicts, tuples and lists of tensors
+    or arrays (metadata only, no sync)."""
+    total = 0
+    stack = [tree]
+    while stack:
+        x = stack.pop()
+        nb = getattr(x, "nbytes", None)
+        if nb is not None and not isinstance(x, (str, bytes)):
+            total += int(nb)
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (tuple, list)):
+            stack.extend(x)
+    return total
 
 
 def _module_nbytes(module: torch.nn.Module) -> int:

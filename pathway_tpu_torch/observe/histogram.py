@@ -89,6 +89,16 @@ class LatencyHistogram:
             self._n = 0
             self._exemplars = None
 
+    def merge_from(self, other: "LatencyHistogram") -> None:
+        """Add ``other``'s buckets, sum and count into this histogram
+        (identical bucket bounds make the merge a vector add)."""
+        counts, sum_ns, n = other.snapshot()
+        with self._lock:
+            for i, c in enumerate(counts):
+                self._counts[i] += c
+            self._sum_ns += sum_ns
+            self._n += n
+
     @property
     def count(self) -> int:
         return self._n

@@ -43,6 +43,8 @@ __all__ = [
     "get_trace",
     "reset",
     "ring_stats",
+    "sample_rate",
+    "set_sample",
     "snapshot_traces",
     "start_trace",
     "stats",
@@ -224,6 +226,17 @@ def start_trace(
             return None
     _started += 1
     return TraceContext(name, kind, deadline)
+
+
+def set_sample(p: float) -> None:
+    """Head-sampling probability (also ``PATHWAY_TRACE_SAMPLE``): 1.0
+    traces every request, 0.0 none."""
+    global _sample
+    _sample = min(1.0, max(0.0, float(p)))
+
+
+def sample_rate() -> float:
+    return _sample
 
 
 def _keep_reason(ctx: TraceContext, dur_ns: int) -> Optional[str]:

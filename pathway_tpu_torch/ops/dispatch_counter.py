@@ -83,6 +83,20 @@ class DispatchCounter:
             else:
                 self.events_dropped += 1
 
+    def reset(self) -> None:
+        with self._lock:
+            self.dispatches = 0
+            self.fetches = 0
+            self.physical_dispatches = 0
+            self.physical_fetches = 0
+            self.events = []
+            self.events_dropped = 0
+
+    def snapshot(self) -> Tuple[int, int]:
+        """``(dispatches, fetches)`` read together."""
+        with self._lock:
+            return self.dispatches, self.fetches
+
     def __enter__(self) -> "DispatchCounter":
         install(self)
         return self

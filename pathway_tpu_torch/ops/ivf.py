@@ -618,7 +618,9 @@ class IvfKnnIndex:
         def dev(a, dtype):
             if a is None:
                 return None
-            return torch.from_numpy(_own_copy(a)).to(self.device, dtype)
+            if self.device.type == "cpu" or a.dtype != np.float32 or not a.flags.writeable:
+                a = _own_copy(a)  # on a card the upload is the copy
+            return torch.from_numpy(a).to(self.device, dtype)
 
         slabs = dev(state["slabs"], self.dtype)
         bias = dev(state["bias"], torch.float32)

@@ -12,6 +12,14 @@ device.  Add and remove are slot-allocator updates (free list, capacity
 doubling) applied as in-place ``index_copy_`` scatters — the reference
 rebuilds its arrays functionally; nothing here holds an old reference.
 The index reports its bytes to the device-memory ledger (``hbm_bytes``).
+
+Over a mesh across processes (``parallel/mesh.py``) every rank runs the
+same ``add`` / ``remove`` / ``search`` calls with the same host data
+(SPMD, as the reference's ``tests/dist_worker.py`` drives it): the slot
+bookkeeping is replicated, each rank writes and scores only the blocks
+it owns, a grow moves a block to the ranks that hold its rows by one
+broadcast from its owner, and a search's candidates cross ranks by one
+``all_gather`` (``ops/topk.sharded_topk``).
 """
 
 from __future__ import annotations
@@ -24,7 +32,8 @@ import torch
 
 from ..device import resolve_device
 from ..observe import hbm
-from ..parallel.mesh import global_zeros
+from ..parallel import distributed
+from ..parallel.mesh import global_zeros, is_multiprocess, local_shards
 from .topk import sharded_topk
 
 __all__ = ["DeviceKnnIndex", "normalize_metric", "oversampled_filtered_search"]
@@ -71,7 +80,9 @@ class DeviceKnnIndex:
     reference's ``_round_capacity``, so slots match its mesh index) and
     slot ``g`` lives in block ``g // (capacity / n_shards)`` on that data
     shard's device; search scores each block on its device and merges the
-    local top-k on the index's ``device`` (``ops/topk.sharded_topk``).
+    local top-k on the index's ``device`` (``ops/topk.sharded_topk``).  On
+    a mesh across processes a block another rank owns is None here, and
+    ``device`` is this rank's first data shard's.
     """
 
     def __init__(
@@ -88,8 +99,11 @@ class DeviceKnnIndex:
         self.dtype = dtype
         self.mesh = mesh
         self.n_shards = mesh.shape["data"] if mesh is not None else 1
-        # the merge device of a mesh index: its first data shard's
-        self.device = resolve_device(device if mesh is None or device is not None else mesh.data_device(0))
+        self._multiproc = mesh is not None and is_multiprocess(mesh)
+        # the merge device of a mesh index: its first (local) data shard's
+        if mesh is not None and device is None:
+            device = mesh.data_device(local_shards(mesh)[0])
+        self.device = resolve_device(device)
         self._lock = threading.RLock()
         cap = self._round_capacity(max(initial_capacity, self.n_shards * 8))
         self.capacity = cap
@@ -116,6 +130,8 @@ class DeviceKnnIndex:
         copy of the blocks on the merge device."""
         if len(blocks) == 1:
             return blocks[0]
+        if self._multiproc:
+            raise RuntimeError("the index's mesh spans processes: this rank holds only its own blocks")
         return torch.cat([b.to(self.device) for b in blocks])
 
     # the planes as whole tensors (read-only views for a mesh index)
@@ -128,7 +144,7 @@ class DeviceKnnIndex:
         """Device bytes: the allocated-capacity matrix and the slot
         planes (validity, key halves), over every block."""
         def nbytes(blocks):
-            return sum(t.numel() * t.element_size() for t in blocks)
+            return sum(t.numel() * t.element_size() for t in blocks if t is not None)
 
         return {"matrix": nbytes(self._mats), "planes": nbytes(self._valids) + nbytes(self._his) + nbytes(self._los)}
 
@@ -142,19 +158,27 @@ class DeviceKnnIndex:
     # -- growth ------------------------------------------------------------
     def _grow(self, needed: int) -> None:
         """Capacity doubling into new blocks; global row ``g`` keeps its
-        slot and moves to the block of the new layout that holds it."""
+        slot and moves to the block of the new layout that holds it.
+        Across processes, an old block whose rows land in another rank's
+        new block is broadcast by its owner first."""
         old = self.capacity
         new = self._round_capacity(max(old * 2, old + needed))
         old_rps, new_rps = old // self.n_shards, new // self.n_shards
+        owners = self.mesh.owners if self.mesh is not None else [0]
 
         def grown(blocks: List[torch.Tensor]) -> List[torch.Tensor]:
-            out = self._zeros((new,) + tuple(blocks[0].shape[1:]), blocks[0].dtype)
+            like = next(b for b in blocks if b is not None)
+            out = self._zeros((new,) + tuple(like.shape[1:]), like.dtype)
             for s, blk in enumerate(blocks):
                 g, g_end = s * old_rps, (s + 1) * old_rps
+                targets = range(g // new_rps, (g_end - 1) // new_rps + 1)
+                if self._multiproc and any(owners[t] != owners[s] for t in targets):
+                    blk = distributed.broadcast(torch.empty_like(like) if blk is None else blk, src=owners[s])
                 while g < g_end:
                     t = g // new_rps
                     end = min(g_end, (t + 1) * new_rps)
-                    out[t][g - t * new_rps : end - t * new_rps] = blk[g - s * old_rps : end - s * old_rps]
+                    if out[t] is not None and blk is not None:
+                        out[t][g - t * new_rps : end - t * new_rps] = blk[g - s * old_rps : end - s * old_rps]
                     g = end
             return out
 
@@ -225,6 +249,8 @@ class DeviceKnnIndex:
         slots = np.asarray(slots, np.int64)
         rps = self.capacity // self.n_shards
         for t, blk in enumerate(self._mats):
+            if blk is None:
+                continue  # another process's block
             sel = np.flatnonzero(slots // rps == t) if self.n_shards > 1 else np.arange(len(slots))
             if sel.size == 0:
                 continue
@@ -260,6 +286,8 @@ class DeviceKnnIndex:
         gathered on the device, on ``slots``' device."""
         if self.mesh is None:
             return self._his[0][slots], self._los[0][slots]
+        if self._multiproc:
+            raise NotImplementedError("the fused serve path over a mesh across processes is not ported")
         rps = self.capacity // self.n_shards
         hi = torch.zeros(slots.shape, dtype=torch.int32, device=slots.device)
         lo = torch.zeros_like(hi)

@@ -38,6 +38,7 @@ active trace (``stage.<name>``, ``stage2.pack_dispatch``, ``stage2.rtt``).
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
@@ -77,9 +78,6 @@ __all__ = [
     "RetrieveRerankPipeline",
 ]
 
-# a stage's candidate pool per final result when it names no count
-OVER_FETCH = 4
-
 # the stage-2 launch retries briefly: its backoff delays the serve it
 # belongs to and the next batch's stage 2
 _STAGE2_RETRY = RetryPolicy(attempts=3, base_delay_s=0.002, max_delay_s=0.02)
@@ -95,24 +93,43 @@ _H_POST = observe.histogram("pathway_serve_stage_seconds", stage="postprocess")
 
 class RerankStage:
     """One rung of the ranking cascade: ``name``, the ladder ``rung``
-    flagged when it is skipped, and ``candidates`` sizing its input pool
-    (``OVER_FETCH`` x k when unset).  ``submit(pipeline, queries,
+    flagged when it is skipped, ``over_fetch`` sizing its input pool as
+    a factor of k (an explicit ``candidates`` count overrides it) and
+    ``budget_fraction``, the share of the remaining deadline it may
+    spend (None: whatever remains).  ``submit(pipeline, queries,
     cand_rows, keep, deadline, query_tokens, query_mask, pool_width)``
     returns a completion giving ``(rows, meta)``; a failure at submit or
     completion must raise."""
 
     name = "rerank"
     rung = RERANK_SKIPPED
+    over_fetch: float = 4.0
+    budget_fraction: Optional[float] = None
     needs_query_tokens = False
 
-    def __init__(self, candidates: Optional[int] = None):
+    def __init__(
+        self,
+        candidates: Optional[int] = None,
+        over_fetch: Optional[float] = None,
+        budget_fraction: Optional[float] = None,
+    ):
         self.candidates = candidates
+        if over_fetch is not None:
+            self.over_fetch = float(over_fetch)
+        if budget_fraction is not None:
+            self.budget_fraction = float(budget_fraction)
 
     def width(self, k: int) -> int:
         """Input candidate-pool width for final top-``k`` serving."""
         if self.candidates is not None:
             return max(int(self.candidates), 1)
-        return max(OVER_FETCH * k, 1)
+        return max(int(math.ceil(self.over_fetch * k)), k, 1)
+
+    def sub_deadline(self, deadline: Optional[Deadline]) -> Optional[Deadline]:
+        """This stage's share of ``deadline``, never later than it."""
+        if deadline is not None and self.budget_fraction is not None:
+            return deadline.sub_budget(self.budget_fraction)
+        return deadline
 
     def submit(
         self, pipeline, queries, cand_rows, keep, deadline,
@@ -152,8 +169,14 @@ class LateInteractionStage(RerankStage):
     rung = LATE_INTERACTION_SKIPPED
     needs_query_tokens = True
 
-    def __init__(self, forward_index, candidates: Optional[int] = None):
-        super().__init__(candidates=candidates)
+    def __init__(
+        self,
+        forward_index,
+        candidates: Optional[int] = None,
+        over_fetch: Optional[float] = None,
+        budget_fraction: Optional[float] = None,
+    ):
+        super().__init__(candidates=candidates, over_fetch=over_fetch, budget_fraction=budget_fraction)
         self.forward = forward_index
 
     def submit(
@@ -421,10 +444,11 @@ class RetrieveRerankPipeline:
                 deadline.check(f"{stage.name}_submit")
             width = stage.width(k)
             t_stage[i] = time.perf_counter_ns()
-            if deadline is not None and trace.current() is not None:
-                budget_ms[i] = round(deadline.remaining_s() * 1e3, 3)
+            sub = stage.sub_deadline(deadline)
+            if sub is not None and trace.current() is not None:
+                budget_ms[i] = round(sub.remaining_s() * 1e3, 3)
             return stage.submit(
-                self, queries, [r[:width] for r in cur_rows], keeps[i], deadline,
+                self, queries, [r[:width] for r in cur_rows], keeps[i], sub,
                 query_tokens=query_tokens, query_mask=query_mask, pool_width=width,
             )
 

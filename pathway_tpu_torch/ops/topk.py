@@ -10,15 +10,21 @@ position first, so in a merge the left operand (the lower shard) first.
 ``torch.topk`` promises no tie order, so selections here are a stable
 descending sort cut to ``k``; ``-inf`` pads and their ids land where the
 reference puts them.  The merges are plain torch ops, as they are XLA
-programs (no Pallas kernel) in the reference.
+programs (no Pallas kernel) in the reference.  Over a mesh across
+processes the candidates cross ranks by one ``all_gather``
+(``sharded_topk``).
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .. import observe
+from ..parallel.mesh import gather_shards
 
 __all__ = [
     "local_score_topk",
@@ -114,11 +120,24 @@ def tree_merge_topk_host(scores: np.ndarray, shard_ids: np.ndarray, ids: np.ndar
     return tuple(np.take_along_axis(flat(a), order, axis=1) for a in (scores, shard_ids, ids))
 
 
+def _exchange(mesh, scores: torch.Tensor, idx: torch.Tensor):
+    """Every rank's ``[S_local, B, k]`` candidates in global shard order:
+    one ``all_gather`` of the pairs packed as f64 (f32 scores and row
+    indices below 2^53 round-trip exactly)."""
+    t0 = time.perf_counter()
+    k = scores.shape[-1]
+    out = gather_shards(mesh, torch.cat([scores.double(), idx.double()], dim=-1))
+    observe.histogram("pathway_serve_shard_stage_seconds", stage="exchange", shard="all").observe_s(
+        time.perf_counter() - t0
+    )
+    return out[..., :k].float(), out[..., k:].long()
+
+
 def sharded_topk(
     mesh,
     queries: torch.Tensor,
-    blocks: Sequence[torch.Tensor],
-    valids: Sequence[torch.Tensor],
+    blocks: Sequence[Optional[torch.Tensor]],
+    valids: Sequence[Optional[torch.Tensor]],
     k: int,
     metric: str = "dot",
     merge_device: Optional[torch.device] = None,
@@ -127,14 +146,24 @@ def sharded_topk(
     ``mesh.data_device(s)``, all of one row count): per-block score and
     local top-k on the block's device, the ``(score, index)`` pairs
     gathered to ``merge_device`` (the queries' device by default), then
-    ``merge_topk``.  Returns ``([B, k] scores, [B, k] global rows)``."""
+    ``merge_topk``.  Returns ``([B, k] scores, [B, k] global rows)``.
+
+    On a mesh across processes a block another rank owns is None: each
+    rank scores its own blocks, one ``all_gather`` moves the
+    ``[S_local, B, k]`` candidates (through host memory under gloo), and
+    every rank merges all ``S`` lists in global shard order, so every
+    rank's answer equals a one-process mesh's bit for bit."""
     dev = merge_device or queries.device
-    rows_per_shard = blocks[0].shape[0]
+    local = [s for s, b in enumerate(blocks) if b is not None]
+    rows_per_shard = blocks[local[0]].shape[0]
     parts_s: List[torch.Tensor] = []
     parts_i: List[torch.Tensor] = []
-    for s, (block, valid) in enumerate(zip(blocks, valids)):
-        ls, li = local_score_topk(queries.to(mesh.data_device(s)), block, valid, k, metric=metric)
+    for s in local:
+        ls, li = local_score_topk(queries.to(mesh.data_device(s)), blocks[s], valids[s], k, metric=metric)
         parts_s.append(ls.to(dev))
         parts_i.append(li.to(dev))
-    offsets = torch.arange(len(parts_s), device=dev, dtype=torch.int64) * rows_per_shard
-    return merge_topk(torch.stack(parts_s), torch.stack(parts_i), offsets, k)
+    all_s, all_i = torch.stack(parts_s), torch.stack(parts_i)
+    if len(local) < len(blocks):
+        all_s, all_i = _exchange(mesh, all_s, all_i)
+    offsets = torch.arange(len(blocks), device=dev, dtype=torch.int64) * rows_per_shard
+    return merge_topk(all_s, all_i, offsets, k)

@@ -42,9 +42,10 @@ from ..robust import CircuitBreaker
 __all__ = ["FleetPartitionMap", "ShardGroup", "serve_shards"]
 
 
-def serve_shards() -> int:
-    """Shard count from ``serve.shards`` (0 = one shard per device)."""
-    return config.get("serve.shards")
+def serve_shards(default: int = 0) -> int:
+    """Shard count from ``serve.shards``, else ``default`` (0 = one
+    shard per device)."""
+    return config.get("serve.shards", fallback=default)
 
 
 def _route(owner_of, keys: Sequence[int]):

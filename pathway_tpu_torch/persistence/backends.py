@@ -6,10 +6,13 @@ writes a temporary file and renames it over the key, so a crash
 mid-write never corrupts an earlier blob; ``MemoryBackend`` is the
 in-process store the tests share between a writer and a replica.  The
 reference's S3 backend (it needs ``boto3``) is not ported.
+``get_view`` is the read a restore uses: ``FileBackend`` maps the file
+read-only instead of copying it into a ``bytes``.
 """
 
 from __future__ import annotations
 
+import mmap
 import os
 import threading
 from typing import Dict, List, Optional
@@ -20,6 +23,11 @@ __all__ = ["FileBackend", "MemoryBackend", "PersistenceBackend"]
 class PersistenceBackend:
     def get(self, key: str) -> Optional[bytes]:
         raise NotImplementedError
+
+    def get_view(self, key: str) -> Optional[memoryview]:
+        """The blob at ``key`` as a read-only buffer, or None."""
+        blob = self.get(key)
+        return None if blob is None else memoryview(blob)
 
     def put(self, key: str, value: bytes) -> None:
         raise NotImplementedError
@@ -48,6 +56,17 @@ class FileBackend(PersistenceBackend):
         try:
             with open(self._path(key), "rb") as f:
                 return f.read()
+        except FileNotFoundError:
+            return None
+
+    def get_view(self, key: str) -> Optional[memoryview]:
+        """The file mapped read-only: no copy of the blob (a put replaces
+        the file by a rename, so the mapping keeps the blob it opened)."""
+        try:
+            with open(self._path(key), "rb") as f:
+                if os.fstat(f.fileno()).st_size == 0:
+                    return memoryview(b"")
+                return memoryview(mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ))
         except FileNotFoundError:
             return None
 

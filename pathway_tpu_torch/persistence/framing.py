@@ -10,32 +10,48 @@ at the last intact frame instead of failing the reader.
 ``frame_all`` and ``scan_views`` are the bulk forms a snapshot of many
 chunks uses: the CRCs of a large blob are computed on several threads
 (``zlib.crc32`` releases the GIL), and the views avoid a copy of every
-payload.
+payload; ``ViewStream`` reads the payloads as one stream, so a reader
+(the unpickler) copies each byte once instead of after a join, and a
+large read is copied on several threads (numpy releases the GIL): the
+cost of such a read is the first touch of the fresh buffer it fills.
 """
 
 from __future__ import annotations
 
+import io
 import os
 import struct
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Sequence, Tuple
 
-__all__ = ["frame", "frame_all", "scan", "scan_views"]
+import numpy as np
+
+__all__ = ["ViewStream", "frame", "frame_all", "scan", "scan_views"]
 
 _HEADER = struct.Struct("<II")
-_PARALLEL_BYTES = 8 << 20  # below this one thread computes the CRCs
+_PARALLEL_BYTES = 8 << 20  # below this a CRC or copy job runs on one thread
 
 
 def _crc(data) -> int:
     return zlib.crc32(data) & 0xFFFFFFFF
 
 
-def _crcs(chunks: Sequence) -> List[int]:
-    if len(chunks) < 2 or sum(len(c) for c in chunks) < _PARALLEL_BYTES:
-        return [_crc(c) for c in chunks]
+def _parallel_map(fn, items, n_bytes: int) -> list:
+    """``list(map(fn, items))``, on several threads for a large job."""
+    if len(items) < 2 or n_bytes < _PARALLEL_BYTES:
+        return [fn(x) for x in items]
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
-        return list(pool.map(_crc, chunks))
+        return list(pool.map(fn, items))
+
+
+def _crcs(chunks: Sequence) -> List[int]:
+    return _parallel_map(_crc, chunks, sum(len(c) for c in chunks))
+
+
+def _copy(job) -> None:
+    dst, src = job
+    dst[:] = src
 
 
 def frame(payload: bytes) -> bytes:
@@ -76,3 +92,31 @@ def scan(blob: bytes) -> Tuple[List[bytes], bool]:
     False when a truncated or corrupt tail was dropped."""
     views, intact = scan_views(blob)
     return [v.tobytes() for v in views], intact
+
+
+class ViewStream(io.RawIOBase):
+    """The concatenation of ``views`` as a readable binary stream."""
+
+    def __init__(self, views: Sequence[memoryview]):
+        self._views = views
+        self._i = 0
+        self._off = 0
+
+    def readable(self) -> bool:
+        return True
+
+    def readinto(self, b) -> int:
+        out = np.frombuffer(b, np.uint8)
+        jobs = []
+        n = 0
+        while n < len(out) and self._i < len(self._views):
+            view = self._views[self._i]
+            take = min(len(out) - n, len(view) - self._off)
+            jobs.append((out[n : n + take], np.frombuffer(view, np.uint8, take, self._off)))
+            n += take
+            self._off += take
+            if self._off == len(view):
+                self._i += 1
+                self._off = 0
+        _parallel_map(_copy, jobs, n)
+        return n

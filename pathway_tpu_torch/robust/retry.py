@@ -197,6 +197,10 @@ class CircuitBreaker:
             self._opened_at = None
             self._probing = False
 
+    def reset(self) -> None:
+        """Close the breaker and clear its failure count."""
+        self.record_success()
+
     def abort_probe(self) -> None:
         """Release the half-open probe slot without an outcome."""
         with self._lock:

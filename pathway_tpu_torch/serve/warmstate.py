@@ -33,6 +33,8 @@ faulted broadcast is flagged local-only agreement, never a hung bring-up.
 
 from __future__ import annotations
 
+import gc
+import io
 import pickle
 import threading
 import time
@@ -41,7 +43,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from .. import config, observe
 from ..cache.keys import normalize_generation
 from ..parallel import distributed as dist
-from ..persistence.framing import frame, frame_all, scan, scan_views
+from ..persistence.framing import ViewStream, frame, frame_all, scan, scan_views
 from ..robust import inject, log_once
 
 __all__ = ["RestoreReport", "WarmStateManager"]
@@ -316,12 +318,25 @@ class WarmStateManager:
         """Try one committed snapshot: decode EVERY section first (CRC +
         chunk count + unpickle), install second — a corrupt blob is
         rejected before any component mutates."""
-        sections: Dict[str, str] = {}
-        generations: Dict[str, int] = {}
         manifest = self._read_manifest(prefix)
         if manifest is None:
             _count_restore_failure("manifest")
             return False, {}, {}
+        # the decode makes many objects and no cycles: a paused collector
+        # spares the full collections over the live heap it would trigger
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            return self._decode_install(prefix, manifest)
+        finally:
+            if gc_was_on:
+                gc.enable()
+
+    def _decode_install(
+        self, prefix: str, manifest: Dict[str, Any]
+    ) -> Tuple[bool, Dict[str, int], Dict[str, str]]:
+        sections: Dict[str, str] = {}
+        generations: Dict[str, int] = {}
         decoded: Dict[str, Any] = {}
         for section in self.components:
             entry = manifest["sections"].get(section)
@@ -329,7 +344,7 @@ class WarmStateManager:
                 _count_restore_failure("missing")
                 sections[section] = "failed:missing"
                 return False, {}, sections
-            blob = self.backend.get(f"{prefix}/{section}")
+            blob = self.backend.get_view(f"{prefix}/{section}")
             if blob is None:
                 _count_restore_failure("missing")
                 sections[section] = "failed:missing"
@@ -339,13 +354,13 @@ class WarmStateManager:
                 _count_restore_failure("crc" if not intact else "truncated")
                 sections[section] = "failed:crc"
                 return False, {}, sections
-            payload = b"".join(payloads)
-            if len(payload) != int(entry["bytes"]):
+            if sum(len(p) for p in payloads) != int(entry["bytes"]):
                 _count_restore_failure("truncated")
                 sections[section] = "failed:truncated"
                 return False, {}, sections
             try:
-                decoded[section] = pickle.loads(payload)
+                # unpickled across the chunk views: no joined copy of the payload
+                decoded[section] = pickle.load(io.BufferedReader(ViewStream(payloads), 1 << 20))
             except Exception:
                 _count_restore_failure("unpickle")
                 sections[section] = "failed:unpickle"

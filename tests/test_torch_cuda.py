@@ -9,7 +9,9 @@ samples on the stream a call launched on, the device-memory
 ledger's delta against the allocator's, the real-weights path (HF
 BERT embedder and cross-encoder, CLIP) on the card against the CPU, and
 the sharded serve tier (8 logical shards against 1 through the rescore
-kernel, the mesh-sharded exact index, the sharded forward table).
+kernel, the mesh-sharded exact index, the sharded forward table), ring
+attention against dense, and the encoder over 8 logical shards against
+one.
 They skip
 without a card.  This file imports neither JAX nor the reference, so on
 a machine without JAX it runs as
@@ -668,3 +670,34 @@ def test_cuda_sharded_forward_table_equals_unsharded():
     np.testing.assert_array_equal(s8.view(np.int32), s1.view(np.int32))
     np.testing.assert_array_equal(p8, p1)
     assert m8 == m1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_cuda_ring_attention_equals_dense(causal, dtype, atol):
+    from pathway_tpu_torch.ops.ring_attention import dense_attention, ring_attention_sharded
+    from pathway_tpu_torch.parallel.mesh import Mesh
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(2, 1024, 4, 64, generator=gen, device=dev).to(dtype) for _ in range(3))
+    kv_mask = torch.rand(2, 1024, generator=gen, device=dev) > 0.2
+    positions = torch.arange(1024, device=dev).expand(2, 1024)
+    got = ring_attention_sharded(Mesh([dev] * 8, axis_names=("sp",)), q, k, v, kv_mask, positions, causal=causal)
+    assert got.dtype == dtype and got.device.type == "cuda"
+    want = dense_attention(q, k, v, kv_mask, positions, causal=causal)
+    assert float((got.float() - want).abs().max()) <= atol
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_encoder_equals_unsharded():
+    from pathway_tpu_torch.models.encoder import SentenceEncoder
+    from pathway_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _cuda()
+    kw = dict(dimension=64, n_layers=2, n_heads=4, max_length=32, vocab_size=1024, seed=1, dtype=torch.float32)
+    texts = [f"doc {i} " + "stream join window " * (i % 5) for i in range(61)]
+    sharded = SentenceEncoder(mesh=make_mesh(8, 1, devices=[dev] * 8), **kw).encode(texts)
+    plain = SentenceEncoder(**kw).encode(texts)
+    np.testing.assert_allclose(sharded, plain, atol=1e-5)
