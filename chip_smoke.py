@@ -15,6 +15,8 @@ NVIDIA GPU:
                                            # then phase 16 alone (~1 minute)
     python3 chip_smoke.py --distributed    # the builds, phase 4's rows, then
                                            # phase 17 alone
+    python3 chip_smoke.py --fabric         # the kernels' build, phase 4's rows
+                                           # and the cascade, then phase 18 alone
     python3 chip_smoke.py --first-call ROOT...  # the profiler's first sampled
                                            # call, fresh processes, per root
 
@@ -251,9 +253,41 @@ Phases, in order; any failure exits non-zero:
    1e-5), docs/s of both; (d) ring attention at B = 1, L = 16,384, 6 heads
    of 64, 8 blocks of 2,048, causal and not, ~20% of keys masked, against
    dense attention (f32 within 1e-4, bf16 within 3e-2), ms of both.
+18. the serve fabric: (a) bench.py ``phase_serve_fabric``: 3
+   ``FabricWorker``s, each its own ``ServeScheduler`` (window 5,000 us,
+   16 per batch, no result cache) over phase 9's cascade on the 1M IVF,
+   behind one ``ServeFabric`` (heartbeat 0.1 s, timeout 0.5 s), 16
+   closed-loop single-query callers, 96 requests over 32 eight-word
+   queries after an unmeasured pass.  Checked: each pool query served
+   alone through the fabric == the in-process scheduler bit for bit; 0
+   false host-downs on the healthy arm; a worker killed mid-burst: every
+   request answered, the affected ones flagged ``host_failover`` with a
+   survivor's rows, 0 exceptions, its breaker open; one solo serve's
+   dispatches + fetches per batch on the survivors; a ``stop()`` drain
+   re-routes; a rolling bounce of all three under 8 callers, each
+   replacement restored from the writer's warm state (a
+   ``WarmStateManager`` snapshot over a ``MemoryBackend`` of the 65,536
+   documents' IVF index, served bit-identically before it joins), 0
+   errors, every breaker closed.  (b) ``phase_partitioned_fabric``: phase
+   4's 1M rows in 3 partitions (key % 3), each an ``IvfKnnIndex`` with C
+   scaled to its rows, ``FusedEncodeSearch`` -> ``ServeScheduler(window
+   0)`` -> ``FabricWorker`` with a ``LiveIngestRunner``, beside an H = 1
+   fleet.  Checked: H = 3 == H = 1 bit for bit (keys and scores) at full
+   probe on 8 whole batches of 16 of phase 5's queries; the scatter booked
+   1 logical + 3 physical with the hosts within 2 + 2; one document moves
+   only its owner's generation entry, and 1,024 committed through
+   ``fabric.connector()`` land on their owners only and are each found
+   first by their own text at full probe; an absorb inside an open 1.5 s
+   window is served and cached under neither generation; a partition
+   killed under c16 costs its keys only (``partition_lost``, 0
+   exceptions); the rescore kernel against its plain version at one
+   partition's shape.  Printed: q/s, p50, p99 per arm; re-route ms; warm
+   against cold replacement seconds; device bytes per partition against
+   H = 1's; q/s, p50, p99 and recall@10 against exact at phase 4's probe
+   share for H = 1 and H = 3; absorb docs/s at H = 3 and H = 1.
 
 Every shape-census tripwire runs strict from the start
-(``PATHWAY_RECOMPILE_STRICT=1``); after phase 17 none may have tripped.
+(``PATHWAY_RECOMPILE_STRICT=1``); after phase 18 none may have tripped.
 
 The card's name and power limit, then the JSON record of the kernels,
 then ``{"ok": true, "device": {...}}`` are the last three lines; the
@@ -264,6 +298,7 @@ printing any result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -717,13 +752,31 @@ def retrain_phase(encoder, docs, doc_vecs, keys, tag: str) -> None:
         raise AssertionError(f"after the retrain a full-probe serve found {found}/{len(rows)} added keys")
 
 
+def forward_and_cross_encoder(encoder, docs, keys):
+    """Phase 8's stage-2 models: the forward index of the 65,536
+    documents (16 int8 rows each) and the cross-encoder; returns (forward
+    index, cross-encoder, ingest seconds)."""
+    from pathway_tpu_torch.index import ForwardIndex
+    from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
+
+    fwd = ForwardIndex(encoder, tokens_per_doc=16, quant="int8")
+    t0 = time.perf_counter()
+    for i in range(0, N_DOCS, FWD_CHUNK):
+        fwd.add(keys[i : i + FWD_CHUNK], docs[i : i + FWD_CHUNK])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    ce = CrossEncoderModel(
+        dimension=256, n_layers=4, n_heads=4, max_length=256, vocab_size=32768,
+        seed=SEED + 1, dtype=torch.bfloat16,
+    )
+    return fwd, ce, ingest_s
+
+
 def rerank_phase(encoder, ivf, docs, keys, tag: str):
     """Forward-index ingest, then the three rerank modes over the 1M IVF
     index; returns the rescore launches of the timed rerank calls, a
     record of the rescore kernel at this path's shape (max abs error
     against its plain version, time, bound) and the cascade pipeline."""
-    from pathway_tpu_torch.index import ForwardIndex
-    from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
     from pathway_tpu_torch.ops import dispatch_counter
     from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
     from pathway_tpu_torch.ops.maxsim import maxsim_scores_host, maxsim_topk
@@ -731,12 +784,7 @@ def rerank_phase(encoder, ivf, docs, keys, tag: str):
     from pathway_tpu_torch.ops.serving import FusedEncodeSearch
 
     dev = torch.device(DEVICE)
-    fwd = ForwardIndex(encoder, tokens_per_doc=16, quant="int8")
-    t0 = time.perf_counter()
-    for i in range(0, N_DOCS, FWD_CHUNK):
-        fwd.add(keys[i : i + FWD_CHUNK], docs[i : i + FWD_CHUNK])
-    torch.cuda.synchronize()
-    ingest_s = time.perf_counter() - t0
+    fwd, ce, ingest_s = forward_and_cross_encoder(encoder, docs, keys)
     if len(fwd) != N_DOCS:
         raise AssertionError(f"forward index holds {len(fwd)} of {N_DOCS} docs")
     log(
@@ -744,10 +792,6 @@ def rerank_phase(encoder, ivf, docs, keys, tag: str):
         f"host tokenize + encode), T'={fwd.tokens_per_doc} int8, {fwd.hbm_bytes() / 1e6:.1f} MB on the card "
         f"(capacity {fwd._capacity}), compression {fwd.compression_ratio():.2f}x, "
         f"audit |MaxSim f32 - int8| {fwd._quant_abs_err:.5f} {tag}"
-    )
-    ce = CrossEncoderModel(
-        dimension=256, n_layers=4, n_heads=4, max_length=256, vocab_size=32768,
-        seed=SEED + 1, dtype=torch.bfloat16,
     )
     doc_text = dict(zip(keys[:N_DOCS], docs))
 
@@ -4197,6 +4241,539 @@ def real_weights_phase(docs, keys, tag: str):
     return launches, hf_kernel, clip_kernel
 
 
+# -- phase 18: the serve fabric ----------------------------------------------------
+SF_HOSTS = 3  # bench.py phase_serve_fabric: a 3-worker replica group
+SF_CALLERS = 16  # closed-loop single-query callers
+SF_REQUESTS = 96  # per drive, over a pool of SF_POOL eight-word queries
+SF_POOL = 32
+SF_BOUNCE_CALLERS = 8  # the rolling bounce's continuous callers
+SF_HB_S, SF_HB_TIMEOUT_S = 0.1, 0.5  # bench.py:3327-3334
+PF_PARTS = 3  # partitions of the partitioned fleet; partition i owns key % 3 == i
+PF_ID_BATCHES = 8  # whole batches of 16 of phase 5's queries for H = 3 == H = 1
+PF_FRESH = 1024  # fresh documents committed through fabric.connector()
+PF_WINDOW_US = 1_500_000.0  # the front window an absorb lands inside
+
+
+def fabric_cascade(encoder, ivf, docs, keys):
+    """Phase 8's cascade over ``ivf`` (forward index of the 65,536
+    documents, the cross-encoder, MaxSim then cross-encoder over the top
+    10), for ``--fabric`` alone."""
+    from pathway_tpu_torch.ops.retrieve_rerank import RetrieveRerankPipeline
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+
+    fwd, ce, _ingest_s = forward_and_cross_encoder(encoder, docs, keys)
+    return RetrieveRerankPipeline(
+        FusedEncodeSearch(encoder, ivf, k=RR_CANDIDATES), ce, dict(zip(keys[:N_DOCS], docs)), k=K,
+        candidates=RR_CANDIDATES, forward_index=fwd, cascade=K,
+    )
+
+
+def _wait(pred, timeout_s: float, what: str) -> None:
+    t_end = time.monotonic() + timeout_s
+    while not pred():
+        if time.monotonic() > t_end:
+            raise AssertionError(f"fabric phase: {what} within {timeout_s} s")
+        time.sleep(0.005)
+
+
+def _killer(front, kill):
+    """Kill host 0 once it holds an in-flight request (mid-burst)."""
+    def run():
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 30 and front._links[0].inflight == 0:
+            time.sleep(0.001)
+        kill()
+
+    return threading.Thread(target=run, daemon=True)
+
+
+def fabric_phase(encoder, exact, serve_exact, cascade, docs, doc_vecs, keys, batches, tag: str):
+    """Phase 18: (a) a replica fleet of 3 ``FabricWorker``s, each its own
+    ``ServeScheduler`` over the cascade on the 1M IVF, behind one
+    ``ServeFabric`` (bench.py ``phase_serve_fabric``); (b) partitioned
+    fleets of H = 3 and H = 1 over phase 4's 1M rows, each host
+    ``FusedEncodeSearch`` over its own IVF -> ``ServeScheduler(window 0)``
+    -> ``FabricWorker`` with a ``LiveIngestRunner`` (``phase_partitioned_fabric``).
+    Returns (rescore launches of the phase's serves, the kernel record at
+    one partition's shape)."""
+    import math
+
+    from pathway_tpu_torch import robust
+    from pathway_tpu_torch.cache import ResultCache, query_key
+    from pathway_tpu_torch.ops import dispatch_counter
+    from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+    from pathway_tpu_torch.persistence import MemoryBackend
+    from pathway_tpu_torch.robust import HOST_FAILOVER, PARTITION_LOST, REPLICA_LOST
+    from pathway_tpu_torch.serve import (
+        FabricWorker, LiveIngestRunner, ServeFabric, ServeScheduler, WarmStateManager, fabric_token,
+    )
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    env_prev = {k: os.environ.get(k) for k in ("PATHWAY_FABRIC_HEARTBEAT", "PATHWAY_FABRIC_HEARTBEAT_TIMEOUT")}
+    os.environ["PATHWAY_FABRIC_HEARTBEAT"] = str(SF_HB_S)
+    os.environ["PATHWAY_FABRIC_HEARTBEAT_TIMEOUT"] = str(SF_HB_TIMEOUT_S)
+    pool = [" ".join(docs[(i * 9973) % N_DOCS].split()[:8]) for i in range(SF_POOL)]
+    reqs = [pool[(i * 7) % SF_POOL] for i in range(SF_REQUESTS)]
+    rescore_shortlist.launches = 0
+    try:
+        # ==== (a) the replica fleet over the cascade ====
+        # every composition a host's window can form is built before the
+        # fleet starts, so no first touch stalls a pong
+        for q in pool:
+            cascade([q], K)
+        for b in range(2, SCHED_MAX_BATCH + 1):
+            cascade(sorted(set(pool))[:b], K)
+        with dispatch_counter.DispatchCounter() as counter:
+            cascade([pool[0]], K)
+        per_serve = (counter.dispatches, counter.fetches)
+        token = fabric_token()
+        names = [f"chip-sf-{i}" for i in range(SF_HOSTS)]
+
+        def scheduler():
+            return ServeScheduler(cascade, window_us=SCHED_WINDOW_US, max_batch=SCHED_MAX_BATCH, result_cache=None)
+
+        scheds = [scheduler() for _ in range(SF_HOSTS)]
+        workers = [FabricWorker(scheds[i], token=token, name=names[i]) for i in range(SF_HOSTS)]
+        front = ServeFabric({w.name: w.address for w in workers}, token, name="chip-fabric")
+        local = scheduler()
+        try:
+            if front.connect() != SF_HOSTS:
+                raise AssertionError("the front did not reach every host")
+            differ = sum(1 for q in pool if list(front.serve([q], K)) != list(local.serve([q], K)))
+            if differ:
+                raise AssertionError(f"fabric rows differ from the in-process scheduler's on {differ} pool queries")
+
+            def serve_one(q):
+                return front.serve([q], K)
+
+            def opens():
+                return sum(robust.breaker(f"fabric:{n}").stats["opens"] for n in names)
+
+            drive(serve_one, reqs, SF_CALLERS)  # unmeasured pass
+            opens0, fail0 = opens(), front.stats["failover"]
+            qps_h, lats_h, rows_h = drive(serve_one, reqs, SF_CALLERS)
+            false_downs = opens() - opens0
+            bad = [r for r in rows_h if not r or len(r[0]) != K or r.degraded]
+            if bad or false_downs or front.stats["failover"] != fail0 or not all(l.up() for l in front._links):
+                raise AssertionError(f"healthy fleet: {len(bad)} bad rows, {false_downs} false host-downs")
+
+            # -- kill one host mid-burst: every request answered, the
+            # affected ones flagged host_failover with a survivor's rows --
+            def crash():
+                workers[0].kill()
+                scheds[0].stop()
+
+            killer = _killer(front, crash)
+            killer.start()
+            qps_k, lats_k, rows_k = drive(serve_one, reqs, SF_CALLERS)
+            killer.join(60)
+            flagged = [i for i, r in enumerate(rows_k) if HOST_FAILOVER in r.degraded]
+            bad = [r for r in rows_k if not r or len(r[0]) != K or REPLICA_LOST in r.degraded]
+            wrong_host = [i for i in flagged if rows_k[i].meta.get("fabric_host") == names[0]]
+            state0 = robust.breaker(f"fabric:{names[0]}").state
+            reroute = [float(lats_k[i]) for i in flagged]
+            if not flagged or bad or wrong_host or state0 == "closed":
+                raise AssertionError(
+                    f"kill: {len(flagged)} flagged, {len(bad)} unanswered, {len(wrong_host)} from the dead host, "
+                    f"breaker {state0}"
+                )
+
+            # -- one solo serve's dispatches + fetches per batch on the
+            # surviving hosts --
+            def survivor_batches():
+                return sum(scheds[i].stats["batches"] + scheds[i].stats["solo"] for i in range(1, SF_HOSTS))
+
+            b0 = survivor_batches()
+            with dispatch_counter.DispatchCounter() as counter:
+                drive(serve_one, pool[:8], 8)
+            n_batches = max(1, survivor_batches() - b0)
+            if counter.dispatches > per_serve[0] * n_batches or counter.fetches > per_serve[1] * n_batches:
+                raise AssertionError(f"survivors: {counter.dispatches} + {counter.fetches} for {n_batches} batches")
+            budget = (counter.dispatches, counter.fetches, n_batches)
+
+            # -- the writer's warm state, which a replacement restores
+            # before it joins: the 65,536-document IVF index --
+            writer = IvfKnnIndex(DIM, metric="cos")
+            writer.build_from_matrix(keys[:N_DOCS], doc_vecs)
+            probe_q = pool[:16]
+            want_rows = list(FusedEncodeSearch(encoder, writer, k=K)(probe_q, K))
+            backend = MemoryBackend()
+            if WarmStateManager(backend, name="chip-sf", components={"ivf": writer}).snapshot() is None:
+                raise AssertionError("the writer's snapshot failed")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()  # cold: re-embed the corpus, build, first search
+            vecs = torch.cat(
+                [encoder.encode_to_device(docs[i : i + ENCODE_CHUNK]) for i in range(0, N_DOCS, ENCODE_CHUNK)]
+            )
+            cold = IvfKnnIndex(DIM, metric="cos")
+            cold.build_from_matrix(keys[:N_DOCS], vecs)
+            FusedEncodeSearch(encoder, cold, k=K)(probe_q[:1], K)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            del vecs, cold
+            warm_s = []
+
+            def restart(i: int) -> None:
+                """Stop host i (bye), bring up a replacement restored from
+                the writer's warm state on the same port, wait for it to
+                re-join."""
+                port = workers[i].port
+                link = front._links[i]
+                workers[i].stop()
+                scheds[i].stop()
+                _wait(lambda: not link.up(), 5, f"host {i}'s bye reaching the front")
+                torch.cuda.synchronize()
+                t_w = time.perf_counter()
+                replica = IvfKnnIndex(DIM, metric="cos")
+                report = WarmStateManager(backend, name="chip-sf", components={"ivf": replica}).restore()
+                got = list(FusedEncodeSearch(encoder, replica, k=K)(probe_q, K))
+                torch.cuda.synchronize()
+                warm_s.append(time.perf_counter() - t_w)
+                if not report.restored or got != want_rows:
+                    raise AssertionError(f"replacement {i}: restored {report.restored}, rows equal {got == want_rows}")
+                scheds[i] = scheduler()
+                t_bind = time.monotonic()
+                while True:
+                    try:
+                        workers[i] = FabricWorker(scheds[i], host="127.0.0.1", port=port, token=token, name=names[i])
+                        break
+                    except OSError:
+                        if time.monotonic() - t_bind > 15:
+                            raise
+                        time.sleep(0.05)
+                probes = (f"rejoin probe {j}" for j in itertools.count())
+
+                def rejoined() -> bool:
+                    q = next(q for q in probes if front._affinity(q) == i)
+                    return front.serve([q], K).meta.get("fabric_host") == names[i]
+
+                _wait(rejoined, 30, f"host {i} re-joining")
+
+            restart(0)  # the killed host comes back
+            # -- a planned stop() drains: new admissions re-route --
+            workers[1].stop()
+            scheds[1].stop()
+            _wait(lambda: not front._links[1].up(), 5, "the drained host's bye reaching the front")
+            drained = [front.serve([q], K) for q in pool[:8]]
+            if any(not r or not r[0] or r.meta.get("fabric_host") == names[1] or REPLICA_LOST in r.degraded
+                   for r in drained):
+                raise AssertionError("a drained host was served from, or a request was lost")
+            restart(1)
+
+            # -- rolling bounce of all three under continuous load --
+            stop_serving = threading.Event()
+            bounce_lats, bounce_errs = [], []
+            lock = threading.Lock()
+
+            def bounce_caller(qi: int):
+                while not stop_serving.is_set():
+                    t_r = time.perf_counter()
+                    try:
+                        got = front.serve([pool[qi % SF_POOL]], K)
+                        with lock:
+                            bounce_lats.append((time.perf_counter() - t_r) * 1e3)
+                            if not (len(got) == 1 and got[0]):
+                                bounce_errs.append(("empty", got.degraded))
+                    except Exception as exc:  # noqa: BLE001 - counted: must stay 0
+                        with lock:
+                            bounce_errs.append(("raise", repr(exc)))
+                    qi += SF_BOUNCE_CALLERS
+
+            bounce_callers = [threading.Thread(target=bounce_caller, args=(t,), daemon=True) for t in range(SF_BOUNCE_CALLERS)]
+            t_b = time.perf_counter()
+            for t in bounce_callers:
+                t.start()
+            try:
+                for i in range(SF_HOSTS):
+                    restart(i)
+            finally:
+                stop_serving.set()
+                for t in bounce_callers:
+                    t.join(60)
+            bounce_s = time.perf_counter() - t_b
+            closed = [robust.breaker(f"fabric:{n}").state for n in names]
+            if bounce_errs or len(bounce_lats) < 20 or any(s != "closed" for s in closed):
+                raise AssertionError(f"rolling bounce: errors {bounce_errs[:3]}, {len(bounce_lats)} served, {closed}")
+            blat = np.asarray(bounce_lats)
+            log(
+                f"replica fabric {tag}: {SF_HOSTS} FabricWorkers (ServeScheduler window {SCHED_WINDOW_US:.0f} us, max "
+                f"batch {SCHED_MAX_BATCH}, no result cache) over the cascade on the 1M IVF, one ServeFabric front "
+                f"(heartbeat {SF_HB_S} s, timeout {SF_HB_TIMEOUT_S} s), c{SF_CALLERS}, {SF_REQUESTS} requests over "
+                f"{SF_POOL} queries: {SF_POOL} pool queries through the fabric == the in-process scheduler bit for bit; "
+                f"healthy {qps_h:.1f} q/s p50 {np.percentile(lats_h, 50):.3f} ms p99 {np.percentile(lats_h, 99):.3f} ms, "
+                f"{false_downs} false host-downs ({front.stats['stalled_ticks']} heartbeat ticks in the phase came "
+                f"after a stall of the front itself and restarted the silence clocks); kill host 0 mid-burst {qps_k:.1f} q/s p50 "
+                f"{np.percentile(lats_k, 50):.3f} ms p99 {np.percentile(lats_k, 99):.3f} ms, {len(flagged)} requests "
+                f"flagged host_failover with a survivor's rows, 0 unanswered, 0 exceptions, breaker {state0}; re-route "
+                f"ms of the flagged: p50 {np.percentile(reroute, 50):.3f} max {max(reroute):.3f}; survivors "
+                f"{budget[0]} dispatches + {budget[1]} fetches for {budget[2]} batches (solo serve {per_serve[0]} + "
+                f"{per_serve[1]}); stop() drain re-routed 8 of 8; rolling bounce of all {SF_HOSTS} under "
+                f"{SF_BOUNCE_CALLERS} callers: {len(blat)} requests in {bounce_s:.2f} s ({len(blat) / bounce_s:.1f} "
+                f"q/s) p50 {np.percentile(blat, 50):.3f} ms p99 {np.percentile(blat, 99):.3f} ms, 0 errors, breakers "
+                f"{closed}; replacement bring-up: warm restore + first search "
+                + ", ".join(f"{s:.3f}" for s in warm_s)
+                + f" s against cold (encode {N_DOCS} docs + build + first search) {cold_s:.3f} s"
+            )
+        finally:
+            front.stop()
+            for w in workers:
+                w.stop()
+            for s in scheds + [local]:
+                s.stop()
+        launches_a = rescore_shortlist.launches
+
+        # ==== (b) partitioned fleets over phase 4's 1M rows ====
+        owner = np.asarray([k % PF_PARTS for k in keys], dtype=np.int64)
+        t0 = time.perf_counter()
+        h1 = IvfKnnIndex(DIM, metric="cos")
+        h1.build_from_matrix(keys, exact._matrix[:N_ROWS])
+        parts = []
+        for p in range(PF_PARTS):
+            rows_p = np.nonzero(owner == p)[0]
+            idx = IvfKnnIndex(DIM, metric="cos")
+            idx.build_from_matrix([keys[j] for j in rows_p.tolist()],
+                                  exact._matrix[torch.from_numpy(rows_p).to(dev)])
+            parts.append(idx)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        C = h1._centroids.shape[0]
+        p_main = h1.probe_count()
+        for idx in parts:
+            idx.n_probe = math.ceil(p_main * idx._centroids.shape[0] / C)
+        bytes1 = sum(h1.hbm_bytes().values())
+        bytes3 = [sum(idx.hbm_bytes().values()) for idx in parts]
+        if sum(len(idx) for idx in parts) != N_ROWS or any(
+            k % PF_PARTS != p for p, idx in enumerate(parts) for k in idx._slot_of_key
+        ):
+            raise AssertionError("the partitions do not hold the 1M rows, each on its owner")
+
+        class _Fleet:
+            def __init__(self, indexes, tag_):
+                self.names = [f"chip-pf{tag_}-{i}" for i in range(len(indexes))]
+                self.token = fabric_token()
+                self.indexes = indexes
+                self.serves = [FusedEncodeSearch(encoder, idx, k=K) for idx in indexes]
+                for serve in self.serves:  # every composition before the fleet starts
+                    for q in pool:
+                        serve([q], K)
+                    for b in (2, 4, 8, 16):
+                        serve(sorted(set(pool))[:b], K)
+                self.scheds = [ServeScheduler(s, window_us=0, result_cache=None) for s in self.serves]
+                self.runners = [LiveIngestRunner(encoder, idx, name=f"{n}-ing") for idx, n in zip(indexes, self.names)]
+                self.workers = [FabricWorker(s, token=self.token, name=n, ingest=r)
+                                for s, n, r in zip(self.scheds, self.names, self.runners)]
+                self.fabric = ServeFabric({w.name: w.address for w in self.workers}, self.token,
+                                          name=f"chip-pfab{tag_}", partitions=len(indexes))
+                if self.fabric.connect() != len(indexes):
+                    raise AssertionError("the partitioned front did not reach every host")
+                self._probe = [idx.n_probe for idx in indexes]
+
+            def full_probe(self, on: bool) -> None:
+                for idx, p in zip(self.indexes, self._probe):
+                    idx.n_probe = idx._centroids.shape[0] if on else p
+
+            def stop(self) -> None:
+                self.fabric.stop()
+                for w in self.workers:
+                    w.stop()
+                for r in self.runners:
+                    r.stop()
+                for s in self.scheds:
+                    s.stop()
+
+        fleet3 = _Fleet(parts, "3")
+        fleet1 = _Fleet([h1], "1")
+        try:
+            # -- H = 3 == H = 1 bit for bit at full probe, whole batches of 16 --
+            id_batches = [batches[b // 4][(b % 4) * 16 : (b % 4 + 1) * 16] for b in range(PF_ID_BATCHES)]
+            for f in (fleet3, fleet1):
+                f.full_probe(True)
+            got3 = [list(fleet3.fabric.serve(b, K)) for b in id_batches]
+            got1 = [list(fleet1.fabric.serve(b, K)) for b in id_batches]
+            for f in (fleet3, fleet1):
+                f.full_probe(False)
+            differ = sum(1 for a, b in zip(got3, got1) for ra, rb in zip(a, b) if ra != rb)
+            if differ:
+                raise AssertionError(f"H = 3 differs from H = 1 on {differ} rows at full probe")
+
+            # -- the scatter's booking: 1 logical + 3 physical, hosts within 2 + 2 --
+            with dispatch_counter.DispatchCounter() as counter:
+                res = fleet3.fabric.serve([pool[0]], K)
+            disp = [t for kind, t in counter.events if kind == "dispatch"]
+            fet = [t for kind, t in counter.events if kind == "fetch"]
+            host_disp = [t for t in disp if t != "fabric.scatter"]
+            host_fet = [t for t in fet if t != "fabric.gather"]
+            with dispatch_counter.DispatchCounter(mode="physical") as phys:
+                fleet3.fabric.serve([pool[0]], K)
+            if (res.degraded or disp.count("fabric.scatter") != 1 or fet.count("fabric.gather") != 1
+                    or len(host_disp) > 2 * PF_PARTS or len(host_fet) > 2 * PF_PARTS or phys.physical_dispatches < PF_PARTS + 1):
+                raise AssertionError(f"scatter booking: {counter.events}, physical {phys.physical_dispatches}")
+
+            # -- scatter-gather at c16 at phase 4's probe share; recall vs exact --
+            want = {q: {k for k, _ in serve_exact([q], K)[0]} for q in pool}
+            cells = {}
+            for name, f in (("H=1", fleet1), ("H=3", fleet3)):
+                def serve_p(q, f=f):
+                    return f.fabric.serve([q], K)
+
+                drive(serve_p, reqs, SF_CALLERS)  # unmeasured pass
+                qps, lats, rows = drive(serve_p, reqs, SF_CALLERS)
+                bad = [r for r in rows if not r or len(r[0]) != K or r.degraded]
+                if bad:
+                    raise AssertionError(f"{name}: {len(bad)} bad rows, e.g. {bad[0].degraded}")
+                recall = float(np.mean([len({k for k, _ in r[0]} & want[q]) / K for q, r in zip(reqs, rows)]))
+                cells[name] = (qps, float(np.percentile(lats, 50)), float(np.percentile(lats, 99)), recall)
+
+            # -- owner-routed absorb: one document, then 1,024 --
+            before = fleet3.fabric.poll_generations()
+            k_one = next(k for k in itertools.count(1 << 58) if k % PF_PARTS == 1)
+            conn = fleet3.fabric.connector("chip-one")
+            conn.insert(k_one, "owner routed fabric sentinel document about partition maps")
+            if conn.commit() != 1 or not fleet3.runners[1].flush(timeout=60):
+                raise AssertionError("the sentinel's absorb was not accepted")
+            _wait(lambda: fleet3.fabric.poll_generations() != before, 10, "the sentinel's generation bump")
+            after = fleet3.fabric.index_generation()
+            moved_one = [i for i in range(PF_PARTS) if after[i] != before[i]]
+            if moved_one != [1]:
+                raise AssertionError(f"one absorb moved the generation entries {moved_one}: {before} -> {after}")
+            fresh = [t + " fabric" for t in corpus(PF_FRESH, seed=SEED + 18)]
+            fresh_keys = [(1 << 59) + i for i in range(PF_FRESH)]
+            rates, under = {}, {}
+            for name, f in (("H=3", fleet3), ("H=1", fleet1)):
+                sizes0 = [len(idx) for idx in f.indexes]
+                gens0 = f.fabric.poll_generations()
+                c = f.fabric.connector(f"chip-{name}")
+                c.insert_rows(zip(fresh_keys, fresh))
+                # one caller serves through the fleet while the owners absorb:
+                # the IVF's absorb and search locks under routed ingest
+                stop_serving, served, serve_errs = threading.Event(), [0], []
+
+                def serve_loop(f=f, stop_serving=stop_serving, served=served, serve_errs=serve_errs):
+                    while not stop_serving.is_set():
+                        try:
+                            r = f.fabric.serve([pool[served[0] % SF_POOL]], K)
+                            if not r or not r[0] or r.degraded:
+                                serve_errs.append(r.degraded)
+                        except Exception as exc:  # noqa: BLE001 - counted: must stay 0
+                            serve_errs.append(repr(exc))
+                        served[0] += 1
+
+                server = threading.Thread(target=serve_loop, daemon=True)
+                server.start()
+                try:
+                    t_a = time.perf_counter()
+                    accepted = c.commit()
+                    flushed = all(r.flush(timeout=120) for r in f.runners)
+                    rates[name] = PF_FRESH / (time.perf_counter() - t_a)
+                finally:
+                    stop_serving.set()
+                    server.join(60)
+                under[name] = served[0]
+                if accepted != PF_FRESH or not flushed or serve_errs:
+                    raise AssertionError(
+                        f"{name}: {accepted} of {PF_FRESH} accepted, flushed {flushed}, serve errors {serve_errs[:3]}"
+                    )
+                owned = [sum(1 for k in fresh_keys if k % len(f.indexes) == i) for i in range(len(f.indexes))]
+                grown = [len(idx) - s for idx, s in zip(f.indexes, sizes0)]
+                misplaced = sum(
+                    1 for i, idx in enumerate(f.indexes) for k in fresh_keys
+                    if ((k in idx._slot_of_key or k in idx._tail) != (k % len(f.indexes) == i))
+                )
+                _wait(lambda: all(g > g0 for g, g0 in zip(f.fabric.poll_generations(), gens0)), 10,
+                      f"{name}'s owners' generation bumps")
+                if grown != owned or misplaced:
+                    raise AssertionError(f"{name}: grew {grown} for owned {owned}, {misplaced} rows off their owner")
+            fleet3.full_probe(True)
+            found = 0
+            for i in range(0, PF_FRESH, 16):
+                rows = fleet3.fabric.serve(fresh[i : i + 16], K)
+                found += sum(1 for row, k in zip(rows, fresh_keys[i : i + 16]) if row and row[0][0] == k)
+            fleet3.full_probe(False)
+            if found != PF_FRESH:
+                raise AssertionError(f"full probe found {found} of {PF_FRESH} absorbed documents by their own text")
+
+            # -- an absorb inside an open window: served, never cached --
+            cache = ResultCache()
+            slow = ServeScheduler(fleet3.fabric, window_us=PF_WINDOW_US, result_cache=cache, name="chip-pf-front")
+            try:
+                q = pool[3]
+                g_adm = fleet3.fabric.poll_generations()
+                ticket = slow.submit([q], K)
+                k_win = next(k for k in itertools.count(1 << 57) if k % PF_PARTS == 2)
+                cw = fleet3.fabric.connector("chip-window")
+                cw.insert(k_win, f"window absorb about {q}")
+                if cw.commit() != 1 or not fleet3.runners[2].flush(timeout=30):
+                    raise AssertionError("the in-window absorb was not accepted")
+                _wait(lambda: fleet3.fabric.poll_generations() != g_adm, 10, "the in-window generation bump")
+                in_window = not ticket._request.event.is_set()
+                crossed = ticket.result(timeout=TICKET_TIMEOUT_S)
+                g_new = fleet3.fabric.index_generation()
+                stored = [cache.get_rows([query_key(q, g)], K) is not None for g in (g_adm, g_new)]
+                if not in_window or not crossed or not crossed[0] or any(stored) or slow.stats["cache_hits"]:
+                    raise AssertionError(
+                        f"in-window absorb: landed in the window {in_window}, stored {stored}, "
+                        f"hits {slow.stats['cache_hits']}"
+                    )
+            finally:
+                slow.stop()
+
+            # -- kill one partition under c16 --
+            def crash_part():
+                fleet3.workers[0].kill()
+                fleet3.scheds[0].stop()
+
+            killer = _killer(fleet3.fabric, crash_part)
+            killer.start()
+            _q, _l, rows_pk = drive(lambda q: fleet3.fabric.serve([q], K), reqs, SF_CALLERS)
+            killer.join(60)
+            lost = [r for r in rows_pk if PARTITION_LOST in r.degraded]
+            dead_keys = sum(1 for r in lost for k, _s in r[0] if k % PF_PARTS == 0)
+            if not lost or dead_keys or any(not r or not r[0] for r in rows_pk):
+                raise AssertionError(f"partition kill: {len(lost)} flagged, {dead_keys} keys of the dead partition")
+            launches = rescore_shortlist.launches
+            log(
+                f"partitioned fabric {tag}: H={PF_PARTS} partitions (key % {PF_PARTS}) of phase 4's {N_ROWS} rows, "
+                f"C per partition {[idx._centroids.shape[0] for idx in parts]} (H=1: C={C}), n_probe "
+                f"{[idx.n_probe for idx in parts]} against {p_main}, built in {build_s:.2f} s; device bytes per "
+                f"partition {[round(b / 1e9, 4) for b in bytes3]} GB against H=1's {bytes1 / 1e9:.4f} GB: "
+                f"{max(bytes3) / bytes1:.3f}x (the reference bench's bar 0.45x, printed, not a gate); H=3 == H=1 bit "
+                f"for bit at full probe on {PF_ID_BATCHES} whole batches of 16; scatter booked 1 logical + "
+                f"{PF_PARTS} physical sends ({phys.physical_dispatches} physical dispatches in the serve with the "
+                f"hosts' own), {len(host_disp)} dispatches + {len(host_fet)} fetches on the hosts; c{SF_CALLERS} "
+                + "; ".join(f"{n} {q:.1f} q/s p50 {p50:.3f} ms p99 {p99:.3f} ms recall@10 vs exact {r:.4f}"
+                            for n, (q, p50, p99, r) in cells.items())
+                + f"; one absorb moved entries {moved_one} only ({before} -> {after}); {PF_FRESH} fresh docs "
+                f"through fabric.connector(): each on its owner, all found first by their own text at full probe; "
+                f"absorb {rates['H=3']:.1f} docs/s at H=3 against {rates['H=1']:.1f} at H=1 "
+                f"({rates['H=3'] / rates['H=1']:.2f}x) beside one serving caller ({under['H=3']} / {under['H=1']} "
+                f"clean serves during them); in-window absorb served, cached under neither key, 0 hits; "
+                f"kill partition 0 at c{SF_CALLERS}: {len(lost)} of {SF_REQUESTS} flagged partition_lost, 0 keys of "
+                f"the dead partition, 0 exceptions; stalled heartbeat ticks H=3 {fleet3.fabric.stats['stalled_ticks']} "
+                f"H=1 {fleet1.fabric.stats['stalled_ticks']}; rescore launches in phase 18 {launches} (replica fleet "
+                f"{launches_a})"
+            )
+        finally:
+            fleet3.stop()
+            fleet1.stop()
+
+        # -- the rescore kernel at one partition's shape (16 queries) --
+        part = parts[1]
+        serve_p = FusedEncodeSearch(encoder, part, k=K)
+        rec = rescore_at_path_shape(part, stage1_rescore_args(serve_p, part, pool[:16]), dev)
+        log(f"ivf_rescore at one partition's shape {tag}: " + rescore_line(part, rec))
+    finally:
+        for k, v in env_prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"phase 18 in {time.perf_counter() - t_phase:.1f} s")
+    return launches, rec
+
+
 _SHAPE_KEYS = (
     "B", "p", "distinct_clusters", "max_abs_err", "ms", "kernels_ms", "bound_ms", "bound_by", "library_ms",
     "library_with_gather_ms",
@@ -4255,6 +4832,25 @@ def main() -> int:
         log(f"build and phase 4's rows {time.perf_counter() - t0:.1f} s")
         launches = sharded_phase(encoder, exact, FusedEncodeSearch(encoder, exact, k=K), docs, doc_vecs, keys,
                                  serve_batches(docs), f"[{smi}]")[0]
+        log(f"rescore launches {launches}; shape census: {tripwire_census()}")
+        return 0
+    if sys.argv[1:] == ["--fabric"]:
+        from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+        from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        ).stdout.strip()
+        log(f"card: {smi}")
+        t0 = time.perf_counter()
+        build_all()
+        encoder, docs, doc_vecs, keys, exact = main_rows(f"[{smi}]")
+        ivf = IvfKnnIndex(DIM, metric="cos")
+        ivf.build_from_matrix(keys, exact._matrix[:N_ROWS])
+        cascade = fabric_cascade(encoder, ivf, docs, keys)
+        log(f"build, phase 4's rows and the cascade {time.perf_counter() - t0:.1f} s")
+        launches = fabric_phase(encoder, exact, FusedEncodeSearch(encoder, exact, k=K), cascade, docs, doc_vecs, keys,
+                                serve_batches(docs), f"[{smi}]")[0]
         log(f"rescore launches {launches}; shape census: {tripwire_census()}")
         return 0
     if sys.argv[1:] == ["--distributed"]:
@@ -4559,6 +5155,10 @@ def main() -> int:
 
     # -- 17. the multi-process plane: native tokenizer, two ranks, mesh encoder, ring attention --
     multiprocess_phase(encoder, docs, batches, serve_exact, pct["exact"][0], tag)
+
+    # -- 18. the serve fabric: a replica group, then partitions, counted --
+    sf_launches, sf_kernel = fabric_phase(encoder, exact, serve_exact, cascade, docs, doc_vecs, keys, batches, tag)
+    worst_err = max(worst_err, sf_kernel["max_abs_err"])
     log(f"shape census: {tripwire_census()}")
 
     record = {
@@ -4569,11 +5169,12 @@ def main() -> int:
                 "source": "pathway_tpu_torch/csrc/ivf_rescore.cu",
                 "replaces": "pathway_tpu/ops/ivf_pallas.py:37",
                 "launches": launches + rr_launches + sched_launches + li_launches + ws_launches + st_launches
-                + po_launches + sum(rw_launches.values()) + ss_launches,
+                + po_launches + sum(rw_launches.values()) + ss_launches + sf_launches,
                 "launches_by_path": {
                     "serve": launches, "rerank": rr_launches, "scheduler": sched_launches,
                     "ingest": li_launches, "warmstate": ws_launches, "tuning": st_launches,
                     "profiling": po_launches, "real_weights": rw_launches, "sharded": ss_launches,
+                    "fabric": sf_launches,
                 },
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,
@@ -4599,6 +5200,7 @@ def main() -> int:
                 "hf_stage1_shape": {key: hf_kernel[key] for key in _SHAPE_KEYS},
                 "clip_search_shape": {key: clip_kernel[key] for key in _SHAPE_KEYS},
                 "sharded_shard_shape": {key: ss_kernel[key] for key in _SHAPE_KEYS},
+                "partition_shape": {key: sf_kernel[key] for key in _SHAPE_KEYS},
             },
             *decode_kernels,
         ]

@@ -120,6 +120,36 @@ _knob("serve.shed_priorities", "PATHWAY_SERVE_SHED_PRIORITIES", "str", "low",
 _knob("serve.default_priority", "PATHWAY_SERVE_DEFAULT_PRIORITY", "enum", "normal",
       "priority class for submit() calls that pass none", choices=("high", "normal", "low"))
 
+# serve fabric (serve/fabric.py): replica groups across hosts
+_knob("fabric.heartbeat_s", "PATHWAY_FABRIC_HEARTBEAT", "float", 0.5,
+      "fabric host heartbeat ping interval in seconds", lo=0.01, hi=3600.0)
+_knob("fabric.heartbeat_timeout_s", "PATHWAY_FABRIC_HEARTBEAT_TIMEOUT", "float", 2.0,
+      "heartbeat silence before a fabric host is declared dead (breaker trips, in-flight tickets re-route)",
+      lo=0.05, hi=86_400.0)
+_knob("fabric.hedge_ms", "PATHWAY_FABRIC_HEDGE_MS", "float", 0.0,
+      "hedged-retry delay in ms: a request unanswered past this is re-sent to a second healthy host, "
+      "first response wins (0 = off)", lo=0.0, hi=600_000.0, mutability=DYNAMIC)
+_knob("fabric.affinity_slack", "PATHWAY_FABRIC_AFFINITY_SLACK", "int", 2,
+      "extra in-flight requests the consistent-hash affinity host may carry over the least-loaded host "
+      "before routing spills", lo=0, hi=4096)
+_knob("fabric.connect_timeout_s", "PATHWAY_FABRIC_CONNECT_TIMEOUT", "float", 5.0,
+      "fabric host TCP connect timeout in seconds", lo=0.05, hi=600.0)
+_knob("fabric.request_timeout_s", "PATHWAY_FABRIC_REQUEST_TIMEOUT", "float", 30.0,
+      "fallback per-request response timeout in seconds for requests that carry no deadline",
+      lo=0.05, hi=86_400.0)
+
+# partitioned serve fabric (serve/fabric.py scatter-gather)
+_knob("fabric.partitions", "PATHWAY_FABRIC_PARTITIONS", "int", 0,
+      "index partitions across the fabric fleet (0 = replica mode; N > 0 = each host owns doc_key % N "
+      "of the corpus and serves scatter-gather)", lo=0, hi=4096)
+_knob("partition.gather_timeout_s", "PATHWAY_PARTITION_GATHER_TIMEOUT", "float", 10.0,
+      "scatter-gather straggler bound in seconds: a partition unanswered past it is flagged "
+      "partition_lost and the surviving partitions' merge is served", lo=0.05, hi=86_400.0,
+      mutability=DYNAMIC)
+_knob("partition.absorb_timeout_s", "PATHWAY_PARTITION_ABSORB_TIMEOUT", "float", 30.0,
+      "owner-routed absorb ack timeout in seconds before the routed batch is counted dropped on its "
+      "owner partition", lo=0.05, hi=86_400.0)
+
 # cache tiers (cache/)
 _knob("cache.enabled", "PATHWAY_CACHE", "bool", True, "global cache kill switch")
 _knob("cache.result", "PATHWAY_CACHE_RESULT", "bool", True, "tier-0 result cache")

@@ -1,7 +1,8 @@
 """Parallelism of the port (counterpart of ``pathway_tpu/parallel``): the
 control plane and data-plane collectives across processes
 (``distributed.py``), device meshes within and across processes
-(``mesh.py``) and serve-shard groups (``shards.py``)."""
+(``mesh.py``), serve-shard groups (``shards.py``) and the serve
+fabric's authenticated frame stream (``exchange.py``)."""
 
 from .distributed import barrier, broadcast_obj, is_coordinator, is_distributed, maybe_initialize
 from .mesh import (
@@ -14,11 +15,14 @@ from .mesh import (
     make_mesh,
     set_mesh,
 )
+from .exchange import FramedStream, PeerLost
 from .shards import FleetPartitionMap, ShardGroup, serve_shards
 
 __all__ = [
     "FleetPartitionMap",
+    "FramedStream",
     "Mesh",
+    "PeerLost",
     "ShardGroup",
     "barrier",
     "broadcast_obj",

@@ -102,6 +102,20 @@ class ServeResult(list):
     def ok(self) -> bool:
         return not self.degraded
 
+    def with_flags(self, degraded: Sequence[str] = (), meta: Optional[Dict[str, Any]] = None) -> "ServeResult":
+        """A copy with extra flags and meta merged in (flags deduplicated,
+        order kept)."""
+        merged = list(self.degraded)
+        for flag in degraded:
+            if flag not in merged:
+                merged.append(flag)
+        out_meta = dict(self.meta)
+        out_meta.update(meta or {})
+        # regenerated from the merged flags: the old list would
+        # under-report the new rungs
+        out_meta.pop("degraded_reasons", None)
+        return ServeResult(self, degraded=merged, meta=out_meta)
+
 
 def _sentences(text: str) -> List[str]:
     out: List[str] = []

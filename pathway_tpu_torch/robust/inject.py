@@ -7,7 +7,15 @@ Named sites, the reference's: ``serve.dispatch``, ``serve.fetch``,
 ``cache.get``, ``cache.put``, ``trace.record``, ``trace.export``,
 ``slo.evaluate``, and the sharded-serve family ``shard.dispatch`` /
 ``shard.merge`` / ``shard.absorb``, each also addressable per shard as
-``<site>.<n>`` (``shard.dispatch.3`` kills exactly shard 3 of a group).
+``<site>.<n>`` (``shard.dispatch.3`` kills exactly shard 3 of a group),
+the serve fabric's replica triple ``fabric.route`` (affinity falls back
+to least-loaded, flagged) / ``fabric.send`` / ``fabric.recv`` (failover
+to a survivor, flagged ``host_failover``, breaker fed) and its
+partitioned triple ``fabric.scatter`` (that partition is lost, flagged
+``partition_lost``) / ``fabric.gather`` (stop waiting, serve the
+resolved partitions) / ``partition.absorb`` (that routed batch is
+dropped, counted on ``pathway_partition_absorb_dropped_total`` and
+re-committable), all in ``serve/fabric.py``.
 A test or an operator arms a site to
 
 - ``raise`` a ``FaultInjected``,

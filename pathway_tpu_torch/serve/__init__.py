@@ -9,10 +9,15 @@ IVF and forward indexes under serve traffic, with the freshness plane
 (``ingest.py``); ``WarmStateManager`` snapshots and restores the indexes
 and cache tiers (``warmstate.py``).  ``Tuner`` moves the dynamic knobs
 online from the observe plane's signals; ``tuner_from_env`` starts one
-when ``PATHWAY_TUNER=1`` (``tuner.py``).  The reference's fabric waits
-for a later slice of the port."""
+when ``PATHWAY_TUNER=1`` (``tuner.py``).  Across hosts, ``FabricWorker``
+puts a token-authenticated TCP endpoint in front of one host's scheduler
+and ``ServeFabric`` routes admission over a replica group (affinity,
+least-loaded spill, hedging, per-host breakers, failover) or
+scatter-gathers over index partitions with owner-routed absorb
+(``fabric.py``)."""
 
 from .decode import ContinuousDecoder, DecodeResult, decode_slots
+from .fabric import FabricWorker, ServeFabric, fabric_token
 from .ingest import IngestConnector, LiveIngestRunner, ingest_runners
 from .scheduler import ServeScheduler, SharedBatcher, coalesce_window_s, max_batch_queries
 from .tuner import Tuner, tuner_from_env
@@ -21,15 +26,18 @@ from .warmstate import RestoreReport, WarmStateManager
 __all__ = [
     "ContinuousDecoder",
     "DecodeResult",
+    "FabricWorker",
     "IngestConnector",
     "LiveIngestRunner",
     "RestoreReport",
+    "ServeFabric",
     "ServeScheduler",
     "SharedBatcher",
     "Tuner",
     "WarmStateManager",
     "coalesce_window_s",
     "decode_slots",
+    "fabric_token",
     "ingest_runners",
     "max_batch_queries",
     "tuner_from_env",

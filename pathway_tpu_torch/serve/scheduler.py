@@ -235,6 +235,8 @@ class _CoalescerBase:
                 break
             self._dispatch_batch(reqs)
 
+    close = stop
+
     def __enter__(self) -> "_CoalescerBase":
         self.start()
         return self
@@ -597,6 +599,8 @@ class ServeScheduler(_CoalescerBase):
     ) -> ServeResult:
         return self.submit(texts, k, deadline=deadline, priority=priority)()
 
+    __call__ = serve
+
     def _pick_replica(self) -> int:
         """Least-loaded replica, ties rotated by lifetime placements."""
         with self._qlock:
@@ -693,6 +697,8 @@ class SharedBatcher(_CoalescerBase):
 
     def score(self, items: Sequence[Any], deadline: Optional[Deadline] = None) -> np.ndarray:
         return self.submit(items, deadline=deadline)()
+
+    __call__ = score
 
     def _launch(self, items: List[Any], reqs: List[_Request]):
         if self._submit_deadline:

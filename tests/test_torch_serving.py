@@ -211,6 +211,7 @@ def test_port_imports_no_jax_flax_or_reference():
         "ops/ring_attention.py",
         "ops/topk.py",
         "parallel/distributed.py",
+        "parallel/exchange.py",
         "parallel/mesh.py",
         "parallel/shards.py",
         "persistence/backends.py",
@@ -220,6 +221,7 @@ def test_port_imports_no_jax_flax_or_reference():
         "robust/inject.py",
         "robust/retry.py",
         "serve/decode.py",
+        "serve/fabric.py",
         "serve/ingest.py",
         "serve/scheduler.py",
         "serve/tuner.py",

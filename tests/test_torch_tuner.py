@@ -313,7 +313,7 @@ def test_every_port_knob_has_the_reference_mutability_and_bounds():
     assert dynamic == {
         "serve.coalesce_us", "cache.result_bytes", "cache.embed_bytes", "cache.kv_bytes", "decode.step_bucket",
         "ingest.batch_docs", "ingest.poll_ms", "ingest.backpressure_ms", "warmstate.interval_s",
-        "observe.profile_sample",
+        "observe.profile_sample", "fabric.hedge_ms", "partition.gather_timeout_s",
     }
     for key in ("tuner.enabled", "tuner.interval_s", "observe.profile_sample", "ops.recompile_limit",
                 "ops.recompile_strict", "ops.donation_guard", "ops.donation_guard_strict"):
