@@ -17,6 +17,8 @@ NVIDIA GPU:
                                            # phase 17 alone
     python3 chip_smoke.py --fabric         # the kernels' build, phase 4's rows
                                            # and the cascade, then phase 18 alone
+    python3 chip_smoke.py --framework      # the builds, phase 4's rows and the
+                                           # direct serve p50s, then phase 19 alone
     python3 chip_smoke.py --first-call ROOT...  # the profiler's first sampled
                                            # call, fresh processes, per root
 
@@ -285,9 +287,33 @@ Phases, in order; any failure exits non-zero:
    against cold replacement seconds; device bytes per partition against
    H = 1's; q/s, p50, p99 and recall@10 against exact at phase 4's probe
    share for H = 1 and H = 3; absorb docs/s at H = 3 and H = 1.
+19. the framework, all through ``import pathway_tpu_torch as pw``: one
+   ``TpuEmbedder`` at phase 4's width (seeded as phase 4's encoder, bf16)
+   shared by two ``DocumentStore``s over the same tables (``splitter=None``):
+   phase 4's 65,536 documents as a ``pw.debug.table_from_rows`` with
+   ``_metadata = {"path": "d{i % 16}/{i}.txt"}`` and a stream of further
+   documents from a ``pw.io.python.ConnectorSubject``; one store on
+   ``BruteForceKnnFactory``, one on ``IvfKnnFactory`` at full probe;
+   beside them a retracting ``DataIndex.query`` and a
+   ``query_as_of_now`` over the IVF store's index.  (a) 4 atomic commits
+   of 64 of phase 5's query texts (k = 10) and one of 64 under
+   ``filepath_globpattern`` ``d3/*``.  Checked: the first commit's
+   documents first in the exact store; the IVF store == the exact store
+   rank by rank (ties within 1e-5); the glob commit returns only ``d3/``
+   paths in both stores, through ``search_oversampled``; each commit's
+   answers == a direct search of each operator's own index on the same
+   query vectors; every index on ``cuda``.  (b) 8 commits of 1,024 further
+   documents, each after a commit of 64 queries to the two ``DataIndex``
+   arms, one of them equal to a document that lands 4 commits later.
+   Checked: the retracting arm retracts that query's answer and re-emits
+   it with the document first; the as-of-now arm never retracts.  (c) the
+   rescore kernel at the framework's shape against its plain version.
+   Printed: engine ingest docs/s against the embedder's encode +
+   ``IvfKnnIndex.add`` called directly, retrieve ms per commit against
+   phase 5's direct serve p50, commit-to-retrievable ms, the busy share.
 
 Every shape-census tripwire runs strict from the start
-(``PATHWAY_RECOMPILE_STRICT=1``); after phase 18 none may have tripped.
+(``PATHWAY_RECOMPILE_STRICT=1``); after phase 19 none may have tripped.
 
 The card's name and power limit, then the JSON record of the kernels,
 then ``{"ok": true, "device": {...}}`` are the last three lines; the
@@ -442,8 +468,6 @@ def rescore_at_path_shape(ivf, args, dev):
     one path's own inputs ``args`` (f32 slabs)."""
     from pathway_tpu_torch.ops.ivf_rescore import ivf_rescore_reference, rescore_shortlist
 
-    from torch.profiler import ProfilerActivity, profile
-
     probe, zq = args[0], args[1]
     with torch.no_grad():
         err = compare_rescore(rescore_shortlist, ivf_rescore_reference, *args)
@@ -451,19 +475,21 @@ def rescore_at_path_shape(ivf, args, dev):
         ms = timed_ms(lambda: rescore_shortlist(*args), reps=20, flush=flush)
         library_ms, library_gather_ms = library_rescore_ms(ivf, probe, zq, flush)
         # the two kernels alone (probe inversion + rescore), L2 cold: the
-        # event window above also holds any host gap before the launch
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                flush.zero_()
-                rescore_shortlist(*args)
-            torch.cuda.synchronize()
+        # event window above also holds any host gap before the launch.
+        # Each kernel's mean over the launches the profiler kept (it can
+        # drop some of a window's events, never add any)
+        ours = [
+            (us, n) for key, us, n in profiled_kernels(lambda: rescore_shortlist(*args), 20, flush)
+            if "rescore_kernel" in key or "invert_probe_kernel" in key
+        ]
         del flush
-    ours = [e for e in prof.key_averages() if "rescore_kernel" in e.key or "invert_probe_kernel" in e.key]
-    kernels_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in ours) / 1e3 / 20 if ours else None
+    kernels_ms = sum(us / n for us, n in ours) / 1e3 if ours else None
+    traced = min(n for _, n in ours) if ours else 0
     distinct = int(torch.unique(probe).numel())
     bound_ms, bound_by, n_bytes = rescore_bound(distinct, ivf._M_pad, zq.shape[1], 4, probe.shape[0], probe.shape[1])
     return {
-        "max_abs_err": err, "ms": ms, "kernels_ms": kernels_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "max_abs_err": err, "ms": ms, "kernels_ms": kernels_ms, "traced": traced, "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "distinct_clusters": distinct, "bytes": n_bytes, "B": probe.shape[0], "p": probe.shape[1],
         "library_ms": library_ms, "library_with_gather_ms": library_gather_ms,
     }
@@ -493,7 +519,8 @@ def rescore_line(ivf, r) -> str:
         f"B={r['B']} p={r['p']} C={ivf._centroids.shape[0]} M={ivf._M_pad} d={ivf._d_pad} f32 slabs, "
         f"{r['distinct_clusters']} distinct clusters probed: max_abs_err={r['max_abs_err']:.3e}, "
         f"kernel {r['ms']:.4f} ms between CUDA events, "
-        + (f"its 2 kernels alone {r['kernels_ms']:.4f} ms, " if r["kernels_ms"] is not None else "its kernels alone not measured, ")
+        + (f"its 2 kernels alone {r['kernels_ms']:.4f} ms (mean over the {r['traced']} of 20 calls traced), "
+           if r["kernels_ms"] is not None else "its kernels alone not measured, ")
         + f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e9:.4f} GB); baddbmm over slabs gathered "
         f"beforehand {r['library_ms']:.4f} ms, gather + baddbmm {r['library_with_gather_ms']:.4f} ms"
     )
@@ -4775,9 +4802,439 @@ def fabric_phase(encoder, exact, serve_exact, cascade, docs, doc_vecs, keys, bat
 
 
 _SHAPE_KEYS = (
-    "B", "p", "distinct_clusters", "max_abs_err", "ms", "kernels_ms", "bound_ms", "bound_by", "library_ms",
-    "library_with_gather_ms",
+    "B", "p", "distinct_clusters", "max_abs_err", "ms", "kernels_ms", "traced", "bound_ms", "bound_by",
+    "library_ms", "library_with_gather_ms",
 )
+
+
+# -- phase 19: the framework ------------------------------------------------------
+FW_COMMITS = 4  # (a): retrieve commits of BATCH queries
+FW_STREAM_COMMITS = 8  # (b): document commits, each followed by a query commit
+FW_STREAM_DOCS = 1024
+FW_PLANTED_QUERY_COMMIT = 1  # (b): the planted query arrives in this query commit,
+FW_PLANTED_DOC_COMMIT = 5  # its document in this later document commit
+FW_COMMIT_MS = 10  # the engine's commit tick while the phase runs
+FW_WAIT_S = 300.0
+
+
+class _FrameworkDriver:
+    """What phase 19's driver thread waits on: tick ends, answers per arm,
+    each index's rows, and the moments its subjects committed."""
+
+    def __init__(self):
+        self.cond = threading.Condition()
+        self.tick = 0
+        self.answers = {}  # arm -> {query key: [(time, row, diff), ...]}
+        self.arrival = {}  # arm -> list of (perf_counter, key, diff)
+        self.commit_at = {}  # subject name -> [perf_counter per commit]
+        self.stop = False
+
+    def on_tick(self, _ts) -> None:
+        with self.cond:
+            self.tick += 1
+            self.cond.notify_all()
+
+    def on_change(self, arm: str):
+        book = self.answers.setdefault(arm, {})
+        times = self.arrival.setdefault(arm, [])
+
+        def on_change(key, row, time, is_addition):
+            with self.cond:
+                book.setdefault(int(key), []).append((time, row, 1 if is_addition else -1))
+                times.append((_now(), int(key), 1 if is_addition else -1))
+                self.cond.notify_all()
+
+        return on_change
+
+    def wait(self, pred, what: str) -> None:
+        """Wait until ``pred()`` holds, then for the end of the tick after
+        (every emission of the tick that made it true has landed)."""
+        deadline = _now() + FW_WAIT_S
+        with self.cond:
+            while not pred():
+                if self.stop or _now() > deadline:
+                    raise AssertionError(f"phase 19: timed out waiting for {what}")
+                self.cond.wait(0.05)
+            seen = self.tick
+            while self.tick <= seen + 1:
+                if self.stop or _now() > deadline:
+                    raise AssertionError(f"phase 19: timed out waiting for the tick after {what}")
+                self.cond.wait(0.05)
+
+
+def _now() -> float:
+    return time.perf_counter()
+
+
+def _queue_subject(pw, name: str, driver: _FrameworkDriver):
+    """A ConnectorSubject that pushes the batches put on its queue, one
+    atomic commit each, until it takes None."""
+    import queue
+
+    q = queue.Queue()
+
+    class Subject(pw.io.python.ConnectorSubject):
+        def run(self):
+            for batch in iter(q.get, None):
+                for row in batch:
+                    self.next(**row)
+                t_commit = _now()
+                self.commit()
+                with driver.cond:
+                    driver.commit_at.setdefault(name, []).append(t_commit)
+                    driver.cond.notify_all()
+
+    return Subject(), q
+
+
+def _framework_ops(pw):
+    """The ExternalIndexOperators of the graph, in build order, with the
+    inner index each holds (adapter -> DeviceKnn / DeviceIvfKnn)."""
+    from pathway_tpu_torch.engine.operators.external_index import ExternalIndexOperator
+
+    return [op for op in pw.G.engine_graph.operators if isinstance(op, ExternalIndexOperator)]
+
+
+def _fw_rows(result):
+    """[(path, score), ...] of one ``retrieve_query`` result row."""
+    return [(r["metadata"]["path"], -float(r["dist"])) for r in result]
+
+
+def framework_busy(prof, wall_ms: float, check: dict) -> str:
+    """``device_busy`` of phase 19's window without the check's direct
+    searches: the kernels on the check's stream (told apart by the marker
+    it launches first) and the check's wall time are left out."""
+    cuda = [e for e in prof.events() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    if not cuda:
+        return "busy share not measured (no CUDA events traced)"
+    marks = {getattr(e, "device_resource_id", None) for e in cuda if "spin_kernel" in e.name}
+    if len(marks) != 1 or None in marks:
+        return "busy share not measured (the check's stream is not told apart among the traced kernels)"
+    check_us = sum(e.time_range.elapsed_us() for e in cuda if e.device_resource_id in marks)
+    dev_ms = (sum(e.time_range.elapsed_us() for e in cuda) - check_us) / 1e3
+    wall = wall_ms - check["s"] * 1e3
+    return (
+        f"device kernels {dev_ms:.3f} ms in a {wall:.3f} ms wall ({100 * dev_ms / wall:.1f}% busy; the check's "
+        f"direct searches, {check_us / 1e3:.3f} ms on the card in {check['s'] * 1e3:.3f} ms of wall, left out)"
+    )
+
+
+def framework_phase(direct_p50: dict, tag: str):
+    """Phase 19: the framework — ``DocumentStore`` retrieval through
+    ``TpuEmbedder`` and the engine, all through ``import pathway_tpu_torch
+    as pw``.  Returns (rescore launches, the kernel at the framework's
+    shape)."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import TpuEmbedder
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = _now()
+    dev = torch.device(DEVICE)
+    pw.reset()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    docs = corpus(N_DOCS)
+    qidx = query_ids()
+    stream_docs = [t + f" stream{i}" for i, t in enumerate(corpus(FW_STREAM_COMMITS * FW_STREAM_DOCS, seed=SEED + 13))]
+    planted_doc = FW_PLANTED_DOC_COMMIT * FW_STREAM_DOCS + 17
+    planted_path = f"s{FW_PLANTED_DOC_COMMIT}/{planted_doc}.txt"
+    emb = TpuEmbedder(dimension=DIM, n_layers=6, n_heads=6, max_length=128, vocab_size=32768, seed=SEED,
+                      dtype=torch.bfloat16)
+
+    # the direct path on the same documents: the embedder's encode + IvfKnnIndex.add
+    torch.cuda.synchronize()
+    t0 = _now()
+    direct_vecs = emb.func(np.array(docs, dtype=object))
+    direct = IvfKnnIndex(DIM, metric="cos")
+    direct.add(keys_for(N_DOCS), direct_vecs)
+    torch.cuda.synchronize()
+    direct_s = _now() - t0
+    del direct, direct_vecs
+
+    driver = _FrameworkDriver()
+    schema = pw.schema_from_types(data=str, _metadata=dict)
+    static = pw.debug.table_from_rows(schema, [(t, {"path": f"d{i % 16}/{i}.txt"}) for i, t in enumerate(docs)])
+    doc_subject, doc_q = _queue_subject(pw, "docs", driver)
+    streamed = pw.io.python.read(doc_subject, schema=schema, atomic_batches=True, name="stream_docs")
+    query_subject, query_q = _queue_subject(pw, "queries", driver)
+    queries = pw.io.python.read(query_subject, schema=DocumentStore.RetrieveQuerySchema, atomic_batches=True,
+                                name="queries")
+    sq_subject, sq_q = _queue_subject(pw, "stream_queries", driver)
+    stream_queries = pw.io.python.read(sq_subject, schema=pw.schema_from_types(query=str), atomic_batches=True,
+                                       name="stream_queries")
+    # both stores over the same tables: their operators see the same deltas,
+    # so the embedder packs the same batches and both index the same vectors
+    exact_store = DocumentStore(
+        [static, streamed],
+        retriever_factory=pw.stdlib.indexing.BruteForceKnnFactory(
+            dimension=DIM, embedder=emb, reserved_space=N_DOCS + FW_STREAM_COMMITS * FW_STREAM_DOCS),
+        splitter=None,
+    )
+    ivf_store = DocumentStore(
+        [static, streamed],
+        retriever_factory=pw.stdlib.indexing.IvfKnnFactory(dimension=DIM, embedder=emb, n_probe=1 << 30),
+        splitter=None,
+    )
+    arms = {"exact": exact_store.retrieve_query(queries), "ivf": ivf_store.retrieve_query(queries)}
+    chunks = ivf_store.parsed_docs
+    for name, query in (("retracting", ivf_store.index.query), ("as_of_now", ivf_store.index.query_as_of_now)):
+        res = query(stream_queries.query, number_of_matches=K)
+        arms[name] = res.select(query=stream_queries.query, metas=chunks.metadata, scores=res.score)
+    for name, table in arms.items():
+        pw.io.subscribe(table, on_change=driver.on_change(name), on_time_end=driver.on_tick)
+    ops = _framework_ops(pw)
+    if len(ops) != 4:
+        raise AssertionError(f"phase 19: {len(ops)} index operators, expected 4")
+    inner = {name: op.index.inner for name, op in zip(("exact", "ivf", "retracting", "as_of_now"), ops)}
+    index = {name: i.index for name, i in inner.items()}
+    added = {name: [] for name in inner}  # (perf_counter, rows after) per add
+    searches = {"exact": [], "ivf": []}  # (query vectors, k, replies) per unfiltered search
+    oversampled = {"exact": 0, "ivf": 0}
+
+    def record_adds(name):
+        orig = inner[name].add
+
+        def add(keys, values, metadatas):
+            orig(keys, values, metadatas)
+            with driver.cond:
+                added[name].append((_now(), len(index[name])))
+                driver.cond.notify_all()
+
+        inner[name].add = add
+
+    def record_searches(name):
+        orig, orig_over = inner[name].search, index[name].search_oversampled
+
+        def search(values, k, filters):
+            out = orig(values, k, filters)
+            if all(f is None for f in filters):
+                searches[name].append((np.stack([np.asarray(v, np.float32) for v in values]), k, out))
+            return out
+
+        def search_oversampled(*args, **kwargs):
+            oversampled[name] += 1
+            return orig_over(*args, **kwargs)
+
+        inner[name].search = search
+        index[name].search_oversampled = search_oversampled
+
+    for name in inner:
+        record_adds(name)
+    for name in searches:
+        record_searches(name)
+
+    def rows_in(name):
+        return added[name][-1][1] if added[name] else 0
+
+    def answered(arm):
+        return len(driver.answers.get(arm, {}))
+
+    report = {}
+    # the check's direct searches run on a stream of their own, so that
+    # the busy share can leave their kernels out; their rescore launches
+    # are taken off the framework's count (the engine is idle meanwhile:
+    # the next commit is put after the check)
+    check_stream = torch.cuda.Stream(dev)
+    check = {"launches": 0, "s": 0.0}
+
+    def direct_search(name, vecs, k):
+        t0, before = _now(), rescore_shortlist.launches
+        check_stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(check_stream):
+            if check["s"] == 0.0:
+                torch.cuda._sleep(1)  # marks the stream among the traced kernels
+            out = index[name].search(vecs, k)
+        check_stream.synchronize()
+        check["launches"] += rescore_shortlist.launches - before
+        check["s"] += _now() - t0
+        return out
+
+    def drive():
+        t_run = report["t_run"]
+        driver.wait(lambda: all(rows_in(n) >= N_DOCS for n in inner), "the static documents")
+        report["ingest_s"] = max(added[n][0][0] for n in inner) - t_run
+        # (a) 4 retrieve commits of 64, then a commit of 64 under filepath_globpattern d3/*
+        latencies = []
+        for c in range(FW_COMMITS + 1):
+            texts = [docs[j] for j in qidx[c * BATCH : (c + 1) * BATCH]]
+            glob = "d3/*" if c == FW_COMMITS else None
+            n_before = {name: len(v) for name, v in searches.items()}
+            query_q.put([{"query": t, "k": K, "metadata_filter": None, "filepath_globpattern": glob} for t in texts])
+            want = (c + 1) * BATCH
+            driver.wait(lambda: answered("exact") >= want and answered("ivf") >= want
+                        and len(driver.commit_at.get("queries", ())) > c, f"retrieve commit {c}")
+            t_commit = driver.commit_at["queries"][c]
+            last = max(t for arm in ("exact", "ivf") for t, _k, _d in driver.arrival[arm])
+            if glob is None:
+                latencies.append((last - t_commit) * 1e3)
+                # the framework's answers == a direct search of the operator's own index
+                for name in ("exact", "ivf"):
+                    if len(searches[name]) != n_before[name] + 1:
+                        raise AssertionError(f"phase 19: {name} searched {len(searches[name]) - n_before[name]} times")
+                    vecs, k, got = searches[name][-1]
+                    want_rows = direct_search(name, vecs, k)
+                    if [list(r) for r in got] != [list(r) for r in want_rows]:
+                        raise AssertionError(f"phase 19: the {name} store's answers differ from its index's search")
+        report["retrieve_ms"] = latencies
+        # (b) 8 document commits of 1,024, each after a query commit of 64
+        stream_ms = []
+        for c in range(FW_STREAM_COMMITS):
+            texts = [docs[j] for j in qidx[(FW_COMMITS + 1 + c) * BATCH : (FW_COMMITS + 2 + c) * BATCH]]
+            if c == FW_PLANTED_QUERY_COMMIT:
+                texts[0] = stream_docs[planted_doc]
+            sq_q.put([{"query": t} for t in texts])
+            want = (c + 1) * BATCH
+            driver.wait(lambda: answered("retracting") >= want and answered("as_of_now") >= want,
+                        f"stream query commit {c}")
+            lo = c * FW_STREAM_DOCS
+            doc_q.put([
+                {"data": stream_docs[i], "_metadata": {"path": f"s{i // FW_STREAM_DOCS}/{i}.txt"}}
+                for i in range(lo, lo + FW_STREAM_DOCS)
+            ])
+            rows = N_DOCS + (c + 1) * FW_STREAM_DOCS
+            driver.wait(lambda: all(rows_in(n) >= rows for n in inner)
+                        and len(driver.commit_at.get("docs", ())) > c, f"document commit {c}")
+            t_commit = driver.commit_at["docs"][c]
+            stream_ms.append((added["ivf"][-1][0] - t_commit) * 1e3)
+        report["stream_ms"] = stream_ms
+
+    def run_driver():
+        try:
+            drive()
+        except BaseException as exc:  # noqa: BLE001 - re-raised on the main thread after the run
+            report["error"] = exc
+        finally:
+            for q in (query_q, sq_q, doc_q):
+                q.put(None)
+
+    rescore_shortlist.launches = 0
+    thread = threading.Thread(target=run_driver, daemon=True, name="phase19-driver")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        report["t_run"] = _now()
+        thread.start()
+        try:
+            pw.run(commit_duration_ms=FW_COMMIT_MS)
+        finally:
+            driver.stop = True
+            thread.join(timeout=60)
+        torch.cuda.synchronize()
+        wall_ms = (_now() - report["t_run"]) * 1e3
+    launches = rescore_shortlist.launches - check["launches"]
+    if "error" in report:
+        raise report["error"]
+    if launches == 0:
+        raise AssertionError("phase 19: the framework's IVF path launched no rescore kernel")
+
+    # -- checks --------------------------------------------------------------
+    for name in ("exact", "ivf", "retracting", "as_of_now"):
+        t = index[name]._mats[0] if name == "exact" else index[name]._slabs
+        if t.device.type != dev.type:
+            raise AssertionError(f"phase 19: the {name} index lives on {t.device}")
+    q_keys, q_cols = queries._materialize()
+    text_of = {int(k): q_cols["query"][i] for i, k in enumerate(q_keys)}
+    glob_of = {int(k): q_cols["filepath_globpattern"][i] for i, k in enumerate(q_keys)}
+    results = {}
+    for arm in ("exact", "ivf"):
+        keys_, cols = arms[arm]._materialize()
+        results[arm] = {int(k): list(cols["result"][i]) for i, k in enumerate(keys_)}
+    doc_of_text = {docs[j]: j for j in qidx[: (FW_COMMITS + 1) * BATCH]}
+    plain = [qk for qk in text_of if glob_of[qk] is None]
+    globbed = [qk for qk in text_of if glob_of[qk] is not None]
+    if len(plain) != FW_COMMITS * BATCH or len(globbed) != BATCH:
+        raise AssertionError(f"phase 19: {len(plain)} + {len(globbed)} queries answered")
+    self_first = sum(
+        1 for qk in plain
+        if results["exact"][qk] and results["exact"][qk][0]["metadata"]["path"].endswith(f"/{doc_of_text[text_of[qk]]}.txt")
+    )
+    first_commit = [qk for qk in plain if doc_of_text[text_of[qk]] in set(qidx[:BATCH])]
+    first_ok = all(
+        results["exact"][qk][0]["metadata"]["path"].endswith(f"/{doc_of_text[text_of[qk]]}.txt") for qk in first_commit
+    )
+    mismatched = sum(
+        1 for qk in plain
+        if len(results["ivf"][qk]) != K or not same_ranking(_fw_rows(results["exact"][qk]), _fw_rows(results["ivf"][qk]))
+    )
+    glob_bad = sum(
+        1 for qk in globbed
+        if any(len(results[arm][qk]) != K or not all(r["metadata"]["path"].startswith("d3/") for r in results[arm][qk])
+               for arm in ("exact", "ivf"))
+    )
+    C = index["ivf"]._centroids.shape[0]
+    log(
+        f"framework (a) {tag}: {FW_COMMITS} commits of {BATCH} queries (phase 5's texts, k={K}) into an exact and "
+        f"an IVF DocumentStore sharing one TpuEmbedder: exact self-first {self_first}/{len(plain)} (the "
+        f"{len(first_commit)} of the first commit all first: {first_ok}); IVF at full probe "
+        f"(n_probe={index['ivf'].probe_count()} of C={C}) == exact rank by rank on {len(plain) - mismatched}/"
+        f"{len(plain)}; a commit of {BATCH} under filepath_globpattern d3/*: {BATCH - glob_bad}/{BATCH} answered "
+        f"with {K} d3/ paths only in both stores (search_oversampled calls: exact {oversampled['exact']}, IVF "
+        f"{oversampled['ivf']}); each commit's answers == a direct search of the operator's own index; "
+        f"index tensors on cuda"
+    )
+    if not first_ok or mismatched or glob_bad or not all(oversampled.values()):
+        raise AssertionError("phase 19 (a): a retrieval check failed")
+
+    retract_events = driver.answers["retracting"]
+    asof_events = driver.answers["as_of_now"]
+    planted_q = [qk for qk, ev in asof_events.items() if ev[0][1]["query"] == stream_docs[planted_doc]]
+    if len(planted_q) != 1:
+        raise AssertionError(f"phase 19 (b): {len(planted_q)} planted queries answered")
+    pq = planted_q[0]
+    ev = retract_events[pq]
+    retracted = [e for e in ev if e[2] < 0]
+    reemitted = [e for e in ev[1:] if e[2] > 0 and e[1]["metas"] and e[1]["metas"][0]["path"] == planted_path]
+    before_first = ev[0][1]["metas"] and ev[0][1]["metas"][0]["path"] == planted_path
+    asof_neg = sum(1 for evs in asof_events.values() for e in evs if e[2] < 0)
+    asof_planted = any(m["path"] == planted_path for e in asof_events[pq] for m in e[1]["metas"])
+    retract_total = sum(1 for evs in retract_events.values() for e in evs if e[2] < 0)
+    t_planted = driver.commit_at["docs"][FW_PLANTED_DOC_COMMIT]
+    seen = [t for t, k, d in driver.arrival["retracting"] if k == pq and d > 0 and t > t_planted]
+    planted_ms = (seen[0] - t_planted) * 1e3 if seen else float("nan")
+    log(
+        f"framework (b) {tag}: {FW_STREAM_COMMITS} commits of {FW_STREAM_DOCS} documents into the IVF store between "
+        f"{FW_STREAM_COMMITS} query commits of {BATCH}; the planted query (commit {FW_PLANTED_QUERY_COMMIT}) found "
+        f"its document (commit {FW_PLANTED_DOC_COMMIT}): retracting arm {len(retracted)} retraction(s) and "
+        f"{len(reemitted)} re-emission(s) with it first ({retract_total} retractions over all queries), "
+        f"as-of-now arm {asof_neg} retractions, planted document in its answer: {asof_planted}; "
+        f"commit-to-retrievable p50 {np.percentile(report['stream_ms'], 50):.3f} ms max "
+        f"{max(report['stream_ms']):.3f} ms over {FW_STREAM_COMMITS} commits (document subject commit to the add "
+        f"returning in the IVF store's operator), planted query re-emitted {planted_ms:.3f} ms after its commit"
+    )
+    if before_first or not retracted or not reemitted or not seen or asof_neg or asof_planted:
+        raise AssertionError("phase 19 (b): the retracting / as-of-now contract failed")
+
+    # -- (c) the rescore kernel at the framework's shape ----------------------
+    vecs = searches["ivf"][0][0]
+    shape = rescore_at_path_shape(index["ivf"], ivf_search_rescore_args(index["ivf"], vecs), dev)
+    log(f"ivf_rescore at the framework's shape {tag}: " + rescore_line(index["ivf"], shape)
+        + f"; launches in phase 19 {launches} through the framework (the check's direct searches "
+        f"launched {check['launches']} more, not counted)")
+
+    ingest_docs = 4 * N_DOCS
+    lat = report["retrieve_ms"]
+    log(
+        f"framework numbers {tag}: engine ingest of the {N_DOCS} static documents into 4 indexes (parse + "
+        f"embed + add through the engine, run start to the last first add) {report['ingest_s']:.3f} s = "
+        f"{ingest_docs / report['ingest_s']:.0f} docs/s over the 4; direct TpuEmbedder encode + "
+        f"IvfKnnIndex.add {direct_s:.3f} s = {N_DOCS / direct_s:.0f} docs/s; the engine takes "
+        f"{report['ingest_s'] / (4 * direct_s):.2f}x the time of 4 direct encode + add calls (the same work); "
+        f"retrieve per commit of {BATCH} queries (both stores, subject commit to the last answer, tick "
+        f"{FW_COMMIT_MS} ms): first {lat[0]:.3f} ms (it holds the IVF's first build), then p50 "
+        f"{np.percentile(lat[1:], 50):.3f} ms max {max(lat[1:]):.3f} ms over the {len(lat) - 1} after it; phase "
+        f"5's direct serve p50 exact "
+        f"{direct_p50['exact']:.3f} ms IVF {direct_p50['ivf']:.3f} ms (1M rows); "
+        + framework_busy(prof, wall_ms, check)
+        + (f"; peak allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB" if dev.type == "cuda" else "")
+        + f"; phase 19 {_now() - t_phase:.1f} s"
+    )
+    top = sorted(pw.G.engine_graph.operators, key=lambda o: -o.process_ns)[:8]
+    log(f"framework engine operators by host seconds in process() {tag}: "
+        + ", ".join(f"{o.name}#{o.id} {o.process_ns / 1e9:.3f} s ({o.rows_in} rows in)" for o in top))
+    pw.reset()
+    return launches, shape
 
 
 def main() -> int:
@@ -4851,6 +5308,36 @@ def main() -> int:
         log(f"build, phase 4's rows and the cascade {time.perf_counter() - t0:.1f} s")
         launches = fabric_phase(encoder, exact, FusedEncodeSearch(encoder, exact, k=K), cascade, docs, doc_vecs, keys,
                                 serve_batches(docs), f"[{smi}]")[0]
+        log(f"rescore launches {launches}; shape census: {tripwire_census()}")
+        return 0
+    if sys.argv[1:] == ["--framework"]:
+        from pathway_tpu_torch.kernels.build import build_host
+        from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+        from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        ).stdout.strip()
+        log(f"card: {smi}")
+        t0 = time.perf_counter()
+        build_all()
+        build_host("tokenize_hash")
+        encoder, docs, doc_vecs, keys, exact = main_rows(f"[{smi}]")
+        ivf = IvfKnnIndex(DIM, metric="cos")
+        ivf.build_from_matrix(keys, exact._matrix[:N_ROWS])
+        log(f"build and phase 4's rows {time.perf_counter() - t0:.1f} s")
+        p50 = {}
+        for name, index in (("exact", exact), ("ivf", ivf)):
+            serve = FusedEncodeSearch(encoder, index, k=K)
+            lat = []
+            for texts in serve_batches(docs)[:30]:
+                t = time.perf_counter()
+                serve(texts)
+                lat.append((time.perf_counter() - t) * 1e3)
+            p50[name] = float(np.percentile(lat, 50))
+        log(f"direct serve p50 over 30 batches of {BATCH}: exact {p50['exact']:.3f} ms, IVF {p50['ivf']:.3f} ms")
+        del ivf, exact
+        launches = framework_phase(p50, f"[{smi}]")[0]
         log(f"rescore launches {launches}; shape census: {tripwire_census()}")
         return 0
     if sys.argv[1:] == ["--distributed"]:
@@ -5159,6 +5646,10 @@ def main() -> int:
     # -- 18. the serve fabric: a replica group, then partitions, counted --
     sf_launches, sf_kernel = fabric_phase(encoder, exact, serve_exact, cascade, docs, doc_vecs, keys, batches, tag)
     worst_err = max(worst_err, sf_kernel["max_abs_err"])
+
+    # -- 19. the framework: DocumentStore retrieval through the engine, counted --
+    fw_launches, fw_kernel = framework_phase({"exact": pct["exact"][0], "ivf": pct["ivf"][0]}, tag)
+    worst_err = max(worst_err, fw_kernel["max_abs_err"])
     log(f"shape census: {tripwire_census()}")
 
     record = {
@@ -5169,12 +5660,12 @@ def main() -> int:
                 "source": "pathway_tpu_torch/csrc/ivf_rescore.cu",
                 "replaces": "pathway_tpu/ops/ivf_pallas.py:37",
                 "launches": launches + rr_launches + sched_launches + li_launches + ws_launches + st_launches
-                + po_launches + sum(rw_launches.values()) + ss_launches + sf_launches,
+                + po_launches + sum(rw_launches.values()) + ss_launches + sf_launches + fw_launches,
                 "launches_by_path": {
                     "serve": launches, "rerank": rr_launches, "scheduler": sched_launches,
                     "ingest": li_launches, "warmstate": ws_launches, "tuning": st_launches,
                     "profiling": po_launches, "real_weights": rw_launches, "sharded": ss_launches,
-                    "fabric": sf_launches,
+                    "fabric": sf_launches, "framework": fw_launches,
                 },
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,
@@ -5201,6 +5692,7 @@ def main() -> int:
                 "clip_search_shape": {key: clip_kernel[key] for key in _SHAPE_KEYS},
                 "sharded_shard_shape": {key: ss_kernel[key] for key in _SHAPE_KEYS},
                 "partition_shape": {key: sf_kernel[key] for key in _SHAPE_KEYS},
+                "framework_shape": {key: fw_kernel[key] for key in _SHAPE_KEYS},
             },
             *decode_kernels,
         ]

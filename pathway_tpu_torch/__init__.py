@@ -1,27 +1,275 @@
-"""PyTorch/CUDA port of the pathway_tpu retrieval serve path.
+"""PyTorch/CUDA port of pathway_tpu: ``import pathway_tpu_torch as pw``.
 
 The JAX package ``pathway_tpu`` is the reference; this package mirrors
-its module layout (``models/``, ``ops/``) so each counterpart is easy to
-find, and never imports it.  Entry points run on the CUDA device unless
-the caller passes ``device="cpu"`` explicitly (see ``device.py``).
+its module layout so each counterpart is easy to find, and never imports
+it.  Entry points that touch the device run on the CUDA device unless the
+caller passes ``device="cpu"`` explicitly (see ``device.py``).
 
-Slices covered: host tokenizer -> ``TransformerEncoder`` forward + masked
-mean pool + L2 normalize -> exact (``DeviceKnnIndex``) or IVF
-(``IvfKnnIndex``, with background absorb and retrain) stage-1 search ->
-packed int32 result, served through ``FusedEncodeSearch`` -> the rerank
-tier of ``RetrieveRerankPipeline``: MaxSim over the device-resident
-``index.ForwardIndex`` and/or the packed ``models.cross_encoder`` -> the
-serve front ``serve.ServeScheduler`` (coalescing, the ``cache/`` result
-and embedding tiers, the ``robust/`` retry, breaker and fault-injection
-layer, the ``observe/`` recorder, traces and SLO shedding, and the knob
-table ``config.py``); and generator decode: ``models.generator.TextGenerator``
-(KV-cache and legacy decode, the ``cache.PrefixKVCache`` tier) under
-``serve.ContinuousDecoder`` (slot pool, speculative rounds, int8 K/V).
-The IVF shortlist rescore is a hand-written CUDA kernel
-(``csrc/ivf_rescore.cu``); the decode path's LayerNorm and readout are
-port-side CUDA kernels (``csrc/decode_rows.cu``).
+The ``pw`` namespace: the table and expression API (``internals/``), the
+incremental engine (``engine/``), ``debug``, ``io.python`` and
+``io.subscribe``, ``stdlib.indexing`` (``DataIndex`` over the device KNN
+indexes) and ``xpacks.llm`` (``DocumentStore`` retrieval through
+``TpuEmbedder``).  Names of the reference's namespace whose modules are
+later slices (``sql``, ``iterate``, the temporal stdlib, export/import,
+interactive mode, the YAML loader) raise ``NotImplementedError`` naming
+the slice in ``ROADMAP.md``.
+
+Device modules below the framework: host tokenizer -> ``TransformerEncoder``
+forward + masked mean pool + L2 normalize -> exact (``DeviceKnnIndex``)
+or IVF (``IvfKnnIndex``, with background absorb and retrain) stage-1
+search, the rerank tier, the serve front (``serve.ServeScheduler``),
+generator decode, sharded serving and the serve fabric.  The IVF shortlist
+rescore is a hand-written CUDA kernel (``csrc/ivf_rescore.cu``); the
+decode path's LayerNorm and readout are port-side CUDA kernels
+(``csrc/decode_rows.cu``).
 """
 
-from .device import DEFAULT_DTYPE, resolve_device
+from __future__ import annotations
 
-__all__ = ["DEFAULT_DTYPE", "resolve_device"]
+import datetime as _datetime
+
+from .device import DEFAULT_DTYPE, resolve_device
+from .internals import dtype as dt
+from .internals import api_reducers as reducers
+from .internals.api_reducers import BaseCustomAccumulator
+from .internals.expression import (
+    ApplyExpression,
+    AsyncApplyExpression,
+    CoalesceExpression,
+    ColumnExpression,
+    ColumnReference,
+    IfElseExpression,
+    MakeTupleExpression,
+    RequireExpression,
+)
+from .internals.keys import Pointer, ref_scalar
+from .internals.monitoring import MonitoringLevel
+from .internals.parse_graph import G
+from .internals.py_object_wrapper import PyObjectWrapper, wrap_py_object
+from .internals.run import run, run_all
+from .internals.schema import (
+    ColumnDefinition,
+    Schema,
+    SchemaProperties,
+    column_definition,
+    schema_builder,
+    schema_from_csv,
+    schema_from_dict,
+    schema_from_types,
+)
+from .internals.table import (
+    GroupedJoinResult,
+    GroupedTable,
+    Joinable,
+    JoinMode,
+    JoinResult,
+    Table,
+    TableLike,
+    TableSlice,
+)
+from .internals.thisclass import left, right, this
+from .internals.universe import Universe
+from .internals import udfs
+from .internals.udfs import UDF, udf, udf_async
+from . import debug  # noqa: E402
+from . import io  # noqa: E402
+from . import universes  # noqa: E402
+
+__all__ = [
+    "DEFAULT_DTYPE",
+    "resolve_device",
+    "Schema",
+    "Table",
+    "this",
+    "left",
+    "right",
+    "column_definition",
+    "schema_from_types",
+    "udf",
+    "UDF",
+    "reducers",
+    "run",
+    "debug",
+    "io",
+    "reset",
+]
+
+# deprecated aliases kept for reference compatibility
+UDFSync = UDF
+UDFAsync = UDF
+
+__version__ = "0.1.0"
+
+
+def reset() -> None:
+    """Clear the global computation graph (fresh build)."""
+    G.clear()
+    from .internals.error_log import clear_error_log, reset_local_sinks
+
+    clear_error_log()
+    reset_local_sinks()
+    from .internals.universe_solver import get_solver
+
+    get_solver().clear()
+
+
+def global_error_log() -> list:
+    """Row-level errors recorded this run (see internals/error_log.py)."""
+    from .internals.error_log import global_error_log as _gel
+
+    return _gel()
+
+
+def local_error_log():
+    """Context manager capturing errors raised while open."""
+    from .internals.error_log import local_error_log as _lel
+
+    return _lel()
+
+
+# ---------------------------------------------------------------------------
+# free functions of the pw.* namespace
+# ---------------------------------------------------------------------------
+
+def apply(fun, *args, **kwargs) -> ApplyExpression:
+    """Row-wise python function application (reference pw.apply)."""
+    return ApplyExpression(fun, None, args=args, kwargs=kwargs)
+
+
+def apply_with_type(fun, ret_type, *args, **kwargs) -> ApplyExpression:
+    return ApplyExpression(fun, ret_type, args=args, kwargs=kwargs)
+
+
+def apply_async(fun, *args, **kwargs) -> AsyncApplyExpression:
+    return AsyncApplyExpression(fun, None, args=args, kwargs=kwargs)
+
+
+def if_else(if_clause, then_clause, else_clause) -> IfElseExpression:
+    return IfElseExpression(if_clause, then_clause, else_clause)
+
+
+def coalesce(*args) -> CoalesceExpression:
+    return CoalesceExpression(*args)
+
+
+def require(val, *args) -> RequireExpression:
+    return RequireExpression(val, *args)
+
+
+def make_tuple(*args) -> MakeTupleExpression:
+    return MakeTupleExpression(*args)
+
+
+def cast(target_type, expr):
+    from .internals.expression import CastExpression
+
+    return CastExpression(expr, target_type)
+
+
+def declare_type(target_type, col):
+    """Retype a column in the schema only; values pass through unchanged."""
+    from .internals.expression import DeclareTypeExpression
+
+    return DeclareTypeExpression(col, target_type)
+
+
+def fill_error(col, replacement):
+    """Replace Error cells with ``replacement`` per row."""
+    from .internals.expression import FillErrorExpression
+
+    return FillErrorExpression(col, replacement)
+
+
+def join(left_table, right_table, *on, id=None, how=JoinMode.INNER) -> JoinResult:
+    return left_table.join(right_table, *on, id=id, how=how)
+
+
+def join_inner(left_table, right_table, *on, id=None) -> JoinResult:
+    return left_table.join_inner(right_table, *on, id=id)
+
+
+def join_left(left_table, right_table, *on, id=None) -> JoinResult:
+    return left_table.join_left(right_table, *on, id=id)
+
+
+def join_right(left_table, right_table, *on, id=None) -> JoinResult:
+    return left_table.join_right(right_table, *on, id=id)
+
+
+def join_outer(left_table, right_table, *on, id=None) -> JoinResult:
+    return left_table.join_outer(right_table, *on, id=id)
+
+
+def groupby(grouped, *args, **kwargs):
+    return grouped.groupby(*args, **kwargs)
+
+
+def unwrap(expr):
+    from .internals.expression import smart_coerce
+
+    return smart_coerce(expr)
+
+
+def assert_table_has_schema(table, schema, *, allow_superset=False) -> None:
+    th = table.typehints()
+    for name in schema.column_names():
+        if name not in th:
+            raise AssertionError(f"column {name} missing from table")
+    if not allow_superset:
+        extra = set(th) - set(schema.column_names())
+        if extra:
+            raise AssertionError(f"unexpected columns: {extra}")
+
+
+def table_transformer(fn=None, **kwargs):
+    """Decorator marking a Table->Table transformer (typing sugar)."""
+
+    def wrap(f):
+        return f
+
+    return wrap(fn) if fn is not None else wrap
+
+
+def _later_slice(name: str, slice_no: int, what: str):
+    def unported(*args, **kwargs):
+        raise NotImplementedError(
+            f"pw.{name} ({what}) is not ported yet: ROADMAP.md, framework slice {slice_no}"
+        )
+
+    unported.__name__ = name
+    return unported
+
+
+load_yaml = _later_slice("load_yaml", 1, "the YAML loader")
+sql = _later_slice("sql", 3, "internals/sql.py")
+iterate = _later_slice("iterate", 3, "internals/iterate.py")
+iterate_universe = _later_slice("iterate_universe", 3, "internals/iterate.py")
+windowby = _later_slice("windowby", 3, "the temporal stdlib")
+asof_join = _later_slice("asof_join", 3, "the temporal stdlib")
+interval_join = _later_slice("interval_join", 3, "the temporal stdlib")
+window_join = _later_slice("window_join", 3, "the temporal stdlib")
+export_table = _later_slice("export_table", 3, "internals/export_import.py")
+import_table = _later_slice("import_table", 3, "internals/export_import.py")
+enable_interactive_mode = _later_slice("enable_interactive_mode", 3, "internals/interactive.py")
+
+
+# stdlib and xpacks load lazily, so plain pipelines skip the model stack
+_LAZY_SUBMODULES = ("stdlib", "xpacks", "models", "ops", "parallel", "serve")
+
+
+def __getattr__(name: str):
+    if name in _LAZY_SUBMODULES:
+        import importlib
+
+        module = importlib.import_module(f".{name}", __name__)
+        globals()[name] = module
+        return module
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+Json = dt.JSON
+DateTimeNaive = _datetime.datetime
+DateTimeUtc = _datetime.datetime
+Duration = _datetime.timedelta
+Type = dt.PathwayType
+OuterJoinResult = JoinResult

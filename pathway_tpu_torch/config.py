@@ -301,6 +301,10 @@ _knob("ops.recompile_limit", "PATHWAY_RECOMPILE_LIMIT", "int", 128,
 _knob("ops.recompile_strict", "PATHWAY_RECOMPILE_STRICT", "bool", False,
       "recompile tripwire raises instead of warn-once", auto_pytest=True)
 
+# engine (internals/udfs.py DiskCache; internals/run.py refuses persistence)
+_knob("persistence.storage", "PATHWAY_PERSISTENT_STORAGE", "str", "",
+      "snapshot storage URI (empty = off)")
+
 
 def _warn_once(tag: str, msg: str, *args: Any) -> None:
     with _warned_lock:

@@ -1,5 +1,7 @@
-// Batch hashing tokenizer of the port, on the host (counterpart of the
-// reference's native/src/tokenizer.cc, bound by models/tokenizer.py).
+// Batch hashing tokenizer and row-key hash of the port, on the host
+// (counterparts of the reference's native/src/tokenizer.cc, bound by
+// models/tokenizer.py, and native/src/serialize.cc + hash.cc, bound by
+// internals/keys.py).
 //
 // One call tokenizes a whole ASCII batch, where the Python path pays a
 // regex scan, a .lower().encode() and a hash per word.  The ids are the
@@ -201,6 +203,61 @@ inline bool is_space(uint8_t c) {
 }
 inline uint8_t lower(uint8_t c) { return (c >= 'A' && c <= 'Z') ? (uint8_t)(c + 32) : c; }
 
+// Row-key serialization: the tagged format of internals/keys.py
+// _serialize_value, byte for byte, for typed columns.
+enum ColType : uint8_t {
+  COL_NONE = 0,
+  COL_BOOL = 1,
+  COL_INT64 = 2,
+  COL_FLOAT64 = 3,
+  COL_STR = 4,
+  COL_BYTES = 5,
+  COL_POINTER = 6,
+};
+
+inline int64_t cell_size(uint8_t type, const int64_t* offs, int64_t row) {
+  switch (type) {
+    case COL_BOOL:
+      return 2;
+    case COL_INT64:
+    case COL_FLOAT64:
+    case COL_POINTER:
+      return 9;
+    case COL_STR:
+    case COL_BYTES:
+      return 5 + (offs[row + 1] - offs[row]);
+    default:  // COL_NONE
+      return 1;
+  }
+}
+
+inline int64_t write_cell(uint8_t type, const void* data, const int64_t* offs, int64_t row, uint8_t* out) {
+  switch (type) {
+    case COL_BOOL:
+      out[0] = 0x01;
+      out[1] = ((const uint8_t*)data)[row] ? 0x01 : 0x00;
+      return 2;
+    case COL_INT64:
+    case COL_FLOAT64:  // the double's bits, as struct.pack("<d")
+    case COL_POINTER:
+      out[0] = type == COL_INT64 ? 0x02 : (type == COL_FLOAT64 ? 0x03 : 0x06);
+      std::memcpy(out + 1, (const uint8_t*)data + 8 * row, 8);
+      return 9;
+    case COL_STR:
+    case COL_BYTES: {
+      const int64_t n = offs[row + 1] - offs[row];
+      const uint32_t n32 = (uint32_t)n;
+      out[0] = type == COL_STR ? 0x04 : 0x05;
+      std::memcpy(out + 1, &n32, 4);
+      std::memcpy(out + 5, (const uint8_t*)data + offs[row], (size_t)n);
+      return 5 + n;
+    }
+    default:  // COL_NONE
+      out[0] = 0x00;
+      return 1;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -247,6 +304,40 @@ int32_t ptt_tokenize_hash(const uint8_t* blob, const int64_t* offsets, int64_t n
   }
   out_offsets[n_texts] = out_n;
   return 0;
+}
+
+// Serialize n_rows rows of n_cols typed columns (ColType above) into out,
+// row r in [row_offsets[r], row_offsets[r + 1]).  col_data[c] is the
+// column's 8-byte values (uint8 for COL_BOOL), or the blob of a str/bytes
+// column with col_offsets[c] its n_rows + 1 offsets; col_null[c], where
+// not null, flags cells that serialize as None.  Returns the bytes needed;
+// writes only when they fit in out_cap.
+int64_t ptt_serialize_rows(int64_t n_rows, int32_t n_cols, const uint8_t* col_types, const void* const* col_data,
+                           const int64_t* const* col_offsets, const uint8_t* const* col_null, uint8_t* out,
+                           int64_t out_cap, int64_t* row_offsets) {
+  int64_t total = 0;
+  for (int64_t r = 0; r < n_rows; ++r)
+    for (int32_t c = 0; c < n_cols; ++c)
+      total += (col_null[c] && col_null[c][r]) ? 1 : cell_size(col_types[c], col_offsets[c], r);
+  if (total > out_cap) return total;
+  int64_t pos = 0;
+  row_offsets[0] = 0;
+  for (int64_t r = 0; r < n_rows; ++r) {
+    for (int32_t c = 0; c < n_cols; ++c) {
+      if (col_null[c] && col_null[c][r])
+        out[pos++] = 0x00;
+      else
+        pos += write_cell(col_types[c], col_data[c], col_offsets[c], r, out + pos);
+    }
+    row_offsets[r + 1] = pos;
+  }
+  return total;
+}
+
+// XXH3-64 of each row slice [row_offsets[r], row_offsets[r + 1]) of buf.
+void ptt_hash_rows(const uint8_t* buf, const int64_t* row_offsets, int64_t n_rows, uint64_t* out) {
+  for (int64_t r = 0; r < n_rows; ++r)
+    out[r] = xxh3_64(buf + row_offsets[r], (size_t)(row_offsets[r + 1] - row_offsets[r]));
 }
 
 }  // extern "C"

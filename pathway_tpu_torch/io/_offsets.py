@@ -56,6 +56,7 @@ class ConnectorMonitor:
         self.name = name
         self._lock = threading.Lock()
         self.rows_inserted = 0
+        self.rows_deleted = 0
         self.commits = 0
         self.last_row_at: Optional[float] = None
         self.last_commit_at: Optional[float] = None
@@ -65,6 +66,11 @@ class ConnectorMonitor:
     def on_insert(self, n: int = 1) -> None:
         with self._lock:
             self.rows_inserted += n
+            self.last_row_at = time.time()
+
+    def on_delete(self, n: int = 1) -> None:
+        with self._lock:
+            self.rows_deleted += n
             self.last_row_at = time.time()
 
     def on_commit(self, offsets: Optional[OffsetAntichain] = None) -> None:
@@ -88,6 +94,7 @@ class ConnectorMonitor:
         return {
             "name": self.name,
             "rows_inserted": self.rows_inserted,
+            "rows_deleted": self.rows_deleted,
             "commits": self.commits,
             "lag_seconds": self.lag_seconds(),
             "last_commit_at": self.last_commit_at,

@@ -16,45 +16,17 @@ of the Python path are memoised in a bounded dict.
 
 from __future__ import annotations
 
-import ctypes
 import re
-import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..kernels.build import load_host
+from ..kernels.host import host_lib, native_xxh3_64
 from ._xxh3 import xxh3_64
 
 __all__ = ["HashTokenizer", "native_xxh3_64"]
 
 _WORD_RE = re.compile(r"[\w']+|[^\w\s]")
-
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
-
-
-def _native() -> ctypes.CDLL:
-    """The batch tokenizer's library, built and declared at first use."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = load_host("tokenize_hash")
-            lib.ptt_tokenize_hash.restype = ctypes.c_int32
-            lib.ptt_tokenize_hash.argtypes = [
-                ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-                ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            lib.ptt_xxh3_64.restype = ctypes.c_uint64
-            lib.ptt_xxh3_64.argtypes = [ctypes.c_char_p, ctypes.c_int64]
-            _lib = lib
-        return _lib
-
-
-def native_xxh3_64(data: bytes) -> int:
-    """XXH3-64 (seed 0) of ``data`` by the native library."""
-    return int(_native().ptt_xxh3_64(data, len(data)))
-
 
 def _tokenize_native(texts: Sequence[str], vocab_size: int, reserved: int) -> Tuple[np.ndarray, np.ndarray]:
     """Word ids of an ASCII batch, flat, and each text's ``[start, end)``
@@ -65,7 +37,7 @@ def _tokenize_native(texts: Sequence[str], vocab_size: int, reserved: int) -> Tu
     np.cumsum(np.fromiter(map(len, texts), dtype=np.int64, count=n), out=offsets[1:])
     ids = np.empty(max(1, len(blob)), dtype=np.int32)
     tok_off = np.empty(n + 1, dtype=np.int64)
-    rc = _native().ptt_tokenize_hash(
+    rc = host_lib().ptt_tokenize_hash(
         blob, offsets.ctypes.data, n, vocab_size, reserved, ids.ctypes.data, tok_off.ctypes.data
     )
     if rc != 0:

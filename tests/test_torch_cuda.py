@@ -11,7 +11,9 @@ BERT embedder and cross-encoder, CLIP) on the card against the CPU, and
 the sharded serve tier (8 logical shards against 1 through the rescore
 kernel, the mesh-sharded exact index, the sharded forward table), ring
 attention against dense, and the encoder over 8 logical shards against
-one.
+one; and the framework on the card: a batched UDF returning a CUDA tensor
+through the engine, and the default ``DocumentStore`` (``TpuKnnFactory``
+over ``TpuEmbedder()``) with an IVF store beside it through the kernel.
 They skip
 without a card.  This file imports neither JAX nor the reference, so on
 a machine without JAX it runs as
@@ -701,3 +703,75 @@ def test_cuda_mesh_encoder_equals_unsharded():
     sharded = SentenceEncoder(mesh=make_mesh(8, 1, devices=[dev] * 8), **kw).encode(texts)
     plain = SentenceEncoder(**kw).encode(texts)
     np.testing.assert_allclose(sharded, plain, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_batched_udf_tensor_comes_to_host():
+    """A batched UDF may return a CUDA tensor: the engine brings it to
+    host (``np.asarray`` of a CUDA tensor fails)."""
+    dev = _cuda()
+    import pathway_tpu_torch as pw
+
+    pw.reset()
+
+    @pw.udf(batched=True)
+    def vec(v):
+        return torch.ones(len(v), 3, device=dev) * torch.as_tensor(np.asarray(v, np.float32), device=dev)[:, None]
+
+    t = pw.debug.table_from_rows(pw.schema_from_types(x=float), [(float(i),) for i in range(5)])
+    out = t.select(y=vec(pw.this.x))
+    pw.run()
+    _keys, cols = out._materialize()
+    assert sorted(c.tolist() for c in cols["y"]) == [[float(i)] * 3 for i in range(5)]
+    pw.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_document_store_default_and_ivf_on_the_card():
+    """The default store (``TpuKnnFactory(embedder=TpuEmbedder())``) and an
+    IVF store at full probe run on the card: each document's own text puts
+    it first, the index tensors are on ``cuda``, the IVF store launches the
+    rescore kernel, and its answers equal the exact store's."""
+    dev = _cuda()
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.operators.external_index import ExternalIndexOperator
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import TpuEmbedder
+
+    pw.reset()
+    rng = np.random.default_rng(0)
+    words = "stream join window index vector query tensor kernel shard replica commit".split()
+    texts = [" ".join(rng.choice(words, size=12)) + f" doc{i}" for i in range(512)]
+    docs = pw.debug.table_from_rows(
+        pw.schema_from_types(data=str, _metadata=dict), [(t, {"path": f"{i}.txt"}) for i, t in enumerate(texts)]
+    )
+    default = DocumentStore(docs)
+    emb = TpuEmbedder(dimension=64, n_layers=2, n_heads=4, max_length=32, vocab_size=4096)
+    ivf = DocumentStore(docs, retriever_factory=pw.stdlib.indexing.IvfKnnFactory(
+        dimension=64, embedder=emb, n_probe=1 << 30), splitter=None)
+    exact = DocumentStore(docs, retriever_factory=pw.stdlib.indexing.BruteForceKnnFactory(
+        dimension=64, embedder=emb), splitter=None)
+    queries = pw.debug.table_from_rows(DocumentStore.RetrieveQuerySchema, [(texts[i], 3, None, None) for i in range(0, 512, 16)])
+    outs = [store.retrieve_query(queries) for store in (default, ivf, exact)]
+    before = rescore_shortlist.launches
+    pw.run()
+    assert rescore_shortlist.launches > before
+    for op in pw.G.engine_graph.operators:
+        if isinstance(op, ExternalIndexOperator):
+            index = op.index.inner.index
+            tensor = index._slabs if hasattr(index, "_slabs") else index._mats[0]
+            assert tensor.device.type == "cuda"
+    results = []
+    for out in outs:
+        keys, cols = out._materialize()
+        results.append({int(k): cols["result"][i] for i, k in enumerate(keys)})
+    q_keys, q_cols = queries._materialize()
+    for i, qk in enumerate(q_keys):
+        want = f"{texts.index(q_cols['query'][i])}.txt"
+        assert results[0][int(qk)][0]["metadata"]["path"] == want
+        assert results[2][int(qk)][0]["metadata"]["path"] == want
+        got_ivf = [(r["metadata"]["path"], r["dist"]) for r in results[1][int(qk)]]
+        got_exact = [(r["metadata"]["path"], r["dist"]) for r in results[2][int(qk)]]
+        assert [p for p, _ in got_ivf] == [p for p, _ in got_exact]
+        np.testing.assert_allclose([d for _, d in got_ivf], [d for _, d in got_exact], atol=1e-4)
+    pw.reset()

@@ -7,7 +7,7 @@ import pytest
 import xxhash
 
 from pathway_tpu.models.tokenizer import HashTokenizer as RefTokenizer
-from pathway_tpu_torch.kernels import build
+from pathway_tpu_torch.kernels import build, host
 from pathway_tpu_torch.models import tokenizer as port_tok
 from pathway_tpu_torch.models._xxh3 import xxh3_64
 from pathway_tpu_torch.models.tokenizer import HashTokenizer, native_xxh3_64
@@ -87,7 +87,7 @@ def test_pairs_non_ascii_and_empty_take_the_python_path(monkeypatch):
 def test_failed_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "_libs", {})
-    monkeypatch.setattr(port_tok, "_lib", None)
+    monkeypatch.setattr(host, "_lib", None)
     monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
     with pytest.raises(build.BuildError, match="not found"):
         HashTokenizer().encode_batch(["abc"])

@@ -183,7 +183,17 @@ def test_port_imports_no_jax_flax_or_reference():
         "cache/result.py",
         "cache/store.py",
         "config.py",
+        "debug/__init__.py",
+        "engine/delta.py",
+        "engine/executor.py",
+        "engine/graph.py",
+        "engine/operators/external_index.py",
         "index/forward.py",
+        "internals/keys.py",
+        "internals/run.py",
+        "internals/table.py",
+        "io/_connector.py",
+        "io/python/__init__.py",
         "io/_offsets.py",
         "kernels/build.py",
         "models/clip.py",
@@ -226,6 +236,10 @@ def test_port_imports_no_jax_flax_or_reference():
         "serve/scheduler.py",
         "serve/tuner.py",
         "serve/warmstate.py",
+        "stdlib/indexing/data_index.py",
+        "stdlib/indexing/nearest_neighbors.py",
+        "xpacks/llm/document_store.py",
+        "xpacks/llm/embedders.py",
     } <= names
     bad = [
         (str(f.relative_to(_ROOT)), name)
@@ -237,6 +251,24 @@ def test_port_imports_no_jax_flax_or_reference():
     # the port builds its own native code; it never loads the reference's library
     sources = files + sorted((_ROOT / "pathway_tpu_torch" / "csrc").rglob("*.c*"))
     assert [str(f) for f in sources if "libpathway_native" in f.read_text() or "native/build" in f.read_text()] == []
+
+
+@pytest.mark.parametrize(
+    "module", ["pathway_tpu_torch", "pathway_tpu_torch.xpacks.llm.document_store", "pathway_tpu_torch.stdlib.indexing"]
+)
+def test_framework_import_loads_no_jax_xxhash_or_pandas(module):
+    """The framework's entry modules, imported in a fresh interpreter, load
+    neither JAX, Flax nor the reference package, nor ``xxhash`` or
+    ``pandas`` (the card's machine has neither)."""
+    script = (
+        f"import sys, {module}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'pathway_tpu', 'xxhash', 'pandas'))\n"
+        "print('loaded', bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", script], cwd=_ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "loaded []"
 
 
 def test_port_import_leaves_reference_registries_unchanged():
