@@ -19,6 +19,7 @@ NVIDIA GPU:
                                            # and the cascade, then phase 18 alone
     python3 chip_smoke.py --framework      # the builds, phase 4's rows and the
                                            # direct serve p50s, then phase 19 alone
+    python3 chip_smoke.py --qa             # the same set-up, then phase 20 alone
     python3 chip_smoke.py --first-call ROOT...  # the profiler's first sampled
                                            # call, fresh processes, per root
 
@@ -311,9 +312,37 @@ Phases, in order; any failure exits non-zero:
    Printed: engine ingest docs/s against the embedder's encode +
    ``IvfKnnIndex.add`` called directly, retrieve ms per commit against
    phase 5's direct serve p50, commit-to-retrievable ms, the busy share.
+20. question answering and chat: (a) a ``BaseRAGQuestionAnswerer``
+   (``search_topk`` 6) behind ``QASummaryRestServer`` on 127.0.0.1, run by
+   ``pw.run`` on a thread at a 10 ms tick: phase 4's encoder as a
+   ``TpuEmbedder`` over an IVF ``DocumentStore`` of phase 4's 65,536
+   documents (full probe), ``CrossEncoderReranker`` over the default
+   ``CrossEncoderModel`` (24 candidates), ``TpuChat(continuous=True)`` over
+   the default ``TextGenerator`` (48 new tokens).  ``urllib`` callers ask
+   64 of phase 5's query documents: 16 answers at c1, 128 at c16 and a
+   profiled burst of 16, with ``return_context_docs``; 16
+   ``/v1/retrieve`` (k = 10), a summary of 4 texts, ``/v1/statistics``
+   and ``/v1/pw_list_documents``.  Checked: every route 200 with the
+   reference's JSON shape; each operator's searches == a direct search of
+   its index; each answer's context == the top 6 of
+   ``CrossEncoderModel.predict`` over its 24 candidates (stable order), and
+   its response == ``TextGenerator.generate`` of the chat's QA prompt
+   called directly (greedy); an unreadable body answered as ``{}``, a
+   failing body 500 JSON and the server still up, a GET on a POST route
+   405; every model and index on ``cuda``; the rescore, ``tied_readout`` and
+   ``add_layer_norm_rows`` launched in the window (the check's direct
+   calls run after it, on a stream of their own).  Printed: answer p50 /
+   p99 at c1 and c16, answers/s, ``/v1/retrieve`` p50, decode tokens/s,
+   the split of a c1 answer, the busy share, the launches, the rescore at
+   the QA path's shape.  (b) ``python -m pathway_tpu_torch.cli run`` of
+   ``templates/demo_question_answering.yaml`` (its five routes) and
+   ``adaptive_rag.yaml`` (an answer) on the card, as the reference's
+   template tests check them; without PyYAML the templates' objects are
+   built in Python and served through ``cli.serve_config`` in a
+   subprocess (``--serve-template NAME PORT``).
 
 Every shape-census tripwire runs strict from the start
-(``PATHWAY_RECOMPILE_STRICT=1``); after phase 19 none may have tripped.
+(``PATHWAY_RECOMPILE_STRICT=1``); after phase 20 none may have tripped.
 
 The card's name and power limit, then the JSON record of the kernels,
 then ``{"ok": true, "device": {...}}`` are the last three lines; the
@@ -5215,6 +5244,7 @@ def framework_phase(direct_p50: dict, tag: str):
 
     ingest_docs = 4 * N_DOCS
     lat = report["retrieve_ms"]
+    QA_NUMBERS["framework_retrieve_p50_ms"] = float(np.percentile(lat[1:], 50))  # beside phase 20's retrieve
     log(
         f"framework numbers {tag}: engine ingest of the {N_DOCS} static documents into 4 indexes (parse + "
         f"embed + add through the engine, run start to the last first add) {report['ingest_s']:.3f} s = "
@@ -5223,7 +5253,8 @@ def framework_phase(direct_p50: dict, tag: str):
         f"{report['ingest_s'] / (4 * direct_s):.2f}x the time of 4 direct encode + add calls (the same work); "
         f"retrieve per commit of {BATCH} queries (both stores, subject commit to the last answer, tick "
         f"{FW_COMMIT_MS} ms): first {lat[0]:.3f} ms (it holds the IVF's first build), then p50 "
-        f"{np.percentile(lat[1:], 50):.3f} ms max {max(lat[1:]):.3f} ms over the {len(lat) - 1} after it; phase "
+        f"{QA_NUMBERS['framework_retrieve_p50_ms']:.3f} ms max {max(lat[1:]):.3f} ms over the {len(lat) - 1} "
+        f"after it; phase "
         f"5's direct serve p50 exact "
         f"{direct_p50['exact']:.3f} ms IVF {direct_p50['ivf']:.3f} ms (1M rows); "
         + framework_busy(prof, wall_ms, check)
@@ -5237,12 +5268,533 @@ def framework_phase(direct_p50: dict, tag: str):
     return launches, shape
 
 
+# -- phase 20: question answering and chat -------------------------------------------
+QA_QUESTIONS = 64  # distinct questions: phase 5's first query documents
+QA_C1 = 16  # answers at c1, one caller
+QA_C16 = 128  # answers at c16
+QA_CALLERS = 16
+QA_RETRIEVES = 16  # /v1/retrieve calls, k = K
+QA_TOPK = 6  # search_topk; the reranker scores 4 x 6 = 24 candidates
+QA_NEW_TOKENS = 48
+QA_COMMIT_MS = 10  # the engine's commit tick while the phase runs
+QA_TIMEOUT_S = 300.0
+QA_TEMPLATE_WAIT_S = 240.0
+QA_TEMPLATES = ("demo_question_answering", "adaptive_rag")
+QA_NUMBERS: dict = {}  # phase 19's retrieve p50, read by phase 20
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(port: int, method: str, route: str, body=None, timeout: float = QA_TIMEOUT_S):
+    """(status, parsed JSON or text, t_send, t_recv) of one request through
+    ``urllib``, as a client of the REST surface sends it."""
+    import urllib.error
+    import urllib.request
+
+    data = body if body is None or isinstance(body, bytes) else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{route}", data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    t_send = _now()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, raw, ctype = resp.status, resp.read(), resp.headers.get("Content-Type", "")
+    except urllib.error.HTTPError as err:
+        status, raw, ctype = err.code, err.read(), err.headers.get("Content-Type", "")
+    t_recv = _now()
+    out = json.loads(raw) if ctype.startswith("application/json") else raw.decode(errors="replace")
+    return status, out, t_send, t_recv
+
+
+def _ok_json(status, out, route: str, shape) -> None:
+    if status != 200 or not shape(out):
+        raise AssertionError(f"phase 20: {route} answered {status}: {str(out)[:300]}")
+
+
+def _answer_shape(out) -> bool:
+    return (isinstance(out, dict) and set(out) == {"response", "context_docs"} and isinstance(out["response"], str)
+            and len(out["context_docs"]) == QA_TOPK
+            and all({"text", "metadata", "dist", "rerank_score"} <= set(d) for d in out["context_docs"]))
+
+
+def _retrieve_shape(out) -> bool:
+    return (isinstance(out, list) and len(out) == K and all({"text", "metadata", "dist"} <= set(d) for d in out)
+            and all(np.isfinite(d["dist"]) for d in out))
+
+
+def qa_phase(direct_p50: dict, tag: str):
+    """Phase 20 (a): a full-width RAG app behind the port's REST server,
+    answering through the engine.  Returns (launches by kernel, the
+    rescore at the QA path's shape)."""
+    import functools
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.run import terminate
+    from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
+    from pathway_tpu_torch.models.generator import TextGenerator
+    from pathway_tpu_torch.ops import decode_rows
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import TpuEmbedder
+    from pathway_tpu_torch.xpacks.llm.llms import TpuChat
+    from pathway_tpu_torch.xpacks.llm.llms import _messages_to_prompt as messages_to_prompt
+    from pathway_tpu_torch.xpacks.llm.prompts import prompt_qa
+    from pathway_tpu_torch.xpacks.llm.question_answering import BaseRAGQuestionAnswerer
+    from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker
+
+    t_phase = _now()
+    dev = torch.device(DEVICE)
+    pw.reset()
+    docs = corpus(N_DOCS)
+    questions = [docs[j] for j in query_ids()[:QA_QUESTIONS]]
+    emb = TpuEmbedder(dimension=DIM, n_layers=6, n_heads=6, max_length=128, vocab_size=32768, seed=SEED,
+                      dtype=torch.bfloat16)
+    table = pw.debug.table_from_rows(pw.schema_from_types(data=str, _metadata=dict),
+                                     [(t, {"path": f"d{i % 16}/{i}.txt"}) for i, t in enumerate(docs)])
+    store = DocumentStore(table, retriever_factory=pw.stdlib.indexing.IvfKnnFactory(
+        dimension=DIM, embedder=emb, n_probe=1 << 30), splitter=None)
+    ce = CrossEncoderModel()  # 256 wide, 4 layers, bf16
+    gen = TextGenerator()  # 256 wide, 4 layers, vocab 32,768, bf16
+    chat = TpuChat(generator=gen, max_new_tokens=QA_NEW_TOKENS, continuous=True)
+    rag = BaseRAGQuestionAnswerer(chat, store, search_topk=QA_TOPK, reranker=CrossEncoderReranker(cross_encoder=ce))
+
+    # the path's steps, timed where the engine calls them (host clock)
+    marks = {"insert": [], "search": [], "rerank": [], "decode": []}
+    reranked = []  # (question, the 24 candidates, the kept 6)
+    lock = threading.Lock()
+
+    def timed(kind, fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            t0 = _now()
+            out = fn(*args, **kwargs)
+            with lock:
+                marks[kind].append((t0, _now()))
+            return out
+
+        return wrapper
+
+    orig_rerank = rag._rerank_docs
+
+    def record_rerank(question, docs_in, keep=None, flags=None):
+        out = orig_rerank(question, docs_in, keep=keep, flags=flags)
+        with lock:
+            reranked.append((question, [dict(d) for d in docs_in], [dict(d) for d in out], list(flags or ())))
+        return out
+
+    rag._rerank_docs = record_rerank
+    ce.predict = timed("rerank", ce.predict)
+    chat.func = timed("decode", chat.func)
+    port = _free_port()
+    rag.build_server(host="127.0.0.1", port=port)
+    ops = _framework_ops(pw)
+    if len(ops) != 2:
+        raise AssertionError(f"phase 20: {len(ops)} index operators, expected 2 (answer, retrieve)")
+    searches = {"answer": [], "retrieve": []}  # (query texts, their vectors, k, replies) per unfiltered search
+    key_text = {"answer": {}, "retrieve": {}}  # each index's keys -> the text embedded under it
+    querying = threading.local()  # the texts of the search under way, read by the inner index's wrapper
+    for name, op in zip(("answer", "retrieve"), ops):
+        adapter, inner = op.index, op.index.inner
+
+        def add(keys, values, metadatas, _orig=adapter.add, _book=key_text[name]):
+            _book.update(zip((int(key) for key in keys), values))
+            return _orig(keys, values, metadatas)
+
+        def query(values, k, filters, _orig=adapter.search):
+            querying.texts = list(values)
+            return _orig(values, k, filters)
+
+        def search(vectors, k, filters, _orig=inner.search, _book=searches[name]):
+            out = _orig(vectors, k, filters)
+            if all(f is None for f in filters):
+                _book.append((querying.texts, np.stack([np.asarray(v, np.float32) for v in vectors]), k, out))
+            return out
+
+        adapter.add = add
+        adapter.search = timed("search", query) if name == "answer" else query
+        inner.search = search
+    index = {name: op.index.inner.index for name, op in zip(("answer", "retrieve"), ops)}
+    answer_subject = next(h.__self__ for r, _m, h, _d in rag.server.webserver._routes if r == "/v1/pw_ai_answer")
+
+    run_error = []
+
+    def serve():
+        try:
+            pw.run(commit_duration_ms=QA_COMMIT_MS, monitoring_level=None)
+        except BaseException as exc:  # noqa: BLE001 - re-raised on the main thread
+            run_error.append(exc)
+
+    thread = threading.Thread(target=serve, daemon=True, name="phase20-engine")
+    report = {}
+    try:
+        thread.start()
+        deadline = _now() + QA_TIMEOUT_S
+        while True:
+            if run_error or _now() > deadline:
+                raise AssertionError(f"phase 20: the server did not come up: {run_error[:1]}")
+            try:
+                if _http(port, "GET", "/_schema", timeout=5)[0] == 200 and answer_subject._writer is not None:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.05)
+        answer_subject._writer.insert = timed("insert", answer_subject._writer.insert)
+        # warm-up, not measured: the two IVF builds, the decode and rerank shapes
+        t0 = _now()
+        _ok_json(*_http(port, "POST", "/v1/pw_ai_answer", {"prompt": questions[-1], "return_context_docs": True})[:2],
+                 "/v1/pw_ai_answer", _answer_shape)
+        _ok_json(*_http(port, "POST", "/v1/retrieve", {"query": questions[-1], "k": K})[:2], "/v1/retrieve",
+                 _retrieve_shape)
+        report["warm_s"] = _now() - t0
+        ingest_s = t0 - t_phase
+
+        # -- the measured window: every kernel count from 0 --------------------
+        rescore_shortlist.launches = 0
+        decode_rows.tied_readout.launches = 0
+        decode_rows.add_layer_norm_rows.launches = 0
+        decode_rows.layer_norm_rows.launches = 0
+        for book in marks.values():
+            book.clear()
+        reranked.clear()
+        answers = []  # (question, status, out, t_send, t_recv, arm)
+
+        def ask(q, arm):
+            status, out, ts, tr = _http(port, "POST", "/v1/pw_ai_answer", {"prompt": q, "return_context_docs": True})
+            with lock:
+                answers.append((q, status, out, ts, tr, arm))
+            return status
+
+        t0 = _now()
+        for q in questions[:QA_C1]:
+            ask(q, "c1")
+        report["c1_wall"] = _now() - t0
+        c16_reqs = [questions[i % QA_QUESTIONS] for i in range(QA_C16)]
+        qps, c16_lat, _ = drive(lambda q: ask(q, "c16"), c16_reqs, QA_CALLERS)
+        # the busy share over one burst of c16 answers: reading a trace of
+        # the whole arm (~2M kernels) costs the profiler minutes
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = _now()
+            drive(lambda q: ask(q, "burst"), questions[:QA_CALLERS], QA_CALLERS)
+            torch.cuda.synchronize()
+            burst_wall_ms = (_now() - t0) * 1e3
+        t_prof = _now()
+        report["busy"] = device_busy(prof, burst_wall_ms)
+        report["profiler_s"] = _now() - t_prof
+        retrieves = []
+        for q in questions[QA_C1 : QA_C1 + QA_RETRIEVES]:
+            status, out, ts, tr = _http(port, "POST", "/v1/retrieve", {"query": q, "k": K})
+            _ok_json(status, out, "/v1/retrieve", _retrieve_shape)
+            retrieves.append((q, out, (tr - ts) * 1e3))
+        status, summary, _ts, _tr = _http(port, "POST", "/v1/pw_ai_summary", {"text_list": docs[:4]})
+        _ok_json(status, summary, "/v1/pw_ai_summary", lambda o: isinstance(o, str) and o.strip())
+        status, stats, _ts, _tr = _http(port, "POST", "/v1/statistics", {})
+        _ok_json(status, stats, "/v1/statistics", lambda o: isinstance(o, dict) and o.get("file_count") == N_DOCS)
+        status, listed, _ts, _tr = _http(port, "POST", "/v1/pw_list_documents", {})
+        _ok_json(status, listed, "/v1/pw_list_documents",
+                 lambda o: isinstance(o, list) and len(o) == N_DOCS and all("path" in d for d in o))
+        launches = {
+            "ivf_rescore": rescore_shortlist.launches,
+            "tied_readout": decode_rows.tied_readout.launches,
+            "add_layer_norm_rows": decode_rows.add_layer_norm_rows.launches + decode_rows.layer_norm_rows.launches,
+        }
+        # an unreadable body reads as {} (the reference's rule) and is answered;
+        # a value that fails inside the pipeline answers 500 JSON; the server
+        # stays up; a GET on a POST route is 405
+        garbage = _http(port, "POST", "/v1/pw_ai_summary", b"{not json")
+        failing = _http(port, "POST", "/v1/pw_ai_summary", {"text_list": 5})
+        after = _http(port, "POST", "/v1/statistics", {})
+        wrong = _http(port, "GET", "/v1/pw_ai_answer")
+        if (garbage[0] != 200 or failing[0] != 500 or not isinstance(failing[1], dict) or "error" not in failing[1]
+                or after[0] != 200 or after[1].get("file_count") != N_DOCS or wrong[0] != 405):
+            raise AssertionError(f"phase 20: error routes {garbage[:2]} {failing[:2]} {after[:2]} {wrong[0]}")
+    finally:
+        terminate()
+        thread.join(timeout=120)
+        chat._decoder.stop()
+    if run_error:
+        raise run_error[0]
+    if thread.is_alive():
+        raise AssertionError("phase 20: the engine did not stop")
+    if any(n <= 0 for n in launches.values()):
+        raise AssertionError(f"phase 20: a kernel of the QA path was not launched: {launches}")
+
+    # -- checks: every direct call on a stream of its own, after the window ------
+    for q, status, out, *_ in answers:
+        _ok_json(status, out, "/v1/pw_ai_answer", _answer_shape)
+    if len(answers) != QA_C1 + QA_C16 + QA_CALLERS or len(reranked) != len(answers):
+        raise AssertionError(f"phase 20: {len(answers)} answers, {len(reranked)} reranks")
+    for name, t in (("answer index", index["answer"]._slabs), ("retrieve index", index["retrieve"]._slabs),
+                    ("generator", next(gen.module.parameters())), ("cross-encoder", next(ce.module.parameters())),
+                    ("embedder", next(emb._encoder.module.parameters()))):
+        if t.device.type != dev.type:
+            raise AssertionError(f"phase 20: the {name} lives on {t.device}")
+    check_stream = torch.cuda.Stream(dev)
+    check_stream.wait_stream(torch.cuda.current_stream(dev))
+    solo = {}
+    check_s = {}
+    with torch.cuda.stream(check_stream), torch.no_grad():
+        t0 = _now()
+        # the direct path: the questions embedded by the app's embedder, each search
+        # row's vector tied to its own question, and the question's candidates
+        # read from the index's reply for that vector
+        direct = np.asarray(emb.func(np.array(questions, dtype=object)), np.float32)
+        candidates = {"answer": {}, "retrieve": {}}  # question -> the texts its searches returned
+        embed_err = 0.0
+        for name in ("answer", "retrieve"):
+            for texts, vecs, k, got in searches[name]:
+                want = index[name].search(vecs, k)
+                if [list(r) for r in got] != [list(r) for r in want]:
+                    raise AssertionError(f"phase 20: the {name} operator's search differs from its index's")
+                for text, vec, row in zip(texts, vecs, got):
+                    own = int(np.argmin(((direct - vec) ** 2).sum(axis=1)))
+                    if questions[own] != text:
+                        raise AssertionError(f"phase 20: the {name} operator searched a vector nearer another "
+                                             "question's embedding than its own")
+                    embed_err = max(embed_err, float(np.abs(direct[own] - vec).max()))
+                    candidates[name].setdefault(text, set()).add(
+                        tuple(key_text[name][int(key)] for key, _score in row))
+        for q, out, _ms in retrieves:
+            if tuple(d["text"] for d in out) not in {c[:K] for c in candidates["retrieve"].get(q, ())}:
+                raise AssertionError("phase 20: /v1/retrieve differs from the index's top k for its question")
+        check_s["searches"] = _now() - t0
+        t0 = _now()
+        by_question = {}
+        for q, docs_in, kept, flags in reranked:
+            if len(docs_in) != rag.rerank_candidates or flags:
+                raise AssertionError(f"phase 20: {len(docs_in)} candidates reranked, flags {flags}")
+            if tuple(d["text"] for d in docs_in) not in candidates["answer"].get(q, ()):
+                raise AssertionError("phase 20: a question's reranked candidates are not the index's top "
+                                     f"{rag.rerank_candidates} for its own embedding")
+            scores = np.asarray(ce.predict([(q, d["text"]) for d in docs_in]), np.float64)
+            order = np.argsort(-scores, kind="stable")[:QA_TOPK]
+            if [docs_in[int(j)]["text"] for j in order] != [d["text"] for d in kept]:
+                raise AssertionError("phase 20: the reranked context differs from the direct cross-encoder order")
+            by_question.setdefault(q, set()).add(tuple(d["text"] for d in kept))
+        check_s["reranks"] = _now() - t0
+        t0 = _now()
+        for q, _status, out, *_ in answers:
+            ctx = tuple(d["text"] for d in out["context_docs"])
+            if ctx not in by_question.get(q, ()):
+                raise AssertionError("phase 20: an answer's context_docs are not the reranked candidates")
+            if ctx not in solo:
+                # the chat renders the QA prompt as one user message
+                rendered = messages_to_prompt([{"role": "user", "content": prompt_qa(q, list(ctx))}])
+                solo[ctx] = gen.generate([rendered], max_new_tokens=QA_NEW_TOKENS)[0]
+            if out["response"] != solo[ctx]:
+                raise AssertionError(f"phase 20: an answer differs from the direct generate: {out['response'][:80]!r} "
+                                     f"vs {solo[ctx][:80]!r}")
+    check_stream.synchronize()
+    check_s["solo generates"] = _now() - t0
+
+    # -- the numbers ---------------------------------------------------------------
+    def window(kind, t0, t1):
+        return [m for m in marks[kind] if t0 <= m[0] and m[1] <= t1]
+
+    split = {"http_queue": [], "tick_wait": [], "embed_search": [], "rerank": [], "decode": [], "other": []}
+    for q, _status, _out, ts, tr, arm in answers:
+        if arm != "c1":
+            continue
+        ins, srch, rr, dec = (window(k, ts, tr) for k in ("insert", "search", "rerank", "decode"))
+        if len(ins) != 1 or len(srch) != 1 or len(rr) != 1 or len(dec) != 1:
+            raise AssertionError(f"phase 20: a c1 answer's steps: {len(ins)} {len(srch)} {len(rr)} {len(dec)}")
+        parts = {
+            "http_queue": (ins[0][0] - ts) + (tr - dec[0][1]),
+            "tick_wait": srch[0][0] - ins[0][1],
+            "embed_search": srch[0][1] - srch[0][0],
+            "rerank": rr[0][1] - rr[0][0],
+            "decode": dec[0][1] - dec[0][0],
+        }
+        parts["other"] = (tr - ts) - sum(parts.values())
+        for key, v in parts.items():
+            split[key].append(v * 1e3)
+    c1_lat = np.array([(tr - ts) * 1e3 for _q, _s, _o, ts, tr, arm in answers if arm == "c1"])
+    tokens = {arm: sum(len(o["response"].split()) for _q, _s, o, _ts, _tr, a in answers if a == arm)
+              for arm in ("c1", "c16")}
+    dec_s = {arm: sum(m[1] - m[0] for m in marks["decode"]
+                      if any(a == arm and ts <= m[0] and m[1] <= tr for _q, _s, _o, ts, tr, a in answers))
+             for arm in ("c1", "c16")}
+    retrieve_p50 = float(np.percentile([ms for *_r, ms in retrieves], 50))
+    fw = QA_NUMBERS.get("framework_retrieve_p50_ms")
+    log(
+        f"qa (a) {tag}: BaseRAGQuestionAnswerer(search_topk={QA_TOPK}) behind QASummaryRestServer on 127.0.0.1, "
+        f"pw.run at a {QA_COMMIT_MS} ms tick: TpuEmbedder (phase 4's encoder) over an IVF DocumentStore of {N_DOCS} "
+        f"documents (C={index['answer']._centroids.shape[0]}, full probe), CrossEncoderReranker over "
+        f"{rag.rerank_candidates} candidates (CrossEncoderModel 256 wide, 4 layers, bf16), TpuChat(continuous=True) "
+        f"over TextGenerator (256 wide, 4 layers, vocab 32768, bf16), {QA_NEW_TOKENS} new tokens; engine start to "
+        f"the warm-up {ingest_s:.1f} s, warm-up (the two IVF builds) {report['warm_s']:.1f} s. Checked: every route "
+        f"200 with the reference's JSON shape, each operator search == a direct search of its index "
+        f"({len(searches['answer'])} answer, {len(searches['retrieve'])} retrieve) on vectors each nearest its own "
+        f"question's direct embedding (max abs err {embed_err:.3g}), /v1/retrieve == the index's top {K} for its "
+        f"question, each answer's reranked candidates == the index's top {rag.rerank_candidates} for its question "
+        f"and its context_docs == the top {QA_TOPK} of CrossEncoderModel.predict over them (stable order), each response == TextGenerator.generate of "
+        f"prompt_qa over them called directly ({len(solo)} distinct prompts), garbage body answered as {{}}, a failing "
+        f"body 500 JSON and the next request 200, GET on a POST route 405, every model and index on cuda"
+    )
+    log(
+        f"qa numbers {tag}: answer latency (urllib send to receive) c1 p50 {np.percentile(c1_lat, 50):.3f} ms p99 "
+        f"{np.percentile(c1_lat, 99):.3f} ms over {QA_C1}; c16 p50 {np.percentile(c16_lat, 50):.3f} ms p99 "
+        f"{np.percentile(c16_lat, 99):.3f} ms, {qps:.2f} answers/s over {QA_C16} ({QA_CALLERS} closed-loop callers); "
+        f"/v1/retrieve k={K} p50 {retrieve_p50:.3f} ms over {QA_RETRIEVES} (phase 19's retrieve per commit of "
+        f"{BATCH}: " + (f"{fw:.3f} ms" if fw is not None else "not run in this invocation")
+        + f"; phase 5's direct serve p50 exact {direct_p50['exact']:.3f} ms, IVF {direct_p50['ivf']:.3f} ms); decode "
+        f"inside the QA arm {tokens['c1'] / max(dec_s['c1'], 1e-9):.1f} tokens/s at c1, "
+        f"{tokens['c16'] / max(dec_s['c16'], 1e-9):.1f} tokens/s at c16 (tokens over the chat calls' seconds; the "
+        f"engine answers a tick's rows one after another); c1 split, mean ms: "
+        + ", ".join(f"{k} {np.mean(v):.3f}" for k, v in split.items())
+        + f" (http_queue: send to the row's insert plus the decode's end to receive; tick_wait: insert to the "
+        f"search; other: the engine's row plumbing); a burst of {QA_CALLERS} answers at c16 under torch.profiler: "
+        f"{report['busy']} (the profiler's own read {report['profiler_s']:.1f} s); kernel launches on the QA path "
+        f"{launches}; the checks' seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in check_s.items())
+        + f"; phase 20 (a) {_now() - t_phase:.1f} s"
+    )
+    big = max((vecs for _texts, vecs, _k, _got in searches["answer"]), key=len)
+    shape = rescore_at_path_shape(index["answer"], ivf_search_rescore_args(index["answer"], big), dev)
+    log(f"ivf_rescore at the QA path's shape {tag}: " + rescore_line(index["answer"], shape))
+    pw.reset()
+    return launches, shape
+
+
+def template_spec(name: str) -> dict:
+    """``templates/<name>.yaml`` as the port's loader parses it, ``!pw.``
+    nodes deferred, written in Python for a machine without PyYAML
+    (``tests/test_torch_templates.py`` holds it against the parsed file);
+    ``yaml_loader.build_template`` builds it as ``load_yaml`` would."""
+    from pathway_tpu_torch.internals.yaml_loader import _Deferred
+
+    def node(tag, /, **kwargs):
+        return _Deferred(f"pw.{tag}", "map", kwargs)
+
+    store = node(
+        "xpacks.llm.document_store.DocumentStore",
+        docs=node("io.fs.read", path="$data_dir", format="plaintext_by_file", with_metadata=True, mode="streaming"),
+        splitter=node("xpacks.llm.splitters.TokenCountSplitter", max_tokens=120),
+        retriever_factory=node("stdlib.indexing.BruteForceKnnFactory",
+                               embedder=node("xpacks.llm.embedders.TpuEmbedder", dimension=128, n_layers=2,
+                                             max_length=64)),
+    )
+    llm = node("xpacks.llm.llms.TpuChat", max_new_tokens=16)
+    if name == "demo_question_answering":
+        qa = node("xpacks.llm.question_answering.BaseRAGQuestionAnswerer", llm=llm, search_topk=3, indexer=store)
+    else:
+        qa = node("xpacks.llm.question_answering.AdaptiveRAGQuestionAnswerer", llm=llm, indexer=store,
+                  n_starting_documents=1, factor=2, max_iterations=3)
+    return {"$data_dir": "templates/sample_documents", "$host": "127.0.0.1", "$port": 8000, "host": "$host",
+            "port": "$port", "question_answerer": qa}
+
+
+def template_phase(tag: str) -> None:
+    """Phase 20 (b): the demo and adaptive templates served by
+    ``python -m pathway_tpu_torch.cli run`` on the card, checked as the
+    reference's template tests check them."""
+    import importlib.util
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    has_yaml = importlib.util.find_spec("yaml") is not None
+    if not has_yaml:
+        log("PyYAML absent: template built in Python")
+    lines = []
+    for name in QA_TEMPLATES:
+        port = _free_port()
+        if has_yaml:
+            cmd = [sys.executable, "-m", "pathway_tpu_torch.cli", "run", f"templates/{name}.yaml", "--port", str(port)]
+        else:
+            cmd = [sys.executable, os.path.abspath(__file__), "--serve-template", name, str(port)]
+        with tempfile.TemporaryFile(mode="w+") as out:
+            t0 = _now()
+            proc = subprocess.Popen(cmd, cwd=root, stdout=out, stderr=subprocess.STDOUT, text=True)
+            try:
+                while True:
+                    if proc.poll() is not None or _now() - t0 > QA_TEMPLATE_WAIT_S:
+                        out.seek(0)
+                        raise AssertionError(f"phase 20 (b): {name} did not come up:\n{out.read()[-3000:]}")
+                    try:
+                        if _http(port, "POST", "/v1/retrieve", {"query": "cats", "k": 1}, timeout=5)[0] == 200:
+                            break
+                    except OSError:
+                        pass
+                    time.sleep(0.5)
+                up_s = _now() - t0
+                status, answer, _ts, t_answer = _http(port, "POST", "/v1/pw_ai_answer", {"prompt": "What do cats do?"})
+                if status != 200 or not isinstance(answer, str) or not answer.strip():
+                    raise AssertionError(f"phase 20 (b): {name} answered {status}: {answer!r}")
+                first_answer_s = t_answer - t0
+                status, retrieved, _ts, _tr = _http(port, "POST", "/v1/retrieve", {"query": "anything", "k": 3})
+                if status != 200 or len(retrieved) != 3 or not all("text" in d and "metadata" in d for d in retrieved):
+                    raise AssertionError(f"phase 20 (b): {name} retrieve {status}: {str(retrieved)[:300]}")
+                if name == "demo_question_answering":
+                    stats = _http(port, "POST", "/v1/statistics", {})[1]
+                    listed = _http(port, "POST", "/v1/pw_list_documents", {})[1]
+                    summary = _http(port, "POST", "/v1/pw_ai_summary", {"text_list": ["cats purr", "dogs bark"]})[1]
+                    files = {d["path"].rsplit("/", 1)[-1] for d in listed}
+                    if (stats.get("file_count", 0) < 3 or not {"animals.txt", "dataflow.txt", "tpu.txt"} <= files
+                            or not isinstance(summary, str) or not summary.strip()):
+                        raise AssertionError(f"phase 20 (b): demo routes: {stats} {sorted(files)} {summary!r}")
+                else:
+                    if not any("sample_documents" in d["metadata"]["path"] for d in retrieved):
+                        raise AssertionError(f"phase 20 (b): adaptive retrieve: {str(retrieved)[:300]}")
+            finally:
+                proc.kill()
+                proc.wait(timeout=60)
+        how = "cli run" if has_yaml else "cli.serve_config of the objects built in Python"
+        lines.append(f"{name} ({how}, --device cuda): up in {up_s:.1f} s, first answer {first_answer_s:.1f} s "
+                     f"after the start, answer {answer[:40]!r}")
+    log(f"qa (b) {tag}: " + "; ".join(lines) + "; the demo's five routes and the adaptive answer checked as "
+        "tests/test_templates.py does")
+
+
+def framework_setup():
+    """The set-up ``--framework`` and ``--qa`` share: the card's name, the
+    kernels' build, phase 4's rows and phase 5's direct serve p50 (exact
+    and IVF) over 30 batches.  Returns ``(smi, p50)``."""
+    from pathway_tpu_torch.kernels.build import build_all, build_host
+    from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    log(f"card: {smi}")
+    t0 = time.perf_counter()
+    build_all()
+    build_host("tokenize_hash")
+    encoder, docs, doc_vecs, keys, exact = main_rows(f"[{smi}]")
+    ivf = IvfKnnIndex(DIM, metric="cos")
+    ivf.build_from_matrix(keys, exact._matrix[:N_ROWS])
+    log(f"build and phase 4's rows {time.perf_counter() - t0:.1f} s")
+    p50 = {}
+    for name, index in (("exact", exact), ("ivf", ivf)):
+        serve = FusedEncodeSearch(encoder, index, k=K)
+        lat = []
+        for texts in serve_batches(docs)[:30]:
+            t = time.perf_counter()
+            serve(texts)
+            lat.append((time.perf_counter() - t) * 1e3)
+        p50[name] = float(np.percentile(lat, 50))
+    log(f"direct serve p50 over 30 batches of {BATCH}: exact {p50['exact']:.3f} ms, IVF {p50['ivf']:.3f} ms")
+    return smi, p50
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if len(sys.argv) == 3 and sys.argv[1] == "--rank-worker":
         return rank_worker(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--serve-template":
+        # phase 20 (b) on a machine without PyYAML: the template's objects, served
+        from pathway_tpu_torch import cli
+        from pathway_tpu_torch.internals.yaml_loader import build_template
+
+        return cli.serve_config(build_template(template_spec(sys.argv[2])), port=int(sys.argv[3]))
     if len(sys.argv) == 3 and sys.argv[1] == "--compare":
         # the package under another checkout's root, alone (two trees are
         # compared in one run on one card, in turns)
@@ -5311,34 +5863,16 @@ def main() -> int:
         log(f"rescore launches {launches}; shape census: {tripwire_census()}")
         return 0
     if sys.argv[1:] == ["--framework"]:
-        from pathway_tpu_torch.kernels.build import build_host
-        from pathway_tpu_torch.ops.ivf import IvfKnnIndex
-        from pathway_tpu_torch.ops.serving import FusedEncodeSearch
-
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
-        ).stdout.strip()
-        log(f"card: {smi}")
-        t0 = time.perf_counter()
-        build_all()
-        build_host("tokenize_hash")
-        encoder, docs, doc_vecs, keys, exact = main_rows(f"[{smi}]")
-        ivf = IvfKnnIndex(DIM, metric="cos")
-        ivf.build_from_matrix(keys, exact._matrix[:N_ROWS])
-        log(f"build and phase 4's rows {time.perf_counter() - t0:.1f} s")
-        p50 = {}
-        for name, index in (("exact", exact), ("ivf", ivf)):
-            serve = FusedEncodeSearch(encoder, index, k=K)
-            lat = []
-            for texts in serve_batches(docs)[:30]:
-                t = time.perf_counter()
-                serve(texts)
-                lat.append((time.perf_counter() - t) * 1e3)
-            p50[name] = float(np.percentile(lat, 50))
-        log(f"direct serve p50 over 30 batches of {BATCH}: exact {p50['exact']:.3f} ms, IVF {p50['ivf']:.3f} ms")
-        del ivf, exact
+        smi, p50 = framework_setup()
         launches = framework_phase(p50, f"[{smi}]")[0]
         log(f"rescore launches {launches}; shape census: {tripwire_census()}")
+        return 0
+    if sys.argv[1:] == ["--qa"]:
+        smi, p50 = framework_setup()
+        t0 = time.perf_counter()
+        launches = qa_phase(p50, f"[{smi}]")[0]
+        template_phase(f"[{smi}]")
+        log(f"phase 20 {time.perf_counter() - t0:.1f} s; QA launches {launches}; shape census: {tripwire_census()}")
         return 0
     if sys.argv[1:] == ["--distributed"]:
         from pathway_tpu_torch.kernels.build import build_host
@@ -5650,6 +6184,21 @@ def main() -> int:
     # -- 19. the framework: DocumentStore retrieval through the engine, counted --
     fw_launches, fw_kernel = framework_phase({"exact": pct["exact"][0], "ivf": pct["ivf"][0]}, tag)
     worst_err = max(worst_err, fw_kernel["max_abs_err"])
+
+    # -- 20. question answering and chat: a RAG app behind the REST server, then the templates, counted --
+    t20 = time.perf_counter()
+    qa_launches, qa_kernel = qa_phase({"exact": pct["exact"][0], "ivf": pct["ivf"][0]}, tag)
+    worst_err = max(worst_err, qa_kernel["max_abs_err"])
+    template_phase(tag)
+    log(f"phase 20 {time.perf_counter() - t20:.1f} s")
+    decode_kernels[0]["launches_by_path"] = {
+        "decode": decode_kernels[0]["launches"] - po_decode["add_layer_norm_rows"],
+        "profiling": po_decode["add_layer_norm_rows"],
+        "qa": qa_launches["add_layer_norm_rows"],
+    }
+    decode_kernels[0]["launches"] += qa_launches["add_layer_norm_rows"]
+    decode_kernels[1]["launches"] += qa_launches["tied_readout"]
+    decode_kernels[1]["launches_by_path"]["qa"] = qa_launches["tied_readout"]
     log(f"shape census: {tripwire_census()}")
 
     record = {
@@ -5660,12 +6209,13 @@ def main() -> int:
                 "source": "pathway_tpu_torch/csrc/ivf_rescore.cu",
                 "replaces": "pathway_tpu/ops/ivf_pallas.py:37",
                 "launches": launches + rr_launches + sched_launches + li_launches + ws_launches + st_launches
-                + po_launches + sum(rw_launches.values()) + ss_launches + sf_launches + fw_launches,
+                + po_launches + sum(rw_launches.values()) + ss_launches + sf_launches + fw_launches
+                + qa_launches["ivf_rescore"],
                 "launches_by_path": {
                     "serve": launches, "rerank": rr_launches, "scheduler": sched_launches,
                     "ingest": li_launches, "warmstate": ws_launches, "tuning": st_launches,
                     "profiling": po_launches, "real_weights": rw_launches, "sharded": ss_launches,
-                    "fabric": sf_launches, "framework": fw_launches,
+                    "fabric": sf_launches, "framework": fw_launches, "qa": qa_launches["ivf_rescore"],
                 },
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,
@@ -5693,6 +6243,7 @@ def main() -> int:
                 "sharded_shard_shape": {key: ss_kernel[key] for key in _SHAPE_KEYS},
                 "partition_shape": {key: sf_kernel[key] for key in _SHAPE_KEYS},
                 "framework_shape": {key: fw_kernel[key] for key in _SHAPE_KEYS},
+                "qa_shape": {key: qa_kernel[key] for key in _SHAPE_KEYS},
             },
             *decode_kernels,
         ]

@@ -6,13 +6,16 @@ it.  Entry points that touch the device run on the CUDA device unless the
 caller passes ``device="cpu"`` explicitly (see ``device.py``).
 
 The ``pw`` namespace: the table and expression API (``internals/``), the
-incremental engine (``engine/``), ``debug``, ``io.python`` and
-``io.subscribe``, ``stdlib.indexing`` (``DataIndex`` over the device KNN
-indexes) and ``xpacks.llm`` (``DocumentStore`` retrieval through
-``TpuEmbedder``).  Names of the reference's namespace whose modules are
-later slices (``sql``, ``iterate``, the temporal stdlib, export/import,
-interactive mode, the YAML loader) raise ``NotImplementedError`` naming
-the slice in ``ROADMAP.md``.
+incremental engine (``engine/``), ``debug``, ``io`` (``python``,
+``subscribe``, the file connectors ``fs`` / ``csv`` / ``jsonlines`` /
+``plaintext`` and the REST connector ``http``), ``stdlib.indexing``
+(``DataIndex`` over the device KNN indexes), ``xpacks.llm``
+(``DocumentStore`` retrieval, chat, rerankers, the RAG answerers and
+their REST servers) and ``load_yaml`` (the template loader; the command
+line is ``python -m pathway_tpu_torch.cli``).  Names of the reference's
+namespace whose modules are later slices (``sql``, ``iterate``, the
+temporal stdlib, export/import, interactive mode) raise
+``NotImplementedError`` naming the slice in ``ROADMAP.md``.
 
 Device modules below the framework: host tokenizer -> ``TransformerEncoder``
 forward + masked mean pool + L2 normalize -> exact (``DeviceKnnIndex``)
@@ -69,6 +72,7 @@ from .internals.table import (
 )
 from .internals.thisclass import left, right, this
 from .internals.universe import Universe
+from .internals.yaml_loader import load_yaml
 from .internals import udfs
 from .internals.udfs import UDF, udf, udf_async
 from . import debug  # noqa: E402
@@ -92,6 +96,7 @@ __all__ = [
     "debug",
     "io",
     "reset",
+    "load_yaml",
 ]
 
 # deprecated aliases kept for reference compatibility
@@ -240,7 +245,6 @@ def _later_slice(name: str, slice_no: int, what: str):
     return unported
 
 
-load_yaml = _later_slice("load_yaml", 1, "the YAML loader")
 sql = _later_slice("sql", 3, "internals/sql.py")
 iterate = _later_slice("iterate", 3, "internals/iterate.py")
 iterate_universe = _later_slice("iterate_universe", 3, "internals/iterate.py")

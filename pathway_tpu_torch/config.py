@@ -301,7 +301,23 @@ _knob("ops.recompile_limit", "PATHWAY_RECOMPILE_LIMIT", "int", 128,
 _knob("ops.recompile_strict", "PATHWAY_RECOMPILE_STRICT", "bool", False,
       "recompile tripwire raises instead of warn-once", auto_pytest=True)
 
-# engine (internals/udfs.py DiskCache; internals/run.py refuses persistence)
+# question answering and chat (xpacks/llm/llms.py, question_answering.py)
+_knob("chat.continuous", "PATHWAY_CHAT_CONTINUOUS", "bool", False,
+      "route xpack chat through the continuous decoder")
+_knob("qa.rerank_coalesce", "PATHWAY_QA_RERANK_COALESCE", "bool", False,
+      "coalesce concurrent QA rerank dispatches via SharedBatcher")
+
+# the engine's metrics server (internals/metrics.py through internals/config.py)
+_knob("observe.metrics_port", "PATHWAY_METRICS_PORT", "int", 20000,
+      "/metrics HTTP port", lo=1, hi=65_535)
+_knob("observe.metrics_host", "PATHWAY_METRICS_HOST", "str", "127.0.0.1",
+      "/metrics bind host")
+
+# command line (cli.py)
+_knob("cli.spawn_args", "PATHWAY_SPAWN_ARGS", "str", "",
+      "extra args for `pathway spawn-from-env`")
+
+# persistence (internals/udfs.py DiskCache; internals/run.py and io/fs refuse persistence)
 _knob("persistence.storage", "PATHWAY_PERSISTENT_STORAGE", "str", "",
       "snapshot storage URI (empty = off)")
 

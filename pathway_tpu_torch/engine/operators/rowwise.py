@@ -503,7 +503,9 @@ class FlattenOperator(EngineOperator):
             return None
         names = self.output.column_names
         src_cols = delta.columns
-        out_rows: List[Tuple[int, int, Tuple[Any, ...]]] = []
+        parents: List[int] = []
+        positions: List[int] = []
+        diff_rows: List[Tuple[int, Tuple[Any, ...]]] = []
         flat = src_cols[self.flatten_column]
         for i in range(delta.n):
             parent_key = int(delta.keys[i])
@@ -511,16 +513,21 @@ class FlattenOperator(EngineOperator):
             seq = flat[i]
             if seq is None:
                 continue
-            items = list(seq) if not isinstance(seq, np.ndarray) else list(seq)
-            for pos, item in enumerate(items):
-                child_key = int(ref_scalars_batch([[parent_key], [pos]])[0])
+            for pos, item in enumerate(seq):
+                parents.append(parent_key)
+                positions.append(pos)
                 row = tuple(
                     item if c == self.flatten_column else src_cols[c][i] for c in names
                 )
-                out_rows.append((child_key, diff, row))
-        if not out_rows:
+                diff_rows.append((diff, row))
+        if not diff_rows:
             return None
-        return Delta.from_rows(names, out_rows)
+        # every child key of the delta in one host-library call: the same
+        # (parent key, position) rows hash to the same keys as one by one
+        child_keys = ref_scalars_batch([parents, positions])
+        return Delta.from_rows(
+            names, [(int(k), diff, row) for k, (diff, row) in zip(child_keys, diff_rows)]
+        )
 
 
 class RestrictOperator(EngineOperator):

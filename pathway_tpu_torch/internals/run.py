@@ -4,13 +4,15 @@ run.py:12 → GraphRunner → run_with_new_graph; here the graph is already
 lowered, so run = drive the Executor until sources finish or termination
 is requested).
 
-The port runs the engine in one process.  A cluster topology
-(``PATHWAY_PROCESSES`` > 1), a persistence config, the metrics HTTP server
-and OpenTelemetry export are later slices (``ROADMAP.md``): asking for one
-raises ``NotImplementedError`` rather than running without it."""
+The port runs the engine in one process.  ``with_http_server=True``
+starts the metrics server (``internals/metrics.py``).  A cluster topology
+(``PATHWAY_PROCESSES`` > 1) and a persistence config are later slices
+(``ROADMAP.md``): asking for one raises ``NotImplementedError`` rather
+than running without it."""
 
 from __future__ import annotations
 
+import logging
 import threading
 from typing import Optional
 
@@ -36,7 +38,7 @@ def terminate() -> None:
             _current_executor.terminate()
 
 
-def _refuse_unported(persistence_config, with_http_server: bool) -> None:
+def _refuse_unported(persistence_config) -> None:
     from ..parallel.distributed import topology_from_env
 
     processes, _pid, _addr = topology_from_env()
@@ -50,11 +52,6 @@ def _refuse_unported(persistence_config, with_http_server: bool) -> None:
             "engine persistence (persistence/engine_state.py) is a later slice "
             "(ROADMAP.md, framework slice 2)"
         )
-    if with_http_server:
-        raise NotImplementedError(
-            "the engine's metrics HTTP server comes with the REST surface, a later "
-            "slice (ROADMAP.md, framework slice 1)"
-        )
 
 
 def run(
@@ -67,7 +64,7 @@ def run(
     **kwargs,
 ) -> None:
     global _current_executor
-    _refuse_unported(persistence_config, with_http_server)
+    _refuse_unported(persistence_config)
     # Incremental-run support: operators added after a previous run() are
     # bootstrapped with snapshot deltas of their already-populated inputs
     # (the eager-building analog of the reference's tree-shaken re-runs,
@@ -93,6 +90,13 @@ def run(
         from .monitoring import StatsMonitor
 
         executor.on_tick = StatsMonitor(G.engine_graph).on_tick
+    if with_http_server:
+        from .metrics import start_metrics_server
+
+        try:
+            start_metrics_server(G.engine_graph)
+        except OSError as exc:  # the port is taken: the run goes on without /metrics, as the reference's
+            logging.getLogger(__name__).warning("metrics server not started: %s", exc)
     for hook in G.pre_run_hooks[G.hooks_started :]:
         hook()
     G.hooks_started = len(G.pre_run_hooks)

@@ -12,9 +12,10 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 from typing import Any, Dict, Optional
 
-__all__ = ["ConnectorMonitor", "OffsetAntichain"]
+__all__ = ["ConnectorMonitor", "OffsetAntichain", "connector_monitors"]
 
 
 class OffsetAntichain:
@@ -48,12 +49,24 @@ class OffsetAntichain:
         return f"OffsetAntichain({self._positions!r})"
 
 
+_monitors: "weakref.WeakSet[ConnectorMonitor]" = weakref.WeakSet()
+
+
+def connector_monitors():
+    """Live connector monitors (scraped by the metrics server)."""
+    return list(_monitors)
+
+
 class ConnectorMonitor:
     """Per-connector ingestion stats: row and commit counters, the
     last-activity clock for lag, and the committed offset antichain."""
 
+    _ids = 0
+
     def __init__(self, name: str):
         self.name = name
+        ConnectorMonitor._ids += 1
+        self.id = ConnectorMonitor._ids  # uniquifies metric labels
         self._lock = threading.Lock()
         self.rows_inserted = 0
         self.rows_deleted = 0
@@ -62,6 +75,7 @@ class ConnectorMonitor:
         self.last_commit_at: Optional[float] = None
         self.offsets = OffsetAntichain()
         self.finished = False
+        _monitors.add(self)
 
     def on_insert(self, n: int = 1) -> None:
         with self._lock:

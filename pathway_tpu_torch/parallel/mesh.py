@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..device import default_device
 from . import distributed
 
 __all__ = [
@@ -115,6 +116,8 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, devices: Optional[
     the data axis, model axis 1.  In a process cluster ``devices`` are
     this rank's, and the mesh lists every rank's in rank order (a
     collective: every rank calls it)."""
+    if devices is None and default_device() != "cuda":
+        devices = [torch.device(default_device())]  # a process default set to the CPU (cli run --device cpu)
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass devices=[...] explicitly to build a CPU mesh")

@@ -2,16 +2,19 @@
 ``pathway_tpu/xpacks/llm/embedders.py``; reference: xpacks/llm/
 embedders.py:85-330, dimension probed by embedding ".", vector_store.py:86).
 
-Ported: ``BaseEmbedder`` and ``TpuEmbedder``, batched by construction —
-one forward of the port's ``SentenceEncoder`` per engine micro-batch, on
-the CUDA device unless ``device="cpu"`` is passed.  The local
-sentence-transformers embedder, the hosted-API embedders and the CLIP
-embedders come with the question-answering slice (``ROADMAP.md``); their
-names raise ``NotImplementedError``."""
+Local embedders are batched by construction — one forward per engine
+micro-batch, on the CUDA device unless ``device="cpu"`` is passed (or the
+process default is the CPU): ``TpuEmbedder`` over the port's
+``SentenceEncoder``, ``SentenceTransformerEmbedder`` over an HF directory
+through ``models/hf_import.py`` (or seeded, without one), and the CLIP
+embedders over ``models/clip.py``.  A sentence-transformers directory
+that is not an HF text checkpoint needs ``sentence_transformers``, and
+the hosted-API embedders their client package, each imported as in the
+reference and raising ``ImportError`` where it is not installed."""
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -103,20 +106,199 @@ class TpuEmbedder(BaseEmbedder):
         return self._encoder.get_embedding_dimension()
 
 
-def _next_slice(name: str):
-    class _Unported(BaseEmbedder):
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(
-                f"{name} is not ported yet: ROADMAP.md, framework slice 1 (question answering and chat)"
+class SentenceTransformerEmbedder(BaseEmbedder):
+    """Local sentence embedder (reference: embedders.py:270).
+
+    ``model`` (or ``checkpoint_path``) naming an HF text checkpoint
+    directory (``config.json`` + ``model.safetensors`` + ``vocab.txt``)
+    loads it through the port's ``models/hf_import.py``; another local
+    directory goes to ``sentence_transformers`` as in the reference
+    (batched ``model.encode`` on the whole micro-batch); a model name
+    without a directory gets the port's seeded encoder of the given
+    output dimension.  ``device``/``dtype`` reach the port's encoder."""
+
+    def __init__(
+        self,
+        model: str = "pathway-mini",
+        call_kwargs: dict | None = None,
+        device=None,
+        dimension: int = 384,
+        checkpoint_path: Optional[str] = None,
+        dtype: torch.dtype = DEFAULT_DTYPE,
+        **init_kwargs,
+    ):
+        import os
+
+        from ...models.encoder import SentenceEncoder
+        from ...models.hf_import import is_hf_checkpoint
+
+        self.model_name = model
+        path = checkpoint_path or model
+        call_kwargs = call_kwargs or {}
+        if is_hf_checkpoint(path):
+            encoder = SentenceEncoder(checkpoint_path=path, device=device, dtype=dtype)
+        elif os.path.isdir(path):
+            from sentence_transformers import SentenceTransformer
+
+            st_model = SentenceTransformer(path, **init_kwargs)
+            self._dimension = int(st_model.get_sentence_embedding_dimension())
+
+            def embed(texts) -> np.ndarray:
+                return np.asarray(st_model.encode(list(texts), **call_kwargs), dtype=np.float32)
+
+            super().__init__(embed, batched=True)
+            return
+        else:
+            encoder = SentenceEncoder(dimension=dimension, device=device, dtype=dtype)
+        self._encoder = encoder
+        self._dimension = encoder.get_embedding_dimension()
+
+        def embed(texts) -> np.ndarray:
+            return encoder.encode(list(texts))
+
+        super().__init__(embed, batched=True)
+
+    def get_embedding_dimension(self, **kwargs) -> int:
+        return self._dimension
+
+
+class _ApiEmbedder(BaseEmbedder):
+    """Async API embedders (capacity/retry/cache via udfs.async_options)."""
+
+    _import_error = "this embedder's client library is not installed"
+
+    def __init__(
+        self,
+        capacity: Optional[int] = None,
+        retry_strategy=None,
+        cache_strategy=None,
+        model: Optional[str] = None,
+        **call_kwargs,
+    ):
+        self.model = model
+        self.call_kwargs = call_kwargs
+        embed = self._make_embed_fn()
+        super().__init__(
+            embed,
+            executor="async",
+            capacity=capacity,
+            retry_strategy=retry_strategy,
+            cache_strategy=cache_strategy,
+        )
+
+    def _make_embed_fn(self) -> Callable:
+        raise NotImplementedError
+
+    def get_embedding_dimension(self, **kwargs) -> int:
+        import asyncio
+
+        return int(
+            np.asarray(asyncio.run(self.func(".", **kwargs))).shape[-1]
+        )
+
+
+class OpenAIEmbedder(_ApiEmbedder):
+    """(reference: embedders.py:85 — async OpenAI embeddings API)"""
+
+    def __init__(self, model: str = "text-embedding-3-small", **kwargs):
+        super().__init__(model=model, **kwargs)
+
+    def _make_embed_fn(self):
+        model = self.model if hasattr(self, "model") else None
+        call_kwargs = getattr(self, "call_kwargs", {})
+
+        async def embed(text: str, **kw):
+            try:
+                import openai
+            except ImportError as e:
+                raise ImportError(
+                    "OpenAIEmbedder requires the `openai` package"
+                ) from e
+            client = openai.AsyncOpenAI()
+            response = await client.embeddings.create(
+                input=[text or "."], model=self.model, **{**call_kwargs, **kw}
             )
+            return np.array(response.data[0].embedding, dtype=np.float32)
 
-    _Unported.__name__ = _Unported.__qualname__ = name
-    return _Unported
+        return embed
 
 
-SentenceTransformerEmbedder = _next_slice("SentenceTransformerEmbedder")
-OpenAIEmbedder = _next_slice("OpenAIEmbedder")
-LiteLLMEmbedder = _next_slice("LiteLLMEmbedder")
-GeminiEmbedder = _next_slice("GeminiEmbedder")
-ClipTextEmbedder = _next_slice("ClipTextEmbedder")
-ClipImageEmbedder = _next_slice("ClipImageEmbedder")
+class LiteLLMEmbedder(_ApiEmbedder):
+    """(reference: embedders.py:180)"""
+
+    def __init__(self, model: str = "text-embedding-3-small", **kwargs):
+        super().__init__(model=model, **kwargs)
+
+    def _make_embed_fn(self):
+        call_kwargs = getattr(self, "call_kwargs", {})
+
+        async def embed(text: str, **kw):
+            try:
+                import litellm
+            except ImportError as e:
+                raise ImportError(
+                    "LiteLLMEmbedder requires the `litellm` package"
+                ) from e
+            response = await litellm.aembedding(
+                input=[text or "."], model=self.model, **{**call_kwargs, **kw}
+            )
+            return np.array(response.data[0]["embedding"], dtype=np.float32)
+
+        return embed
+
+
+class GeminiEmbedder(_ApiEmbedder):
+    """(reference: embedders.py:330)"""
+
+    def __init__(self, model: str = "models/embedding-001", **kwargs):
+        super().__init__(model=model, **kwargs)
+
+    def _make_embed_fn(self):
+        async def embed(text: str, **kw):
+            try:
+                import google.generativeai as genai
+            except ImportError as e:
+                raise ImportError(
+                    "GeminiEmbedder requires `google-generativeai`"
+                ) from e
+            result = genai.embed_content(model=self.model, content=text or ".")
+            return np.array(result["embedding"], dtype=np.float32)
+
+        return embed
+
+
+class ClipTextEmbedder(BaseEmbedder):
+    """Text side of the multimodal CLIP embedder over the port's
+    ``ClipModel`` (``device`` reaches the model built here)."""
+
+    def __init__(self, clip_model=None, device=None, **kwargs):
+        from ...models.clip import ClipModel
+
+        self._model = clip_model or ClipModel(device=device)
+        model = self._model
+
+        def embed(texts) -> np.ndarray:
+            return model.encode_text(list(texts))
+
+        super().__init__(embed, batched=True, **kwargs)
+
+    def get_embedding_dimension(self, **kwargs) -> int:
+        return self._model.get_embedding_dimension()
+
+
+class ClipImageEmbedder(BaseEmbedder):
+    """Image side: embeds ndarray image columns."""
+
+    def __init__(self, clip_model=None, device=None, **kwargs):
+        from ...models.clip import ClipModel
+
+        self._model = clip_model or ClipModel(device=device)
+        model = self._model
+
+        def embed(images) -> np.ndarray:
+            return model.encode_image(list(images))
+
+        super().__init__(embed, batched=True, **kwargs)
+
+    def get_embedding_dimension(self, **kwargs) -> int:
+        return self._model.get_embedding_dimension()

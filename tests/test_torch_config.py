@@ -54,3 +54,34 @@ def test_per_site_retry_attempts(monkeypatch):
 def test_unknown_key_raises():
     with pytest.raises(config.UnknownKnobError):
         config.get("serve.no_such_knob")
+
+
+_QA_SLICE_KNOBS = [
+    "chat.continuous", "qa.rerank_coalesce", "observe.metrics_port", "observe.metrics_host", "cli.spawn_args",
+    "persistence.storage",
+]
+
+
+@pytest.mark.parametrize("key", _QA_SLICE_KNOBS)
+def test_question_answering_slice_knobs_equal_the_reference_field_by_field(key):
+    """The knobs the QA slice's modules read (llms, question_answering,
+    internals/config, metrics, cli): every declared field, mutability and
+    doc included, is the reference's."""
+    mine, theirs = config.registry()[key], ref_config.registry()[key]
+    for field in ("env", "kind", "default", "doc", "lo", "hi", "choices", "mutability", "site_prefix", "auto_pytest"):
+        assert getattr(mine, field) == getattr(theirs, field), (key, field)
+
+
+def test_process_config_reads_the_port_table(monkeypatch):
+    from pathway_tpu.internals.config import PathwayConfig as RefConfig
+    from pathway_tpu_torch.internals.config import PathwayConfig, get_config, local_config
+
+    monkeypatch.setenv("PATHWAY_METRICS_PORT", "23456")
+    monkeypatch.setenv("PATHWAY_METRICS_HOST", "0.0.0.0")
+    mine, theirs = PathwayConfig(), RefConfig()
+    assert vars(mine) == {name: getattr(theirs, name) for name in vars(mine)}
+    assert vars(mine) == {"metrics_port": 23456, "metrics_host": "0.0.0.0"}
+    assert mine.process_id == theirs.process_id
+    with local_config(metrics_port=1):
+        assert get_config().metrics_port == 1
+    assert get_config().metrics_port != 1

@@ -13,7 +13,8 @@ kernel, the mesh-sharded exact index, the sharded forward table), ring
 attention against dense, and the encoder over 8 logical shards against
 one; and the framework on the card: a batched UDF returning a CUDA tensor
 through the engine, and the default ``DocumentStore`` (``TpuKnnFactory``
-over ``TpuEmbedder()``) with an IVF store beside it through the kernel.
+over ``TpuEmbedder()``) with an IVF store beside it through the kernel;
+and one QA answer over the port's REST server equal to the direct calls.
 They skip
 without a card.  This file imports neither JAX nor the reference, so on
 a machine without JAX it runs as
@@ -774,4 +775,87 @@ def test_cuda_document_store_default_and_ivf_on_the_card():
         got_exact = [(r["metadata"]["path"], r["dist"]) for r in results[2][int(qk)]]
         assert [p for p, _ in got_ivf] == [p for p, _ in got_exact]
         np.testing.assert_allclose([d for _, d in got_ivf], [d for _, d in got_exact], atol=1e-4)
+    pw.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_qa_answer_over_http_equals_the_direct_call():
+    """One QA answer over the port's REST server on the card: the context
+    docs carry the cross-encoder's own scores, and the response equals
+    ``TextGenerator.generate`` of the chat's rendering of the QA prompt,
+    greedy, called directly;
+    the decode row kernels and the IVF rescore launched."""
+    dev = _cuda()
+    import json
+    import socket
+    import threading
+    import urllib.request
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.run import terminate
+    from pathway_tpu_torch.models.cross_encoder import CrossEncoderModel
+    from pathway_tpu_torch.models.generator import TextGenerator
+    from pathway_tpu_torch.ops import decode_rows
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import TpuEmbedder
+    from pathway_tpu_torch.xpacks.llm.llms import TpuChat, _messages_to_prompt
+    from pathway_tpu_torch.xpacks.llm.prompts import prompt_qa
+    from pathway_tpu_torch.xpacks.llm.question_answering import BaseRAGQuestionAnswerer
+    from pathway_tpu_torch.xpacks.llm.rerankers import CrossEncoderReranker
+
+    pw.reset()
+    rng = np.random.default_rng(1)
+    words = "stream join window index vector query tensor kernel shard replica commit".split()
+    texts = [" ".join(rng.choice(words, size=10)) + f" doc{i}" for i in range(256)]
+    docs = pw.debug.table_from_rows(
+        pw.schema_from_types(data=str, _metadata=dict), [(t, {"path": f"{i}.txt"}) for i, t in enumerate(texts)]
+    )
+    emb = TpuEmbedder(dimension=64, n_layers=2, n_heads=4, max_length=32, vocab_size=4096)
+    store = DocumentStore(docs, retriever_factory=pw.stdlib.indexing.IvfKnnFactory(
+        dimension=64, embedder=emb, n_probe=1 << 30), splitter=None)
+    ce = CrossEncoderModel(dimension=64, n_layers=2, n_heads=4, max_length=128, vocab_size=4096)
+    gen = TextGenerator(dimension=64, n_layers=2, n_heads=4, max_length=256, vocab_size=4096)
+    chat = TpuChat(generator=gen, max_new_tokens=8, continuous=True)
+    rag = BaseRAGQuestionAnswerer(chat, store, search_topk=3, reranker=CrossEncoderReranker(cross_encoder=ce))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    rag.build_server(host="127.0.0.1", port=port)
+    thread = rag.run_server(threaded=True)
+    before = (rescore_shortlist.launches, decode_rows.tied_readout.launches,
+              decode_rows.add_layer_norm_rows.launches)
+    try:
+        question = texts[7]
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/pw_ai_answer",
+            data=json.dumps({"prompt": question, "return_context_docs": True}).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        deadline = time.time() + 120
+        while True:
+            try:
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    got = json.loads(resp.read())
+                break
+            except OSError:
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.2)
+    finally:
+        terminate()
+        thread.join(timeout=60)
+        chat._decoder.stop()
+    after = (rescore_shortlist.launches, decode_rows.tied_readout.launches, decode_rows.add_layer_norm_rows.launches)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    from pathway_tpu_torch.engine.operators.external_index import ExternalIndexOperator
+
+    index = next(op.index.inner.index for op in pw.G.engine_graph.operators if isinstance(op, ExternalIndexOperator))
+    assert index._slabs.device.type == "cuda"
+    ctx = [d["text"] for d in got["context_docs"]]
+    scores = ce.predict([(question, d) for d in ctx])
+    np.testing.assert_allclose(scores, [d["rerank_score"] for d in got["context_docs"]], atol=1e-2)
+    assert len(ctx) == 3 and set(ctx) <= set(texts)
+    # the chat renders the QA prompt as one user message
+    rendered = _messages_to_prompt([{"role": "user", "content": prompt_qa(question, ctx)}])
+    assert got["response"] == gen.generate([rendered], max_new_tokens=8)[0]
     pw.reset()

@@ -209,11 +209,26 @@ def test_default_store_runs_on_the_card():
 @pytest.mark.parametrize(
     "name", ["SentenceTransformerEmbedder", "OpenAIEmbedder", "LiteLLMEmbedder", "GeminiEmbedder"]
 )
-def test_unported_embedders_name_their_slice(name):
+def test_embedders_without_their_package_or_card_raise(name):
+    """Ported in full now: the seeded ``SentenceTransformerEmbedder`` runs
+    on the card (it raises without one), and each hosted-API embedder
+    imports its client package at first call and raises ``ImportError``
+    without it, as the reference's does."""
+    import asyncio
+
+    from pathway_tpu.xpacks.llm import embedders as ref_embedders
     from pathway_tpu_torch.xpacks.llm import embedders
 
-    with pytest.raises(NotImplementedError, match="framework slice 1"):
-        getattr(embedders, name)()
+    if name == "SentenceTransformerEmbedder":
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            embedders.SentenceTransformerEmbedder()
+        return
+    for module in (ref_embedders, embedders):
+        emb = getattr(module, name)()
+        with pytest.raises(ImportError, match=name):
+            asyncio.run(emb.func("a text"))
 
 
 def test_parse_utf8_and_splitter_equal_reference():

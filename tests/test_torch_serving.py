@@ -240,6 +240,23 @@ def test_port_imports_no_jax_flax_or_reference():
         "stdlib/indexing/nearest_neighbors.py",
         "xpacks/llm/document_store.py",
         "xpacks/llm/embedders.py",
+        "xpacks/llm/evals.py",
+        "xpacks/llm/llms.py",
+        "xpacks/llm/parsers.py",
+        "xpacks/llm/prompts.py",
+        "xpacks/llm/question_answering.py",
+        "xpacks/llm/rerankers.py",
+        "xpacks/llm/servers.py",
+        "xpacks/llm/vector_store.py",
+        "io/fs/__init__.py",
+        "io/csv/__init__.py",
+        "io/jsonlines/__init__.py",
+        "io/plaintext/__init__.py",
+        "io/http/__init__.py",
+        "internals/config.py",
+        "internals/metrics.py",
+        "internals/yaml_loader.py",
+        "cli.py",
     } <= names
     bad = [
         (str(f.relative_to(_ROOT)), name)
@@ -254,16 +271,25 @@ def test_port_imports_no_jax_flax_or_reference():
 
 
 @pytest.mark.parametrize(
-    "module", ["pathway_tpu_torch", "pathway_tpu_torch.xpacks.llm.document_store", "pathway_tpu_torch.stdlib.indexing"]
+    "module",
+    [
+        "pathway_tpu_torch",
+        "pathway_tpu_torch.xpacks.llm.document_store",
+        "pathway_tpu_torch.stdlib.indexing",
+        "pathway_tpu_torch.xpacks.llm",
+        "pathway_tpu_torch.cli",
+        "pathway_tpu_torch.internals.metrics",
+    ],
 )
 def test_framework_import_loads_no_jax_xxhash_or_pandas(module):
     """The framework's entry modules, imported in a fresh interpreter, load
-    neither JAX, Flax nor the reference package, nor ``xxhash`` or
-    ``pandas`` (the card's machine has neither)."""
+    neither JAX, Flax nor the reference package, nor ``xxhash``,
+    ``pandas``, ``aiohttp`` or ``requests`` (the card's machine has none of
+    them), nor PyYAML (``load_yaml`` imports it when called)."""
     script = (
         f"import sys, {module}\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'pathway_tpu', 'xxhash', 'pandas'))\n"
+        "('jax', 'jaxlib', 'flax', 'pathway_tpu', 'xxhash', 'pandas', 'aiohttp', 'requests', 'yaml'))\n"
         "print('loaded', bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", script], cwd=_ROOT, capture_output=True, text=True, timeout=300)

@@ -110,6 +110,24 @@ def build_flatten(pw):
     return t.flatten(pw.this.words)
 
 
+def build_flatten_stream(pw):
+    """Flatten over streamed deltas of many parents, empty and None lists
+    and a retraction among them: every child key of a delta comes from one
+    batched host call, and must equal the reference's key bit for bit."""
+
+    class Subject(pw.io.python.ConnectorSubject):
+        def run(self):
+            for i in range(40):
+                self.next(k=i, words=tuple(f"w{i}_{j}" for j in range(i % 7)) if i % 11 else None)
+            self.commit()
+            self.delete(k=3, words=tuple(f"w3_{j}" for j in range(3)))
+            self.next(k=100, words=("a", "b", "a", "c"))
+            self.commit()
+
+    t = pw.io.python.read(Subject(), schema=pw.schema_from_types(k=int, words=tuple), atomic_batches=True)
+    return t.flatten(pw.this.words)
+
+
 def build_groupby_reduce(pw):
     t = _base(pw)
     return t.groupby(pw.this.k).reduce(
@@ -375,6 +393,7 @@ BUILDERS = [
     build_select_filter_with_columns,
     build_expressions,
     build_flatten,
+    build_flatten_stream,
     build_groupby_reduce,
     build_join,
     build_deduplicate,
@@ -446,7 +465,7 @@ def test_dtype_of_a_tensor_is_an_array():
 
 
 @pytest.mark.parametrize(
-    "name", ["sql", "iterate", "windowby", "asof_join", "interval_join", "export_table", "load_yaml"]
+    "name", ["sql", "iterate", "windowby", "asof_join", "interval_join", "export_table", "window_join"]
 )
 def test_unported_names_raise_and_name_their_slice(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md, framework slice"):
