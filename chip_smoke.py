@@ -20,6 +20,7 @@ NVIDIA GPU:
     python3 chip_smoke.py --framework      # the builds, phase 4's rows and the
                                            # direct serve p50s, then phase 19 alone
     python3 chip_smoke.py --qa             # the same set-up, then phase 20 alone
+    python3 chip_smoke.py --persist        # the builds, then phase 21 alone
     python3 chip_smoke.py --first-call ROOT...  # the profiler's first sampled
                                            # call, fresh processes, per root
 
@@ -319,7 +320,7 @@ Phases, in order; any failure exits non-zero:
    documents (full probe), ``CrossEncoderReranker`` over the default
    ``CrossEncoderModel`` (24 candidates), ``TpuChat(continuous=True)`` over
    the default ``TextGenerator`` (48 new tokens).  ``urllib`` callers ask
-   64 of phase 5's query documents: 16 answers at c1, 128 at c16 and a
+   64 of phase 5's query documents: 16 answers at c1, 64 at c16 and a
    profiled burst of 16, with ``return_context_docs``; 16
    ``/v1/retrieve`` (k = 10), a summary of 4 texts, ``/v1/statistics``
    and ``/v1/pw_list_documents``.  Checked: every route 200 with the
@@ -340,9 +341,38 @@ Phases, in order; any failure exits non-zero:
    template tests check them; without PyYAML the templates' objects are
    built in Python and served through ``cli.serve_config`` in a
    subprocess (``--serve-template NAME PORT``).
+21. durable pipelines: (a) phase 19's ``TpuEmbedder`` over phase 4's
+   65,536 documents written as 16 JSON-lines files, read by
+   ``pw.io.jsonlines.read(mode="static", persistent_id="docs")`` and
+   embedded once per delta; a hybrid ``DataIndex`` (``IvfKnnFactory`` at
+   full probe + ``TantivyBM25Factory``, reciprocal rank fusion) over
+   ``(vector, text)`` and a vector-only one beside it; 4 commits of 64 of
+   phase 5's query texts (k = 10) through a persisted ``pw.io.python``
+   subject; ``pw.run`` under a filesystem persistence config that
+   snapshots every commit.  Then ``pw.reset()`` and run 2 of the same
+   graph over the same store with 2 new files and 4 new commits.
+   Checked: run 2's reader opens only the 2 new files (the connector's
+   monitor counts their rows alone); the indexes hold 73,728 rows, each
+   key once; every answer of both runs == a direct search of its
+   operator's index, the IVF side == an exact scan, the fused list == an
+   RRF of the sub-indexes' searches at 2k; a replayed query's vector answer
+   == run 1's answer with the new documents merged in (ties and scores
+   within 2e-2: the bf16 rows move with the packed batch); the first run's
+   device memory freed by ``pw.reset()`` (within 10%); every index on
+   ``cuda``; no snapshot record unpickles a torch class.  (b) this script
+   as a worker on the card (``--persist-worker``, 4 files of 1,024
+   documents, 64 queries, CSV sinks) killed by SIGKILL after 2 snapshot
+   commits, restarted over 2 more files: its sinks == an uninterrupted
+   run's, each document indexed once; then a chunk torn by 5 bytes:
+   replay stops at the last intact record, every document indexed.  (c)
+   ``python -m pathway_tpu_torch.cli replay`` over (b)'s store answers as
+   (b)'s finished run.  Printed: cold ingest s, snapshot bytes and ms per
+   commit, restart s and restart / cold, hybrid and vector-only retrieve
+   ms per commit of 64, the BM25 host ms, the busy share of run 2, the
+   rescore at the phase's shape and its launches.
 
 Every shape-census tripwire runs strict from the start
-(``PATHWAY_RECOMPILE_STRICT=1``); after phase 20 none may have tripped.
+(``PATHWAY_RECOMPILE_STRICT=1``); after phase 21 none may have tripped.
 
 The card's name and power limit, then the JSON record of the kernels,
 then ``{"ok": true, "device": {...}}`` are the last three lines; the
@@ -353,6 +383,7 @@ printing any result.
 
 from __future__ import annotations
 
+import io
 import itertools
 import json
 import os
@@ -5271,7 +5302,7 @@ def framework_phase(direct_p50: dict, tag: str):
 # -- phase 20: question answering and chat -------------------------------------------
 QA_QUESTIONS = 64  # distinct questions: phase 5's first query documents
 QA_C1 = 16  # answers at c1, one caller
-QA_C16 = 128  # answers at c16
+QA_C16 = 64  # answers at c16; the whole script, phase 21 included, keeps its time budget
 QA_CALLERS = 16
 QA_RETRIEVES = 16  # /v1/retrieve calls, k = K
 QA_TOPK = 6  # search_topk; the reranker scores 4 x 6 = 24 candidates
@@ -5751,6 +5782,707 @@ def template_phase(tag: str) -> None:
         "tests/test_templates.py does")
 
 
+# -- phase 21: durable pipelines ------------------------------------------------------
+PS_FILES = 16  # (a) run 1: 16 JSON-lines files of PS_FILE_DOCS documents
+PS_FILE_DOCS = 4096
+PS_NEW_FILES = 2  # (a) run 2 adds these
+PS_COMMITS = 4  # query commits of BATCH per run
+PS_COMMIT_MS = 10  # the engine's commit tick
+PS_SNAPSHOT_MS = 1  # below the tick: every tick's commit is snapshotted
+PS_CRASH_FILES = 4  # (b): 4 files of PS_CRASH_FILE_DOCS, 2 before the kill
+PS_CRASH_FILE_DOCS = 1024
+PS_CRASH_QUERIES = 64
+PS_WORKER_TIMEOUT_S = 240.0
+PS_TOL = 2e-2  # bf16 trunk: a document's row moves with the packed batch it is embedded in
+PS_MEM_SLACK = 0.10
+PS_WORKER_CMD = (sys.executable, os.path.abspath(__file__))  # how arm (b) starts this script
+
+
+def _ps_embedder():
+    """Phase 19's seeded ``TpuEmbedder`` (phase 4's encoder, bf16)."""
+    from pathway_tpu_torch.xpacks.llm.embedders import TpuEmbedder
+
+    return TpuEmbedder(dimension=DIM, n_layers=6, n_heads=6, max_length=128, vocab_size=32768, seed=SEED,
+                       dtype=torch.bfloat16)
+
+
+def _ps_write_docs(folder: str, first: int, texts, per_file: int) -> None:
+    """``texts`` as JSON-lines files of ``per_file`` documents, ``doc_id``
+    from ``first``; each written beside the folder and moved in whole."""
+    os.makedirs(folder, exist_ok=True)
+    for f in range(0, len(texts), per_file):
+        name = f"part{(first + f) // per_file:03d}.jsonl"
+        tmp = os.path.join(os.path.dirname(folder), name + ".part")
+        with open(tmp, "w") as out:
+            for i, text in enumerate(texts[f : f + per_file]):
+                out.write(json.dumps({"doc_id": first + f + i, "text": text}) + "\n")
+        os.replace(tmp, os.path.join(folder, name))
+
+
+def _ps_graph(pw, emb, docs_dir: str, queries, mode: str = "static"):
+    """The phase's graph over ``queries`` (a table with a ``query`` column):
+    documents read with ``persistent_id="docs"``, embedded once per delta;
+    a hybrid DataIndex (IVF at full probe + BM25, reciprocal rank fusion)
+    over ``(vector, text)`` and a vector-only DataIndex over the same IVF
+    shape.  Returns ``(vecs, {"hybrid": result, "vector": result})``."""
+    class Doc(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        text: str
+
+    mod = pw.stdlib.indexing
+    docs = pw.io.jsonlines.read(docs_dir, schema=Doc, mode=mode, persistent_id="docs", name="persist_docs",
+                                poll_interval_s=0.1)
+    vecs = docs.select(pw.this.doc_id, pw.this.text, vec=emb(pw.this.text))
+    vecs = vecs.with_columns(both=pw.make_tuple(pw.this.vec, pw.this.text))
+    qs = queries.select(pw.this.query, qvec=emb(pw.this.query))
+    qs = qs.with_columns(qboth=pw.make_tuple(pw.this.qvec, pw.this.query))
+    full = 1 << 30
+    hybrid = mod.DataIndex(vecs, mod.InnerIndex(
+        data_column=vecs.both, dimension=DIM,
+        factory=mod.HybridIndexFactory([mod.IvfKnnFactory(dimension=DIM, n_probe=full), mod.TantivyBM25Factory()]),
+    ))
+    vector = mod.DataIndex(vecs, mod.InnerIndex(
+        data_column=vecs.vec, dimension=DIM, factory=mod.IvfKnnFactory(dimension=DIM, n_probe=full),
+    ))
+    out = {}
+    for name, index, col in (("hybrid", hybrid, qs.qboth), ("vector", vector, qs.qvec)):
+        res = index.query(col, number_of_matches=K)
+        out[name] = res.select(query=qs.query, ids=vecs.doc_id, scores=res.score)
+    return vecs, out
+
+
+def _ps_ops(pw):
+    """{"hybrid": op, "vector": op}: the graph's two index operators."""
+    from pathway_tpu_torch.engine.operators.external_index import ExternalIndexOperator
+
+    ops = [op for op in pw.G.engine_graph.operators if isinstance(op, ExternalIndexOperator)]
+    if len(ops) != 2:
+        raise AssertionError(f"phase 21: {len(ops)} index operators, expected 2")
+    return dict(zip(("hybrid", "vector"), ops))
+
+
+def _ps_ivf(op):
+    """The IvfKnnIndex of an index operator (the hybrid's first sub-index)."""
+    index = op.index
+    return index.indexes[0].index if hasattr(index, "indexes") else index.index
+
+
+def _ps_allocated(dev) -> int:
+    """``torch.cuda.memory_allocated`` with garbage collected and the
+    cuBLAS workspaces released: PyTorch keeps one per (handle, stream) a
+    matmul ran on (32 MiB each on this card), which is not the indexes'
+    memory."""
+    import gc
+
+    if dev.type != "cuda":
+        return 0
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated(dev)
+
+
+def _ps_no_torch(store: str) -> int:
+    """Unpickle every blob of the store (each framed record of a chunk)
+    and fail on any torch class; returns the records read."""
+    import pickle
+
+    from pathway_tpu_torch.persistence.framing import scan
+
+    class NoTorch(pickle.Unpickler):
+        def find_class(self, module, name):
+            if module.split(".")[0] == "torch":
+                raise AssertionError(f"phase 21: a snapshot holds {module}.{name}")
+            return super().find_class(module, name)
+
+    n = 0
+    for base, _dirs, files in os.walk(store):
+        for f in files:
+            blob = open(os.path.join(base, f), "rb").read()
+            if f.startswith("chunk-"):
+                payloads, _intact = scan(blob[4:] if blob.startswith(b"PWC1") else blob)
+            else:
+                payloads = [blob]
+            for p in payloads:
+                NoTorch(io.BytesIO(p)).load()
+                n += 1
+    return n
+
+
+def _ps_state(book) -> dict:
+    """The final answer per query text of an update stream of
+    ``(row, diff)``: {query: [(doc_id, score), ...]}."""
+    count = {}
+    for row, diff in book:
+        answer = tuple((int(i), float(s)) for i, s in zip(row["ids"], row["scores"]))
+        per_query = count.setdefault(row["query"], {})
+        per_query[answer] = per_query.get(answer, 0) + diff
+    state = {}
+    for query, answers in count.items():
+        live = [a for a, n in answers.items() if n > 0]
+        if len(live) != 1 or answers[live[0]] != 1:
+            raise AssertionError(f"phase 21: {len(live)} live answers for one query")
+        state[query] = list(live[0])
+    return state
+
+
+def _ps_rrf(per_index, k: int, k_constant: float = 60.0):
+    fused = {}
+    for rows in per_index:
+        for rank, (key, _s) in enumerate(rows):
+            fused[key] = fused.get(key, 0.0) + 1.0 / (k_constant + rank + 1)
+    return sorted(fused.items(), key=lambda kv: (-kv[1], kv[0]))[:k]
+
+
+def _ps_exact(ivf, vecs: np.ndarray, k: int, dev, cache: dict):
+    """Exact scan of every row the IVF index holds: top ``k`` keys and
+    cosine scores per query, on the card (the row matrix is kept in
+    ``cache`` per index)."""
+    if id(ivf) not in cache:
+        keys = list(ivf._rows)
+        cache[id(ivf)] = (keys, torch.from_numpy(np.stack([ivf._rows[key] for key in keys])).to(dev))
+    keys, mat = cache[id(ivf)]
+    q = torch.from_numpy(vecs / np.linalg.norm(vecs, axis=1, keepdims=True)).to(dev)
+    scores, idx = torch.topk(q @ mat.t(), k, dim=1)
+    scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
+    return [[(keys[j], float(s)) for j, s in zip(ri, rs)] for ri, rs in zip(idx, scores)]
+
+
+def _ps_run(pw, emb, root: str, store: str, commits, run: int, dev, profile_run: bool):
+    """One run of arm (a): the graph over ``root/docs`` and a persisted
+    query subject, ``pw.run`` under a filesystem persistence config; the
+    driver thread waits for the replayed queries' answers (run 2), then
+    puts ``commits`` one at a time.  Checks each operator's answers
+    against a direct search of its own index, the IVF side against an
+    exact scan, the fused lists against an RRF of the sub-indexes' own
+    searches at 2k; returns what the cross-run checks read."""
+    from pathway_tpu_torch.io import fs as pw_fs
+    from pathway_tpu_torch.io._offsets import connector_monitors
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+    from pathway_tpu_torch.persistence.backends import FileBackend
+    from pathway_tpu_torch.persistence.engine_state import PersistenceManager
+    from pathway_tpu_torch.stdlib.indexing.bm25 import BM25Index
+    from torch.profiler import ProfilerActivity, profile
+
+    driver = _FrameworkDriver()
+    subject, q = _queue_subject(pw, "queries", driver)
+    queries = pw.io.python.read(subject, schema=pw.schema_from_types(query=str), atomic_batches=True,
+                                persistent_id="queries", name="persist_queries")
+    vecs, results = _ps_graph(pw, emb, os.path.join(root, "docs"), queries)
+    books = {name: [] for name in results}
+    for name, table in results.items():
+        def on_change(key, row, time, is_addition, book=books[name], name=name):
+            with driver.cond:
+                book.append((row, 1 if is_addition else -1))
+                driver.arrival.setdefault(name, []).append((_now(), row["query"]))
+                driver.cond.notify_all()
+
+        pw.io.subscribe(table, on_change=on_change, on_time_end=driver.on_tick)
+    ops = _ps_ops(pw)
+    added, searched = {n: [] for n in ops}, {n: [] for n in ops}
+    for name, op in ops.items():
+        inner = op.index
+
+        def add(keys, values, metadatas, orig=inner.add, name=name):
+            orig(keys, values, metadatas)
+            with driver.cond:
+                added[name].append(_now())
+                driver.cond.notify_all()
+
+        def search(values, k, filters, orig=inner.search, name=name):
+            t0 = _now()
+            out = orig(values, k, filters)
+            searched[name].append((list(values), k, out, (_now() - t0) * 1e3))
+            return out
+
+        inner.add, inner.search = add, search
+    hybrid = ops["hybrid"].index
+    bm25_ms = []
+    orig_bm25 = BM25Index.search
+
+    def bm25_search(self, values, k, filters):
+        t0 = _now()
+        try:
+            return orig_bm25(self, values, k, filters)
+        finally:
+            bm25_ms.append((_now() - t0) * 1e3)
+
+    commits_timed, put_bytes = [], [0]
+    orig_commit, orig_put = PersistenceManager.commit, FileBackend.put
+
+    def commit(self, ts):
+        t0, b0 = _now(), put_bytes[0]
+        orig_commit(self, ts)
+        commits_timed.append((_now() - t0, put_bytes[0] - b0))
+
+    def put(self, key, value):
+        put_bytes[0] += len(value)
+        return orig_put(self, key, value)
+
+    parsed = []
+    orig_parse = pw_fs._parse_into
+
+    def parse_into(fpath, *args, **kwargs):
+        parsed.append(os.path.basename(fpath))
+        return orig_parse(fpath, *args, **kwargs)
+
+    report = {}
+    n_replayed = BATCH * PS_COMMITS if run == 2 else 0
+
+    def answered(name):
+        return len({row["query"] for row, d in books[name] if d > 0})
+
+    def drive():
+        driver.wait(lambda: all(added[n] for n in ops), "the documents")
+        report["ingest_s"] = max(added[n][0] for n in ops) - report["t_run"]
+        if n_replayed:
+            driver.wait(lambda: all(answered(n) >= n_replayed for n in ops), "the replayed queries")
+        latency = {n: [] for n in ops}
+        bm25_per_commit = []
+        for c, texts in enumerate(commits):
+            n_bm25 = len(bm25_ms)
+            q.put([{"query": t} for t in texts])
+            want = n_replayed + (c + 1) * BATCH
+            driver.wait(lambda: all(answered(n) >= want for n in ops) and len(driver.commit_at.get("queries", ())) > c,
+                        f"query commit {c} of run {run}")
+            t_commit = driver.commit_at["queries"][c]
+            mine = set(texts)
+            for n in ops:
+                latency[n].append((max(t for t, qt in driver.arrival[n] if qt in mine) - t_commit) * 1e3)
+            bm25_per_commit.append(sum(bm25_ms[n_bm25:]))
+        report["latency"], report["bm25_ms"] = latency, bm25_per_commit
+
+    def run_driver():
+        try:
+            drive()
+        except BaseException as exc:  # noqa: BLE001 - re-raised on the main thread after the run
+            report["error"] = exc
+        finally:
+            q.put(None)
+
+    PersistenceManager.commit, FileBackend.put = commit, put
+    BM25Index.search, pw_fs._parse_into = bm25_search, parse_into
+    before = rescore_shortlist.launches
+    config = pw.persistence.Config.simple_config(pw.persistence.Backend.filesystem(store),
+                                                 snapshot_interval_ms=PS_SNAPSHOT_MS)
+    thread = threading.Thread(target=run_driver, daemon=True, name=f"phase21-run{run}")
+    prof = profile(activities=[ProfilerActivity.CUDA]) if profile_run and dev.type == "cuda" else None
+    try:
+        if prof is not None:
+            prof.__enter__()
+        report["t_run"] = _now()
+        thread.start()
+        try:
+            pw.run(commit_duration_ms=PS_COMMIT_MS, persistence_config=config)
+        finally:
+            driver.stop = True
+            thread.join(timeout=60)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall_ms = (_now() - report["t_run"]) * 1e3
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        PersistenceManager.commit, FileBackend.put = orig_commit, orig_put
+        BM25Index.search, pw_fs._parse_into = orig_bm25, orig_parse
+        for op in ops.values():  # the checks below search the indexes themselves
+            del op.index.add, op.index.search
+    launches = rescore_shortlist.launches - before
+    if "error" in report:
+        raise report["error"]
+    first_answer = min(t for n in ops for t, _q in driver.arrival[n])
+
+    # -- checks of the run ----------------------------------------------------------
+    ivfs = {n: _ps_ivf(op) for n, op in ops.items()}
+    for n, ivf in ivfs.items():
+        if ivf._slabs is None or ivf._slabs.device.type != dev.type or ivf._centroids.device.type != dev.type:
+            raise AssertionError(f"phase 21: the {n} IVF index lives on {getattr(ivf._slabs, 'device', None)}")
+    v_keys, v_cols = vecs._materialize()
+    n_rows = len(v_keys)
+    doc_ids = [int(x) for x in v_cols["doc_id"]]
+    key_set = {int(k) for k in v_keys}
+    bm25 = hybrid.indexes[1]
+    exact_mats = {}
+    for n, ivf in ivfs.items():
+        if len(ivf) != n_rows or set(ivf._rows) != key_set:
+            raise AssertionError(f"phase 21: the {n} IVF index holds {len(ivf)} rows, the table {n_rows}")
+    if len(set(doc_ids)) != n_rows or len(bm25.doc_tokens) != n_rows:
+        raise AssertionError(f"phase 21: {n_rows} rows for {len(set(doc_ids))} documents, BM25 {len(bm25.doc_tokens)}")
+    states = {n: _ps_state(books[n]) for n in ops}
+    n_queries = n_replayed + len(commits) * BATCH
+    for n, state in states.items():
+        if len(state) != n_queries or any(len(r) != K for r in state.values()):
+            raise AssertionError(f"phase 21: run {run}'s {n} arm answered {len(state)} of {n_queries} queries")
+    # the engine's searches == a direct search of the operator's index; the
+    # IVF side == an exact scan; the fused list == RRF of the sub-indexes'
+    # own searches at 2k, taken from inside the direct search
+    t_check = _now()
+    ivf_mismatch = exact_checked = 0
+    hybrid_searches = searched["hybrid"]
+    for n, op in ops.items():
+        for values, k, got, _ms in searched[n]:
+            subs = []
+            if n == "hybrid":
+                for j, sub in enumerate(hybrid.indexes):
+                    def sub_search(vals, kk, filters, orig=sub.search, j=j):
+                        rows = orig(vals, kk, filters)
+                        subs.append((j, kk, rows))
+                        return rows
+
+                    sub.search = sub_search
+            try:
+                want = op.index.search(values, k, [None] * len(values))
+            finally:
+                for sub in hybrid.indexes:
+                    sub.__dict__.pop("search", None)
+            if [list(r) for r in got] != [list(r) for r in want]:
+                raise AssertionError(f"phase 21: run {run}'s {n} answers differ from a direct search of its index")
+            vec = np.stack([np.asarray(v[0] if n == "hybrid" else v, np.float32) for v in values])
+            if n == "hybrid":
+                (_j0, k0, vec_rows), (_j1, k1, text_rows) = sorted(subs, key=lambda x: x[0])
+                if (k0, k1) != (2 * k, 2 * k):
+                    raise AssertionError(f"phase 21: the hybrid searched its sub-indexes at {k0}, {k1}, not {2 * k}")
+                for i, row in enumerate(got):
+                    fused = _ps_rrf([vec_rows[i], text_rows[i]], k)
+                    if [key for key, _ in row] != [key for key, _ in fused] or max(
+                            abs(a - b) for (_, a), (_, b) in zip(row, fused)) > 1e-12:
+                        raise AssertionError(f"phase 21: run {run}'s fused list differs from the RRF of its "
+                                             f"sub-searches")
+                exact, ivf_rows = _ps_exact(ivfs[n], vec, 2 * k, dev, exact_mats), vec_rows
+            else:
+                exact, ivf_rows = _ps_exact(ivfs[n], vec, k, dev, exact_mats), got
+            ivf_mismatch += sum(1 for w, g in zip(exact, ivf_rows) if not same_ranking(w, list(g)))
+            exact_checked += len(exact)
+    if ivf_mismatch:
+        raise AssertionError(f"phase 21: run {run}: IVF at full probe != the exact scan on {ivf_mismatch} queries")
+    del exact_mats
+    check_s = _now() - t_check
+    (mon,) = [m for m in connector_monitors() if m.name == "persist_docs" and m.finished]
+    out = {
+        "states": states, "launches": launches, "ingest_s": report["ingest_s"], "latency": report["latency"],
+        "bm25_ms": report["bm25_ms"], "restart_s": first_answer - report["t_run"], "wall_ms": wall_ms,
+        "commits": commits_timed, "parsed": parsed, "rows_read": mon.rows_inserted, "n_rows": n_rows,
+        "exact_checked": exact_checked, "check_s": check_s, "busy": None, "shape": None, "shape_line": None,
+        "ivf_shape_vecs": np.stack([np.asarray(v, np.float32) for v in searched["vector"][-1][0]]),
+        "rows": {key: ivfs["vector"]._rows[key].copy() for key in ivfs["vector"]._rows},
+        "doc_of_key": dict(zip((int(k) for k in v_keys), doc_ids)),
+        "query_vecs": {v[1]: np.asarray(v[0], np.float32) for vals, _k, _g, _ms in hybrid_searches for v in vals},
+        "search_ms": {n: [ms for vals, _k, _g, ms in searched[n] if len(vals) == BATCH] for n in ops},
+    }
+    if profile_run and dev.type == "cuda":
+        out["busy"] = device_busy(prof, wall_ms)
+        out["shape"] = rescore_at_path_shape(ivfs["vector"], ivf_search_rescore_args(ivfs["vector"],
+                                                                                  out["ivf_shape_vecs"]), dev)
+        out["shape_line"] = rescore_line(ivfs["vector"], out["shape"])
+    return out
+
+
+def persist_worker(root: str, mode: str, out_csv: str) -> int:
+    """Arm (b)'s program: the phase's graph over ``root/docs`` and the
+    JSON-lines queries under ``root/queries`` (both persisted), the
+    answers written to ``out_csv`` (``.hybrid.csv`` and ``.vector.csv``);
+    ``streaming`` runs until killed, ``static`` ends when both folders are
+    read.  Persistence comes from the environment
+    (``PATHWAY_PERSISTENT_STORAGE``).  Prints ``RESULT {json}`` at the end."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.kernels.build import build_all, build_host
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+
+    build_all()
+    build_host("tokenize_hash")
+    emb = _ps_embedder()
+    queries = pw.io.jsonlines.read(os.path.join(root, "queries"), schema=pw.schema_from_types(query=str), mode=mode,
+                                   persistent_id="queries", name="persist_worker_queries", poll_interval_s=0.1)
+    _vecs, results = _ps_graph(pw, emb, os.path.join(root, "docs"), queries, mode=mode)
+    for name, table in results.items():
+        flat = table.select(
+            pw.this.query,
+            ids=pw.apply(lambda t: " ".join(str(int(x)) for x in t), pw.this.ids),
+            scores=pw.apply(lambda t: " ".join(repr(float(x)) for x in t), pw.this.scores),
+        )
+        pw.io.csv.write(flat, f"{out_csv}.{name}.csv")
+    ops = _ps_ops(pw)
+    pw.run(commit_duration_ms=PS_COMMIT_MS)
+    sizes = {n: len(_ps_ivf(op)) for n, op in ops.items()}
+    sizes["bm25"] = len(ops["hybrid"].index.indexes[1].doc_tokens)
+    print("RESULT " + json.dumps({"rows": sizes, "launches": rescore_shortlist.launches}), flush=True)
+    return 0
+
+
+def _ps_sink(path: str) -> dict:
+    """The final answer per query of a worker's CSV sink (an update stream
+    with time and diff columns): {query: [(doc_id, score), ...]}."""
+    import csv as csv_mod
+
+    latest = {}
+    with open(path, newline="") as f:
+        for row in csv_mod.DictReader(f):
+            t, diff = int(row["time"]), int(row["diff"])
+            prev = latest.get(row["query"])
+            if diff > 0 and (prev is None or t >= prev[0]):
+                latest[row["query"]] = (t, row)
+            elif diff < 0 and prev is not None and t > prev[0] and prev[1]["ids"] == row["ids"]:
+                latest.pop(row["query"])
+    return {
+        qt: [(int(i), float(s)) for i, s in zip(row["ids"].split(), row["scores"].split())]
+        for qt, (_t, row) in latest.items()
+    }
+
+
+def _ps_worker(root: str, mode: str, out: str, store: str, argv_prefix=()):
+    env = dict(os.environ)
+    env.update(PATHWAY_PERSISTENT_STORAGE=store, PATHWAY_PERSISTENCE_MODE="PERSISTING",
+               PATHWAY_SNAPSHOT_INTERVAL_MS=str(PS_SNAPSHOT_MS), PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    cmd = [*argv_prefix, *PS_WORKER_CMD, "--persist-worker", root, mode, out]
+    return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _ps_finish(proc, what: str):
+    try:
+        out, err = proc.communicate(timeout=PS_WORKER_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"phase 21: {what} did not finish in {PS_WORKER_TIMEOUT_S} s")
+    results = [json.loads(line[7:]) for line in out.splitlines() if line.startswith("RESULT ")]
+    if proc.returncode != 0 or len(results) != 1:
+        raise AssertionError(f"phase 21: {what} exited {proc.returncode}:\n{err[-3000:]}")
+    return results[0], err
+
+
+def _ps_same_sinks(want: dict, got: dict, what: str) -> int:
+    if set(want) != set(got):
+        raise AssertionError(f"phase 21: {what} answered {len(got)} queries, the uninterrupted run {len(want)}")
+    bad = [qt for qt in want if not same_ranking(want[qt], got[qt], tie=PS_TOL, atol=PS_TOL)]
+    if bad:
+        raise AssertionError(f"phase 21: {what} differs from the uninterrupted run on {len(bad)} queries: "
+                             f"{want[bad[0]][:3]} vs {got[bad[0]][:3]}")
+    return len(want)
+
+
+def persist_phase(tag: str):
+    """Phase 21: durable pipelines.  (a) A hybrid (IVF + BM25, RRF) and a
+    vector-only ``DataIndex`` over 65,536 JSON-lines documents and 4
+    persisted query commits of 64, run under ``pw.run(persistence_config=
+    ...)``, then ``pw.reset()`` and a second run of the same graph over the
+    same store with 2 new files and 4 new commits.  Both IVF indexes run at
+    full probe on purpose: replay pushes the whole log at once, so the
+    restarted index is trained on every row in one go where a first run may
+    build and then absorb, and only at full probe must the two layouts give
+    the same ranks.  (b) A subprocess on the card killed by SIGKILL after 2
+    snapshot commits, restarted, and held against an uninterrupted run;
+    then a torn tail of its log.  (c) ``python -m pathway_tpu_torch.cli
+    replay`` of (b)'s store.  Returns (rescore launches, the kernel at the
+    phase's shape)."""
+    import gc
+    import pickle
+    import shutil
+    import signal
+    import tempfile
+
+    import pathway_tpu_torch as pw
+
+    t_phase = _now()
+    dev = torch.device(DEVICE)
+    root = tempfile.mkdtemp(prefix="phase21-")
+    try:
+        pw.reset()
+        docs = corpus(N_DOCS)
+        late = [t + f" late{i}" for i, t in enumerate(corpus(PS_NEW_FILES * PS_FILE_DOCS, seed=SEED + 21))]
+        qidx = query_ids()
+        commits = [[docs[j] for j in qidx[c * BATCH : (c + 1) * BATCH]] for c in range(2 * PS_COMMITS)]
+        _ps_write_docs(os.path.join(root, "docs"), 0, docs[: PS_FILES * PS_FILE_DOCS], PS_FILE_DOCS)
+        emb = _ps_embedder()
+        mem_before = _ps_allocated(dev)
+        store = os.path.join(root, "store")
+        r1 = _ps_run(pw, emb, root, store, commits[:PS_COMMITS], 1, dev, profile_run=False)
+        log(f"persist run 1 {tag}: {r1['wall_ms'] / 1e3:.1f} s, checks {r1['check_s']:.1f} s")
+        pw.reset()
+        mem_after = _ps_allocated(dev)
+        if dev.type == "cuda" and abs(mem_after - mem_before) > PS_MEM_SLACK * max(mem_before, 1):
+            raise AssertionError(f"phase 21: after pw.reset() {mem_after} bytes allocated, {mem_before} before run 1")
+        _ps_no_torch(store)
+        _ps_write_docs(os.path.join(root, "docs"), N_DOCS, late, PS_FILE_DOCS)
+        r2 = _ps_run(pw, emb, root, store, commits[PS_COMMITS:], 2, dev, profile_run=True)
+        log(f"persist run 2 {tag}: {r2['wall_ms'] / 1e3:.1f} s, checks {r2['check_s']:.1f} s")
+        n_records = _ps_no_torch(store)
+        new_files = sorted({f"part{(N_DOCS + f) // PS_FILE_DOCS:03d}.jsonl"
+                            for f in range(0, len(late), PS_FILE_DOCS)})
+        if sorted(r2["parsed"]) != new_files or r2["rows_read"] != len(late):
+            raise AssertionError(f"phase 21: run 2's reader opened {sorted(r2['parsed'])} and read "
+                                 f"{r2['rows_read']} rows; only {new_files} ({len(late)} rows) are new")
+        if r2["n_rows"] != N_DOCS + len(late):
+            raise AssertionError(f"phase 21: run 2's index holds {r2['n_rows']} rows")
+
+        # -- restart == a process that never stopped -----------------------------------
+        # the restarted rows are run 1's rows (re-embedded: the packed batch moves bf16 rows)
+        common = [k for k in r1["rows"] if k in r2["rows"]]
+        row_err = max(float(np.max(np.abs(r1["rows"][k] - r2["rows"][k]))) for k in common)
+        if len(common) != N_DOCS or row_err > PS_TOL:
+            raise AssertionError(f"phase 21: {len(common)} of run 1's rows back, max abs err {row_err}")
+        # a replayed query's vector answer is run 1's answer merged with the new documents
+        late_keys = [k for k, d in r2["doc_of_key"].items() if d >= N_DOCS]
+        late_mat = torch.from_numpy(np.stack([r2["rows"][k] for k in late_keys])).to(dev)
+        late_doc = [r2["doc_of_key"][k] for k in late_keys]
+        replay_bad = 0
+        replayed = [t for c in commits[:PS_COMMITS] for t in c]
+        for qt in replayed:
+            qv = r2["query_vecs"][qt]
+            qv = torch.from_numpy(qv / np.linalg.norm(qv)).to(dev)
+            ls, li = torch.topk(late_mat @ qv, K)
+            merged = sorted(r1["states"]["vector"][qt] + [(late_doc[j], float(s)) for j, s in
+                                                          zip(li.cpu().numpy(), ls.cpu().numpy())],
+                            key=lambda r: -r[1])[:K]
+            if not same_ranking(merged, r2["states"]["vector"][qt], tie=PS_TOL, atol=PS_TOL):
+                replay_bad += 1
+        if replay_bad:
+            raise AssertionError(f"phase 21: {replay_bad} replayed queries answer otherwise than run 1 with the "
+                                 f"new documents merged in")
+        late_first = sum(1 for qt in replayed if any(d >= N_DOCS for d, _ in r2["states"]["vector"][qt]))
+        c1 = [r[0] for r in r1["commits"]]
+        b1 = [r[1] for r in r1["commits"]]
+        log(
+            f"persist (a) {tag}: run 1 read {PS_FILES} files of {PS_FILE_DOCS} JSON-lines documents and answered "
+            f"{PS_COMMITS} commits of {BATCH} queries (k={K}) in a hybrid (IVF full probe + BM25, RRF k=60) and a "
+            f"vector-only DataIndex; run 2 after pw.reset() over the same store opened {len(r2['parsed'])} files "
+            f"({', '.join(r2['parsed'])}, {r2['rows_read']} rows counted by the connector's monitor), holds "
+            f"{r2['n_rows']} rows each key once, re-answered the {len(replayed)} replayed queries (vector arm "
+            f"== run 1's answer with the new documents merged in on all, {late_first} with a new document in "
+            f"the top {K}; rows back within {row_err:.6f} of run 1's) and answered {PS_COMMITS} new commits; every "
+            f"answer of both runs == a direct search of its operator's index, IVF == an exact scan "
+            f"({r1['exact_checked'] + r2['exact_checked']} searches), fused == RRF of the sub-searches at 2k; "
+            f"index tensors on cuda; allocated {mem_before / 1e6:.1f} MB before run 1, {mem_after / 1e6:.1f} MB "
+            f"after its reset (cuBLAS workspaces released before each reading); {n_records} snapshot records "
+            f"unpickled, no torch class"
+        )
+
+        # -- (b) crash: SIGKILL after 2 snapshot commits, restart, torn tail -------------
+        t_b = _now()
+        crash, clean = os.path.join(root, "crash"), os.path.join(root, "clean")
+        crash_docs = [t + f" crash{i}" for i, t in enumerate(corpus(PS_CRASH_FILES * PS_CRASH_FILE_DOCS,
+                                                                     seed=SEED + 22))]
+        crash_queries = [crash_docs[(i * 97) % len(crash_docs)] for i in range(PS_CRASH_QUERIES)]
+        half = PS_CRASH_FILES // 2 * PS_CRASH_FILE_DOCS
+        for folder, n in ((crash, half), (clean, len(crash_docs))):
+            _ps_write_docs(os.path.join(folder, "docs"), 0, crash_docs[:n], PS_CRASH_FILE_DOCS)
+            os.makedirs(os.path.join(folder, "queries"))
+            with open(os.path.join(folder, "queries", "q.jsonl"), "w") as f:
+                f.writelines(json.dumps({"query": t}) + "\n" for t in crash_queries)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()  # the workers share the card: hand back what this process only caches
+        clean_proc = _ps_worker(clean, "static", os.path.join(clean, "out"), os.path.join(clean, "store"))
+        crash_store = os.path.join(crash, "store")
+        proc = _ps_worker(crash, "streaming", os.path.join(crash, "out"), crash_store)
+        seen = set()
+        deadline = _now() + PS_WORKER_TIMEOUT_S
+        while True:
+            blob = None
+            try:
+                blob = open(os.path.join(crash_store, "COMMIT"), "rb").read()
+            except OSError:
+                pass
+            if blob:
+                meta = os.path.join(crash_store, "sources", "docs", "METADATA")
+                offsets = pickle.loads(open(meta, "rb").read()).get("offsets") if os.path.exists(meta) else None
+                if offsets and len(offsets) == PS_CRASH_FILES // 2:
+                    seen.add(pickle.loads(blob)["frontier"])
+            if len(seen) >= 2:
+                break
+            if proc.poll() is not None or _now() > deadline:
+                proc.kill()
+                raise AssertionError(f"phase 21: the crash run ended before 2 snapshot commits:\n"
+                                     f"{proc.communicate()[1][-3000:]}")
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait()
+        killed_at = _now() - t_b
+        _ps_write_docs(os.path.join(crash, "docs"), half, crash_docs[half:], PS_CRASH_FILE_DOCS)
+        restarted, _err = _ps_finish(_ps_worker(crash, "static", os.path.join(crash, "out"), crash_store),
+                                     "the restarted run")
+        clean_res, _err = _ps_finish(clean_proc, "the uninterrupted run")
+        n_docs_b = len(crash_docs)
+        for res, what in ((restarted, "restarted"), (clean_res, "uninterrupted")):
+            if res["rows"] != {"hybrid": n_docs_b, "vector": n_docs_b, "bm25": n_docs_b}:
+                raise AssertionError(f"phase 21: the {what} run's indexes hold {res['rows']}")
+        n_same = 0
+        for arm in ("hybrid", "vector"):
+            n_same += _ps_same_sinks(_ps_sink(os.path.join(clean, f"out.{arm}.csv")),
+                                     _ps_sink(os.path.join(crash, f"out.{arm}.csv")), f"the restarted run's {arm} sink")
+
+        # -- (c) the command line replays (b)'s store (a copy), while the original's
+        # last chunk is torn by a few bytes: replay stops at the last intact record,
+        # the log rewinds, and every document is still indexed
+        t_c = _now()
+        replay_store = os.path.join(root, "replay-store")
+        shutil.copytree(crash_store, replay_store)
+        replay_proc = _ps_worker(crash, "static", os.path.join(crash, "replay"), replay_store,
+                                 argv_prefix=(sys.executable, "-m", "pathway_tpu_torch.cli", "replay",
+                                              "--record-path", replay_store))
+        chunks = sorted(p for p in os.listdir(os.path.join(crash_store, "sources", "docs")) if p.startswith("chunk-"))
+        torn = os.path.join(crash_store, "sources", "docs", chunks[-1])
+        blob = open(torn, "rb").read()
+        open(torn, "wb").write(blob[:-5])
+        torn_proc = _ps_worker(crash, "static", os.path.join(crash, "torn"), crash_store)
+        replayed_res, _err = _ps_finish(replay_proc, "cli replay")
+        replay_s = _now() - t_c
+        torn_res, torn_err = _ps_finish(torn_proc, "the run over a torn log")
+        for arm in ("hybrid", "vector"):
+            _ps_same_sinks(_ps_sink(os.path.join(crash, f"out.{arm}.csv")),
+                           _ps_sink(os.path.join(crash, f"replay.{arm}.csv")), f"cli replay's {arm} sink")
+        if "corrupt tail" not in torn_err or torn_res["rows"] != {"hybrid": n_docs_b, "vector": n_docs_b,
+                                                                   "bm25": n_docs_b}:
+            raise AssertionError(f"phase 21: over the torn log the indexes hold {torn_res['rows']}")
+        n_records_b = _ps_no_torch(crash_store)
+        log(
+            f"persist (b, c) {tag}: a worker on the card (4 files of {PS_CRASH_FILE_DOCS} documents, {BATCH} "
+            f"queries, hybrid and vector sinks) killed by SIGKILL {killed_at:.1f} s in, after 2 snapshot commits "
+            f"with 2 files read; 2 files written while it was down; the restart's sinks == an uninterrupted "
+            f"run's on {n_same} answers (ties within {PS_TOL}), {n_docs_b} documents indexed once; "
+            f"`python -m pathway_tpu_torch.cli replay --record-path` over a copy of that store answered the "
+            f"same in {replay_s:.1f} s; meanwhile the original's last chunk torn by 5 bytes: replay stopped at the last intact record (logged), "
+            f"the log rewound, all {n_docs_b} documents indexed; {n_records_b} records unpickled, no torch class; "
+            f"worker rescore launches {restarted['launches']} + {clean_res['launches']} + "
+            f"{replayed_res['launches']} + {torn_res['launches']}; arms (b, c) {_now() - t_b:.1f} s"
+        )
+
+        # -- numbers ---------------------------------------------------------------------
+        lat = {n: r1["latency"][n] + r2["latency"][n] for n in ("hybrid", "vector")}
+        search = {n: r1["search_ms"][n] + r2["search_ms"][n] for n in ("hybrid", "vector")}
+        c2 = [r[0] for r in r2["commits"]]
+        b2 = [r[1] for r in r2["commits"]]
+        cold, restart = r1["ingest_s"], r2["restart_s"]
+        busy = r2["busy"] or "busy share not measured"
+        log(
+            f"persist numbers {tag}: cold ingest (run 1: read + embed + add into both indexes, run start to the "
+            f"later first add) {cold:.3f} s = {N_DOCS / cold:.0f} docs/s; snapshot commits run 1 {len(c1)} "
+            f"(first {b1[0]} bytes in {c1[0] * 1e3:.3f} ms, then mean {np.mean(b1[1:]):.0f} bytes in "
+            f"{np.mean(c1[1:]) * 1e3:.3f} ms), run 2 {len(c2)} (first {b2[0]} bytes in {c2[0] * 1e3:.3f} ms, "
+            f"then mean {np.mean(b2[1:]):.0f} bytes in {np.mean(c2[1:]) * 1e3:.3f} ms); restart (run 2: pw.run "
+            f"to its first answer, replaying {N_DOCS} documents through the embedder and both adds, "
+            f"{len(late)} new, and the IVF builds of the first search) {restart:.3f} s, restart / cold "
+            f"{restart / cold:.2f} (run 2's ingest alone, to the later first add: {r2['ingest_s']:.3f} s); "
+            f"retrieve per commit of "
+            f"{BATCH} (subject commit to the last answer; both arms answer in one tick) p50 "
+            f"{np.percentile(lat['hybrid'][1:], 50):.3f} ms max {max(lat['hybrid'][1:]):.3f} after the first "
+            f"({lat['hybrid'][0]:.3f} ms: it holds the IVF builds); the operators' search of {BATCH} queries: "
+            f"hybrid p50 {np.percentile(search['hybrid'], 50):.3f} ms, vector-only p50 "
+            f"{np.percentile(search['vector'], 50):.3f} ms, the BM25 side's host ms per commit p50 "
+            f"{np.percentile(r1['bm25_ms'] + r2['bm25_ms'], 50):.3f}; run 2 "
+            f"{busy}; rescore launches on the persist path {r1['launches'] + r2['launches']} (run 1 "
+            f"{r1['launches']}, run 2 {r2['launches']}, the checks' direct searches not counted); phase 21 "
+            f"{_now() - t_phase:.1f} s"
+        )
+        shape = r2["shape"]
+        log(f"ivf_rescore at the persist path's shape {tag}: {r2['shape_line']}")
+        launches = r1["launches"] + r2["launches"]
+        if launches == 0:
+            raise AssertionError("phase 21: the persist path launched no rescore kernel")
+        return launches, shape
+    finally:
+        pw.reset()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def framework_setup():
     """The set-up ``--framework`` and ``--qa`` share: the card's name, the
     kernels' build, phase 4's rows and phase 5's direct serve p50 (exact
@@ -5789,6 +6521,8 @@ def main() -> int:
         return 1
     if len(sys.argv) == 3 and sys.argv[1] == "--rank-worker":
         return rank_worker(sys.argv[2])
+    if len(sys.argv) == 5 and sys.argv[1] == "--persist-worker":
+        return persist_worker(*sys.argv[2:5])
     if len(sys.argv) == 4 and sys.argv[1] == "--serve-template":
         # phase 20 (b) on a machine without PyYAML: the template's objects, served
         from pathway_tpu_torch import cli
@@ -5873,6 +6607,20 @@ def main() -> int:
         launches = qa_phase(p50, f"[{smi}]")[0]
         template_phase(f"[{smi}]")
         log(f"phase 20 {time.perf_counter() - t0:.1f} s; QA launches {launches}; shape census: {tripwire_census()}")
+        return 0
+    if sys.argv[1:] == ["--persist"]:
+        from pathway_tpu_torch.kernels.build import build_host
+
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        ).stdout.strip()
+        log(f"card: {smi}")
+        t0 = time.perf_counter()
+        build_all()
+        build_host("tokenize_hash")
+        log(f"build {time.perf_counter() - t0:.1f} s")
+        launches = persist_phase(f"[{smi}]")[0]
+        log(f"rescore launches {launches}; shape census: {tripwire_census()}")
         return 0
     if sys.argv[1:] == ["--distributed"]:
         from pathway_tpu_torch.kernels.build import build_host
@@ -6199,6 +6947,10 @@ def main() -> int:
     decode_kernels[0]["launches"] += qa_launches["add_layer_norm_rows"]
     decode_kernels[1]["launches"] += qa_launches["tied_readout"]
     decode_kernels[1]["launches_by_path"]["qa"] = qa_launches["tied_readout"]
+
+    # -- 21. durable pipelines: a persisted hybrid index restarted, a crash, cli replay, counted --
+    ps_launches, ps_kernel = persist_phase(tag)
+    worst_err = max(worst_err, ps_kernel["max_abs_err"])
     log(f"shape census: {tripwire_census()}")
 
     record = {
@@ -6210,12 +6962,13 @@ def main() -> int:
                 "replaces": "pathway_tpu/ops/ivf_pallas.py:37",
                 "launches": launches + rr_launches + sched_launches + li_launches + ws_launches + st_launches
                 + po_launches + sum(rw_launches.values()) + ss_launches + sf_launches + fw_launches
-                + qa_launches["ivf_rescore"],
+                + qa_launches["ivf_rescore"] + ps_launches,
                 "launches_by_path": {
                     "serve": launches, "rerank": rr_launches, "scheduler": sched_launches,
                     "ingest": li_launches, "warmstate": ws_launches, "tuning": st_launches,
                     "profiling": po_launches, "real_weights": rw_launches, "sharded": ss_launches,
                     "fabric": sf_launches, "framework": fw_launches, "qa": qa_launches["ivf_rescore"],
+                    "persist": ps_launches,
                 },
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,
@@ -6244,6 +6997,7 @@ def main() -> int:
                 "partition_shape": {key: sf_kernel[key] for key in _SHAPE_KEYS},
                 "framework_shape": {key: fw_kernel[key] for key in _SHAPE_KEYS},
                 "qa_shape": {key: qa_kernel[key] for key in _SHAPE_KEYS},
+                "persist_shape": {key: ps_kernel[key] for key in _SHAPE_KEYS},
             },
             *decode_kernels,
         ]

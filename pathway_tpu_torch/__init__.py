@@ -6,10 +6,14 @@ it.  Entry points that touch the device run on the CUDA device unless the
 caller passes ``device="cpu"`` explicitly (see ``device.py``).
 
 The ``pw`` namespace: the table and expression API (``internals/``), the
-incremental engine (``engine/``), ``debug``, ``io`` (``python``,
-``subscribe``, the file connectors ``fs`` / ``csv`` / ``jsonlines`` /
-``plaintext`` and the REST connector ``http``), ``stdlib.indexing``
-(``DataIndex`` over the device KNN indexes), ``xpacks.llm``
+incremental engine (``engine/``) with its persistence (``persistence``:
+input logs, operator snapshots, ``pw.run(persistence_config=...)``),
+``debug``, ``demo``, ``io`` (``python``, ``subscribe``, the file
+connectors ``fs`` / ``csv`` / ``jsonlines`` / ``plaintext``, ``sqlite``,
+``null`` and the REST connector ``http``), ``stdlib.indexing``
+(``DataIndex`` over the device KNN indexes, BM25, the hybrid index),
+``ml`` (``KNNIndex``, the LSH index, ``knn_classifier``), ``stateful``,
+``xpacks.llm``
 (``DocumentStore`` retrieval, chat, rerankers, the RAG answerers and
 their REST servers) and ``load_yaml`` (the template loader; the command
 line is ``python -m pathway_tpu_torch.cli``).  Names of the reference's
@@ -76,8 +80,11 @@ from .internals.yaml_loader import load_yaml
 from .internals import udfs
 from .internals.udfs import UDF, udf, udf_async
 from . import debug  # noqa: E402
+from . import demo  # noqa: E402
 from . import io  # noqa: E402
+from . import persistence  # noqa: E402
 from . import universes  # noqa: E402
+from .persistence import PersistenceMode  # noqa: E402
 
 __all__ = [
     "DEFAULT_DTYPE",
@@ -94,7 +101,10 @@ __all__ = [
     "reducers",
     "run",
     "debug",
+    "demo",
     "io",
+    "persistence",
+    "PersistenceMode",
     "reset",
     "load_yaml",
 ]
@@ -258,14 +268,17 @@ enable_interactive_mode = _later_slice("enable_interactive_mode", 3, "internals/
 
 
 # stdlib and xpacks load lazily, so plain pipelines skip the model stack
-_LAZY_SUBMODULES = ("stdlib", "xpacks", "models", "ops", "parallel", "serve")
+_LAZY_SUBMODULES = {
+    name: name for name in ("stdlib", "xpacks", "models", "ops", "parallel", "serve")
+}
+_LAZY_SUBMODULES.update(indexing="stdlib.indexing", ml="stdlib.ml", stateful="stdlib.stateful")
 
 
 def __getattr__(name: str):
     if name in _LAZY_SUBMODULES:
         import importlib
 
-        module = importlib.import_module(f".{name}", __name__)
+        module = importlib.import_module(f".{_LAZY_SUBMODULES[name]}", __name__)
         globals()[name] = module
         return module
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -12,8 +12,11 @@ the same program once per process with the topology environment
 (PATHWAY_PROCESS_ID / PATHWAY_PROCESSES / PATHWAY_FIRST_PORT /
 PATHWAY_COORDINATOR_ADDRESS) that the port's ``parallel/distributed.py``
 reads; the port's ``pw.run`` itself runs one process (the multi-process
-engine is a later slice).  ``replay`` needs the engine's persistence, a
-later slice, and raises.
+engine is a later slice).  ``spawn --record [--record-path P]`` runs the
+program with its inputs recorded under ``P`` (``PATHWAY_PERSISTENT_STORAGE``,
+read by ``pw.run``), and ``replay --record-path P [--mode
+batch|speedrun] PROGRAM`` runs it again over that store: the input log is
+replayed and the connectors seek past what they had read.
 """
 
 from __future__ import annotations
@@ -243,12 +246,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     if args.command == "run":
         return run_template(args.template, host=args.host, port=args.port, device=args.device)
-
-    if args.command == "replay":
-        raise NotImplementedError(
-            "replay needs the engine's persistence (persistence/engine_state.py), a later "
-            "slice (ROADMAP.md, framework slice 2)"
-        )
 
     if args.command == "spawn-from-env":
         spawn_args = shlex.split(config.get("cli.spawn_args"))

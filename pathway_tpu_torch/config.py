@@ -317,9 +317,15 @@ _knob("observe.metrics_host", "PATHWAY_METRICS_HOST", "str", "127.0.0.1",
 _knob("cli.spawn_args", "PATHWAY_SPAWN_ARGS", "str", "",
       "extra args for `pathway spawn-from-env`")
 
-# persistence (internals/udfs.py DiskCache; internals/run.py and io/fs refuse persistence)
+# persistence (internals/run.py through internals/config.py; internals/udfs.py DiskCache)
+_knob("persistence.mode", "PATHWAY_PERSISTENCE_MODE", "str", "",
+      "persistence mode (empty = off)")
+_knob("persistence.replay_storage", "PATHWAY_REPLAY_STORAGE", "str", "",
+      "replay storage URI (empty = off)")
 _knob("persistence.storage", "PATHWAY_PERSISTENT_STORAGE", "str", "",
       "snapshot storage URI (empty = off)")
+_knob("persistence.snapshot_interval_ms", "PATHWAY_SNAPSHOT_INTERVAL_MS",
+      "int", 60_000, "snapshot cadence in ms", lo=1, hi=86_400_000)
 
 
 def _warn_once(tag: str, msg: str, *args: Any) -> None:

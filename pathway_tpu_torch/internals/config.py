@@ -2,17 +2,20 @@
 ``pathway_tpu/internals/config.py``; reference: python/pathway/internals/
 config.py:58-80 — PathwayConfig env fields).
 
-The fields are the ones the port reads: the metrics server's port and
-host, offset by ``process_id`` (``internals/metrics.py``).  Env parsing goes through the port's
-knob table (``pathway_tpu_torch/config.py``) — field defaults are
+The fields are the ones the port reads: persistence (``internals/run.py``
+builds a persistence config from them when ``pw.run`` is given none) and
+the metrics server's port and host, offset by ``process_id``
+(``internals/metrics.py``).  Env parsing goes through the port's knob
+table (``pathway_tpu_torch/config.py``) — field defaults are
 ``default_factory`` thunks, so each ``PathwayConfig()`` construction
 reads the CURRENT knob values instead of whatever the env held at
-class-definition time.  The reference's engine, persistence, monitoring
-and license fields come with the slices that read them."""
+class-definition time.  The reference's engine, monitoring and license
+fields come with the slices that read them."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 from .. import config
 
@@ -21,6 +24,19 @@ __all__ = ["PathwayConfig", "get_config", "local_config"]
 
 @dataclass
 class PathwayConfig:
+    # persistence
+    persistence_mode: str = field(
+        default_factory=lambda: config.get("persistence.mode")
+    )
+    replay_storage: Optional[str] = field(
+        default_factory=lambda: config.get("persistence.replay_storage") or None
+    )
+    persistent_storage: Optional[str] = field(
+        default_factory=lambda: config.get("persistence.storage") or None
+    )
+    snapshot_interval_ms: int = field(
+        default_factory=lambda: config.get("persistence.snapshot_interval_ms")
+    )
     # observability
     metrics_port: int = field(
         default_factory=lambda: config.get("observe.metrics_port")

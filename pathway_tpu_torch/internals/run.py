@@ -5,10 +5,16 @@ lowered, so run = drive the Executor until sources finish or termination
 is requested).
 
 The port runs the engine in one process.  ``with_http_server=True``
-starts the metrics server (``internals/metrics.py``).  A cluster topology
-(``PATHWAY_PROCESSES`` > 1) and a persistence config are later slices
-(``ROADMAP.md``): asking for one raises ``NotImplementedError`` rather
-than running without it."""
+starts the metrics server (``internals/metrics.py``).  A persistence
+config (``persistence_config=``, or ``PATHWAY_PERSISTENT_STORAGE`` /
+``PATHWAY_PERSISTENCE_MODE`` / ``PATHWAY_SNAPSHOT_INTERVAL_MS`` through
+``get_config()``) attaches a ``PersistenceManager`` before the
+connectors start: it replays the input log (or restores operator
+snapshots), records new events and commits on the snapshot interval and
+at the end; a final commit that fails is logged, not raised, as the
+reference does.  A cluster topology (``PATHWAY_PROCESSES`` > 1) is a
+later slice (``ROADMAP.md``): asking for one raises
+``NotImplementedError`` rather than running without it."""
 
 from __future__ import annotations
 
@@ -16,7 +22,6 @@ import logging
 import threading
 from typing import Optional
 
-from .. import config
 from ..engine.executor import Executor
 from .parse_graph import G
 
@@ -38,7 +43,7 @@ def terminate() -> None:
             _current_executor.terminate()
 
 
-def _refuse_unported(persistence_config) -> None:
+def _refuse_unported() -> None:
     from ..parallel.distributed import topology_from_env
 
     processes, _pid, _addr = topology_from_env()
@@ -46,11 +51,6 @@ def _refuse_unported(persistence_config) -> None:
         raise NotImplementedError(
             f"pw.run() across {processes} processes needs the multi-process engine "
             "over the port's exchange plane, a later slice (ROADMAP.md, framework slice 4)"
-        )
-    if persistence_config is not None or config.get("persistence.storage"):
-        raise NotImplementedError(
-            "engine persistence (persistence/engine_state.py) is a later slice "
-            "(ROADMAP.md, framework slice 2)"
         )
 
 
@@ -64,7 +64,7 @@ def run(
     **kwargs,
 ) -> None:
     global _current_executor
-    _refuse_unported(persistence_config)
+    _refuse_unported()
     # Incremental-run support: operators added after a previous run() are
     # bootstrapped with snapshot deltas of their already-populated inputs
     # (the eager-building analog of the reference's tree-shaken re-runs,
@@ -82,6 +82,16 @@ def run(
                     t.producer is None or t.producer.id in G.ran_ops
                 ) and len(t.store):
                     bootstrap.append((op, port, t.store.to_delta()))
+    if persistence_config is None:
+        persistence_config = _persistence_config_from_env()
+    tick_hooks = []
+    manager = None
+    if persistence_config is not None and persistence_config.backend is not None:
+        from ..persistence.engine_state import PersistenceManager
+
+        manager = PersistenceManager(persistence_config)
+        manager.attach(G.engine_graph)
+        tick_hooks.append(manager.on_tick)
     G.ran = True
     executor = Executor(G.engine_graph, commit_duration_ms)
     with _executor_lock:
@@ -89,7 +99,13 @@ def run(
     if monitoring_level is not None and str(monitoring_level) not in ("MonitoringLevel.NONE", "none"):
         from .monitoring import StatsMonitor
 
-        executor.on_tick = StatsMonitor(G.engine_graph).on_tick
+        tick_hooks.append(StatsMonitor(G.engine_graph).on_tick)
+    if tick_hooks:
+        executor.on_tick = (
+            tick_hooks[0]
+            if len(tick_hooks) == 1
+            else (lambda ts: [h(ts) for h in tick_hooks])
+        )
     if with_http_server:
         from .metrics import start_metrics_server
 
@@ -104,6 +120,14 @@ def run(
         executor.run(bootstrap=bootstrap)
         G.ran_ops.update(op.id for op in G.engine_graph.operators)
     finally:
+        if manager is not None:
+            try:
+                manager.finalize(executor.current_ts)
+            except Exception:
+                logging.getLogger(__name__).exception(
+                    "final persistence commit failed — events since the last "
+                    "interval snapshot were NOT persisted"
+                )
         for hook in G.post_run_hooks:
             try:
                 hook()
@@ -111,6 +135,36 @@ def run(
                 pass
         with _executor_lock:
             _current_executor = None
+
+
+def _persistence_config_from_env():
+    """PATHWAY_PERSISTENT_STORAGE / PATHWAY_PERSISTENCE_MODE — set by
+    ``python -m pathway_tpu_torch.cli spawn --record`` / ``replay``
+    (reference: env-first PathwayConfig, internals/config.py:58-80)."""
+    from .config import get_config
+
+    cfg = get_config()
+    if not cfg.persistent_storage:
+        return None
+    from .. import persistence as pp
+
+    mode = pp.PersistenceMode.PERSISTING
+    raw = (cfg.persistence_mode or "").strip().lower()
+    if raw:
+        aliases = {
+            "batch": pp.PersistenceMode.BATCH,
+            "speedrun": pp.PersistenceMode.SPEEDRUN_REPLAY,
+            "speedrun_replay": pp.PersistenceMode.SPEEDRUN_REPLAY,
+            "realtime_replay": pp.PersistenceMode.REALTIME_REPLAY,
+            "persisting": pp.PersistenceMode.PERSISTING,
+            "operator_persisting": pp.PersistenceMode.OPERATOR_PERSISTING,
+        }
+        mode = aliases.get(raw, pp.PersistenceMode.PERSISTING)
+    return pp.Config.simple_config(
+        pp.Backend.filesystem(cfg.persistent_storage),
+        persistence_mode=mode,
+        snapshot_interval_ms=cfg.snapshot_interval_ms,
+    )
 
 
 def run_all(**kwargs) -> None:

@@ -5,13 +5,14 @@ over the shared connector runtime (``_connector.py``); the file
 connectors ``fs`` (csv / json lines / plaintext / plaintext by file /
 binary, static or streaming) with ``csv``, ``jsonlines`` and
 ``plaintext`` over it; ``http``, the REST connector on the standard
-library's HTTP server; and the connector bookkeeping (``_offsets.py``:
+library's HTTP server; ``sqlite`` over the standard library's
+``sqlite3``; ``null``, a sink that discards; and the connector bookkeeping (``_offsets.py``:
 committed offset antichains and per-connector monitors, read by the
 live-ingest runner, ``serve/ingest.py``, and the metrics server).  The
 message-queue, database and cloud connectors need client packages the
 card's machine does not have."""
 
-from . import csv, fs, http, jsonlines, plaintext, python
+from . import csv, fs, http, jsonlines, null, plaintext, python, sqlite
 from ._offsets import ConnectorMonitor, OffsetAntichain
 from ._subscribe import subscribe
 
@@ -22,7 +23,9 @@ __all__ = [
     "fs",
     "http",
     "jsonlines",
+    "null",
     "plaintext",
     "python",
+    "sqlite",
     "subscribe",
 ]

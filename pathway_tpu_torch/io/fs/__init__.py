@@ -6,9 +6,11 @@ __init__.py:31-275, scanner src/connectors/scanner/filesystem.rs).
 CSV is read with the standard library's ``csv`` module (the reference's
 columnar scanner is a native library of its own package).  Offsets are
 kept as the reference keeps them: ``{path: mtime}`` of fully ingested
-files, committed through the session writer.  Engine persistence is a
-later slice: while ``PATHWAY_PERSISTENT_STORAGE`` is set, ``read``
-raises.  One process only, as ``pw.run``."""
+files, committed through the session writer.  Under a persistence config
+(``pw.run(persistence_config=...)`` or ``PATHWAY_PERSISTENT_STORAGE``)
+they are the seek on restart: a file already ingested at the same mtime
+is not read again (its rows come back from the input log), a new or
+changed one is.  One process only, as ``pw.run``."""
 
 from __future__ import annotations
 
@@ -20,7 +22,6 @@ import os
 import time
 from typing import Any, Dict, List, Optional, Type
 
-from ... import config
 from ...internals import dtype as dt
 from ...internals.schema import Schema, schema_from_types
 from ...internals.table import Table
@@ -242,11 +243,6 @@ def read(
 ) -> Table:
     """Read files under ``path``.  ``mode="static"`` reads once;
     ``mode="streaming"`` keeps watching for new/modified files."""
-    if config.get("persistence.storage"):
-        raise NotImplementedError(
-            "pw.io.fs.read under a persistence config needs the engine's persistence "
-            "(persistence/engine_state.py), a later slice (ROADMAP.md, framework slice 2)"
-        )
     if format in ("plaintext", "plaintext_by_file"):
         schema = schema or _plaintext_schema()
     elif format == "binary":

@@ -72,11 +72,15 @@ def read(
     autocommit_duration_ms: int = 100,
     name: str = "python",
     atomic_batches: bool = False,
+    persistent_id: Optional[str] = None,
     **kwargs,
 ) -> Table:
     """``autocommit_duration_ms`` is accepted for reference parity; batch
     boundaries are structural here — ``subject.commit()`` seals a batch and
-    the engine assigns it its own commit tick (InputSession.mark_batch)."""
+    the engine assigns it its own commit tick (InputSession.mark_batch).
+    ``persistent_id`` records the subject's rows under a persistence
+    config, so a restart replays them (the reference's ``read`` drops the
+    argument; its tests set the source operator's ``persistent_id``)."""
 
     def runner(writer: SessionWriter):
         subject._writer = writer
@@ -89,4 +93,5 @@ def read(
         name=name,
         track_value_deletions=True,
         atomic_batches=atomic_batches,
+        persistent_id=persistent_id,
     )

@@ -4,8 +4,12 @@
 Keys are slash-separated paths, values opaque bytes.  ``FileBackend``
 writes a temporary file and renames it over the key, so a crash
 mid-write never corrupts an earlier blob; ``MemoryBackend`` is the
-in-process store the tests share between a writer and a replica.  The
-reference's S3 backend (it needs ``boto3``) is not ported.
+in-process store the tests share between a writer and a replica.
+``S3Backend`` talks to an object store through an injected client (or
+``boto3``'s, when that package is installed); its ``get`` / ``put`` /
+``list_keys`` run through ``robust.retry_call`` (sites ``s3.get`` /
+``s3.put`` / ``s3.list``), ``delete`` stays single-shot: it is only
+called from best-effort pruning, where a miss is already tolerated.
 ``get_view`` is the read a restore uses: ``FileBackend`` maps the file
 read-only instead of copying it into a ``bytes``.
 """
@@ -17,7 +21,7 @@ import os
 import threading
 from typing import Dict, List, Optional
 
-__all__ = ["FileBackend", "MemoryBackend", "PersistenceBackend"]
+__all__ = ["FileBackend", "MemoryBackend", "PersistenceBackend", "S3Backend"]
 
 
 class PersistenceBackend:
@@ -120,3 +124,61 @@ class MemoryBackend(PersistenceBackend):
     def list_keys(self, prefix: str = "") -> List[str]:
         with self._lock:
             return sorted(k for k in self._data if k.startswith(prefix))
+
+
+class S3Backend(PersistenceBackend):
+    """S3 KV backend (reference backends/s3.rs), gated on boto3."""
+
+    def __init__(self, bucket: str, root_path: str = "", client=None):
+        if client is None:
+            try:
+                import boto3  # type: ignore
+            except ImportError as e:
+                raise ImportError(
+                    "S3 persistence requires boto3 (not installed); pass a "
+                    "client explicitly or use Backend.filesystem"
+                ) from e
+            client = boto3.client("s3")
+        self.client = client
+        self.bucket = bucket
+        self.root = root_path.strip("/")
+
+    def _key(self, key: str) -> str:
+        return f"{self.root}/{key}" if self.root else key
+
+    def get(self, key: str) -> Optional[bytes]:
+        from ..robust import retry_call  # imported on use: importing the package stays light
+
+        return retry_call("s3.get", self._get_once, key)
+
+    def _get_once(self, key: str) -> Optional[bytes]:
+        try:
+            obj = self.client.get_object(Bucket=self.bucket, Key=self._key(key))
+            return obj["Body"].read()
+        except self.client.exceptions.NoSuchKey:
+            return None
+
+    def put(self, key: str, value: bytes) -> None:
+        from ..robust import retry_call
+
+        retry_call("s3.put", self.client.put_object, Bucket=self.bucket, Key=self._key(key), Body=value)
+
+    def delete(self, key: str) -> None:
+        self.client.delete_object(Bucket=self.bucket, Key=self._key(key))
+
+    def list_keys(self, prefix: str = "") -> List[str]:
+        from ..robust import retry_call
+
+        return retry_call("s3.list", self._list_once, prefix)
+
+    def _list_once(self, prefix: str) -> List[str]:
+        full = self._key(prefix)
+        out = []
+        paginator = self.client.get_paginator("list_objects_v2")
+        for page in paginator.paginate(Bucket=self.bucket, Prefix=full):
+            for item in page.get("Contents", []):
+                key = item["Key"]
+                if self.root:
+                    key = key[len(self.root) + 1 :]
+                out.append(key)
+        return sorted(out)

@@ -15,7 +15,9 @@ partitioned triple ``fabric.scatter`` (that partition is lost, flagged
 ``partition_lost``) / ``fabric.gather`` (stop waiting, serve the
 resolved partitions) / ``partition.absorb`` (that routed batch is
 dropped, counted on ``pathway_partition_absorb_dropped_total`` and
-re-committable), all in ``serve/fabric.py``.
+re-committable), all in ``serve/fabric.py``, and the S3 snapshot-backend
+triple ``s3.get`` / ``s3.put`` / ``s3.list`` (``persistence/backends.py``:
+a transient object-store error retries with the seeded-jitter backoff).
 A test or an operator arms a site to
 
 - ``raise`` a ``FaultInjected``,

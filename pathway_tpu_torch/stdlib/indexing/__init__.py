@@ -1,14 +1,18 @@
 """pw.indexing of the port — DataIndex over the device-resident retrieval
 indexes (counterpart of ``pathway_tpu/stdlib/indexing``; reference:
-python/pathway/stdlib/indexing/ — data_index.py:278, nearest_neighbors.py).
+python/pathway/stdlib/indexing/ — data_index.py:278, nearest_neighbors.py,
+bm25.py, hybrid_index.py).
 
-Ported: ``DataIndex``/``InnerIndex`` and the KNN factories.  BM25, the
-hybrid index, the document-index helpers and sorting come with the rest
-of ``stdlib``, a later slice (``ROADMAP.md``)."""
+Ported: ``DataIndex``/``InnerIndex``, the KNN factories (exact, IVF, LSH),
+BM25, the hybrid index (reciprocal rank fusion), the retriever surface
+and the document-index helpers.  ``sorting`` comes with the rest of
+``stdlib``, a later slice (``ROADMAP.md``)."""
 
 from __future__ import annotations
 
+from .bm25 import BM25Index, TantivyBM25, TantivyBM25Factory
 from .data_index import DataIndex, InnerIndex
+from .hybrid_index import HybridIndex, HybridIndexFactory
 from .nearest_neighbors import (
     BruteForceKnn,
     BruteForceKnnFactory,
@@ -20,6 +24,13 @@ from .nearest_neighbors import (
     TpuKnnFactory,
     USearchKnn,
     UsearchKnnFactory,
+)
+from .retrievers import AbstractRetrieverFactory, BruteForceKnnMetricKind, USearchMetricKind
+from .vector_document_index import (
+    default_brute_force_knn_document_index,
+    default_lsh_knn_document_index,
+    default_usearch_knn_document_index,
+    default_vector_document_index,
 )
 
 __all__ = [
@@ -35,4 +46,16 @@ __all__ = [
     "IvfKnnFactory",
     "LshKnn",
     "LshKnnFactory",
+    "TantivyBM25",
+    "TantivyBM25Factory",
+    "BM25Index",
+    "HybridIndex",
+    "HybridIndexFactory",
+    "AbstractRetrieverFactory",
+    "BruteForceKnnMetricKind",
+    "USearchMetricKind",
+    "default_vector_document_index",
+    "default_brute_force_knn_document_index",
+    "default_usearch_knn_document_index",
+    "default_lsh_knn_document_index",
 ]

@@ -6,7 +6,8 @@ LshKnn wrappers over native indexes).
 Every dense variant is backed by a device-resident index of the port:
 ``DeviceKnnIndex`` (ops/knn.py, exact scoring by tensor-core matmuls)
 or ``IvfKnnIndex`` (ops/ivf.py, whose probed shortlist rescore is the
-hand-written CUDA kernel ``csrc/ivf_rescore.cu``); ``TpuKnn`` shards rows
+hand-written CUDA kernel ``csrc/ivf_rescore.cu``), or, for ``LshKnn``,
+host buckets with a device rescore (``stdlib/ml/_knn_lsh.py``); ``TpuKnn`` shards rows
 over the port's mesh (``parallel.current_mesh()``, a mesh of one on one
 card).  Indexes run on the CUDA device unless ``device="cpu"`` is passed;
 a factory's ``device`` reaches the index it builds.  The reference class
@@ -26,6 +27,7 @@ __all__ = [
     "InnerIndexImpl",
     "DeviceKnn",
     "DeviceIvfKnn",
+    "DeviceLshKnn",
     "IvfKnn",
     "BruteForceKnn",
     "TpuKnn",
@@ -231,15 +233,63 @@ class IvfKnnFactory(_DeviceKnnFactory):
         return inner
 
 
-class LshKnnFactory(_DeviceKnnFactory):
-    """The reference's legacy host LSH index (stdlib/ml/_knn_lsh.py) comes
-    with the rest of ``stdlib``, a later slice; the name is kept so that
-    configs import."""
+class DeviceLshKnn(DeviceKnn):
+    """LSH KNN (random-projection buckets on the host, exact rescore of a
+    query's candidates on the device) behind the InnerIndexImpl protocol
+    (stdlib/ml/_knn_lsh.py)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LshKnnFactory (stdlib/ml/_knn_lsh.py) is not ported yet: ROADMAP.md, framework slice 3"
+    def __init__(
+        self,
+        dimension: int,
+        metric: str = "cos",
+        n_or: int = 20,
+        n_and: int = 10,
+        bucket_length: float = 10.0,
+        device=None,
+    ):
+        from ..ml._knn_lsh import LshKnnIndex
+
+        self.index = LshKnnIndex(
+            dimension=dimension,
+            metric=metric,
+            n_or=n_or,
+            n_and=n_and,
+            bucket_length=bucket_length,
+            device=device,
         )
+        self.metadata: Dict[int, Any] = {}
+
+
+class LshKnnFactory(_DeviceKnnFactory):
+    """The reference's legacy LSH index (_knn_lsh.py:50-94), as a real
+    random-projection implementation — not an exact-index alias."""
+
+    def __init__(
+        self, *args, n_or: int = 20, n_and: int = 10,
+        bucket_length: float = 10.0, **kwargs,
+    ):
+        super().__init__(*args, **kwargs)
+        self.n_or = n_or
+        self.n_and = n_and
+        self.bucket_length = bucket_length
+
+    def build_inner_index(self, dimension: Optional[int] = None):
+        dim = dimension or self.dimension
+        if dim is None:
+            raise ValueError("index factory needs the embedding dimension")
+        inner = DeviceLshKnn(
+            dimension=dim,
+            metric=self.metric,
+            n_or=self.n_or,
+            n_and=self.n_and,
+            bucket_length=self.bucket_length,
+            device=self.device,
+        )
+        if self.embedder is not None:
+            from .embedding_adapter import EmbeddingIndexAdapter
+
+            return EmbeddingIndexAdapter(inner, self.embedder)
+        return inner
 
 
 # class-style aliases used by reference code/configs

@@ -72,15 +72,36 @@ def test_question_answering_slice_knobs_equal_the_reference_field_by_field(key):
         assert getattr(mine, field) == getattr(theirs, field), (key, field)
 
 
+_PERSISTENCE_SLICE_KNOBS = [
+    "persistence.mode", "persistence.replay_storage", "persistence.storage", "persistence.snapshot_interval_ms",
+]
+
+
+@pytest.mark.parametrize("key", _PERSISTENCE_SLICE_KNOBS)
+def test_persistence_slice_knobs_equal_the_reference_field_by_field(key):
+    """The knobs ``internals/config.py`` reads for ``pw.run``'s
+    persistence config: every declared field is the reference's."""
+    mine, theirs = config.registry()[key], ref_config.registry()[key]
+    for field in ("env", "kind", "default", "doc", "lo", "hi", "choices", "mutability", "site_prefix", "auto_pytest"):
+        assert getattr(mine, field) == getattr(theirs, field), (key, field)
+
+
 def test_process_config_reads_the_port_table(monkeypatch):
     from pathway_tpu.internals.config import PathwayConfig as RefConfig
     from pathway_tpu_torch.internals.config import PathwayConfig, get_config, local_config
 
     monkeypatch.setenv("PATHWAY_METRICS_PORT", "23456")
     monkeypatch.setenv("PATHWAY_METRICS_HOST", "0.0.0.0")
+    monkeypatch.setenv("PATHWAY_PERSISTENT_STORAGE", "/state")
+    monkeypatch.setenv("PATHWAY_PERSISTENCE_MODE", "OPERATOR_PERSISTING")
+    monkeypatch.setenv("PATHWAY_SNAPSHOT_INTERVAL_MS", "250")
+    monkeypatch.delenv("PATHWAY_REPLAY_STORAGE", raising=False)
     mine, theirs = PathwayConfig(), RefConfig()
     assert vars(mine) == {name: getattr(theirs, name) for name in vars(mine)}
-    assert vars(mine) == {"metrics_port": 23456, "metrics_host": "0.0.0.0"}
+    assert vars(mine) == {
+        "persistence_mode": "OPERATOR_PERSISTING", "replay_storage": None, "persistent_storage": "/state",
+        "snapshot_interval_ms": 250, "metrics_port": 23456, "metrics_host": "0.0.0.0",
+    }
     assert mine.process_id == theirs.process_id
     with local_config(metrics_port=1):
         assert get_config().metrics_port == 1

@@ -14,7 +14,9 @@ attention against dense, and the encoder over 8 logical shards against
 one; and the framework on the card: a batched UDF returning a CUDA tensor
 through the engine, and the default ``DocumentStore`` (``TpuKnnFactory``
 over ``TpuEmbedder()``) with an IVF store beside it through the kernel;
-and one QA answer over the port's REST server equal to the direct calls.
+and one QA answer over the port's REST server equal to the direct calls;
+and a persisted pipeline whose rows carry CUDA tensors, snapshotted on the
+card and restarted in a process that sees no card.
 They skip
 without a card.  This file imports neither JAX nor the reference, so on
 a machine without JAX it runs as
@@ -859,3 +861,72 @@ def test_cuda_qa_answer_over_http_equals_the_direct_call():
     rendered = _messages_to_prompt([{"role": "user", "content": prompt_qa(question, ctx)}])
     assert got["response"] == gen.generate([rendered], max_new_tokens=8)[0]
     pw.reset()
+
+
+_PERSIST_SCRIPT = """
+import os, sys
+import numpy as np
+import torch
+import pathway_tpu_torch as pw
+
+root, expect_cuda = sys.argv[1], sys.argv[2] == "1"
+assert torch.cuda.is_available() == expect_cuda
+dev = torch.device("cuda" if expect_cuda else "cpu")
+
+
+class KV(pw.Schema):
+    k: str
+    v: int
+
+
+@pw.udf(batched=True)
+def emb(v):
+    return torch.as_tensor(np.asarray(v, np.float32), device=dev)[:, None] * torch.ones(len(v), 3, device=dev)
+
+
+t = pw.io.csv.read(os.path.join(root, "in"), schema=KV, mode="static", persistent_id="t")
+rows = t.select(pw.this.k, pw.this.v, e=emb(pw.this.v))
+counts = rows.groupby(pw.this.k).reduce(k=pw.this.k, n=pw.reducers.count(), total=pw.reducers.sum(pw.this.v))
+out = []
+pw.io.subscribe(counts, on_change=lambda key, row, time, is_addition: out.append(
+    (row["k"], int(row["n"]), int(row["total"]), is_addition)))
+pw.run(persistence_config=pw.persistence.Config.simple_config(
+    pw.persistence.Backend.filesystem(os.path.join(root, "snap")), snapshot_interval_ms=1,
+    persistence_mode=pw.PersistenceMode.OPERATOR_PERSISTING))
+print("RESULT", sorted(r for r in out if r[3]))
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_snapshot_restores_in_a_process_without_a_card(tmp_path):
+    """Rows that carry CUDA tensors (a batched UDF's output) under
+    OPERATOR_PERSISTING: the snapshot written on the card holds numpy
+    arrays only, and a process that sees no card restores from it and
+    folds a new file into the restored state."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    _cuda()
+    (tmp_path / "in").mkdir()
+    (tmp_path / "in" / "one.csv").write_text("k,v\na,1\nb,2\na,3\n")
+    script = tmp_path / "persist.py"
+    script.write_text(_PERSIST_SCRIPT)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    first = subprocess.run([sys.executable, str(script), str(tmp_path), "1"], env=env, capture_output=True,
+                           text=True, timeout=300)
+    assert first.returncode == 0, first.stderr[-3000:]
+    assert "RESULT [('a', 2, 4, True), ('b', 1, 2, True)]" in first.stdout
+    for base, _dirs, files in os.walk(tmp_path / "snap"):
+        for f in files:
+            if os.path.basename(base) in ("operators", "tables"):
+                blob = open(os.path.join(base, f), "rb").read()
+                assert b"torch" not in blob
+                pickle.loads(blob)
+    (tmp_path / "in" / "two.csv").write_text("k,v\nb,5\n")
+    second = subprocess.run([sys.executable, str(script), str(tmp_path), "0"],
+                            env=dict(env, CUDA_VISIBLE_DEVICES=""), capture_output=True, text=True, timeout=300)
+    assert second.returncode == 0, second.stderr[-3000:]
+    assert "RESULT [('b', 2, 7, True)]" in second.stdout

@@ -43,6 +43,8 @@ def _factory(pw, kind, **kw):
         return mod.IvfKnnFactory(dimension=D, n_clusters=4, n_probe=4, **extra, **kw)
     if kind == "tpu":
         return mod.TpuKnnFactory(dimension=D, **extra, **kw)
+    if kind == "lsh":
+        return mod.LshKnnFactory(dimension=D, n_or=8, n_and=4, **extra, **kw)
     raise AssertionError(kind)
 
 
@@ -240,7 +242,16 @@ def test_factories_refuse_cpu_fallback():
 
 
 def test_lsh_factory_names_its_slice():
+    """``LshKnnFactory`` builds the LSH index: on the CPU only when asked
+    (without ``device`` it wants the card, and raises here), and there a
+    DataIndex over it answers as the reference's, filtered queries and
+    per-query k included."""
     from pathway_tpu_torch.stdlib.indexing import LshKnnFactory
 
-    with pytest.raises(NotImplementedError, match="framework slice 3"):
-        LshKnnFactory(dimension=D)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LshKnnFactory(dimension=D).build_inner_index()
+    ref = _static_query(pathway_tpu, "lsh", True, True)
+    pathway_tpu.reset()
+    port = _static_query(pathway_tpu_torch, "lsh", True, True)
+    _same_answers(ref, port)
+    assert sum(len(r["names"]) for r in port.values()) > 0

@@ -8,6 +8,7 @@ change time) of files written for each package apart; every other field
 (path, size, modified_at) is equal.
 """
 
+import gc
 import json
 import os
 import threading
@@ -33,6 +34,11 @@ def _fresh_graphs(monkeypatch):
     yield
     pathway_tpu.reset()
     pathway_tpu_torch.reset()
+    # each package lists its live connector monitors in a WeakSet, and a
+    # reader's monitor sits in a reference cycle (writer, session, runner):
+    # collect it here, so a later test in this process that reads the
+    # registry sees only its own connectors
+    gc.collect()
 
 
 def _pw(side):
@@ -274,11 +280,41 @@ def test_csv_round_trip_through_write_and_read(tmp_path):
     assert sorted(zip(cols["id"], cols["name"], cols["score"])) == [("1", "x, y", "0.5"), ("2", 'q "z"', "1")]
 
 
-def test_read_refuses_a_persistence_config(tmp_path, monkeypatch):
-    _files(tmp_path)
-    monkeypatch.setenv("PATHWAY_PERSISTENT_STORAGE", str(tmp_path / "state"))
-    with pytest.raises(NotImplementedError, match="framework slice 2"):
-        pathway_tpu_torch.io.fs.read(str(tmp_path / "data" / "text"), format="plaintext", mode="static")
+def test_read_refuses_a_persistence_config(tmp_path):
+    """Under ``PATHWAY_PERSISTENT_STORAGE`` (the process config's
+    ``persistent_storage``) a restarted reader refuses to read an ingested
+    file again: its rows come back from the input log, and only a new
+    file is read (the connector's monitor counts its rows alone).  Both
+    packages give the same rows under the same keys in both runs."""
+    from pathway_tpu.internals.config import local_config as ref_local_config
+    from pathway_tpu_torch.internals.config import local_config as port_local_config
+
+    d = _files(tmp_path)
+    got = {}
+    for side, local_config in (("ref", ref_local_config), ("port", port_local_config)):
+        pw = _pw(side)
+        if side == "ref":
+            from pathway_tpu.io._offsets import connector_monitors
+        else:
+            from pathway_tpu_torch.io._offsets import connector_monitors
+        runs = []
+        for run in (1, 2):
+            pw.reset()
+            if run == 2:
+                _write(d / "text" / "late.txt", "a late line\nand another\n", _MTIME + 20)
+            with local_config(persistent_storage=str(tmp_path / f"state-{side}"), snapshot_interval_ms=1):
+                t = pw.io.fs.read(str(d / "text"), format="plaintext", mode="static", persistent_id="text",
+                                  name=f"persist-{side}-{run}")
+                pw.run(monitoring_level=None)
+            keys, cols = t._materialize()
+            (mon,) = [m for m in connector_monitors() if m.name == f"persist-{side}-{run}"]
+            runs.append((sorted(zip((int(k) for k in keys), cols["data"])), mon.rows_inserted))
+        (d / "text" / "late.txt").unlink()
+        got[side] = runs
+    (first, n_first), (second, n_second) = got["port"]
+    assert got["port"] == got["ref"]
+    assert n_first == 5 and n_second == 2  # the restart read late.txt alone
+    assert len(second) == 7 and set(first) < set(second)
 
 
 def test_read_needs_a_schema_for_csv_and_json(tmp_path):

@@ -224,8 +224,24 @@ def test_port_imports_no_jax_flax_or_reference():
         "parallel/exchange.py",
         "parallel/mesh.py",
         "parallel/shards.py",
+        "persistence/__init__.py",
         "persistence/backends.py",
+        "persistence/engine_state.py",
         "persistence/framing.py",
+        "persistence/host_pickle.py",
+        "persistence/object_cache.py",
+        "demo/__init__.py",
+        "io/null/__init__.py",
+        "io/sqlite/__init__.py",
+        "stdlib/indexing/bm25.py",
+        "stdlib/indexing/hybrid_index.py",
+        "stdlib/indexing/retrievers.py",
+        "stdlib/indexing/vector_document_index.py",
+        "stdlib/ml/__init__.py",
+        "stdlib/ml/_knn_lsh.py",
+        "stdlib/ml/classifiers.py",
+        "stdlib/ml/index.py",
+        "stdlib/stateful/__init__.py",
         "robust/deadline.py",
         "robust/degrade.py",
         "robust/inject.py",
@@ -279,6 +295,9 @@ def test_port_imports_no_jax_flax_or_reference():
         "pathway_tpu_torch.xpacks.llm",
         "pathway_tpu_torch.cli",
         "pathway_tpu_torch.internals.metrics",
+        "pathway_tpu_torch.persistence.engine_state",
+        "pathway_tpu_torch.stdlib.ml",
+        "pathway_tpu_torch.demo",
     ],
 )
 def test_framework_import_loads_no_jax_xxhash_or_pandas(module):

@@ -129,7 +129,10 @@ def build_flatten_stream(pw):
 
 
 def build_groupby_reduce(pw):
-    t = _base(pw)
+    return build_groupby_reduce_over(pw, _base(pw))
+
+
+def build_groupby_reduce_over(pw, t):
     return t.groupby(pw.this.k).reduce(
         pw.this.k,
         total=pw.reducers.sum(pw.this.v),
@@ -473,14 +476,41 @@ def test_unported_names_raise_and_name_their_slice(name):
 
 
 def test_run_refuses_a_cluster_and_persistence(monkeypatch):
+    """``pw.run`` refuses a cluster (a later slice) and, under
+    OPERATOR_PERSISTING, a graph with an operator whose state no snapshot
+    carries (here ``update_rows``), naming it; a persistence config it can
+    honour records the run, and a restart replays it."""
     pw = pathway_tpu_torch
     _base(pw)
     monkeypatch.setenv("PATHWAY_PROCESSES", "2")
     with pytest.raises(NotImplementedError, match="slice 4"):
         pw.run()
     monkeypatch.delenv("PATHWAY_PROCESSES")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        pw.run(persistence_config=object())
+    pw.reset()
+    t = _base(pw)
+    t.update_rows(t.filter(pw.this.k > 2))
+    operator_mode = pw.persistence.Config.simple_config(
+        pw.persistence.Backend.mock(), persistence_mode=pw.PersistenceMode.OPERATOR_PERSISTING
+    )
+    with pytest.raises(ValueError, match="UpdateRowsOperator.*PersistenceMode.PERSISTING"):
+        pw.run(persistence_config=operator_mode)
+    backend = pw.persistence.Backend.mock()
+    runs = []
+    for rows in (_rows(), []):  # the restart's subject sends nothing: its rows replay from the log
+        pw.reset()
+
+        class Subject(pw.io.python.ConnectorSubject):
+            def run(self, rows=rows):
+                for k, v, s_ in rows:
+                    self.next(k=k, v=v, s=s_)
+
+        src = pw.io.python.read(Subject(), schema=pw.schema_from_types(k=int, v=float, s=str), persistent_id="base")
+        out = build_groupby_reduce_over(pw, src)
+        pw.run(persistence_config=pw.persistence.Config.simple_config(backend, snapshot_interval_ms=1))
+        keys, cols = out._materialize()
+        runs.append(sorted((int(key), *(cols[c][i] for c in sorted(cols))) for i, key in enumerate(keys)))
+    assert runs[0] == runs[1] and runs[0]
+    assert [k for k in backend.make_store().list_keys() if k.startswith("sources/base/chunk-")]
 
 
 @pytest.mark.parametrize("stream", [False, True], ids=["snapshot", "update_stream"])

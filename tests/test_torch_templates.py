@@ -208,12 +208,32 @@ def test_spawn_sets_the_topology_for_each_process(tmp_path):
 
 
 def test_spawn_from_env_and_replay(monkeypatch, tmp_path):
+    """``spawn-from-env`` spawns with ``PATHWAY_SPAWN_ARGS``; ``replay``
+    and ``spawn --record`` run the program with the persistence
+    environment ``pw.run`` reads, as the reference's command line does."""
     prog = tmp_path / "ok.py"
     prog.write_text("import os; assert os.environ['PATHWAY_PROCESSES'] == '2'\n")
     monkeypatch.setenv("PATHWAY_SPAWN_ARGS", f"-n 2 --first-port {free_port()} {sys.executable}")
     assert cli.main(["spawn-from-env", str(prog)]) == 0
-    with pytest.raises(NotImplementedError, match="framework slice 2"):
-        cli.main(["replay", sys.executable, str(prog)])
+    show = tmp_path / "show.py"
+    show.write_text(
+        "import os, sys\n"
+        "open(sys.argv[1], 'w').write(repr((os.environ.get('PATHWAY_PERSISTENT_STORAGE'), "
+        "os.environ.get('PATHWAY_PERSISTENCE_MODE'))))\n"
+    )
+    store = str(tmp_path / "store")
+    for args in (
+        ["replay", "--record-path", store, "--mode", "speedrun"],
+        ["replay", "--record-path", store],
+        ["spawn", "--record", "--record-path", store],
+    ):
+        seen = []
+        for main in (ref_cli.main, cli.main):
+            out = tmp_path / "env.txt"
+            assert main([*args, "--first-port", str(free_port()), sys.executable, str(show), str(out)]) == 0
+            seen.append(out.read_text())
+        assert seen[0] == seen[1], args
+    assert seen[1] == repr((store, None))
 
 
 def _post(port, route, payload, timeout):
