@@ -21,6 +21,7 @@ NVIDIA GPU:
                                            # direct serve p50s, then phase 19 alone
     python3 chip_smoke.py --qa             # the same set-up, then phase 20 alone
     python3 chip_smoke.py --persist        # the builds, then phase 21 alone
+    python3 chip_smoke.py --temporal       # the builds, then phase 22 alone
     python3 chip_smoke.py --first-call ROOT...  # the profiler's first sampled
                                            # call, fresh processes, per root
 
@@ -371,8 +372,38 @@ Phases, in order; any failure exits non-zero:
    ms per commit of 64, the BM25 host ms, the busy share of run 2, the
    rescore at the phase's shape and its launches.
 
+22. time on the card: (a) phase 19's ``TpuEmbedder`` over phase 4's
+   65,536 documents, each with an event time at 4,096 per simulated
+   hour, streamed in time order in 16 commits of 4,096 through a
+   ``pw.io.python`` subject; ``pw.temporal.windowby(tumbling(1 h),
+   instance=doc, behavior=common_behavior(cutoff=3 h,
+   keep_results=False))`` keeps a document while its window is inside the
+   cutoff (16,384 alive at most) and a full-probe IVF ``DataIndex`` indexes
+   the alive ones; after each document commit, 64 of phase 5's query
+   texts through ``query_as_of_now`` (k = 10).  Checked: every answer ==
+   an exact search on the card over the embeddings of the documents alive
+   at that commit, rank by rank (ties within 1e-5); no answer holds a
+   document past the cutoff; the index's live rows == the alive count
+   after every commit; the rescore kernel at the phase's shape (B = 64,
+   full probe, the slabs full of removed rows' ``-inf`` bias) against its
+   plain version.  Printed: retrieve ms per query commit p50 / p99, the
+   windowed chain's host ms per commit (``EngineOperator.process_ns``),
+   the index removals' ms per commit, the IVF's retrains, the busy share,
+   the rescore alone and between events beside its bound and
+   ``baddbmm``.  (b) over the same documents' times: sliding windows (15
+   min hop, 1 h) counting documents per topic, an ``asof_join`` of 1,024
+   timestamped queries onto their topic's latest window and an
+   ``interval_join`` of each with the documents of its last 56.25 s (~64),
+   all == a plain Python loop; host ms per commit.  (c) the top-10
+   neighbour graph of 1,024 of the documents from an IVF on the card at
+   full probe (its rescore launches counted under ``temporal``):
+   ``pw.graphs.pagerank`` (5 steps) == a float64 numpy power iteration
+   within 1e-9, ``bellman_ford`` (weights 1 - score) == scipy's
+   ``shortest_path`` within 1e-9, ``retrieve_prev_next_values`` over the
+   documents sorted by time == numpy; seconds per arm.
+
 Every shape-census tripwire runs strict from the start
-(``PATHWAY_RECOMPILE_STRICT=1``); after phase 21 none may have tripped.
+(``PATHWAY_RECOMPILE_STRICT=1``); after phase 22 none may have tripped.
 
 The card's name and power limit, then the JSON record of the kernels,
 then ``{"ok": true, "device": {...}}`` are the last three lines; the
@@ -4878,10 +4909,12 @@ FW_WAIT_S = 300.0
 
 
 class _FrameworkDriver:
-    """What phase 19's driver thread waits on: tick ends, answers per arm,
-    each index's rows, and the moments its subjects committed."""
+    """What phase 19's (and 21's, 22's) driver thread waits on: tick ends,
+    answers per arm, each index's rows, and the moments its subjects
+    committed."""
 
-    def __init__(self):
+    def __init__(self, phase: str = "phase 19"):
+        self.phase = phase
         self.cond = threading.Condition()
         self.tick = 0
         self.answers = {}  # arm -> {query key: [(time, row, diff), ...]}
@@ -4913,12 +4946,12 @@ class _FrameworkDriver:
         with self.cond:
             while not pred():
                 if self.stop or _now() > deadline:
-                    raise AssertionError(f"phase 19: timed out waiting for {what}")
+                    raise AssertionError(f"{self.phase}: timed out waiting for {what}")
                 self.cond.wait(0.05)
             seen = self.tick
             while self.tick <= seen + 1:
                 if self.stop or _now() > deadline:
-                    raise AssertionError(f"phase 19: timed out waiting for the tick after {what}")
+                    raise AssertionError(f"{self.phase}: timed out waiting for the tick after {what}")
                 self.cond.wait(0.05)
 
 
@@ -5964,7 +5997,7 @@ def _ps_run(pw, emb, root: str, store: str, commits, run: int, dev, profile_run:
     from pathway_tpu_torch.stdlib.indexing.bm25 import BM25Index
     from torch.profiler import ProfilerActivity, profile
 
-    driver = _FrameworkDriver()
+    driver = _FrameworkDriver("phase 21")
     subject, q = _queue_subject(pw, "queries", driver)
     queries = pw.io.python.read(subject, schema=pw.schema_from_types(query=str), atomic_batches=True,
                                 persistent_id="queries", name="persist_queries")
@@ -6483,6 +6516,506 @@ def persist_phase(tag: str):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 22: time on the card -----------------------------------------------------------
+TM_HOUR = 3600.0
+TM_PER_HOUR = 4096  # documents per simulated hour: one document commit each
+TM_CUTOFF_HOURS = 3  # common_behavior(cutoff=3 h, keep_results=False): at most 4 hours alive
+TM_TOPICS = 8  # (b): topic labels, document i has topic i % 8
+TM_HOP = 900.0  # (b): sliding windows of an hour every 15 minutes
+TM_JOIN_DOCS = 64  # (b): each query joins the documents of the span TM_JOIN_DOCS documents take
+TM_GRAPH_DOCS = 1024  # (c): documents of the neighbour graph (cut from 8,192: the engine's pagerank
+# takes host time per edge and step: PERF.md §4)
+TM_PR_STEPS = 5
+TM_COMMIT_MS = 10
+TM_EXACT_TOL = 1e-4  # the IVF's f32 kernel sums in another order than the exact matmul
+
+
+def _tm_doc_of(md) -> int:
+    return int(getattr(md, "value", md)["doc"])
+
+
+def _tm_upstream(table, stop) -> list:
+    """The operators between the engine table ``stop`` and ``table``'s
+    producer: the windowed chain of a windowby."""
+    seen, order, todo = set(), [], [table._engine_table.producer]
+    while todo:
+        op = todo.pop()
+        if op is None or op.id in seen:
+            continue
+        seen.add(op.id)
+        order.append(op)
+        todo.extend(t.producer for t in op.inputs if t is not stop)
+    return sorted(order, key=lambda o: o.id)
+
+
+def _tm_exact(vec_of_doc, alive, queries: np.ndarray, k: int, dev):
+    """Exact top-``k`` over the embeddings of the ``alive`` documents, on
+    ``dev``: per query [(doc, cosine), ...]."""
+    docs = sorted(alive)
+    mat = torch.from_numpy(np.stack([vec_of_doc[d] for d in docs])).to(dev)
+    mat = mat / mat.norm(dim=1, keepdim=True).clamp_min(1e-30)
+    q = torch.from_numpy(queries).to(dev)
+    q = q / q.norm(dim=1, keepdim=True).clamp_min(1e-30)
+    s, i = torch.topk(q @ mat.t(), min(k, len(docs)), dim=1)
+    s, i = s.cpu().numpy(), i.cpu().numpy()
+    return [[(docs[j], float(v)) for j, v in zip(row_i, row_s)] for row_i, row_s in zip(i, s)]
+
+
+def temporal_retrieval(pw, emb, docs, times, per_hour: int, dev):
+    """Phase 22 (a): a windowed ``DataIndex`` over the IVF factory at full
+    probe.  Returns the report, the documents' embeddings and the IVF."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathway_tpu_torch.engine.operators.external_index import ExternalIndexOperator
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+
+    cuda = dev.type == "cuda"
+    n = len(docs)
+    hours = n // per_hour
+    dim = emb.get_embedding_dimension()
+    driver = _FrameworkDriver("phase 22 (a)")
+
+    class Query(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        query: str
+
+    doc_subject, doc_q = _queue_subject(pw, "docs", driver)
+    query_subject, query_q = _queue_subject(pw, "queries", driver)
+    stream = pw.io.python.read(doc_subject, schema=pw.schema_from_types(doc=int, data=str, t=float),
+                               atomic_batches=True, name="temporal_docs")
+    queries = pw.io.python.read(query_subject, schema=Query, atomic_batches=True, name="temporal_queries")
+    # each document is its own instance: its one-hour window lives until
+    # the clock passes the window's end + 3 hours, then it is retracted
+    alive = pw.temporal.windowby(
+        stream, stream.t, window=pw.temporal.tumbling(TM_HOUR), instance=pw.this.doc,
+        behavior=pw.temporal.common_behavior(cutoff=TM_CUTOFF_HOURS * TM_HOUR, keep_results=False),
+    ).reduce(doc=pw.this.doc, data=pw.reducers.any(pw.this.data))
+    vecs = alive.select(pw.this.doc, vec=emb(pw.this.data), meta=pw.apply(lambda d: {"doc": d}, pw.this.doc))
+    mod = pw.stdlib.indexing
+    index = mod.DataIndex(vecs, mod.InnerIndex(
+        data_column=vecs.vec, metadata_column=vecs.meta, dimension=dim,
+        factory=mod.IvfKnnFactory(dimension=dim, n_probe=1 << 30, device=None if cuda else dev),
+    ))
+    qs = queries.select(pw.this.qid, qvec=emb(pw.this.query))
+    res = index.query_as_of_now(qs.qvec, number_of_matches=K)
+    answers = res.select(qid=qs.qid, docs=vecs.doc, scores=res.score)
+    pw.io.subscribe(answers, on_change=driver.on_change("answers"), on_time_end=driver.on_tick)
+    chain = _tm_upstream(alive, stream._engine_table)
+    (op,) = [o for o in pw.G.engine_graph.operators if isinstance(o, ExternalIndexOperator)]
+    inner, ivf = op.index, op.index.index
+
+    doc_of_key, live, vec_of_doc = {}, {}, {}
+    removal = {"s": 0.0, "rows": 0, "calls": 0}
+    searches = []  # (query vectors, k, rows) per search
+    orig_add, orig_remove, orig_search = inner.add, inner.remove, inner.search
+
+    def add(keys, values, metadatas):
+        orig_add(keys, values, metadatas)
+        with driver.cond:
+            for key, value, md in zip(keys, values, metadatas):
+                doc = _tm_doc_of(md)
+                doc_of_key[int(key)] = live[int(key)] = doc
+                vec_of_doc[doc] = np.asarray(value, np.float32)
+            driver.cond.notify_all()
+
+    def remove(keys):
+        t0 = _now()
+        orig_remove(keys)
+        spent = _now() - t0
+        with driver.cond:
+            removal["s"] += spent
+            removal["rows"] += len(keys)
+            removal["calls"] += 1
+            for key in keys:
+                live.pop(int(key), None)
+            driver.cond.notify_all()
+
+    def search(values, k, filters):
+        out = orig_search(values, k, filters)
+        searches.append((np.stack([np.asarray(v, np.float32) for v in values]), k, out))
+        return out
+
+    inner.add, inner.remove, inner.search = add, remove, search
+    qidx = query_ids()
+    report = {"latency_ms": [], "alive": [], "index_rows": [], "searches_of": []}
+
+    def drive():
+        for c in range(hours):
+            lo = c * per_hour
+            doc_q.put([{"doc": i, "data": docs[i], "t": times[i]} for i in range(lo, lo + per_hour)])
+            want = set(range(max(0, c - TM_CUTOFF_HOURS) * per_hour, (c + 1) * per_hour))
+            driver.wait(lambda: len(driver.commit_at.get("docs", ())) > c and set(live.values()) == want,
+                        f"document commit {c} and its retractions")
+            report["alive"].append(want)
+            report["index_rows"].append(len(ivf))
+            n_before = len(searches)
+            query_q.put([{"qid": c * BATCH + b, "query": docs[qidx[c * BATCH + b] % n]} for b in range(BATCH)])
+            driver.wait(lambda: len(driver.answers.get("answers", {})) >= (c + 1) * BATCH
+                        and len(driver.commit_at.get("queries", ())) > c, f"query commit {c}")
+            last = max(t for t, _k, _d in driver.arrival["answers"])
+            report["latency_ms"].append((last - driver.commit_at["queries"][c]) * 1e3)
+            report["searches_of"].append(list(range(n_before, len(searches))))
+
+    def run_driver():
+        try:
+            drive()
+        except BaseException as exc:  # noqa: BLE001 - re-raised on the main thread after the run
+            report["error"] = exc
+        finally:
+            for q in (doc_q, query_q):
+                q.put(None)
+
+    rescore_shortlist.launches = 0
+    thread = threading.Thread(target=run_driver, daemon=True, name="phase22-driver")
+    with profile(activities=[ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]) as prof:
+        t_run = _now()
+        thread.start()
+        try:
+            pw.run(commit_duration_ms=TM_COMMIT_MS)
+        finally:
+            driver.stop = True
+            thread.join(timeout=60)
+        if cuda:
+            torch.cuda.synchronize()
+        wall_ms = (_now() - t_run) * 1e3
+    report["launches"] = rescore_shortlist.launches
+    if "error" in report:
+        raise report["error"]
+
+    # -- checks --------------------------------------------------------------
+    bad_rank = late = 0
+    for c, (want, rows_in) in enumerate(zip(report["alive"], report["index_rows"])):
+        if rows_in != len(want):
+            raise AssertionError(f"phase 22 (a): after commit {c} the index holds {rows_in} rows, "
+                                 f"{len(want)} documents are alive")
+        if len(report["searches_of"][c]) != 1:
+            raise AssertionError(f"phase 22 (a): query commit {c} searched {len(report['searches_of'][c])} times")
+        qv, k, rows = searches[report["searches_of"][c][0]]
+        exact = _tm_exact(vec_of_doc, want, qv, k, dev)
+        got_docs = []
+        for got, ref in zip(rows, exact):
+            got = [(doc_of_key[int(key)], float(score)) for key, score in got]
+            got_docs.append(tuple(doc for doc, _s in got))
+            late += sum(1 for doc, _s in got if doc not in want)
+            bad_rank += not same_ranking(ref, got, tie=1e-5, atol=TM_EXACT_TOL)
+        answered = sorted(
+            tuple(int(d) for d in ev[-1][1]["docs"])
+            for ev in driver.answers["answers"].values() if ev[-1][1]["qid"] // BATCH == c
+        )
+        if answered != sorted(got_docs):
+            raise AssertionError(f"phase 22 (a): commit {c}'s answers differ from its index's search")
+    retracted = sum(1 for evs in driver.answers["answers"].values() for e in evs if e[2] < 0)
+    if bad_rank or late or retracted:
+        raise AssertionError(f"phase 22 (a): {bad_rank} answers differ from the exact search over the alive "
+                             f"documents, {late} hold a document past the cutoff, {retracted} retracted")
+    if cuda and (report["launches"] == 0 or ivf._slabs.device.type != "cuda"):
+        raise AssertionError("phase 22 (a): the windowed IVF launched no rescore kernel on the card")
+    report.update(wall_ms=wall_ms, removal=removal, chain=chain, stats=dict(ivf.stats),
+                  busy=device_busy(prof, wall_ms) if cuda else "busy share not measured (CPU)",
+                  queries=searches[report["searches_of"][-1][0]][0])
+    return report, vec_of_doc, ivf
+
+
+def temporal_joins(pw, times, per_hour: int):
+    """Phase 22 (b): sliding-window counts per topic, an asof join of
+    timestamped queries onto them and an interval join of each query with
+    the documents of its last ``TM_JOIN_DOCS`` documents' span, held
+    against a plain Python loop.  Returns the report."""
+    import bisect
+
+    n = len(times)
+    hours = n // per_hour
+    span = TM_JOIN_DOCS * TM_HOUR / per_hour
+    driver = _FrameworkDriver("phase 22 (b)")
+
+    class TimedQuery(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        t: float
+        topic: str
+
+    doc_subject, doc_q = _queue_subject(pw, "docs", driver)
+    query_subject, query_q = _queue_subject(pw, "queries", driver)
+    docs = pw.io.python.read(doc_subject, schema=pw.schema_from_types(doc=int, t=float, topic=str),
+                             atomic_batches=True, name="temporal_join_docs")
+    queries = pw.io.python.read(query_subject, schema=TimedQuery, atomic_batches=True, name="temporal_join_queries")
+    counts = pw.temporal.windowby(
+        docs, docs.t, window=pw.temporal.sliding(hop=TM_HOP, duration=TM_HOUR), instance=pw.this.topic
+    ).reduce(topic=pw.this.topic, end=pw.this._pw_window_end, n=pw.reducers.count())
+    latest = pw.temporal.asof_join(
+        queries, counts, queries.t, counts.end, queries.topic == counts.topic
+    ).select(qid=queries.qid, end=counts.end, n=counts.n)
+    pairs = pw.temporal.interval_join(
+        queries, docs, queries.t, docs.t, pw.temporal.interval(-span, 0.0)
+    ).select(qid=queries.qid, doc=docs.doc)
+    pw.io.subscribe(latest, on_change=driver.on_change("latest"), on_time_end=driver.on_tick)
+    q_rows = []
+    step = TM_HOUR / BATCH
+    report = {"commit_ms": []}
+
+    def drive():
+        for c in range(hours):
+            lo = c * per_hour
+            doc_q.put([{"doc": i, "t": times[i], "topic": f"topic{i % TM_TOPICS}"} for i in range(lo, lo + per_hour)])
+            driver.wait(lambda: len(driver.commit_at.get("docs", ())) > c, f"document commit {c}")
+            batch = [{"qid": c * BATCH + j, "t": c * TM_HOUR + (j + 0.5) * step, "topic": f"topic{j % TM_TOPICS}"}
+                     for j in range(BATCH)]
+            q_rows.extend(batch)
+            query_q.put(batch)
+            driver.wait(lambda: len(driver.answers.get("latest", {})) >= (c + 1) * BATCH, f"query commit {c}")
+            report["commit_ms"].append((max(t for t, _k, _d in driver.arrival["latest"])
+                                        - driver.commit_at["docs"][c]) * 1e3)
+
+    def run_driver():
+        try:
+            drive()
+        except BaseException as exc:  # noqa: BLE001 - re-raised on the main thread after the run
+            report["error"] = exc
+        finally:
+            for q in (doc_q, query_q):
+                q.put(None)
+
+    thread = threading.Thread(target=run_driver, daemon=True, name="phase22b-driver")
+    t_run = _now()
+    thread.start()
+    try:
+        pw.run(commit_duration_ms=TM_COMMIT_MS)
+    finally:
+        driver.stop = True
+        thread.join(timeout=60)
+    wall_s = _now() - t_run
+    if "error" in report:
+        raise report["error"]
+
+    # -- the plain Python loop over the same rows ------------------------------
+    by_topic = {}
+    for i, t in enumerate(times):
+        by_topic.setdefault(f"topic{i % TM_TOPICS}", []).append(t)
+    want_latest, want_pairs = {}, set()
+    for q in q_rows:
+        ts = by_topic[q["topic"]]
+        end = float(np.floor(q["t"] / TM_HOP) * TM_HOP)
+        while True:  # the latest sliding window ending at or before the query that holds a document
+            cnt = bisect.bisect_left(ts, end) - bisect.bisect_left(ts, end - TM_HOUR)
+            if cnt or end - TM_HOUR < ts[0]:
+                break
+            end -= TM_HOP
+        want_latest[q["qid"]] = (end, cnt) if cnt else (None, None)
+        lo_i, hi_i = bisect.bisect_left(times, q["t"] - span), bisect.bisect_right(times, q["t"])
+        want_pairs.update((q["qid"], i) for i in range(lo_i, hi_i))
+    _k, cols = latest._materialize()
+    got_latest = {int(qid): (None if e is None else float(e), None if c_ is None else int(c_))
+                  for qid, e, c_ in zip(cols["qid"], cols["end"], cols["n"])}
+    _k, cols = pairs._materialize()
+    got_pairs = {(int(q), int(d)) for q, d in zip(cols["qid"], cols["doc"])}
+    if got_latest != want_latest or got_pairs != want_pairs:
+        bad = sum(1 for q in want_latest if got_latest.get(q) != want_latest[q])
+        raise AssertionError(f"phase 22 (b): {bad} asof answers and {len(got_pairs ^ want_pairs)} interval pairs "
+                             "differ from the plain loop")
+    report.update(wall_s=wall_s, host_s=sum(o.process_ns for o in pw.G.engine_graph.operators) / 1e9,
+                  commits=2 * hours, queries=len(q_rows), pairs=len(want_pairs),
+                  pairs_per_query=len(want_pairs) / len(q_rows), span=span, windows=len(counts._materialize()[0]))
+    return report
+
+
+def temporal_graphs(pw, vec_of_doc, times, n_graph: int, dev):
+    """Phase 22 (c): the top-10 neighbour graph of ``n_graph`` documents
+    from an IVF on ``dev`` at full probe; ``pw.graphs.pagerank`` against a
+    float64 numpy power iteration, ``bellman_ford`` against scipy's
+    shortest paths, ``retrieve_prev_next_values`` over the documents sorted
+    by time against numpy.  Returns the report."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import shortest_path
+
+    from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+
+    out = {}
+    t0 = _now()
+    launches0 = rescore_shortlist.launches
+    vecs = np.stack([vec_of_doc[d] for d in range(n_graph)])
+    ivf = IvfKnnIndex(vecs.shape[1], metric="cos", device=dev)
+    ivf.add(list(range(n_graph)), vecs)
+    ivf.build()
+    full = ivf._centroids.shape[0]
+    edges = []
+    for lo in range(0, n_graph, 512):
+        for i, row in enumerate(ivf.search(vecs[lo : lo + 512], K + 1, n_probe=full)):
+            edges.extend([(lo + i, int(key), float(score)) for key, score in row if int(key) != lo + i][:K])
+    if len(edges) != K * n_graph:
+        raise AssertionError(f"phase 22 (c): {len(edges)} edges for {n_graph} documents")
+    out.update(knn_s=_now() - t0, launches=rescore_shortlist.launches - launches0, edges=len(edges), clusters=full)
+    a_idx = np.array([e[0] for e in edges])
+    b_idx = np.array([e[1] for e in edges])
+    w = np.array([e[2] for e in edges], np.float64)
+    if float((1.0 - w).min()) <= 0.0:
+        raise AssertionError("phase 22 (c): a neighbour at cosine 1 (a zero-length edge)")
+
+    def graph_tables():
+        vs = pw.debug.table_from_rows(
+            pw.schema_from_types(doc=int, is_source=bool), [(i, i == 0) for i in range(n_graph)]
+        ).with_id_from(pw.this.doc)
+        raw = pw.debug.table_from_rows(pw.schema_from_types(a=int, b=int, w=float), edges)
+        return vs, raw.select(u=vs.pointer_from(raw.a), v=vs.pointer_from(raw.b), dist=1.0 - raw.w)
+
+    def by_doc(vs, table, column):
+        keys, cols = vs._materialize()
+        doc_of = {int(k): int(d) for k, d in zip(keys, cols["doc"])}
+        keys, cols = table._materialize()
+        got = np.full(n_graph, np.nan)
+        got[[doc_of[int(k)] for k in keys]] = cols[column].astype(np.float64)
+        return got
+
+    # pagerank: 5 unrolled steps against a float64 power iteration of the same formula
+    pw.reset()
+    t0 = _now()
+    vs, etab = graph_tables()
+    ranks = pw.graphs.pagerank(etab, steps=TM_PR_STEPS)
+    pw.run(monitoring_level=None)
+    out["pagerank_s"] = _now() - t0
+    got = by_doc(vs, ranks, "rank")
+    outdeg = np.bincount(a_idx, minlength=n_graph).astype(np.float64)
+    r = np.ones(n_graph)
+    for _ in range(TM_PR_STEPS):
+        inflow = np.zeros(n_graph)
+        np.add.at(inflow, b_idx, 0.85 * r[a_idx] / outdeg[a_idx])
+        r = 0.15 + inflow
+    out["pagerank_err"] = float(np.nanmax(np.abs(got - r)))
+    if np.isnan(got).any() or out["pagerank_err"] > 1e-9:
+        raise AssertionError(f"phase 22 (c): pagerank differs from the power iteration by {out['pagerank_err']}")
+
+    # Bellman-Ford from document 0 with weights 1 - score, against scipy
+    pw.reset()
+    t0 = _now()
+    vs, etab = graph_tables()
+    dists = pw.graphs.bellman_ford(vs, etab)
+    pw.run(monitoring_level=None)
+    out["bellman_ford_s"] = _now() - t0
+    got = by_doc(vs, dists, "dist_from_source")
+    want = shortest_path(csr_matrix((1.0 - w, (a_idx, b_idx)), shape=(n_graph, n_graph)), method="D",
+                         directed=True, indices=0)
+    fin = np.isfinite(want)
+    out["bf_reached"] = int(fin.sum())
+    out["bf_err"] = float(np.abs(got[fin] - want[fin]).max())
+    if np.isnan(got).any() or not np.array_equal(np.isfinite(got), fin) or out["bf_err"] > 1e-9:
+        raise AssertionError(f"phase 22 (c): bellman_ford differs from scipy (max err {out['bf_err']})")
+
+    # prev / next values over the documents sorted by time, one in 16 holding a value
+    pw.reset()
+    t0 = _now()
+    base = pw.debug.table_from_rows(
+        pw.schema_from_types(doc=int, t=float, v=object),
+        [(i, float(times[i]), i if i % 16 == 0 else None) for i in range(n_graph)],
+    )
+    ordered = base.sort(key=base.t)
+    walked = pw.stdlib.indexing.sorting.retrieve_prev_next_values(
+        base.select(prev=ordered.prev, next=ordered.next, value=base.v)
+    )
+    pw.run(monitoring_level=None)
+    out["prev_next_s"] = _now() - t0
+    bkeys, bcols = base._materialize()
+    key_of = {int(d): int(k) for k, d in zip(bkeys, bcols["doc"])}
+    order = np.argsort(np.asarray(times[:n_graph]), kind="stable")
+    has = order % 16 == 0
+    pos = np.arange(n_graph)
+    prev_pos = np.maximum.accumulate(np.where(has, pos, -1))
+    next_pos = np.minimum.accumulate(np.where(has, pos, n_graph)[::-1])[::-1]
+    want_pn = {
+        key_of[int(order[j])]: (
+            key_of[int(order[prev_pos[j]])] if prev_pos[j] >= 0 else None,
+            key_of[int(order[next_pos[j]])] if next_pos[j] < n_graph else None,
+        )
+        for j in range(n_graph)
+    }
+    wkeys, wcols = walked._materialize()
+    got_pn = {
+        int(k): (None if p is None else int(p), None if q is None else int(q))
+        for k, p, q in zip(wkeys, wcols["prev_value"], wcols["next_value"])
+    }
+    if got_pn != want_pn:
+        raise AssertionError(f"phase 22 (c): {sum(got_pn.get(k) != v for k, v in want_pn.items())} prev / next "
+                             "values differ from numpy")
+    return out
+
+
+def temporal_phase(tag: str, dev=None, emb=None, docs=None, per_hour: int = TM_PER_HOUR,
+                   n_graph: int = TM_GRAPH_DOCS):
+    """Phase 22: time on the card, all through ``import pathway_tpu_torch
+    as pw``: (a) a windowed retrieval index, (b) temporal joins over the
+    same streams, (c) ``pw.iterate`` and the graphs over the card's
+    neighbour graph.  Returns (rescore launches on the temporal path, the
+    kernel at the phase's shape)."""
+    import pathway_tpu_torch as pw
+
+    t_phase = _now()
+    dev = dev or torch.device(DEVICE)
+    cuda = dev.type == "cuda"
+    pw.reset()
+    if cuda:
+        torch.cuda.empty_cache()
+    docs = docs if docs is not None else corpus(N_DOCS)
+    emb = emb or _ps_embedder()
+    times = [i * TM_HOUR / per_hour for i in range(len(docs))]
+    hours = len(docs) // per_hour
+    n_graph = min(n_graph, len(docs))
+
+    # -- (a) windowed retrieval ------------------------------------------------
+    t0 = _now()
+    ra, vec_of_doc, ivf = temporal_retrieval(pw, emb, docs, times, per_hour, dev)
+    lat = ra["latency_ms"]
+    by_name = {}
+    for o in ra["chain"]:
+        by_name[o.name] = by_name.get(o.name, 0) + o.process_ns / 1e6
+    dead = int(torch.isneginf(ivf._bias).sum()) if ivf._bias is not None else 0  # removed rows and pad
+    log(
+        f"temporal (a) {tag}: {len(docs)} documents at {per_hour} per simulated hour in {hours} commits through "
+        f"windowby(tumbling 1 h, instance=doc, cutoff 3 h, keep_results=False) into a full-probe IVF DataIndex, "
+        f"{BATCH} queries (k={K}) after each commit: the index held the alive count after every commit "
+        f"({max(ra['index_rows'])} at most), every answer == an exact search over the alive documents' embeddings "
+        f"on the card rank by rank (ties within 1e-5), none past the cutoff, none retracted; retrieve per query "
+        f"commit first {lat[0]:.3f} ms (the IVF's first build), then p50 {np.percentile(lat[1:], 50):.3f} ms "
+        f"p99 {np.percentile(lat[1:], 99):.3f} ms over {len(lat) - 1}; the windowed chain's host ms per document "
+        f"commit {sum(by_name.values()) / hours:.3f} ("
+        + ", ".join(f"{k} {v / hours:.3f}" for k, v in sorted(by_name.items()))
+        + f"); index removals {ra['removal']['s'] * 1e3 / hours:.3f} ms per commit ({ra['removal']['rows']} rows in "
+        f"{ra['removal']['calls']} calls); IVF retrains {ra['stats'].get('retrains', 0)}, absorbs "
+        f"{ra['stats'].get('absorbs', 0)}, builds {ra['stats'].get('sync_builds', 0)}; -inf bias slots (removed rows "
+        f"and pad) at the end {dead} of {0 if ivf._bias is None else ivf._bias.numel()} slots ({len(ivf)} live); {ra['busy']}; "
+        f"rescore launches {ra['launches']}; (a) {_now() - t0:.1f} s"
+    )
+    shape = None
+    if cuda:
+        shape = rescore_at_path_shape(ivf, ivf_search_rescore_args(ivf, ra["queries"]), dev)
+        log(f"ivf_rescore at the temporal shape {tag}: " + rescore_line(ivf, shape)
+            + f"; {dead} -inf bias slots (removed rows and pad) in the slabs; launches in (a) {ra['launches']}")
+
+    # -- (b) temporal joins over the same streams (host) ------------------------
+    pw.reset()
+    rb = temporal_joins(pw, times, per_hour)
+    log(
+        f"temporal (b) {tag}: windowby(sliding hop 15 min, 1 h, instance=topic) counts ({rb['windows']} windows of "
+        f"{TM_TOPICS} topics), asof_join of {rb['queries']} timestamped queries onto their topic's latest window, "
+        f"interval_join of each with the documents of its last {rb['span']:.2f} s ({rb['pairs_per_query']:.2f} "
+        f"documents per query, {rb['pairs']} pairs) == a plain Python loop; document commit to the last asof "
+        f"answer of its query commit p50 {np.percentile(rb['commit_ms'], 50):.3f} ms max {max(rb['commit_ms']):.3f} "
+        f"ms; operators' host {rb['host_s'] * 1e3 / rb['commits']:.3f} ms per commit over {rb['commits']} commits; "
+        f"(b) {rb['wall_s']:.1f} s"
+    )
+
+    # -- (c) pw.iterate and the graphs over the card's neighbour graph ----------
+    pw.reset()
+    rc = temporal_graphs(pw, vec_of_doc, times, n_graph, dev)
+    log(
+        f"temporal (c) {tag}: top-{K} neighbour graph of {n_graph} documents from the IVF on the card at full probe "
+        f"(C={rc['clusters']}, {rc['launches']} rescore launches) {rc['knn_s']:.3f} s; pagerank {TM_PR_STEPS} steps "
+        f"over {rc['edges']} edges {rc['pagerank_s']:.3f} s, max err {rc['pagerank_err']:.3e} against float64 numpy; "
+        f"bellman_ford (weights 1 - score) {rc['bellman_ford_s']:.3f} s, {rc['bf_reached']} reached, max err "
+        f"{rc['bf_err']:.3e} against scipy; retrieve_prev_next_values over the documents sorted by time "
+        f"{rc['prev_next_s']:.3f} s == numpy; phase 22 {_now() - t_phase:.1f} s"
+    )
+    pw.reset()
+    return ra["launches"] + rc["launches"], shape
+
+
 def framework_setup():
     """The set-up ``--framework`` and ``--qa`` share: the card's name, the
     kernels' build, phase 4's rows and phase 5's direct serve p50 (exact
@@ -6620,6 +7153,20 @@ def main() -> int:
         build_host("tokenize_hash")
         log(f"build {time.perf_counter() - t0:.1f} s")
         launches = persist_phase(f"[{smi}]")[0]
+        log(f"rescore launches {launches}; shape census: {tripwire_census()}")
+        return 0
+    if sys.argv[1:] == ["--temporal"]:
+        from pathway_tpu_torch.kernels.build import build_host
+
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        ).stdout.strip()
+        log(f"card: {smi}")
+        t0 = time.perf_counter()
+        build_all()
+        build_host("tokenize_hash")
+        log(f"build {time.perf_counter() - t0:.1f} s")
+        launches = temporal_phase(f"[{smi}]")[0]
         log(f"rescore launches {launches}; shape census: {tripwire_census()}")
         return 0
     if sys.argv[1:] == ["--distributed"]:
@@ -6951,6 +7498,10 @@ def main() -> int:
     # -- 21. durable pipelines: a persisted hybrid index restarted, a crash, cli replay, counted --
     ps_launches, ps_kernel = persist_phase(tag)
     worst_err = max(worst_err, ps_kernel["max_abs_err"])
+
+    # -- 22. time on the card: a windowed retrieval index, temporal joins, iterate and graphs, counted --
+    tm_launches, tm_kernel = temporal_phase(tag)
+    worst_err = max(worst_err, tm_kernel["max_abs_err"])
     log(f"shape census: {tripwire_census()}")
 
     record = {
@@ -6962,13 +7513,13 @@ def main() -> int:
                 "replaces": "pathway_tpu/ops/ivf_pallas.py:37",
                 "launches": launches + rr_launches + sched_launches + li_launches + ws_launches + st_launches
                 + po_launches + sum(rw_launches.values()) + ss_launches + sf_launches + fw_launches
-                + qa_launches["ivf_rescore"] + ps_launches,
+                + qa_launches["ivf_rescore"] + ps_launches + tm_launches,
                 "launches_by_path": {
                     "serve": launches, "rerank": rr_launches, "scheduler": sched_launches,
                     "ingest": li_launches, "warmstate": ws_launches, "tuning": st_launches,
                     "profiling": po_launches, "real_weights": rw_launches, "sharded": ss_launches,
                     "fabric": sf_launches, "framework": fw_launches, "qa": qa_launches["ivf_rescore"],
-                    "persist": ps_launches,
+                    "persist": ps_launches, "temporal": tm_launches,
                 },
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,
@@ -6998,6 +7549,7 @@ def main() -> int:
                 "framework_shape": {key: fw_kernel[key] for key in _SHAPE_KEYS},
                 "qa_shape": {key: qa_kernel[key] for key in _SHAPE_KEYS},
                 "persist_shape": {key: ps_kernel[key] for key in _SHAPE_KEYS},
+                "temporal_shape": {key: tm_kernel[key] for key in _SHAPE_KEYS},
             },
             *decode_kernels,
         ]

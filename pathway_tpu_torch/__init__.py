@@ -10,16 +10,21 @@ incremental engine (``engine/``) with its persistence (``persistence``:
 input logs, operator snapshots, ``pw.run(persistence_config=...)``),
 ``debug``, ``demo``, ``io`` (``python``, ``subscribe``, the file
 connectors ``fs`` / ``csv`` / ``jsonlines`` / ``plaintext``, ``sqlite``,
-``null`` and the REST connector ``http``), ``stdlib.indexing``
-(``DataIndex`` over the device KNN indexes, BM25, the hybrid index),
-``ml`` (``KNNIndex``, the LSH index, ``knn_classifier``), ``stateful``,
-``xpacks.llm``
-(``DocumentStore`` retrieval, chat, rerankers, the RAG answerers and
-their REST servers) and ``load_yaml`` (the template loader; the command
-line is ``python -m pathway_tpu_torch.cli``).  Names of the reference's
-namespace whose modules are later slices (``sql``, ``iterate``, the
-temporal stdlib, export/import, interactive mode) raise
-``NotImplementedError`` naming the slice in ``ROADMAP.md``.
+``null`` and the REST connector ``http``), ``iterate`` (fixed points over a
+nested engine graph), ``stdlib.indexing`` (``DataIndex`` over the device
+KNN indexes, BM25, the hybrid index, sorting), ``ml`` (``KNNIndex``, the
+LSH index, ``knn_classifier``), ``stateful``, ``temporal`` (windows,
+behaviors, interval / asof / window joins), ``ordered``, ``statistical``,
+``graphs``, ``xpacks.llm`` (``DocumentStore`` retrieval, chat, rerankers,
+the RAG answerers and their REST servers), the process config
+(``get_config``, ``set_license_key``, ``set_monitoring_config``; the knob
+table is ``pw.config``) and ``load_yaml`` (the template loader; the
+command line is ``python -m pathway_tpu_torch.cli``).  Names of the
+reference's namespace whose modules are later slices (``sql``, row
+transformers, export/import, interactive mode, ``utils``, ``viz``, the
+transport-gated connectors under ``pw.io``) are stubs
+(``internals/unported.py``) that raise ``NotImplementedError`` naming the
+slice in ``ROADMAP.md``.
 
 Device modules below the framework: host tokenizer -> ``TransformerEncoder``
 forward + masked mean pool + L2 normalize -> exact (``DeviceKnnIndex``)
@@ -35,6 +40,7 @@ from __future__ import annotations
 
 import datetime as _datetime
 
+from . import config
 from .device import DEFAULT_DTYPE, resolve_device
 from .internals import dtype as dt
 from .internals import api_reducers as reducers
@@ -49,6 +55,8 @@ from .internals.expression import (
     MakeTupleExpression,
     RequireExpression,
 )
+from .internals.config import PathwayConfig, get_config, set_license_key, set_monitoring_config
+from .internals.iterate import iterate, iterate_universe
 from .internals.keys import Pointer, ref_scalar
 from .internals.monitoring import MonitoringLevel
 from .internals.parse_graph import G
@@ -245,46 +253,61 @@ def table_transformer(fn=None, **kwargs):
     return wrap(fn) if fn is not None else wrap
 
 
-def _later_slice(name: str, slice_no: int, what: str):
-    def unported(*args, **kwargs):
-        raise NotImplementedError(
-            f"pw.{name} ({what}) is not ported yet: ROADMAP.md, framework slice {slice_no}"
-        )
+from .internals.unported import LaterSliceModule as _StubModule  # noqa: E402
+from .internals.unported import later_slice as _stub, later_slice_class as _stub_class  # noqa: E402
 
-    unported.__name__ = name
-    return unported
-
-
-sql = _later_slice("sql", 3, "internals/sql.py")
-iterate = _later_slice("iterate", 3, "internals/iterate.py")
-iterate_universe = _later_slice("iterate_universe", 3, "internals/iterate.py")
-windowby = _later_slice("windowby", 3, "the temporal stdlib")
-asof_join = _later_slice("asof_join", 3, "the temporal stdlib")
-interval_join = _later_slice("interval_join", 3, "the temporal stdlib")
-window_join = _later_slice("window_join", 3, "the temporal stdlib")
-export_table = _later_slice("export_table", 3, "internals/export_import.py")
-import_table = _later_slice("import_table", 3, "internals/export_import.py")
-enable_interactive_mode = _later_slice("enable_interactive_mode", 3, "internals/interactive.py")
+sql = _stub("sql", "3b", "internals/sql.py")
+export_table = _stub("export_table", "3b", "internals/export_import.py")
+import_table = _stub("import_table", "3b", "internals/export_import.py")
+ExportedTable = _stub_class("ExportedTable", "3b", "internals/export_import.py")
+enable_interactive_mode = _stub("enable_interactive_mode", "3b", "internals/interactive.py")
+LiveTable = _stub_class("LiveTable", "3b", "internals/interactive.py")
+ClassArg = _stub_class("ClassArg", "3b", "internals/row_transformer.py")
+attribute = _stub("attribute", "3b", "internals/row_transformer.py")
+input_attribute = _stub("input_attribute", "3b", "internals/row_transformer.py")
+input_method = _stub("input_method", "3b", "internals/row_transformer.py")
+method = _stub("method", "3b", "internals/row_transformer.py")
+output_attribute = _stub("output_attribute", "3b", "internals/row_transformer.py")
+transformer = _stub("transformer", "3b", "internals/row_transformer.py")
+AsyncTransformer = _stub_class("AsyncTransformer", "3b", "stdlib/utils/async_transformer.py")
+pandas_transformer = _stub("pandas_transformer", "3b", "stdlib/utils/pandas_transformer.py")
+asynchronous = _StubModule("asynchronous", "3b", "asynchronous.py")
 
 
 # stdlib and xpacks load lazily, so plain pipelines skip the model stack
 _LAZY_SUBMODULES = {
-    name: name for name in ("stdlib", "xpacks", "models", "ops", "parallel", "serve")
+    name: name for name in ("cache", "stdlib", "xpacks", "models", "ops", "parallel", "serve")
 }
-_LAZY_SUBMODULES.update(indexing="stdlib.indexing", ml="stdlib.ml", stateful="stdlib.stateful")
+_LAZY_SUBMODULES.update(
+    indexing="stdlib.indexing", ml="stdlib.ml", stateful="stdlib.stateful", temporal="stdlib.temporal",
+    ordered="stdlib.ordered", statistical="stdlib.statistical", graphs="stdlib.graphs",
+)
+# names defined in those submodules that the reference's ``pw`` exports
+_LAZY_NAMES = {
+    name: "stdlib.temporal"
+    for name in (
+        "AsofJoinResult", "IntervalJoinResult", "WindowJoinResult", "asof_join", "interval_join", "window_join",
+        "windowby",
+    )
+}
+_LAZY_NAMES.update(utils="stdlib", viz="stdlib")
 
 
 def __getattr__(name: str):
-    if name in _LAZY_SUBMODULES:
-        import importlib
+    import importlib
 
-        module = importlib.import_module(f".{_LAZY_SUBMODULES[name]}", __name__)
-        globals()[name] = module
-        return module
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    if name in _LAZY_SUBMODULES:
+        value = importlib.import_module(f".{_LAZY_SUBMODULES[name]}", __name__)
+    elif name in _LAZY_NAMES:
+        value = getattr(importlib.import_module(f".{_LAZY_NAMES[name]}", __name__), name)
+    else:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    globals()[name] = value
+    return value
 
 
 Json = dt.JSON
+Pointer_ = Pointer
 DateTimeNaive = _datetime.datetime
 DateTimeUtc = _datetime.datetime
 Duration = _datetime.timedelta

@@ -313,6 +313,13 @@ _knob("observe.metrics_port", "PATHWAY_METRICS_PORT", "int", 20000,
 _knob("observe.metrics_host", "PATHWAY_METRICS_HOST", "str", "127.0.0.1",
       "/metrics bind host")
 
+# the process config's monitoring endpoint and license key (internals/config.py,
+# written by pw.set_monitoring_config / pw.set_license_key)
+_knob("observe.monitoring_server", "PATHWAY_MONITORING_SERVER", "str", "",
+      "OTLP endpoint for span export (empty = off)")
+_knob("license.key", "PATHWAY_LICENSE_KEY", "str", "",
+      "accepted and ignored (this framework is fully open)")
+
 # command line (cli.py)
 _knob("cli.spawn_args", "PATHWAY_SPAWN_ARGS", "str", "",
       "extra args for `pathway spawn-from-env`")

@@ -3,14 +3,17 @@
 config.py:58-80 — PathwayConfig env fields).
 
 The fields are the ones the port reads: persistence (``internals/run.py``
-builds a persistence config from them when ``pw.run`` is given none) and
-the metrics server's port and host, offset by ``process_id``
-(``internals/metrics.py``).  Env parsing goes through the port's knob
-table (``pathway_tpu_torch/config.py``) — field defaults are
+builds a persistence config from them when ``pw.run`` is given none), the
+metrics server's port and host, offset by ``process_id``
+(``internals/metrics.py``), and the monitoring endpoint and license key
+that ``pw.set_monitoring_config`` / ``pw.set_license_key`` write.  Env
+parsing goes through the port's knob table
+(``pathway_tpu_torch/config.py``) — field defaults are
 ``default_factory`` thunks, so each ``PathwayConfig()`` construction
 reads the CURRENT knob values instead of whatever the env held at
-class-definition time.  The reference's engine, monitoring and license
-fields come with the slices that read them."""
+class-definition time.  The reference's mesh and engine fields come with
+the slices that read them; span export over the monitoring endpoint comes
+with the telemetry slice (``ROADMAP.md``, framework slice 3c)."""
 
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import Optional
 
 from .. import config
 
-__all__ = ["PathwayConfig", "get_config", "local_config"]
+__all__ = ["PathwayConfig", "get_config", "set_license_key", "set_monitoring_config", "local_config"]
 
 
 @dataclass
@@ -38,11 +41,18 @@ class PathwayConfig:
         default_factory=lambda: config.get("persistence.snapshot_interval_ms")
     )
     # observability
+    monitoring_server: Optional[str] = field(
+        default_factory=lambda: config.get("observe.monitoring_server") or None
+    )
     metrics_port: int = field(
         default_factory=lambda: config.get("observe.metrics_port")
     )
     metrics_host: str = field(
         default_factory=lambda: config.get("observe.metrics_host")
+    )
+    # licensing: this framework is fully open — accepted and ignored
+    license_key: Optional[str] = field(
+        default_factory=lambda: config.get("license.key") or None
     )
 
     @property
@@ -55,6 +65,18 @@ _config = PathwayConfig()
 
 def get_config() -> PathwayConfig:
     return _config
+
+
+def set_license_key(key: Optional[str]) -> None:
+    """Reference-compat no-op: the framework has no license gating
+    (reference: license.rs:31 gates >8 workers)."""
+    _config.license_key = key
+
+
+def set_monitoring_config(*, server_endpoint: Optional[str]) -> None:
+    """Set (or clear) the OTLP monitoring endpoint (reference
+    internals/config.py:144 ``set_monitoring_config``; no license gating)."""
+    _config.monitoring_server = server_endpoint
 
 
 class local_config:

@@ -9,12 +9,20 @@ library's HTTP server; ``sqlite`` over the standard library's
 ``sqlite3``; ``null``, a sink that discards; and the connector bookkeeping (``_offsets.py``:
 committed offset antichains and per-connector monitors, read by the
 live-ingest runner, ``serve/ingest.py``, and the metrics server).  The
-message-queue, database and cloud connectors need client packages the
-card's machine does not have."""
+message-queue, database and cloud connectors (``kafka`` and 18 more) are a
+later slice: each is a stub module whose names raise
+``NotImplementedError`` naming it (``ROADMAP.md``, framework slice 3c)."""
 
+from ..internals.unported import LaterSliceModule as _StubModule
 from . import csv, fs, http, jsonlines, null, plaintext, python, sqlite
 from ._offsets import ConnectorMonitor, OffsetAntichain
 from ._subscribe import subscribe
+
+_GATED = (
+    "airbyte", "bigquery", "debezium", "deltalake", "elasticsearch", "gdrive", "kafka", "logstash", "minio",
+    "mongodb", "nats", "postgres", "pubsub", "pyfilesystem", "redpanda", "s3", "s3_csv", "sharepoint", "slack",
+)
+globals().update({name: _StubModule(f"io.{name}", "3c", f"io/{name}") for name in _GATED})
 
 __all__ = [
     "ConnectorMonitor",
@@ -28,4 +36,5 @@ __all__ = [
     "python",
     "sqlite",
     "subscribe",
+    *_GATED,
 ]

@@ -291,7 +291,9 @@ class PersistenceManager:
     def _refuse_unsnapshotted(self, graph) -> None:
         """OPERATOR_PERSISTING restores operators from their snapshots and
         drops the input log; an operator whose state no snapshot carries
-        would come back empty and answer wrongly without an error."""
+        would come back empty and answer wrongly without an error.  The walk
+        goes into nested graphs (a ``pw.iterate`` body), whose operators ride
+        in their outer operator's snapshot."""
         from ..engine.operators.external_index import ExternalIndexOperator
         from ..engine.operators.rowwise import RestrictOperator, UpdateCellsOperator, UpdateRowsOperator
 
@@ -303,6 +305,9 @@ class PersistenceManager:
                     f"({op.name}#{op.id}): its state would be restored empty; use "
                     "PersistenceMode.PERSISTING, whose input replay rebuilds it"
                 )
+            nested = getattr(op, "nested_graph", None)
+            if nested is not None:
+                self._refuse_unsnapshotted(nested)
 
     # -- wiring ------------------------------------------------------------
     def attach(self, graph) -> None:

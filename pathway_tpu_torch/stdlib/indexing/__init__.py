@@ -4,12 +4,13 @@ python/pathway/stdlib/indexing/ — data_index.py:278, nearest_neighbors.py,
 bm25.py, hybrid_index.py).
 
 Ported: ``DataIndex``/``InnerIndex``, the KNN factories (exact, IVF, LSH),
-BM25, the hybrid index (reciprocal rank fusion), the retriever surface
-and the document-index helpers.  ``sorting`` comes with the rest of
-``stdlib``, a later slice (``ROADMAP.md``)."""
+BM25, the hybrid index (reciprocal rank fusion), the retriever surface,
+the document-index helpers and ``sorting`` (prev / next retrieval over
+``Table.sort``, run inside ``pw.iterate``)."""
 
 from __future__ import annotations
 
+from . import sorting
 from .bm25 import BM25Index, TantivyBM25, TantivyBM25Factory
 from .data_index import DataIndex, InnerIndex
 from .hybrid_index import HybridIndex, HybridIndexFactory
@@ -58,4 +59,5 @@ __all__ = [
     "default_brute_force_knn_document_index",
     "default_usearch_knn_document_index",
     "default_lsh_knn_document_index",
+    "sorting",
 ]

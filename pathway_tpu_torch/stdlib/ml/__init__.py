@@ -11,20 +11,18 @@ their names raise ``NotImplementedError`` naming the slice."""
 from __future__ import annotations
 
 from . import classifiers, index
+from ...internals.unported import LaterSliceModule as _StubModule
+from ...internals.unported import later_slice as _stub
 from .classifiers import knn_classifier
 from .index import KNNIndex
 
 
 def _later_slice(name: str, what: str):
-    def unported(*args, **kwargs):
-        raise NotImplementedError(
-            f"pw.ml.{name} ({what}) is not ported yet: ROADMAP.md, framework slice 3"
-        )
-
-    unported.__name__ = name
-    return unported
+    return _stub(f"ml.{name}", "3b", what)
 
 
+hmm = _StubModule("ml.hmm", "3b", "stdlib/ml/hmm.py")
+smart_table_ops = _StubModule("ml.smart_table_ops", "3b", "stdlib/ml/smart_table_ops.py")
 create_hmm_reducer = _later_slice("create_hmm_reducer", "stdlib/ml/hmm.py")
 FuzzyJoinFeatureGeneration = _later_slice("FuzzyJoinFeatureGeneration", "stdlib/ml/smart_table_ops.py")
 FuzzyJoinNormalization = _later_slice("FuzzyJoinNormalization", "stdlib/ml/smart_table_ops.py")
@@ -38,6 +36,8 @@ __all__ = [
     "KNNIndex",
     "classifiers",
     "knn_classifier",
+    "hmm",
+    "smart_table_ops",
     "create_hmm_reducer",
     "FuzzyJoinFeatureGeneration",
     "FuzzyJoinNormalization",

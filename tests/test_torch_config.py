@@ -95,12 +95,14 @@ def test_process_config_reads_the_port_table(monkeypatch):
     monkeypatch.setenv("PATHWAY_PERSISTENT_STORAGE", "/state")
     monkeypatch.setenv("PATHWAY_PERSISTENCE_MODE", "OPERATOR_PERSISTING")
     monkeypatch.setenv("PATHWAY_SNAPSHOT_INTERVAL_MS", "250")
-    monkeypatch.delenv("PATHWAY_REPLAY_STORAGE", raising=False)
+    for env in ("PATHWAY_REPLAY_STORAGE", "PATHWAY_MONITORING_SERVER", "PATHWAY_LICENSE_KEY"):
+        monkeypatch.delenv(env, raising=False)
     mine, theirs = PathwayConfig(), RefConfig()
     assert vars(mine) == {name: getattr(theirs, name) for name in vars(mine)}
     assert vars(mine) == {
         "persistence_mode": "OPERATOR_PERSISTING", "replay_storage": None, "persistent_storage": "/state",
         "snapshot_interval_ms": 250, "metrics_port": 23456, "metrics_host": "0.0.0.0",
+        "monitoring_server": None, "license_key": None,
     }
     assert mine.process_id == theirs.process_id
     with local_config(metrics_port=1):

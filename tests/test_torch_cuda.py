@@ -16,7 +16,8 @@ through the engine, and the default ``DocumentStore`` (``TpuKnnFactory``
 over ``TpuEmbedder()``) with an IVF store beside it through the kernel;
 and one QA answer over the port's REST server equal to the direct calls;
 and a persisted pipeline whose rows carry CUDA tensors, snapshotted on the
-card and restarted in a process that sees no card.
+card and restarted in a process that sees no card; and a windowed
+``DataIndex`` whose expired windows leave the IVF on the card.
 They skip
 without a card.  This file imports neither JAX nor the reference, so on
 a machine without JAX it runs as
@@ -930,3 +931,91 @@ def test_cuda_snapshot_restores_in_a_process_without_a_card(tmp_path):
                             env=dict(env, CUDA_VISIBLE_DEVICES=""), capture_output=True, text=True, timeout=300)
     assert second.returncode == 0, second.stderr[-3000:]
     assert "RESULT [('b', 2, 7, True)]" in second.stdout
+
+
+def windowed_index_run(device=None, hours=8, per_hour=64, dim=32, k=5):
+    """A windowed ``DataIndex`` stepped by hand: documents with an event
+    time go through ``windowby(tumbling(10), instance=doc,
+    common_behavior(cutoff=20, keep_results=False))`` into a full-probe IVF
+    index; after each commit (and the tick whose lagged sweep retracts the
+    expired windows) 8 queries are answered.  Returns, per commit, the
+    index's rows, the alive documents, the answers as [(doc, score)] and
+    the exact top-``k`` over the alive documents' vectors; and the IVF."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.executor import Executor
+    from pathway_tpu_torch.engine.operators.external_index import ExternalIndexOperator
+    from pathway_tpu_torch.engine.operators.io import InputSession, SourceOperator
+    from pathway_tpu_torch.internals import dtype as dt
+    from pathway_tpu_torch.internals.keys import ref_scalar
+    from pathway_tpu_torch.internals.table import Table
+    from pathway_tpu_torch.internals.universe import Universe
+
+    pw.reset()
+    vecs = np.random.default_rng(5).standard_normal((hours * per_hour, dim)).astype(np.float32)
+    queries = np.random.default_rng(6).standard_normal((hours * 8, dim)).astype(np.float32)
+
+    def stream(**types):
+        dtypes = {name: dt.wrap(t) for name, t in types.items()}
+        session = InputSession()
+        et = pw.G.engine_graph.add_table(list(types), "stream")
+        pw.G.engine_graph.add_operator(SourceOperator(et, session, dtypes, name="stream"))
+        return Table(et, dtypes, Universe(), short_name="stream"), session
+
+    docs, ds = stream(doc=int, t=float, vec=np.ndarray)
+    qs, qsess = stream(q=int, qv=np.ndarray)
+    alive = pw.temporal.windowby(
+        docs, docs.t, window=pw.temporal.tumbling(10.0), instance=pw.this.doc,
+        behavior=pw.temporal.common_behavior(cutoff=20.0, keep_results=False),
+    ).reduce(doc=pw.this.doc, vec=pw.reducers.any(pw.this.vec))
+    index = pw.stdlib.indexing.DataIndex(alive, pw.stdlib.indexing.InnerIndex(
+        data_column=alive.vec, dimension=dim,
+        factory=pw.stdlib.indexing.IvfKnnFactory(dimension=dim, n_probe=1 << 30, device=device)))
+    res = index.query_as_of_now(qs.qv, number_of_matches=k)
+    out = res.select(q=qs.q, docs=alive.doc, scores=res.score)
+    (op,) = [o for o in pw.G.engine_graph.operators if isinstance(o, ExternalIndexOperator)]
+    ivf = op.index.index
+    ex = Executor(pw.G.engine_graph)
+    pw.G.engine_graph.finalize()
+    commits = []
+    for h in range(hours):
+        for j in range(per_hour):
+            i = h * per_hour + j
+            ds.insert(int(ref_scalar(i)), (i, h * 10.0 + j * 10.0 / per_hour, vecs[i]))
+        ex.step()
+        ex.step()  # the time gate's sweep lags one tick
+        live = sorted(range(max(0, h - 2) * per_hour, (h + 1) * per_hour))
+        rows = len(ivf)
+        for b in range(8):
+            qsess.insert(int(ref_scalar(("q", h * 8 + b))), (h * 8 + b, queries[h * 8 + b]))
+        ex.step()
+        _keys, cols = out._materialize()
+        got = {int(q): [(int(d), float(s)) for d, s in zip(ds_, ss)]
+               for q, ds_, ss in zip(cols["q"], cols["docs"], cols["scores"]) if int(q) // 8 == h}
+        mat = vecs[live] / np.linalg.norm(vecs[live], axis=1, keepdims=True)
+        qn = queries[h * 8 : h * 8 + 8] / np.linalg.norm(queries[h * 8 : h * 8 + 8], axis=1, keepdims=True)
+        sims = qn @ mat.T
+        want = {h * 8 + b: [(live[j], float(sims[b, j])) for j in np.argsort(-sims[b], kind="stable")[:k]]
+                for b in range(8)}
+        commits.append({"rows": rows, "live": live, "got": got, "want": want})
+    return commits, ivf
+
+
+@pytest.mark.cuda
+def test_cuda_windowed_index_removes_retracted_rows():
+    """Windows past the cutoff are retracted, and their rows leave the IVF
+    on the card (``-inf`` bias in the slabs the rescore kernel reads):
+    after every commit the index holds the alive rows only, and each
+    answer equals an exact search over them (ties within 1e-5)."""
+    _cuda()
+    before = rescore_shortlist.launches
+    commits, ivf = windowed_index_run()
+    assert rescore_shortlist.launches > before and ivf._slabs.device.type == "cuda"
+    for c in commits:
+        assert c["rows"] == len(c["live"])
+        assert sorted(c["got"]) == sorted(c["want"])
+        for q, want in c["want"].items():
+            got = c["got"][q]
+            np.testing.assert_allclose([s for _d, s in got], [s for _d, s in want], atol=1e-4)
+            for j, ((gd, gs), (wd, ws)) in enumerate(zip(got, want)):
+                assert gd == wd or any(abs(ws - want[i][1]) <= 1e-5 for i in (j - 1, j + 1) if 0 <= i < len(want))
+            assert all(d in set(c["live"]) for d, _s in got)

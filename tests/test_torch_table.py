@@ -468,7 +468,8 @@ def test_dtype_of_a_tensor_is_an_array():
 
 
 @pytest.mark.parametrize(
-    "name", ["sql", "iterate", "windowby", "asof_join", "interval_join", "export_table", "window_join"]
+    "name", ["sql", "transformer", "pandas_transformer", "import_table", "enable_interactive_mode", "export_table",
+             "attribute"]
 )
 def test_unported_names_raise_and_name_their_slice(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md, framework slice"):

@@ -1,0 +1,65 @@
+#!/usr/bin/env python3
+"""Seconds per phase of ``chip_smoke.py`` runs, read from their output.
+
+    python3 chip_smoke.py > run.log 2>&1
+    python3 tools/phase_times.py run.log [more logs]
+
+prints a markdown table with one column per log.  Phases 10-22 report
+their own seconds (the line that ends each one); phases 1-9 report none,
+so their row is the script's total less the phases after them.  A line
+may carry a leading ``<seconds><tab>`` stamp, which is ignored.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import sys
+
+# the line that ends each phase, and its seconds in group 1
+ENDS = [
+    ("10 decode", r"decode phase .*; ([\d.]+) s$"),
+    ("11 live ingest", r"shed A/B .*; phase ([\d.]+) s$"),
+    ("12 warm state", r"warm state, the 1M .*; phase ([\d.]+) s$"),
+    ("13 tuner", r"self-tuning .*; phase ([\d.]+) s$"),
+    ("14 operator plane", r"in-place-write guard.*; phase ([\d.]+) s$"),
+    ("15 real weights", r"phase 15 in ([\d.]+) s$"),
+    ("16 sharded", r"phase 16 in ([\d.]+) s$"),
+    ("17 multi-process", r"phase 17 in ([\d.]+) s$"),
+    ("18 fabric", r"phase 18 in ([\d.]+) s$"),
+    ("19 framework", r"; phase 19 ([\d.]+) s$"),
+    ("20 qa", r"^phase 20 ([\d.]+) s$"),
+    ("21 persist", r"; phase 21 ([\d.]+) s$"),
+    ("22 temporal", r"; phase 22 ([\d.]+) s$"),
+]
+TOTAL = r"chip_smoke: all phases passed in ([\d.]+) s$"
+EARLY = "1-9 (total less the rest)"
+
+
+def phase_seconds(log_path: str) -> dict[str, float]:
+    with open(log_path, errors="replace") as f:
+        lines = [re.sub(r"^[\d.]+\t", "", raw.rstrip("\n")) for raw in f]
+    out = {}
+    for name, pattern in ENDS + [("total", TOTAL)]:
+        rx = re.compile(pattern)
+        hits = [float(m.group(1)) for m in map(rx.search, lines) if m]
+        if hits:
+            out[name] = hits[0]
+    if "total" in out:
+        out[EARLY] = round(out["total"] - sum(v for k, v in out.items() if k != "total"), 1)
+    return out
+
+
+def table(paths: list[str]) -> str:
+    cols = [phase_seconds(p) for p in paths]
+    rows = ["| phase | " + " | ".join(os.path.basename(p) for p in paths) + " |",
+            "| --- |" + " --- |" * len(paths)]
+    for name in [EARLY] + [name for name, _ in ENDS] + ["total"]:
+        rows.append(f"| {name} | " + " | ".join(str(c.get(name, "")) for c in cols) + " |")
+    return "\n".join(rows)
+
+
+if __name__ == "__main__":
+    if len(sys.argv) < 2:
+        sys.exit(__doc__)
+    print(table(sys.argv[1:]))
