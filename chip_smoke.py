@@ -22,6 +22,7 @@ NVIDIA GPU:
     python3 chip_smoke.py --qa             # the same set-up, then phase 20 alone
     python3 chip_smoke.py --persist        # the builds, then phase 21 alone
     python3 chip_smoke.py --temporal       # the builds, then phase 22 alone
+    python3 chip_smoke.py --hostapi        # the builds, then phase 23 alone
     python3 chip_smoke.py --first-call ROOT...  # the profiler's first sampled
                                            # call, fresh processes, per root
 
@@ -125,9 +126,9 @@ Phases, in order; any failure exits non-zero:
    c1 / c4 / c16 == its solo ``generate``, as is every call-level one; no
    device-to-host sync in the c16 step loop; a warm prefix join == a cold
    one with prefill tokens reused; one slot reused over EOS leaves gives
-   solo tokens; 256 saturated requests at budget 64, spec_k 16 off and on,
+   solo tokens; 64 saturated requests at budget 64, spec_k 16 off and on,
    all == solo, at most 2 + 2 dispatches and fetches per round and 1 + 1
-   per plain chunk; 32 requests drafted by the reduced-layer trunk, all ==
+   per plain chunk; 16 requests drafted by the reduced-layer trunk, all ==
    solo; a 32-slot int8 pool: spec-on == spec-off, warm ==
    cold, its K/V bytes within the 16-slot bf16 pool's; the fused LayerNorm
    and the readout launched, the readout from the step, verify and
@@ -321,7 +322,7 @@ Phases, in order; any failure exits non-zero:
    documents (full probe), ``CrossEncoderReranker`` over the default
    ``CrossEncoderModel`` (24 candidates), ``TpuChat(continuous=True)`` over
    the default ``TextGenerator`` (48 new tokens).  ``urllib`` callers ask
-   64 of phase 5's query documents: 16 answers at c1, 64 at c16 and a
+   64 of phase 5's query documents: 16 answers at c1, 32 at c16 and a
    profiled burst of 16, with ``return_context_docs``; 16
    ``/v1/retrieve`` (k = 10), a summary of 4 texts, ``/v1/statistics``
    and ``/v1/pw_list_documents``.  Checked: every route 200 with the
@@ -400,10 +401,31 @@ Phases, in order; any failure exits non-zero:
    ``pw.graphs.pagerank`` (5 steps) == a float64 numpy power iteration
    within 1e-9, ``bellman_ford`` (weights 1 - score) == scipy's
    ``shortest_path`` within 1e-9, ``retrieve_prev_next_values`` over the
-   documents sorted by time == numpy; seconds per arm.
+   documents sorted by time == numpy; seconds per arm;
+23. the rest of the host API over an async retrieval path: phase 19's
+   ``TpuEmbedder`` encodes phase 4's 65,536 documents into a full-probe
+   ``IvfKnnIndex``; a ``ServeScheduler`` over ``FusedEncodeSearch`` on it
+   answers (a) 1,024 of phase 5's query texts, arriving in 16 commits of
+   64 through ``pw.io.python``, each through a ``pw.AsyncTransformer``
+   whose ``invoke`` submits its query to the scheduler and awaits the
+   ticket off the event loop, so a commit's invocations coalesce into
+   batches.  Checked: every row arrives and the run returns (quiescence);
+   every row == a direct search of its query (keys up to ties, scores
+   within 2e-2: bf16 rows in another batch); the IVF launched the rescore
+   kernel.  (b) the answers through the host API in the same run:
+   ``pw.sql`` over the flattened hits (``WHERE`` on score, ``GROUP BY``
+   document with ``COUNT(*)`` / ``MAX(score)``, then ``ORDER BY ...
+   LIMIT``) == a plain Python count; a ``pw.transformer`` that chases
+   each hit's pointer to its query's row == a plain loop; the answers
+   through ``export_table``, then ``import_table`` in a fresh graph and
+   the same ``pw.sql`` == the exported snapshot's plain count.  Printed:
+   answers per second, commit-to-last-answer p50 / p99, the scheduler's
+   items per batch, the busy share over (a), (b)'s host ms per commit, and
+   the rescore at the phase's shape alone and between events beside its
+   bound.
 
 Every shape-census tripwire runs strict from the start
-(``PATHWAY_RECOMPILE_STRICT=1``); after phase 22 none may have tripped.
+(``PATHWAY_RECOMPILE_STRICT=1``); after phase 23 none may have tripped.
 
 The card's name and power limit, then the JSON record of the kernels,
 then ``{"ok": true, "device": {...}}`` are the last three lines; the
@@ -1418,9 +1440,10 @@ DEC_REQS = {1: 4, 4: 8, 16: 16}  # the call-level arm serializes on the host
 DEC_C16_REQS = 64  # the busy-share and sync-debug drives
 SPEC_K = 16  # phase_speculative_decode
 SPEC_BUDGET = 64
-SPEC_REQS = 256
+SPEC_REQS = 64  # the bench saturates 256; cut with SPEC_TRUNK_REQS and I8_REQS to keep the script's time
+SPEC_TRUNK_REQS = 16  # requests drafted by the reduced-layer trunk
 I8_SLOTS = 32
-I8_REQS = 64
+I8_REQS = 32  # one request per slot of the int8 pool
 SAMPLE_TEMP = 0.8
 LN_ATOL = 1e-5  # f32 statistics summed in another order than torch's mean
 READOUT_ATOL = 1e-4  # f32 dot products of 256 terms in another order
@@ -1997,8 +2020,8 @@ def decode_phase(tag: str):
         sreqs = [request(j, SPEC_BUDGET) for j in range(SPEC_REQS)]
         for k, e in specs.items():
             saturated(e, sreqs[:16])  # warm shapes and the suffix corpus
-        _, o_trunk = saturated(specs["trunk"], sreqs[:32])
-        check_same(o_trunk, sreqs[:32], "spec-on, trunk drafts")
+        _, o_trunk = saturated(specs["trunk"], sreqs[:SPEC_TRUNK_REQS])
+        check_same(o_trunk, sreqs[:SPEC_TRUNK_REQS], "spec-on, trunk drafts")
         tr = specs["trunk"].pool_stats
         trunk_round = 1.0 + tr["draft_accepted"] / max(tr["draft_offered"] / (SPEC_K - 1), 1e-9)
         sp0 = dict(specs[SPEC_K].pool_stats)
@@ -2039,7 +2062,7 @@ def decode_phase(tag: str):
             f"spec-on == spec-off == solo): spec-off {tok / w_off:.1f} tokens/s, spec-on {tok / w_on:.1f} tokens/s; "
             f"{rounds} rounds + {plain} plain chunks, {acc_round:.2f} tokens per lane-round, draft sources {sources}; "
             f"dispatches + fetches per round <= {spec_d / rounds:.2f} + {spec_f / rounds:.2f}; spec-off "
-            f"{off_chunks} chunks, 1 + 1 each; trunk drafts (D = {specs['trunk']._draft_layers} layers, 32 requests) "
+            f"{off_chunks} chunks, 1 + 1 each; trunk drafts (D = {specs['trunk']._draft_layers} layers, {SPEC_TRUNK_REQS} requests) "
             f"== solo at {trunk_round:.2f} tokens per lane-round over {tr['spec_rounds']} rounds"
         )
     finally:
@@ -5335,7 +5358,7 @@ def framework_phase(direct_p50: dict, tag: str):
 # -- phase 20: question answering and chat -------------------------------------------
 QA_QUESTIONS = 64  # distinct questions: phase 5's first query documents
 QA_C1 = 16  # answers at c1, one caller
-QA_C16 = 64  # answers at c16; the whole script, phase 21 included, keeps its time budget
+QA_C16 = 32  # answers at c16; the whole script, phases 21-23 included, keeps its time budget
 QA_CALLERS = 16
 QA_RETRIEVES = 16  # /v1/retrieve calls, k = K
 QA_TOPK = 6  # search_topk; the reranker scores 4 x 6 = 24 candidates
@@ -7016,6 +7039,326 @@ def temporal_phase(tag: str, dev=None, emb=None, docs=None, per_hour: int = TM_P
     return ra["launches"] + rc["launches"], shape
 
 
+# -- phase 23: the rest of the host API over an async retrieval path -----------------
+HA_COMMITS = 16  # (a): query commits of BATCH through pw.io.python
+HA_COMMIT_MS = 10  # the engine's commit tick while the phase runs
+HA_TOL = PS_TOL  # bf16 trunk: a query's row moves with the batch the scheduler packs it in
+HA_MIN_SCORE = 0.85  # (b): the SQL's WHERE on score
+HA_TOP = 16  # (b): ORDER BY n DESC, doc LIMIT HA_TOP
+HA_WAIT_S = 300.0
+
+
+def _ha_hits(pw, answers):
+    """The answers table (qid, docs, scores) flattened to one row per hit:
+    (qid, qptr = the answer row's id, doc, score)."""
+    pairs = answers.select(
+        qid=pw.this.qid, qptr=answers.id, hit=pw.apply(lambda d, s: tuple(zip(d, s)), pw.this.docs, pw.this.scores)
+    )
+    flat = pairs.flatten(pairs.hit)
+    return flat.select(
+        qid=pw.this.qid, qptr=pw.this.qptr, doc=pw.apply_with_type(lambda h: int(h[0]), int, pw.this.hit),
+        score=pw.apply_with_type(lambda h: float(h[1]), float, pw.this.hit),
+    )
+
+
+def _ha_sql(pw, hits):
+    """(b)'s two queries: the documents hit above ``HA_MIN_SCORE`` with
+    their counts and best scores, and the ``HA_TOP`` most hit of them."""
+    grouped = pw.sql(
+        f"SELECT doc, COUNT(*) AS n, MAX(score) AS best FROM hits WHERE score > {HA_MIN_SCORE} GROUP BY doc",
+        hits=hits,
+    )
+    top = pw.sql(f"SELECT doc, n, best FROM g ORDER BY n DESC, doc ASC LIMIT {HA_TOP}", g=grouped)
+    return grouped, top
+
+
+def _ha_plain_sql(answers: dict):
+    """The same two queries as a plain Python count over
+    ``{qid: [(doc, score), ...]}``."""
+    count, best = {}, {}
+    for row in answers.values():
+        for doc, score in row:
+            if score > HA_MIN_SCORE:
+                count[doc] = count.get(doc, 0) + 1
+                best[doc] = max(best.get(doc, score), score)
+    grouped = sorted((doc, count[doc], best[doc]) for doc in count)
+    return grouped, sorted(grouped, key=lambda r: (-r[1], r[0]))[:HA_TOP]
+
+
+def _ha_sql_rows(table) -> list:
+    _keys, cols = table._materialize()
+    return sorted((int(d), int(n), float(b)) for d, n, b in zip(cols["doc"], cols["n"], cols["best"]))
+
+
+def _ha_answers(table) -> dict:
+    """``{qid: [(doc, score), ...]}`` of an answers table."""
+    _keys, cols = table._materialize()
+    return {
+        int(q): [(int(d), float(s)) for d, s in zip(ds, ss)]
+        for q, ds, ss in zip(cols["qid"], cols["docs"], cols["scores"])
+    }
+
+
+def _ha_chase(pw, answers, hit_table):
+    """A row transformer over the hits: each hit chases its ``qptr`` to its
+    query's answer row for the query id and its rank there."""
+
+    @pw.transformer
+    class chase:
+        class queries(pw.ClassArg):
+            qid = pw.input_attribute()
+            docs = pw.input_attribute()
+
+        class hits(pw.ClassArg):
+            qptr = pw.input_attribute()
+            doc = pw.input_attribute()
+
+            @pw.output_attribute
+            def query(self):
+                return self.transformer.queries[self.qptr].qid
+
+            @pw.output_attribute
+            def rank(self):
+                return list(self.transformer.queries[self.qptr].docs).index(self.doc)
+
+    return chase(queries=answers, hits=hit_table).hits
+
+
+def _ha_timed_tick_ends(ops, book: dict) -> None:
+    """Add each operator's ``on_tick_end`` seconds to ``book["ns"]`` (the
+    row transformer works there; ``process_ns`` counts ``process`` only)."""
+    for op in ops:
+        inner = op.on_tick_end
+
+        def on_tick_end(ts, _inner=inner):
+            t0 = time.perf_counter_ns()
+            try:
+                return _inner(ts)
+            finally:
+                book["ns"] += time.perf_counter_ns() - t0
+
+        op.on_tick_end = on_tick_end
+
+
+def hostapi_retrieval(pw, emb, docs, dev, commits: int = HA_COMMITS):
+    """Phase 23 (a) and (b): the async retrieval path and the host API over
+    its answers.  Returns the report (the IVF, the scheduler's stats, the
+    checks' inputs, timings)."""
+    import concurrent.futures
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+    from pathway_tpu_torch.serve import ServeScheduler
+
+    cuda = dev.type == "cuda"
+    n = len(docs)
+    encoder = emb._encoder
+    t0 = _now()
+    with torch.no_grad():
+        mat = torch.cat([encoder.encode_to_device(docs[i : i + ENCODE_CHUNK]) for i in range(0, n, ENCODE_CHUNK)])
+    ivf = IvfKnnIndex(mat.shape[1], metric="cos", device=dev)
+    ivf.build_from_matrix(list(range(n)), mat)
+    ivf.n_probe = ivf._centroids.shape[0]
+    del mat
+    if cuda:
+        torch.cuda.synchronize()
+    setup_s = _now() - t0
+    fused = FusedEncodeSearch(encoder, ivf, k=K)
+    sched = ServeScheduler(fused, name="hostapi", result_cache=None)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=BATCH, thread_name_prefix="hostapi-wait")
+    qidx = query_ids()
+    texts = [docs[qidx[i] % n] for i in range(commits * BATCH)]
+    driver = _FrameworkDriver("phase 23")
+
+    class Query(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        query: str
+
+    class Answer(pw.Schema):
+        qid: int
+        docs: tuple
+        scores: tuple
+
+    class Retrieve(pw.AsyncTransformer):
+        output_schema = Answer
+
+        async def invoke(self, qid, query):
+            import asyncio
+
+            ticket = sched.submit([query])
+            result = await asyncio.get_running_loop().run_in_executor(pool, ticket.result, HA_WAIT_S)
+            (row,) = result
+            return {"qid": qid, "docs": tuple(int(k) for k, _s in row), "scores": tuple(float(s) for _k, s in row)}
+
+    subject, query_q = _queue_subject(pw, "queries", driver)
+    queries = pw.io.python.read(subject, schema=Query, atomic_batches=True, name="hostapi_queries")
+    answers = Retrieve(input_table=queries).successful
+    pw.io.subscribe(answers, on_change=driver.on_change("answers"), on_time_end=driver.on_tick)
+    first_b = len(pw.G.engine_graph.operators)
+    hits = _ha_hits(pw, answers)
+    grouped, top = _ha_sql(pw, hits)
+    chased = _ha_chase(pw, answers, hits)
+    handle = pw.export_table(answers)
+    b_ops = pw.G.engine_graph.operators[first_b:]
+    tick_ends = {"ns": 0}
+    _ha_timed_tick_ends(b_ops, tick_ends)
+    report = {"latency_ms": []}
+
+    def drive():
+        for c in range(commits):
+            query_q.put([{"qid": c * BATCH + b, "query": texts[c * BATCH + b]} for b in range(BATCH)])
+            driver.wait(lambda: len(driver.answers.get("answers", {})) >= (c + 1) * BATCH
+                        and len(driver.commit_at.get("queries", ())) > c, f"the answers of query commit {c}")
+            last = max(t for t, _k, _d in driver.arrival["answers"])
+            report["latency_ms"].append((last - driver.commit_at["queries"][c]) * 1e3)
+
+    def run_driver():
+        try:
+            drive()
+        except BaseException as exc:  # noqa: BLE001 - re-raised on the main thread after the run
+            report["error"] = exc
+        finally:
+            query_q.put(None)
+
+    rescore_shortlist.launches = 0
+    thread = threading.Thread(target=run_driver, daemon=True, name="phase23-driver")
+    try:
+        with profile(activities=[ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]) as prof:
+            t_run = _now()
+            thread.start()
+            try:
+                pw.run(commit_duration_ms=HA_COMMIT_MS)
+            finally:
+                driver.stop = True
+                thread.join(timeout=60)
+            if cuda:
+                torch.cuda.synchronize()
+            wall_ms = (_now() - t_run) * 1e3
+        report["launches"] = rescore_shortlist.launches
+        if "error" in report:
+            raise report["error"]
+        first_commit = driver.commit_at["queries"][0]
+        last_answer = max(t for t, _k, _d in driver.arrival["answers"])
+        report.update(
+            answers_per_s=commits * BATCH / (last_answer - first_commit), wall_ms=wall_ms,
+            busy=device_busy(prof, wall_ms) if cuda else "busy share not measured (CPU)", setup_s=setup_s,
+            sched=dict(sched.stats), b_host_ms=(sum(op.process_ns for op in b_ops) + tick_ends["ns"]) / 1e6,
+            n_clusters=int(ivf._centroids.shape[0]),
+        )
+
+        # -- (a) checks: every row arrived, each == a direct search of its query --------
+        got = _ha_answers(answers)
+        if sorted(got) != list(range(commits * BATCH)):
+            raise AssertionError(f"phase 23 (a): {len(got)} of {commits * BATCH} answers arrived")
+        retracted = sum(1 for evs in driver.answers["answers"].values() for e in evs if e[2] < 0)
+        bad = []
+        for c in range(commits):
+            direct = fused(texts[c * BATCH : (c + 1) * BATCH])
+            for b, want in enumerate(direct):
+                qid = c * BATCH + b
+                if not same_ranking([(int(k), float(s)) for k, s in want], got[qid], tie=HA_TOL, atol=HA_TOL):
+                    bad.append(qid)
+        if bad or retracted:
+            raise AssertionError(f"phase 23 (a): {len(bad)} answers differ from a direct search (first qids "
+                                 f"{bad[:5]}), {retracted} retracted")
+        if cuda and report["launches"] == 0:
+            raise AssertionError("phase 23 (a): the async retrieval path launched no rescore kernel")
+
+        # -- (b) checks: pw.sql and the transformer == plain loops ------------------------
+        want_grouped, want_top = _ha_plain_sql(got)
+        got_grouped, got_top = _ha_sql_rows(grouped), _ha_sql_rows(top)
+        if got_grouped != want_grouped or got_top != sorted(want_top):
+            raise AssertionError(f"phase 23 (b): pw.sql gave {len(got_grouped)} groups / top {got_top[:3]}, a plain "
+                                 f"count {len(want_grouped)} / {want_top[:3]}")
+        _keys, hcols = hits._materialize()
+        hit_of = {int(k): (int(q), int(d)) for k, q, d in zip(_keys, hcols["qid"], hcols["doc"])}
+        ckeys, ccols = chased._materialize()
+        chased_of = {int(k): (int(q), int(r)) for k, q, r in zip(ckeys, ccols["query"], ccols["rank"])}
+        want_chase = {key: (q, [doc for doc, _s in got[q]].index(d)) for key, (q, d) in hit_of.items()}
+        if chased_of != want_chase or len(hit_of) != sum(len(r) for r in got.values()):
+            raise AssertionError(f"phase 23 (b): the transformer gave {len(chased_of)} rows, a plain loop "
+                                 f"{len(want_chase)}; {sum(1 for k in want_chase if chased_of.get(k) != want_chase[k])} "
+                                 "differ")
+        scores = np.array([s for row in got.values() for _d, s in row])
+        report.update(groups=len(got_grouped), hits=len(hit_of), top=got_top, passed=int((scores > HA_MIN_SCORE).sum()),
+                      score_q=np.percentile(scores, [10, 50, 90]))
+
+        # -- (b) export / import into a fresh graph, the same pw.sql -----------------------
+        snapshot = {int(row[0]): [(int(d), float(s)) for d, s in zip(row[1], row[2])] for _k, row in handle.snapshot()}
+        if snapshot != got:
+            raise AssertionError("phase 23 (b): the exported snapshot differs from the answers")
+        pw.reset()
+        t_imp = _now()
+        imported = pw.import_table(handle)
+        g2, top2 = _ha_sql(pw, _ha_hits(pw, imported))
+        pw.run(commit_duration_ms=HA_COMMIT_MS)
+        report["import_s"] = _now() - t_imp
+        if _ha_sql_rows(g2) != want_grouped or _ha_sql_rows(top2) != sorted(want_top):
+            raise AssertionError("phase 23 (b): pw.sql over the imported answers differs from the exported snapshot's "
+                                 "plain count")
+    finally:
+        sched.stop()
+        pool.shutdown(wait=True)
+    report.update(ivf=ivf, texts=texts, encoder=encoder)
+    return report
+
+
+def hostapi_phase(tag: str, dev=None, emb=None, docs=None, commits: int = HA_COMMITS):
+    """Phase 23: the rest of the framework's host API over an async
+    retrieval path, all through ``import pathway_tpu_torch as pw``.
+    Returns (rescore launches on the host-API path, the kernel at the
+    phase's shape)."""
+    import pathway_tpu_torch as pw
+
+    t_phase = _now()
+    dev = dev or torch.device(DEVICE)
+    cuda = dev.type == "cuda"
+    pw.reset()
+    if cuda:
+        torch.cuda.empty_cache()
+    docs = docs if docs is not None else corpus(N_DOCS)
+    emb = emb or _ps_embedder()
+    r = hostapi_retrieval(pw, emb, docs, dev, commits)
+    lat, st = r["latency_ms"], r["sched"]
+    batches = max(st["batches"], 1)
+    log(
+        f"hostapi (a) {tag}: {len(docs)} documents encoded into a full-probe IVF (C={r['n_clusters']}) in "
+        f"{r['setup_s']:.3f} s; {commits * BATCH} queries in {commits} commits of {BATCH} through pw.io.python into "
+        f"a pw.AsyncTransformer whose invoke submits to a ServeScheduler over FusedEncodeSearch: every answer arrived "
+        f"and the run returned, every answer == a direct search of its query (keys up to ties, scores within "
+        f"{HA_TOL}); {r['answers_per_s']:.1f} answers/s; commit to the last answer p50 "
+        f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} ms over {len(lat)} (the first commit "
+        f"{lat[0]:.3f} ms; the rest p50 {np.percentile(lat[1:], 50):.3f} p99 {np.percentile(lat[1:], 99):.3f} ms); "
+        f"scheduler {st['batches']} batches, "
+        f"{st['items'] / batches:.2f} items and {st['items_dispatched'] / batches:.2f} unique per batch, "
+        f"{st.get('solo', 0)} solo; {r['busy']}; rescore launches {r['launches']}"
+    )
+    log(
+        f"hostapi (b) {tag}: over the {r['hits']} hits in the same run (scores p10 / p50 / p90 "
+        + " / ".join(f"{q:.4f}" for q in r["score_q"])
+        + f"), pw.sql (WHERE score > {HA_MIN_SCORE}: {r['passed']} hits; GROUP BY "
+        f"doc with COUNT(*) and MAX(score): {r['groups']} documents; ORDER BY n DESC, doc LIMIT {HA_TOP}: top "
+        f"{r['top'][:1]}) == a plain count, a pw.transformer chasing each hit to its query's row == a plain loop; "
+        f"host {r['b_host_ms'] / commits:.3f} ms per commit (the operators' process and tick ends); export_table, "
+        f"then import_table in a fresh graph and the same pw.sql == the snapshot's plain count in "
+        f"{r['import_s']:.3f} s"
+    )
+    shape = None
+    if cuda:
+        ivf = r["ivf"]
+        b = max(1, min(BATCH, round(st["items_dispatched"] / batches)))
+        qv = np.asarray(r["encoder"].encode(r["texts"][:b]), dtype=np.float32)
+        shape = rescore_at_path_shape(ivf, ivf_search_rescore_args(ivf, qv), dev)
+        log(f"ivf_rescore at the hostapi shape {tag}: " + rescore_line(ivf, shape)
+            + f"; launches in (a) {r['launches']}")
+    log(f"hostapi {tag}: rescore launches {r['launches']}; phase 23 {_now() - t_phase:.1f} s")
+    pw.reset()
+    return r["launches"], shape
+
+
 def framework_setup():
     """The set-up ``--framework`` and ``--qa`` share: the card's name, the
     kernels' build, phase 4's rows and phase 5's direct serve p50 (exact
@@ -7167,6 +7510,20 @@ def main() -> int:
         build_host("tokenize_hash")
         log(f"build {time.perf_counter() - t0:.1f} s")
         launches = temporal_phase(f"[{smi}]")[0]
+        log(f"rescore launches {launches}; shape census: {tripwire_census()}")
+        return 0
+    if sys.argv[1:] == ["--hostapi"]:
+        from pathway_tpu_torch.kernels.build import build_host
+
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        ).stdout.strip()
+        log(f"card: {smi}")
+        t0 = time.perf_counter()
+        build_all()
+        build_host("tokenize_hash")
+        log(f"build {time.perf_counter() - t0:.1f} s")
+        launches = hostapi_phase(f"[{smi}]")[0]
         log(f"rescore launches {launches}; shape census: {tripwire_census()}")
         return 0
     if sys.argv[1:] == ["--distributed"]:
@@ -7502,6 +7859,10 @@ def main() -> int:
     # -- 22. time on the card: a windowed retrieval index, temporal joins, iterate and graphs, counted --
     tm_launches, tm_kernel = temporal_phase(tag)
     worst_err = max(worst_err, tm_kernel["max_abs_err"])
+
+    # -- 23. the rest of the host API over an async retrieval path, counted --
+    ha_launches, ha_kernel = hostapi_phase(tag)
+    worst_err = max(worst_err, ha_kernel["max_abs_err"])
     log(f"shape census: {tripwire_census()}")
 
     record = {
@@ -7513,13 +7874,13 @@ def main() -> int:
                 "replaces": "pathway_tpu/ops/ivf_pallas.py:37",
                 "launches": launches + rr_launches + sched_launches + li_launches + ws_launches + st_launches
                 + po_launches + sum(rw_launches.values()) + ss_launches + sf_launches + fw_launches
-                + qa_launches["ivf_rescore"] + ps_launches + tm_launches,
+                + qa_launches["ivf_rescore"] + ps_launches + tm_launches + ha_launches,
                 "launches_by_path": {
                     "serve": launches, "rerank": rr_launches, "scheduler": sched_launches,
                     "ingest": li_launches, "warmstate": ws_launches, "tuning": st_launches,
                     "profiling": po_launches, "real_weights": rw_launches, "sharded": ss_launches,
                     "fabric": sf_launches, "framework": fw_launches, "qa": qa_launches["ivf_rescore"],
-                    "persist": ps_launches, "temporal": tm_launches,
+                    "persist": ps_launches, "temporal": tm_launches, "hostapi": ha_launches,
                 },
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,
@@ -7550,6 +7911,7 @@ def main() -> int:
                 "qa_shape": {key: qa_kernel[key] for key in _SHAPE_KEYS},
                 "persist_shape": {key: ps_kernel[key] for key in _SHAPE_KEYS},
                 "temporal_shape": {key: tm_kernel[key] for key in _SHAPE_KEYS},
+                "hostapi_shape": {key: ha_kernel[key] for key in _SHAPE_KEYS},
             },
             *decode_kernels,
         ]

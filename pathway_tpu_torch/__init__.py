@@ -18,11 +18,14 @@ behaviors, interval / asof / window joins), ``ordered``, ``statistical``,
 ``graphs``, ``xpacks.llm`` (``DocumentStore`` retrieval, chat, rerankers,
 the RAG answerers and their REST servers), the process config
 (``get_config``, ``set_license_key``, ``set_monitoring_config``; the knob
-table is ``pw.config``) and ``load_yaml`` (the template loader; the
-command line is ``python -m pathway_tpu_torch.cli``).  Names of the
-reference's namespace whose modules are later slices (``sql``, row
-transformers, export/import, interactive mode, ``utils``, ``viz``, the
-transport-gated connectors under ``pw.io``) are stubs
+table is ``pw.config``), ``load_yaml`` (the template loader; the command
+line is ``python -m pathway_tpu_torch.cli``), ``sql``, the row
+transformers (``transformer``, ``ClassArg``, ...), ``export_table`` /
+``import_table``, interactive mode (``LiveTable``), ``utils``
+(``AsyncTransformer``, ``pandas_transformer``, ``col``), ``viz``, the
+fuzzy joins and the HMM reducer (``ml``) and the deprecated
+``asynchronous``.  Names of the reference's namespace whose modules are
+later slices (the transport-gated connectors under ``pw.io``) are stubs
 (``internals/unported.py``) that raise ``NotImplementedError`` naming the
 slice in ``ROADMAP.md``.
 
@@ -56,11 +59,22 @@ from .internals.expression import (
     RequireExpression,
 )
 from .internals.config import PathwayConfig, get_config, set_license_key, set_monitoring_config
+from .internals.export_import import ExportedTable, export_table, import_table
+from .internals.interactive import LiveTable, enable_interactive_mode
 from .internals.iterate import iterate, iterate_universe
 from .internals.keys import Pointer, ref_scalar
 from .internals.monitoring import MonitoringLevel
 from .internals.parse_graph import G
 from .internals.py_object_wrapper import PyObjectWrapper, wrap_py_object
+from .internals.row_transformer import (
+    ClassArg,
+    attribute,
+    input_attribute,
+    input_method,
+    method,
+    output_attribute,
+    transformer,
+)
 from .internals.run import run, run_all
 from .internals.schema import (
     ColumnDefinition,
@@ -72,6 +86,7 @@ from .internals.schema import (
     schema_from_dict,
     schema_from_types,
 )
+from .internals.sql import sql
 from .internals.table import (
     GroupedJoinResult,
     GroupedTable,
@@ -131,6 +146,9 @@ def reset() -> None:
 
     clear_error_log()
     reset_local_sinks()
+    from .internals.export_import import close_all_exports
+
+    close_all_exports()
     from .internals.universe_solver import get_solver
 
     get_solver().clear()
@@ -253,30 +271,10 @@ def table_transformer(fn=None, **kwargs):
     return wrap(fn) if fn is not None else wrap
 
 
-from .internals.unported import LaterSliceModule as _StubModule  # noqa: E402
-from .internals.unported import later_slice as _stub, later_slice_class as _stub_class  # noqa: E402
-
-sql = _stub("sql", "3b", "internals/sql.py")
-export_table = _stub("export_table", "3b", "internals/export_import.py")
-import_table = _stub("import_table", "3b", "internals/export_import.py")
-ExportedTable = _stub_class("ExportedTable", "3b", "internals/export_import.py")
-enable_interactive_mode = _stub("enable_interactive_mode", "3b", "internals/interactive.py")
-LiveTable = _stub_class("LiveTable", "3b", "internals/interactive.py")
-ClassArg = _stub_class("ClassArg", "3b", "internals/row_transformer.py")
-attribute = _stub("attribute", "3b", "internals/row_transformer.py")
-input_attribute = _stub("input_attribute", "3b", "internals/row_transformer.py")
-input_method = _stub("input_method", "3b", "internals/row_transformer.py")
-method = _stub("method", "3b", "internals/row_transformer.py")
-output_attribute = _stub("output_attribute", "3b", "internals/row_transformer.py")
-transformer = _stub("transformer", "3b", "internals/row_transformer.py")
-AsyncTransformer = _stub_class("AsyncTransformer", "3b", "stdlib/utils/async_transformer.py")
-pandas_transformer = _stub("pandas_transformer", "3b", "stdlib/utils/pandas_transformer.py")
-asynchronous = _StubModule("asynchronous", "3b", "asynchronous.py")
-
-
-# stdlib and xpacks load lazily, so plain pipelines skip the model stack
+# stdlib and xpacks load lazily, so plain pipelines skip the model stack;
+# ``asynchronous`` too, so its DeprecationWarning fires only on use
 _LAZY_SUBMODULES = {
-    name: name for name in ("cache", "stdlib", "xpacks", "models", "ops", "parallel", "serve")
+    name: name for name in ("cache", "stdlib", "xpacks", "models", "ops", "parallel", "serve", "asynchronous")
 }
 _LAZY_SUBMODULES.update(
     indexing="stdlib.indexing", ml="stdlib.ml", stateful="stdlib.stateful", temporal="stdlib.temporal",
@@ -290,7 +288,10 @@ _LAZY_NAMES = {
         "windowby",
     )
 }
-_LAZY_NAMES.update(utils="stdlib", viz="stdlib")
+_LAZY_NAMES.update(
+    utils="stdlib", viz="stdlib", AsyncTransformer="stdlib.utils.async_transformer",
+    pandas_transformer="stdlib.utils.pandas_transformer",
+)
 
 
 def __getattr__(name: str):

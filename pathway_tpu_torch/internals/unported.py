@@ -1,18 +1,18 @@
 """Stubs for the names of the reference's ``pw`` namespace whose modules
-are later slices of the port.
+are later slices of the port (the transport-gated connectors under
+``pw.io``).
 
 Each stub raises ``NotImplementedError`` naming its slice in ``ROADMAP.md``
 when it is used, so a program written for the reference stops with a
 message that says what is missing, never with ``AttributeError``.  A
-function becomes a stub function, a class a stub class (instantiating or
-subclassing it raises), a module a stub module (every public attribute is
-a stub function).  Every stub carries its slice as ``later_slice``."""
+module becomes a stub module (every public attribute is a stub
+function).  Every stub carries its slice as ``later_slice``."""
 
 from __future__ import annotations
 
 import types
 
-__all__ = ["later_slice", "later_slice_class", "LaterSliceModule"]
+__all__ = ["later_slice", "LaterSliceModule"]
 
 
 def _message(qualname: str, slice_name: str, what: str) -> str:
@@ -29,25 +29,6 @@ def later_slice(qualname: str, slice_name: str, what: str):
     unported.__qualname__ = qualname
     unported.later_slice = slice_name
     return unported
-
-
-def later_slice_class(qualname: str, slice_name: str, what: str) -> type:
-    """A class whose instantiation and subclassing raise
-    ``NotImplementedError`` naming the slice (reference code subclasses
-    ``pw.ClassArg`` and ``pw.AsyncTransformer``)."""
-    message = _message(qualname, slice_name, what)
-
-    def __new__(cls, *args, **kwargs):
-        raise NotImplementedError(message)
-
-    def __init_subclass__(cls, **kwargs):
-        raise NotImplementedError(message)
-
-    return type(
-        qualname.rsplit(".", 1)[-1],
-        (),
-        {"__new__": __new__, "__init_subclass__": classmethod(__init_subclass__), "later_slice": slice_name},
-    )
 
 
 class LaterSliceModule(types.ModuleType):

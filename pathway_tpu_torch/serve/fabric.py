@@ -187,7 +187,14 @@ class FabricWorker:
             except Exception:  # noqa: BLE001 - junk or a wrong token: dropped before any unpickle
                 continue
             with self._lock:
-                self._streams.append(stream)
+                # a kill() during the handshake did not see this stream:
+                # a dead worker must not keep it open and answer pings
+                stopping = self._stopping
+                if not stopping:
+                    self._streams.append(stream)
+            if stopping:
+                stream.close()
+                return
             threading.Thread(target=self._reader, args=(stream,), daemon=True, name=f"fabric-rd-{self.name}").start()
 
     def _reader(self, stream: FramedStream) -> None:

@@ -17,7 +17,9 @@ over ``TpuEmbedder()``) with an IVF store beside it through the kernel;
 and one QA answer over the port's REST server equal to the direct calls;
 and a persisted pipeline whose rows carry CUDA tensors, snapshotted on the
 card and restarted in a process that sees no card; and a windowed
-``DataIndex`` whose expired windows leave the IVF on the card.
+``DataIndex`` whose expired windows leave the IVF on the card; and
+``chip_smoke.py``'s async retrieval path (``pw.AsyncTransformer`` over the
+serve scheduler) at 1,024 documents.
 They skip
 without a card.  This file imports neither JAX nor the reference, so on
 a machine without JAX it runs as
@@ -1019,3 +1021,31 @@ def test_cuda_windowed_index_removes_retracted_rows():
             for j, ((gd, gs), (wd, ws)) in enumerate(zip(got, want)):
                 assert gd == wd or any(abs(ws - want[i][1]) <= 1e-5 for i in (j - 1, j + 1) if 0 <= i < len(want))
             assert all(d in set(c["live"]) for d, _s in got)
+
+
+@pytest.mark.cuda
+def test_cuda_async_transformer_retrieval_equals_a_direct_search():
+    """Phase 23 of ``chip_smoke.py`` at 1,024 documents: 1,024 queries in
+    16 commits through a ``pw.AsyncTransformer`` whose ``invoke`` awaits a
+    ``ServeScheduler`` ticket over the full-probe IVF on the card.  Every
+    row arrives, the run returns, each row equals a direct search of its
+    query (scores within 2e-2, bf16), the rescore kernel launched, and
+    ``pw.sql``, a ``pw.transformer`` and export / import over the answers
+    equal plain loops (the phase raises on any difference)."""
+    import importlib.util
+    import os
+
+    import pathway_tpu_torch as pw
+
+    dev = _cuda()
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    pw.reset()
+    try:
+        report = chip_smoke.hostapi_retrieval(pw, chip_smoke._ps_embedder(), chip_smoke.corpus(1024), dev)
+    finally:
+        pw.reset()
+    assert report["launches"] > 0 and report["ivf"]._slabs.device.type == "cuda"
+    assert report["hits"] == 1024 * chip_smoke.K

@@ -322,6 +322,36 @@ def test_exhausted_fleet_degrades_to_replica_lost(stacks):
         fleet.stop()
 
 
+def test_kill_during_the_handshake_closes_that_stream(stacks, monkeypatch):
+    """A front's ``connect()`` returns once it has sent its token, before
+    the worker has authenticated and registered the stream.  A worker
+    killed inside that window must close the stream it was authenticating
+    too: a dead worker that kept it would answer pings, and its link
+    would never go down."""
+    _ref_fused, fused = stacks
+    entered, release = threading.Event(), threading.Event()
+    accept = FramedStream.accept
+
+    def held_accept(conn, token, timeout=10.0):
+        entered.set()
+        release.wait(30)
+        return accept(conn, token, timeout)
+
+    monkeypatch.setattr(FramedStream, "accept", staticmethod(held_accept))
+    fleet = _Fleet(fused, n=1)
+    try:
+        assert fleet.fabric.connect() == 1
+        assert entered.wait(10)
+        fleet.crash(0)
+        release.set()
+        assert _wait_for(lambda: not fleet.fabric._links[0].up(), 5)
+        assert fleet.fabric._links[0].down_reason == "disconnect"
+        assert fleet.workers[0]._streams == []
+    finally:
+        release.set()
+        fleet.stop()
+
+
 def test_heartbeat_silence_trips_the_breaker(stacks, monkeypatch):
     """A host that stops answering pings (socket still open) is marked
     down within one heartbeat timeout."""

@@ -148,8 +148,12 @@ def _build_calc(side, port, with_cors=False):
         webserver=ws, route="/v1/calc", schema=Q, request_validator=_validator,
         documentation=pw.io.http.EndpointDocumentation(summary="ten over x", tags=["calc"]),
     )
+    # ``int(x)``: a request's ``x`` reaches the UDF as a Python int when its
+    # tick also retracts an earlier query whose ``x`` is None (the column is
+    # then an object array), else as ``np.int64`` from a dense column, and
+    # ``10 // np.int64(0)`` is 0 with a warning, not a ZeroDivisionError
     writer(queries.select(result=pw.apply(
-        lambda x, name: {"tens": 10 // x, "name": name, "arr": np.arange(3, dtype=np.int64) * x,
+        lambda x, name: {"tens": 10 // int(x), "name": name, "arr": np.arange(3, dtype=np.int64) * x,
                          "f": np.float32(0.5), "tup": (x, name)},
         pw.this.x, pw.this.name)))
     echo, echo_writer = pw.io.http.rest_connector(

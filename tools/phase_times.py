@@ -3,11 +3,15 @@
 
     python3 chip_smoke.py > run.log 2>&1
     python3 tools/phase_times.py run.log [more logs]
+    python3 chip_smoke.py 2>&1 | python3 tools/phase_times.py --stamp > run.log
 
-prints a markdown table with one column per log.  Phases 10-22 report
+prints a markdown table with one column per log.  Phases 10-23 report
 their own seconds (the line that ends each one); phases 1-9 report none,
 so their row is the script's total less the phases after them.  A line
-may carry a leading ``<seconds><tab>`` stamp, which is ignored.
+may carry a leading ``<seconds><tab>`` stamp, which is ignored here;
+``--stamp`` writes its standard input with that stamp (seconds since it
+started) before each line, so the time between two lines of a phase is
+read from the log.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import os
 import re
 import sys
+import time
 
 # the line that ends each phase, and its seconds in group 1
 ENDS = [
@@ -31,6 +36,7 @@ ENDS = [
     ("20 qa", r"^phase 20 ([\d.]+) s$"),
     ("21 persist", r"; phase 21 ([\d.]+) s$"),
     ("22 temporal", r"; phase 22 ([\d.]+) s$"),
+    ("23 hostapi", r"; phase 23 ([\d.]+) s$"),
 ]
 TOTAL = r"chip_smoke: all phases passed in ([\d.]+) s$"
 EARLY = "1-9 (total less the rest)"
@@ -59,7 +65,17 @@ def table(paths: list[str]) -> str:
     return "\n".join(rows)
 
 
+def stamp(lines, out) -> None:
+    t0 = time.perf_counter()
+    for line in lines:
+        out.write(f"{time.perf_counter() - t0:.1f}\t{line}")
+        out.flush()
+
+
 if __name__ == "__main__":
     if len(sys.argv) < 2:
         sys.exit(__doc__)
-    print(table(sys.argv[1:]))
+    if sys.argv[1:] == ["--stamp"]:
+        stamp(sys.stdin, sys.stdout)
+    else:
+        print(table(sys.argv[1:]))
