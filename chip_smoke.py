@@ -1436,12 +1436,12 @@ DEC_BUCKET = 32
 DEC_WIDTH = 96
 DEC_BUDGET = 32
 DEC_CONC = (1, 4, 16)
-DEC_REQS = {1: 4, 4: 8, 16: 16}  # the call-level arm serializes on the host
-DEC_C16_REQS = 64  # the busy-share and sync-debug drives
+DEC_REQS = {1: 2, 4: 4, 16: 16}  # the call-level arm serializes on the host (c1 / c4 cut from 4 / 8 for phase 24)
+DEC_C16_REQS = 32  # the busy-share and sync-debug drives (64 before phase 24; cut to make room for it)
 SPEC_K = 16  # phase_speculative_decode
 SPEC_BUDGET = 64
-SPEC_REQS = 64  # the bench saturates 256; cut with SPEC_TRUNK_REQS and I8_REQS to keep the script's time
-SPEC_TRUNK_REQS = 16  # requests drafted by the reduced-layer trunk
+SPEC_REQS = 32  # the bench saturates 256; cut with SPEC_TRUNK_REQS and I8_REQS to keep the script's time
+SPEC_TRUNK_REQS = 8  # requests drafted by the reduced-layer trunk
 I8_SLOTS = 32
 I8_REQS = 32  # one request per slot of the int8 pool
 SAMPLE_TEMP = 0.8
@@ -4931,6 +4931,9 @@ FW_COMMIT_MS = 10  # the engine's commit tick while the phase runs
 FW_WAIT_S = 300.0
 
 
+FW_INGEST: dict = {}  # phase 19's ingest seconds, read by phase 24
+
+
 class _FrameworkDriver:
     """What phase 19's (and 21's, 22's) driver thread waits on: tick ends,
     answers per arm, each index's rows, and the moments its subjects
@@ -5330,6 +5333,7 @@ def framework_phase(direct_p50: dict, tag: str):
         f"launched {check['launches']} more, not counted)")
 
     ingest_docs = 4 * N_DOCS
+    FW_INGEST.update(direct_s=direct_s, ingest_s=report["ingest_s"])  # phase 24's one-process baseline
     lat = report["retrieve_ms"]
     QA_NUMBERS["framework_retrieve_p50_ms"] = float(np.percentile(lat[1:], 50))  # beside phase 20's retrieve
     log(
@@ -5357,9 +5361,10 @@ def framework_phase(direct_p50: dict, tag: str):
 
 # -- phase 20: question answering and chat -------------------------------------------
 QA_QUESTIONS = 64  # distinct questions: phase 5's first query documents
-QA_C1 = 16  # answers at c1, one caller
-QA_C16 = 32  # answers at c16; the whole script, phases 21-23 included, keeps its time budget
+QA_C1 = 8  # answers at c1, one caller (16 before phase 24)
+QA_C16 = 16  # answers at c16; the whole script, phases 21-24 included, keeps its time budget
 QA_CALLERS = 16
+QA_BURST = 8  # answers of the profiled burst, at c8 (16 at c16 before phase 24: reading that trace took most of it)
 QA_RETRIEVES = 16  # /v1/retrieve calls, k = K
 QA_TOPK = 6  # search_topk; the reranker scores 4 x 6 = 24 candidates
 QA_NEW_TOKENS = 48
@@ -5564,11 +5569,11 @@ def qa_phase(direct_p50: dict, tag: str):
         report["c1_wall"] = _now() - t0
         c16_reqs = [questions[i % QA_QUESTIONS] for i in range(QA_C16)]
         qps, c16_lat, _ = drive(lambda q: ask(q, "c16"), c16_reqs, QA_CALLERS)
-        # the busy share over one burst of c16 answers: reading a trace of
+        # the busy share over one burst of c8 answers: reading a trace of
         # the whole arm (~2M kernels) costs the profiler minutes
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = _now()
-            drive(lambda q: ask(q, "burst"), questions[:QA_CALLERS], QA_CALLERS)
+            drive(lambda q: ask(q, "burst"), questions[:QA_BURST], QA_BURST)
             torch.cuda.synchronize()
             burst_wall_ms = (_now() - t0) * 1e3
         t_prof = _now()
@@ -5615,7 +5620,7 @@ def qa_phase(direct_p50: dict, tag: str):
     # -- checks: every direct call on a stream of its own, after the window ------
     for q, status, out, *_ in answers:
         _ok_json(status, out, "/v1/pw_ai_answer", _answer_shape)
-    if len(answers) != QA_C1 + QA_C16 + QA_CALLERS or len(reranked) != len(answers):
+    if len(answers) != QA_C1 + QA_C16 + QA_BURST or len(reranked) != len(answers):
         raise AssertionError(f"phase 20: {len(answers)} answers, {len(reranked)} reranks")
     for name, t in (("answer index", index["answer"]._slabs), ("retrieve index", index["retrieve"]._slabs),
                     ("generator", next(gen.module.parameters())), ("cross-encoder", next(ce.module.parameters())),
@@ -5736,7 +5741,7 @@ def qa_phase(direct_p50: dict, tag: str):
         f"engine answers a tick's rows one after another); c1 split, mean ms: "
         + ", ".join(f"{k} {np.mean(v):.3f}" for k, v in split.items())
         + f" (http_queue: send to the row's insert plus the decode's end to receive; tick_wait: insert to the "
-        f"search; other: the engine's row plumbing); a burst of {QA_CALLERS} answers at c16 under torch.profiler: "
+        f"search; other: the engine's row plumbing); a burst of {QA_BURST} answers at c{QA_BURST} under torch.profiler: "
         f"{report['busy']} (the profiler's own read {report['profiler_s']:.1f} s); kernel launches on the QA path "
         f"{launches}; the checks' seconds "
         + ", ".join(f"{k} {v:.1f}" for k, v in check_s.items())
@@ -7359,6 +7364,556 @@ def hostapi_phase(tag: str, dev=None, emb=None, docs=None, commits: int = HA_COM
     return r["launches"], shape
 
 
+# -- phase 24: the multi-process engine -------------------------------------------
+CL_RANKS = 2  # ranks of `cli spawn --processes 2`, sharing the one card
+CL_FILES = 16  # JSON-lines files of the documents, split over the ranks by crc32(name) % 2
+CL_LOCAL_SHARDS = 4  # logical data shards per rank of the mesh index: 8 in all
+CL_COMMITS = 4  # query commits of BATCH through the REST front
+CL_COMMIT_MS = 10  # the engine's commit tick
+CL_TIMEOUT_S = 300.0  # a cluster arm past this is killed and the phase fails
+CL_TOL = 2e-2  # bf16 trunk: a row moves with the packed batch it is embedded in (phase 19's rule)
+CL_HB_S = 0.2  # the kill arm's exchange heartbeat and its timeout
+CL_HB_TIMEOUT_S = 2.0
+CL_KILL_FILES = 4  # the kill arm's csv files of CL_KILL_ROWS words
+CL_KILL_ROWS = 256
+CL_ROUTE = "/v1/retrieve"
+
+
+def _cl_embedder(dev):
+    """Phase 19's ``TpuEmbedder`` on the card; a small f32 one on the CPU
+    (a debug run of the phase)."""
+    from pathway_tpu_torch.xpacks.llm.embedders import TpuEmbedder
+
+    if dev.type == "cuda":
+        return _ps_embedder()
+    return TpuEmbedder(dimension=64, n_layers=1, n_heads=4, max_length=64, vocab_size=32768, seed=SEED,
+                       dtype=torch.float32, device="cpu")
+
+
+def _cl_answer(query, ivf_ids, ivf_scores, mesh_ids, mesh_scores) -> dict:
+    return {"query": query, "ivf": [[int(i) for i in ivf_ids], [float(s) for s in ivf_scores]],
+            "mesh": [[int(i) for i in mesh_ids], [float(s) for s in mesh_scores]]}
+
+
+def _cl_tensors_on(index, dev_type: str) -> list:
+    """Names of ``index``'s tensors (blocks of a mesh included) not on
+    ``dev_type``."""
+    off = []
+    for name, v in vars(index).items():
+        items = v if isinstance(v, (list, tuple)) else [v]
+        for t in items:
+            if isinstance(t, torch.Tensor) and t.device.type != dev_type:
+                off.append(name)
+    return sorted(set(off))
+
+
+def _cl_timed_plane():
+    """Wrap the exchange plane's collectives and close with host timers:
+    ms and calls per collective, the tick rounds, and the plane's
+    ``pathway_exchange_*`` samples taken just before it closes."""
+    from pathway_tpu_torch.parallel.exchange import ExchangePlane
+
+    book = {"ms": 0.0, "calls": 0, "rounds": 0, "samples": []}
+    for name in ("all_to_all", "gather", "broadcast"):
+        fn = getattr(ExchangePlane, name)
+
+        def timed(self, edge, seq, *a, _fn=fn, **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(self, edge, seq, *a, **kw)
+            finally:
+                book["ms"] += (time.perf_counter() - t) * 1e3
+                book["calls"] += 1
+                book["rounds"] += edge == "tick"
+
+        setattr(ExchangePlane, name, timed)
+    close = ExchangePlane.close
+
+    def closing(self):
+        if not self._closed:
+            book["samples"] = [(n, dict(lab), v) for _k, n, lab, v in self.observe_metrics()]
+        close(self)
+
+    ExchangePlane.close = closing
+    return book
+
+
+def cluster_worker(out_dir: str, docs_dir: str, rest_port: int, device: str) -> int:
+    """One rank of phase 24 (``cli spawn`` sets the topology): the
+    documents through partitioned ``pw.io.jsonlines`` readers into one
+    ``TpuEmbedder``, a full-probe IVF ``DataIndex`` (every rank holds
+    every row) and an exact one over a mesh spanning the ranks, a
+    wordcount by key exchange, and the queries through the REST front on
+    rank 0.  Writes ``rank<r>.json``; rank 0 also the checks."""
+    import pathway_tpu_torch as pw
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathway_tpu_torch.engine.operators.external_index import ExternalIndexOperator
+    from pathway_tpu_torch.internals.run import terminate
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+    from pathway_tpu_torch.parallel import distributed as dist
+    from pathway_tpu_torch.parallel.mesh import Mesh, local_shards, make_mesh
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    t_start = _now()
+    dist.maybe_initialize()
+    rank = dist.process_id()
+    mesh = make_mesh(devices=[dev] * CL_LOCAL_SHARDS)
+    emb = _cl_embedder(dev)
+    dim = emb.get_embedding_dimension()
+    book = _cl_timed_plane()
+
+    class Doc(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        text: str
+
+    with open(os.path.join(docs_dir, "..", "n_docs")) as f:
+        n_docs = int(f.read())
+    mod = pw.stdlib.indexing
+    docs = pw.io.jsonlines.read(docs_dir, schema=Doc, mode="static", name="cluster_docs")
+    vecs = docs.select(pw.this.doc_id, vec=emb(pw.this.text))
+    words = docs.select(w=pw.apply(lambda t: tuple(t.split()), pw.this.text)).flatten(pw.this.w)
+    counts = words.groupby(pw.this.w).reduce(pw.this.w, n=pw.reducers.count())
+    ivf_index = mod.DataIndex(vecs, mod.InnerIndex(
+        data_column=vecs.vec, dimension=dim, factory=mod.IvfKnnFactory(dimension=dim, n_probe=1 << 30, device=dev)))
+    mesh_index = mod.DataIndex(vecs, mod.InnerIndex(
+        data_column=vecs.vec, dimension=dim,
+        factory=mod.TpuKnnFactory(dimension=dim, mesh=mesh, reserved_space=n_docs)))
+    queries, writer = pw.io.http.rest_connector(
+        host="127.0.0.1", port=rest_port, route=CL_ROUTE, schema=pw.schema_from_types(query=str),
+        delete_completed_queries=True)
+    qs = queries.select(pw.this.query, qvec=emb(pw.this.query))
+    hits = {}
+    for name, index in (("ivf", ivf_index), ("mesh", mesh_index)):
+        res = index.query_as_of_now(qs.qvec, number_of_matches=K)
+        hits[name] = res.select(ids=vecs.doc_id, scores=res.score)
+    resp = qs.select(result=pw.apply(_cl_answer, qs.query, hits["ivf"].ids, hits["ivf"].scores,
+                                     hits["mesh"].ids, hits["mesh"].scores))
+    writer(resp)
+
+    # what rank 0's sinks see (the other rank registers the same operators)
+    answers, qvecs, wc = {}, {}, {}
+    state = {"ingest_s": None, "linger": 0}
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition:
+            answers[row["result"]["query"]] = row["result"]
+
+    def on_query(key, row, time, is_addition):
+        if is_addition:
+            qvecs[row["query"]] = np.asarray(row["qvec"], dtype=np.float32)
+
+    def on_count(key, row, time, is_addition):
+        if is_addition:
+            wc[row["w"]] = int(row["n"])
+
+    ops = []
+
+    def on_tick(time_):
+        if not ops:
+            ops.extend(op for op in pw.G.engine_graph.operators if isinstance(op, ExternalIndexOperator))
+        if state["ingest_s"] is None and ops and all(len(op.index.index) >= n_docs for op in ops):
+            if cuda:
+                torch.cuda.synchronize()
+            state["ingest_s"] = _now() - t_run
+            if rank == 0:
+                with open(os.path.join(out_dir, "ready.part"), "w") as f:
+                    json.dump({"ingest_s": state["ingest_s"]}, f)
+                os.replace(os.path.join(out_dir, "ready.part"), os.path.join(out_dir, "ready"))
+        if rank == 0 and os.path.exists(os.path.join(out_dir, "done")):
+            state["linger"] += 1
+            if state["linger"] >= 3:
+                terminate()
+
+    pw.io.subscribe(resp, on_change=on_answer if rank == 0 else None)
+    pw.io.subscribe(qs, on_change=on_query if rank == 0 else None)
+    pw.io.subscribe(counts, on_change=on_count if rank == 0 else None, on_time_end=on_tick)
+
+    rescore_shortlist.launches = 0
+    t_run = _now()
+    with profile(activities=[ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]) as prof:
+        pw.run(monitoring_level=None, commit_duration_ms=CL_COMMIT_MS)
+        if cuda:
+            torch.cuda.synchronize()
+    wall_ms = (_now() - t_run) * 1e3
+    launches = rescore_shortlist.launches
+    busy = device_busy(prof, wall_ms) if cuda else "busy share not measured (the CPU)"
+    ops = [op for op in pw.G.engine_graph.operators if isinstance(op, ExternalIndexOperator)]
+    ivf, mx = ops[0].index.index, ops[1].index.index
+    bytes_out = sum(v for n, lab, v in book["samples"] if n == "pathway_exchange_bytes_total"
+                    and lab["direction"] == "out")
+    bytes_in = sum(v for n, lab, v in book["samples"] if n == "pathway_exchange_bytes_total"
+                   and lab["direction"] == "in")
+    out = {
+        "rank": rank, "ranks": dist.process_count(), "backend": dist.data_backend(), "launches": launches,
+        "busy": busy, "wall_s": wall_ms / 1e3, "ingest_s": state["ingest_s"], "start_s": t_run - t_start,
+        "index_rows": [len(ivf), len(mx)], "mesh_local": local_shards(mesh), "mesh_shards": mesh.shape["data"],
+        "off_device": {"ivf": _cl_tensors_on(ivf, dev.type), "mesh": _cl_tensors_on(mx, dev.type)},
+        "exchange": {"ms": book["ms"], "calls": book["calls"], "rounds": book["rounds"], "bytes_out": bytes_out,
+                     "bytes_in": bytes_in},
+        "ivf_clusters": int(ivf._centroids.shape[0]), "ivf_m_pad": int(ivf._M_pad),
+        # host ms in process() of the operators that took the most
+        "ops_ms": [[op.name, op.process_ns / 1e6] for op in sorted(
+            pw.G.engine_graph.operators, key=lambda op: -op.process_ns)[:6]],
+    }
+    # the mesh index searched directly on both ranks (SPMD), with rank 0's
+    # query vectors in answer order
+    qtexts = dist.broadcast_obj(sorted(qvecs) if rank == 0 else None, name="p24-queries")
+    qmat = dist.broadcast_obj(np.stack([qvecs[t] for t in qtexts]) if rank == 0 else None, name="p24-qvecs")
+    direct = []
+    for b in range(0, len(qmat), BATCH):
+        direct.extend(mx.search(qmat[b : b + BATCH], K))
+    # the fused serve path over the same mesh: the winners' keys gathered on
+    # the device and made whole by one collective, booked as one dispatch
+    # and one fetch per stage-1 serve on each rank
+    from pathway_tpu_torch.ops.dispatch_counter import DispatchCounter
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+
+    serve = FusedEncodeSearch(emb._encoder, mx, k=K)
+    with DispatchCounter() as c:
+        fused = serve(qtexts[:BATCH])
+    out["fused"] = {"dispatches": c.dispatches, "fetches": c.fetches,
+                    "rows": [[[int(k), np.float32(v).view(np.uint32).item()] for k, v in r] for r in fused]}
+    if rank == 0:
+        checks = {}
+        # the documents' vectors as the index operators saw them (every row:
+        # their mirrors), in the mesh index's slot order
+        mirror = ops[0].mirrors[0]
+        names = ops[0].inputs[0].column_names
+        vcol, icol = names.index(next(n for n in names if "vec" in n)), None
+        for j, n in enumerate(names):
+            if "doc_id" in n:
+                icol = j
+        slots = sorted(mx.key_to_slot.items(), key=lambda kv: kv[1])
+        doc_keys = [k for k, _s in slots]
+        mat = np.stack([np.asarray(mirror.get(k)[vcol], dtype=np.float32) for k in doc_keys])
+        doc_id_of = {k: int(mirror.get(k)[icol]) for k in doc_keys}
+        # (1) each IVF answer == an exact search over the same embeddings
+        m = torch.from_numpy(mat).to(dev)
+        m = m / torch.linalg.vector_norm(m, dim=1, keepdim=True)
+        q = torch.from_numpy(qmat).to(dev)
+        q = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
+        s, i = torch.topk(q @ m.t(), K, dim=1)
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        bad_ivf = 0
+        for qi, t in enumerate(qtexts):
+            want = [(doc_id_of[doc_keys[int(i[qi, j])]], float(s[qi, j])) for j in range(K)]
+            got = list(zip(*answers[t]["ivf"])) if t in answers else []
+            bad_ivf += not same_ranking(want, got, tie=CL_TOL, atol=CL_TOL)
+        checks["ivf_vs_exact_mismatches"] = bad_ivf
+        # (2) the mesh index spanning the ranks == one process's 8-shard mesh,
+        # bit for bit, on the same vectors in the same slots
+        one = DeviceKnnIndex(dim, metric="cos", initial_capacity=mx.capacity, mesh=Mesh([[dev]] * mx.n_shards),
+                             device=dev)
+        one.add(doc_keys, mat)
+        ref = []
+        for b in range(0, len(qmat), BATCH):
+            ref.extend(one.search(qmat[b : b + BATCH], K))
+        checks["mesh_vs_one_process_equal"] = [[(k, np.float32(v).view(np.uint32).item()) for k, v in r] for r in direct] \
+            == [[(k, np.float32(v).view(np.uint32).item()) for k, v in r] for r in ref]
+        # the mesh answers through the REST front == the direct search's keys
+        bad_mesh = 0
+        for qi, t in enumerate(qtexts):
+            want = [(doc_id_of[k], v) for k, v in direct[qi]]
+            got = list(zip(*answers[t]["mesh"])) if t in answers else []
+            bad_mesh += not same_ranking(want, got, tie=CL_TOL, atol=CL_TOL)
+        checks["mesh_rest_vs_direct_mismatches"] = bad_mesh
+        checks["fused_vs_direct_mismatches"] = sum(
+            not same_ranking(direct[qi], [(k, float(np.uint32(b).view(np.float32))) for k, b in row],
+                             tie=CL_TOL, atol=CL_TOL)
+            for qi, row in enumerate(out["fused"]["rows"]))
+        # (3) the wordcount == a plain Counter over the documents
+        from collections import Counter
+
+        texts = []
+        for name in sorted(os.listdir(docs_dir)):
+            with open(os.path.join(docs_dir, name)) as f:
+                texts.extend(json.loads(line)["text"] for line in f)
+        checks["wordcount_equal"] = wc == dict(Counter(w for t in texts for w in t.split()))
+        checks["answers"] = len(answers)
+        out["checks"] = checks
+        out["answers"] = answers
+        # (4) the rescore at the cluster path's shape, against its plain version
+        if cuda:
+            out["shape"] = rescore_at_path_shape(ivf, ivf_search_rescore_args(ivf, qmat[:BATCH]), dev)
+            out["shape_line"] = rescore_line(ivf, out["shape"])
+    with open(os.path.join(out_dir, f"rank{rank}.json.part"), "w") as f:
+        json.dump(out, f)
+    os.replace(os.path.join(out_dir, f"rank{rank}.json.part"), os.path.join(out_dir, f"rank{rank}.json"))
+    dist.barrier("p24-done")
+    dist.shutdown()
+    return 0
+
+
+def cluster_kill_worker(data_dir: str, out_csv: str) -> int:
+    """One rank of phase 24's kill arm: a streaming wordcount over csv
+    files (partitioned readers, one sink on rank 0) that never stops by
+    itself."""
+    import pathway_tpu_torch as pw
+
+    class Row(pw.Schema):
+        word: str
+
+    rows = pw.io.csv.read(data_dir, schema=Row, mode="streaming", poll_interval_s=0.05)
+    counts = rows.groupby(pw.this.word).reduce(pw.this.word, n=pw.reducers.count())
+    pw.io.csv.write(counts, out_csv)
+    pw.run(monitoring_level=None, commit_duration_ms=50)
+    return 0
+
+
+def _cl_post(port: int, text: str):
+    """One ``/v1/retrieve`` request: ``(ms, status, answer)``."""
+    import urllib.request
+
+    t = time.perf_counter()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{CL_ROUTE}", data=json.dumps({"query": text}).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=CL_TIMEOUT_S) as resp:
+        body = json.loads(resp.read())
+        return (time.perf_counter() - t) * 1e3, resp.status, body
+
+
+def _cl_kill_start(root: str) -> dict:
+    """Start the kill arm's two ranks (a streaming wordcount, off the
+    card); they run while the cluster arm does."""
+    from pathway_tpu_torch.cli import _topology_env
+
+    data_dir = os.path.join(root, "kill_data")
+    os.makedirs(data_dir, exist_ok=True)
+    words = list(_WORDS[:16])
+    for part in range(CL_KILL_FILES):
+        path = os.path.join(data_dir, f"part{part:02d}.csv")
+        with open(path + ".tmp", "w") as f:
+            f.write("word\n" + "".join(words[(part * 7 + i) % len(words)] + "\n" for i in range(CL_KILL_ROWS)))
+        os.replace(path + ".tmp", path)
+    out_csv = os.path.join(root, "kill_out.csv")
+    port = _free_port()
+    procs = []
+    for rank in range(CL_RANKS):
+        env = _topology_env(rank, CL_RANKS, port)
+        env.update(PATHWAY_EXCHANGE_HEARTBEAT=str(CL_HB_S), PATHWAY_EXCHANGE_HEARTBEAT_TIMEOUT=str(CL_HB_TIMEOUT_S))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cluster-kill-worker", data_dir, out_csv], env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+    return {"procs": procs, "out_csv": out_csv}
+
+
+def _cl_kill_finish(arm: dict) -> dict:
+    """Once the stream has counted every row: SIGKILL of rank 1, then the
+    time until rank 0 exits and its status (70: it lost its peer)."""
+    import signal
+
+    procs, out_csv = arm["procs"], arm["out_csv"]
+    try:
+        deadline = time.monotonic() + CL_TIMEOUT_S
+        want = CL_KILL_FILES * CL_KILL_ROWS
+        while True:
+            if any(p.poll() is not None for p in procs):
+                raise AssertionError("phase 24 kill arm: a rank exited before the kill: "
+                                     + " | ".join(p.stderr.read()[-1500:] for p in procs if p.poll() is not None))
+            latest = {}
+            if os.path.exists(out_csv):
+                with open(out_csv) as f:
+                    for line in f.readlines()[1:]:
+                        w, n, _t, diff = line.strip().split(",")
+                        if diff == "1":
+                            latest[w] = int(n)
+            if sum(latest.values()) >= want:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 24 kill arm: the stream made no progress")
+            time.sleep(0.05)
+        t0 = time.monotonic()
+        procs[1].send_signal(signal.SIGKILL)
+        procs[1].wait()
+        while time.monotonic() - t0 < 30 and procs[0].poll() is None:
+            time.sleep(0.01)
+        detect_s = time.monotonic() - t0
+        rc0 = procs[0].poll()
+        err = procs[0].stderr.read() if rc0 is not None else ""
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return {"rc0": rc0, "detect_s": detect_s, "err": err[-600:]}
+
+
+def cluster_phase(tag: str, dev=None, n_docs: int = N_DOCS, fw_ingest=None):
+    """Phase 24: the multi-process engine — two ranks of this script
+    through ``python -m pathway_tpu_torch.cli spawn --processes 2`` on the
+    one card, then the kill arm.  Returns (the rescore's launches per rank,
+    the kernel at the cluster path's shape)."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    t_phase = _now()
+    dev = dev or torch.device(DEVICE)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="p24-")
+    try:
+        docs_dir = os.path.join(root, "docs")
+        texts = corpus(n_docs)
+        _ps_write_docs(docs_dir, 0, texts, n_docs // CL_FILES)
+        with open(os.path.join(root, "n_docs"), "w") as f:
+            f.write(str(n_docs))
+        out_dir = os.path.join(root, "out")
+        os.makedirs(out_dir)
+        # the kill arm's ranks start now and stream off the card while the
+        # cluster arm runs; the kill comes after it
+        kill_arm = _cl_kill_start(root)
+        rest_port, first_port = _free_port(), _free_port()
+        here = os.path.dirname(os.path.abspath(__file__))
+        log_path = os.path.join(root, "spawn.log")
+        with open(log_path, "w") as spawn_log:
+            spawn = subprocess.Popen(
+                [sys.executable, "-m", "pathway_tpu_torch.cli", "spawn", "--processes", str(CL_RANKS),
+                 "--first-port", str(first_port), sys.executable, os.path.abspath(__file__), "--cluster-worker",
+                 out_dir, docs_dir, str(rest_port), dev.type],
+                cwd=here, stdout=spawn_log, stderr=subprocess.STDOUT,
+            )
+
+        def failed(what: str):
+            if spawn.poll() is None:
+                spawn.kill()
+                spawn.wait()
+            with open(log_path) as f:
+                raise AssertionError(f"phase 24: {what}\n{f.read()[-6000:]}")
+
+        deadline = time.monotonic() + CL_TIMEOUT_S
+        while not os.path.exists(os.path.join(out_dir, "ready")):
+            if spawn.poll() is not None or time.monotonic() > deadline:
+                failed("the ranks did not ingest the documents")
+            time.sleep(0.05)
+        ready_s = _now() - t_phase
+        with open(os.path.join(out_dir, "ready")) as f:
+            ingest_s = json.load(f)["ingest_s"]
+        # documents' own texts as queries, distinct over the phase (7919 is prime)
+        batches = [[texts[((b * BATCH + i) * 7919) % n_docs] for i in range(BATCH)] for b in range(CL_COMMITS)]
+        commit_ms, request_ms, http = [], [], {}
+        with concurrent.futures.ThreadPoolExecutor(BATCH) as pool:
+            for texts_b in batches:
+                t = time.perf_counter()
+                got = list(pool.map(lambda s: _cl_post(rest_port, s), texts_b))
+                commit_ms.append((time.perf_counter() - t) * 1e3)
+                for text, (ms, status, body) in zip(texts_b, got):
+                    request_ms.append(ms)
+                    if status != 200 or not isinstance(body, dict) or body.get("query") != text:
+                        failed(f"bad answer {status} {str(body)[:200]}")
+                    http[text] = body
+        open(os.path.join(out_dir, "done"), "w").close()
+        try:
+            rc = spawn.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            failed("the ranks did not stop")
+        if rc != 0:
+            failed(f"cli spawn exited {rc}")
+        ranks = []
+        for r in range(CL_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        cluster_s = _now() - t_phase
+        r0 = ranks[0]
+        ck = r0["checks"]
+        n_q = CL_COMMITS * BATCH
+        problems = []
+        if [r["ranks"] for r in ranks] != [CL_RANKS] * CL_RANKS or [r["backend"] for r in ranks] != ["gloo"] * 2:
+            problems.append(f"topology {[(r['ranks'], r['backend']) for r in ranks]}")
+        if any(r["index_rows"] != [n_docs, n_docs] for r in ranks):
+            problems.append(f"index rows {[r['index_rows'] for r in ranks]} != {n_docs} on each rank")
+        if any(r["mesh_shards"] != CL_RANKS * CL_LOCAL_SHARDS for r in ranks):
+            problems.append("mesh shards")
+        if any(r["off_device"]["ivf"] or r["off_device"]["mesh"] for r in ranks):
+            problems.append(f"index tensors off {dev.type}: {[r['off_device'] for r in ranks]}")
+        if ck["answers"] != n_q or len(http) != n_q:
+            problems.append(f"{ck['answers']} answers on rank 0's sink, {len(http)} over HTTP, of {n_q}")
+        if any(http[t] != r0["answers"].get(t) for t in http):
+            problems.append("an HTTP answer differs from rank 0's sink")
+        if ck["ivf_vs_exact_mismatches"]:
+            problems.append(f"{ck['ivf_vs_exact_mismatches']} IVF answers differ from an exact search")
+        if not ck["mesh_vs_one_process_equal"]:
+            problems.append("the mesh index over 2 ranks differs from one process's 8-shard mesh")
+        if ck["mesh_rest_vs_direct_mismatches"]:
+            problems.append(f"{ck['mesh_rest_vs_direct_mismatches']} mesh answers differ from its direct search")
+        if ranks[0]["fused"]["rows"] != ranks[1]["fused"]["rows"] or ck["fused_vs_direct_mismatches"]:
+            problems.append(f"the fused serve over the mesh: ranks agree {ranks[0]['fused']['rows'] == ranks[1]['fused']['rows']}, "
+                            f"{ck['fused_vs_direct_mismatches']} rows differ from the direct search")
+        if any((r["fused"]["dispatches"], r["fused"]["fetches"]) != (1, 1) for r in ranks):
+            problems.append(f"fused serve dispatches + fetches per rank "
+                            f"{[(r['fused']['dispatches'], r['fused']['fetches']) for r in ranks]} != 1 + 1")
+        if not ck["wordcount_equal"]:
+            problems.append("the wordcount differs from a plain Counter")
+        if cuda and any(r["launches"] < 1 for r in ranks):
+            problems.append(f"rescore launches per rank {[r['launches'] for r in ranks]}")
+        if problems:
+            failed("; ".join(problems))
+
+        t_kill = _now()
+        kill = _cl_kill_finish(kill_arm)
+        kill_s = _now() - t_kill
+        if kill["rc0"] != 70 or kill["detect_s"] > CL_HB_TIMEOUT_S:
+            raise AssertionError(f"phase 24 kill arm: rank 0 rc {kill['rc0']} after {kill['detect_s']:.3f} s "
+                                 f"(want 70 within {CL_HB_TIMEOUT_S} s): {kill['err']}")
+    finally:
+        for p in kill_arm["procs"] if "kill_arm" in locals() else ():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+    base = (f"phase 19's one process in this run: direct encode + IVF add {fw_ingest['direct_s']:.3f} s, the engine "
+            f"into 4 indexes {fw_ingest['ingest_s']:.3f} s" if fw_ingest else "phase 19's one process not run here")
+    log(
+        f"cluster {tag}: {CL_RANKS} ranks of this script through `python -m pathway_tpu_torch.cli spawn --processes "
+        f"{CL_RANKS}` on one card ({ranks[0]['backend']} data plane, TCP exchange plane), {n_docs} documents as "
+        f"{CL_FILES} JSON-lines files read by partitioned pw.io.jsonlines readers; one TpuEmbedder shared by a "
+        f"full-probe IVF DataIndex (C={r0['ivf_clusters']}, M_pad {r0['ivf_m_pad']}; rows per rank "
+        f"{[r['index_rows'][0] for r in ranks]}) and an exact DataIndex over a mesh of {r0['mesh_shards']} shards "
+        f"({CL_LOCAL_SHARDS} per rank, local {[r['mesh_local'] for r in ranks]}), a wordcount groupby, "
+        f"{n_q} queries in {CL_COMMITS} commits of {BATCH} through the REST front on rank 0 ({CL_ROUTE}): every "
+        f"answer 200 and == rank 0's sink, IVF == an exact search over the same embeddings (keys up to ties, scores "
+        f"within {CL_TOL}), the mesh's direct search == one process's 8-shard mesh bit for bit and its REST answers "
+        f"== that search, FusedEncodeSearch over the same mesh equal on both ranks and == that search in 1 dispatch + "
+        f"1 fetch per stage-1 serve on each rank (the key planes' collective inside the dispatch), the wordcount "
+        f"== a plain Counter, every index tensor on {dev.type}"
+    )
+    log(
+        f"cluster numbers {tag}: ingest (run start to both index operators holding every row) "
+        + " / ".join(f"{r['ingest_s']:.3f}" for r in ranks) + f" s on ranks 0 / 1 against {base}; ranks up and "
+        f"ingested {ready_s:.1f} s after the spawn; retrieve per commit of {BATCH} through the REST front p50 "
+        f"{np.percentile(commit_ms, 50):.3f} ms p99 {np.percentile(commit_ms, 99):.3f} ms ("
+        + ", ".join(f"{v:.3f}" for v in commit_ms) + f"), per request p50 {np.percentile(request_ms, 50):.3f} ms "
+        f"p99 {np.percentile(request_ms, 99):.3f} ms; exchange plane per rank (pathway_exchange_bytes_total, host "
+        f"timers around its collectives) "
+        + "; ".join(
+            f"rank {r['rank']}: {r['exchange']['rounds']} tick rounds, {r['exchange']['calls']} collectives, "
+            f"{r['exchange']['bytes_out'] / max(1, r['exchange']['rounds']):.0f} bytes out and "
+            f"{r['exchange']['ms'] / max(1, r['exchange']['rounds']):.3f} ms per round "
+            f"({r['exchange']['bytes_out'] / 1e6:.3f} MB out, {r['exchange']['bytes_in'] / 1e6:.3f} MB in)"
+            for r in ranks)
+        + "; busy per rank: " + "; ".join(f"rank {r['rank']} {r['busy']} over its {r['wall_s']:.3f} s run"
+                                         for r in ranks)
+        + f"; rescore launches per rank {[r['launches'] for r in ranks]}; host ms in process() of the costliest "
+        "operators per rank: " + "; ".join(
+            f"rank {r['rank']} " + ", ".join(f"{name} {ms:.1f}" for name, ms in r["ops_ms"]) for r in ranks)
+    )
+    shape = r0.get("shape")
+    if shape is not None:
+        log(f"ivf_rescore at the cluster shape {tag}: {r0['shape_line']}")
+    log(
+        f"cluster kill arm {tag}: SIGKILL of rank 1 during a streaming wordcount (heartbeat {CL_HB_S} s, timeout "
+        f"{CL_HB_TIMEOUT_S} s; its ranks started with the cluster arm and streamed off the card beside it): rank 0 "
+        f"exited with status {kill['rc0']} (lost peer) {kill['detect_s']:.3f} s after the kill; {kill_s:.1f} s after "
+        f"the cluster arm; phase 24 {_now() - t_phase:.1f} s (the cluster arm {cluster_s:.1f} s)"
+    )
+    return [r["launches"] for r in ranks], shape
+
+
 def framework_setup():
     """The set-up ``--framework`` and ``--qa`` share: the card's name, the
     kernels' build, phase 4's rows and phase 5's direct serve p50 (exact
@@ -7399,6 +7954,10 @@ def main() -> int:
         return rank_worker(sys.argv[2])
     if len(sys.argv) == 5 and sys.argv[1] == "--persist-worker":
         return persist_worker(*sys.argv[2:5])
+    if len(sys.argv) == 6 and sys.argv[1] == "--cluster-worker":
+        return cluster_worker(sys.argv[2], sys.argv[3], int(sys.argv[4]), sys.argv[5])
+    if len(sys.argv) == 4 and sys.argv[1] == "--cluster-kill-worker":
+        return cluster_kill_worker(sys.argv[2], sys.argv[3])
     if len(sys.argv) == 4 and sys.argv[1] == "--serve-template":
         # phase 20 (b) on a machine without PyYAML: the template's objects, served
         from pathway_tpu_torch import cli
@@ -7525,6 +8084,20 @@ def main() -> int:
         log(f"build {time.perf_counter() - t0:.1f} s")
         launches = hostapi_phase(f"[{smi}]")[0]
         log(f"rescore launches {launches}; shape census: {tripwire_census()}")
+        return 0
+    if sys.argv[1:] == ["--cluster"]:
+        from pathway_tpu_torch.kernels.build import build_host
+
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        ).stdout.strip()
+        log(f"card: {smi}")
+        t0 = time.perf_counter()
+        build_all()  # once, before the ranks start: they load what this built
+        build_host("tokenize_hash")
+        log(f"build {time.perf_counter() - t0:.1f} s")
+        launches = cluster_phase(f"[{smi}]")[0]
+        log(f"rescore launches per rank {launches}; shape census: {tripwire_census()}")
         return 0
     if sys.argv[1:] == ["--distributed"]:
         from pathway_tpu_torch.kernels.build import build_host
@@ -7863,6 +8436,10 @@ def main() -> int:
     # -- 23. the rest of the host API over an async retrieval path, counted --
     ha_launches, ha_kernel = hostapi_phase(tag)
     worst_err = max(worst_err, ha_kernel["max_abs_err"])
+
+    # -- 24. the multi-process engine: two ranks through cli spawn on the one card, counted per rank --
+    cl_launches, cl_kernel = cluster_phase(tag, fw_ingest=FW_INGEST)
+    worst_err = max(worst_err, cl_kernel["max_abs_err"])
     log(f"shape census: {tripwire_census()}")
 
     record = {
@@ -7874,13 +8451,14 @@ def main() -> int:
                 "replaces": "pathway_tpu/ops/ivf_pallas.py:37",
                 "launches": launches + rr_launches + sched_launches + li_launches + ws_launches + st_launches
                 + po_launches + sum(rw_launches.values()) + ss_launches + sf_launches + fw_launches
-                + qa_launches["ivf_rescore"] + ps_launches + tm_launches + ha_launches,
+                + qa_launches["ivf_rescore"] + ps_launches + tm_launches + ha_launches + sum(cl_launches),
                 "launches_by_path": {
                     "serve": launches, "rerank": rr_launches, "scheduler": sched_launches,
                     "ingest": li_launches, "warmstate": ws_launches, "tuning": st_launches,
                     "profiling": po_launches, "real_weights": rw_launches, "sharded": ss_launches,
                     "fabric": sf_launches, "framework": fw_launches, "qa": qa_launches["ivf_rescore"],
                     "persist": ps_launches, "temporal": tm_launches, "hostapi": ha_launches,
+                    "cluster_per_rank": cl_launches,
                 },
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,
@@ -7912,6 +8490,7 @@ def main() -> int:
                 "persist_shape": {key: ps_kernel[key] for key in _SHAPE_KEYS},
                 "temporal_shape": {key: tm_kernel[key] for key in _SHAPE_KEYS},
                 "hostapi_shape": {key: ha_kernel[key] for key in _SHAPE_KEYS},
+                "cluster_shape": {key: cl_kernel[key] for key in _SHAPE_KEYS},
             },
             *decode_kernels,
         ]

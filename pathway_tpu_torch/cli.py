@@ -11,12 +11,15 @@ machine without a card raises.  ``spawn`` / ``spawn-from-env`` launch
 the same program once per process with the topology environment
 (PATHWAY_PROCESS_ID / PATHWAY_PROCESSES / PATHWAY_FIRST_PORT /
 PATHWAY_COORDINATOR_ADDRESS) that the port's ``parallel/distributed.py``
-reads; the port's ``pw.run`` itself runs one process (the multi-process
-engine is a later slice).  ``spawn --record [--record-path P]`` runs the
-program with its inputs recorded under ``P`` (``PATHWAY_PERSISTENT_STORAGE``,
-read by ``pw.run``), and ``replay --record-path P [--mode
-batch|speedrun] PROGRAM`` runs it again over that store: the input log is
-replayed and the connectors seek past what they had read.
+reads: each process's ``pw.run`` joins the cluster and runs the
+distributed engine over the exchange plane.  ``spawn --record
+[--record-path P]`` runs the program with its inputs recorded under ``P``
+(``PATHWAY_PERSISTENT_STORAGE``, read by ``pw.run``; with ``-n N`` > 1
+each rank records under ``P/rank{r}``), and ``replay --record-path P
+[--mode batch|speedrun] PROGRAM`` runs it again over that store: the
+input log is replayed and the connectors seek past what they had read.
+A recording of N processes is replayed with the same ``-n N``: each rank
+reads back its own ``rank{r}/`` root.
 """
 
 from __future__ import annotations

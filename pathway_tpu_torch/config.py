@@ -284,6 +284,14 @@ _knob("parallel.coordinator_address", "PATHWAY_COORDINATOR_ADDRESS", "str",
       "", "control-plane coordinator host:port")
 _knob("parallel.first_port", "PATHWAY_FIRST_PORT", "str", "",
       "first port of the spawned cluster's port range")
+_knob("parallel.exchange_host", "PATHWAY_EXCHANGE_HOST", "str", "",
+      "advertised host for the TCP exchange plane")
+_knob("parallel.exchange_heartbeat_s", "PATHWAY_EXCHANGE_HEARTBEAT",
+      "float", 2.0, "exchange-plane heartbeat interval in seconds",
+      lo=0.05, hi=3600.0)
+_knob("parallel.exchange_heartbeat_timeout_s",
+      "PATHWAY_EXCHANGE_HEARTBEAT_TIMEOUT", "float", 8.0,
+      "peer-lost declaration timeout in seconds", lo=0.1, hi=86_400.0)
 
 # device meshes (parallel/mesh.py)
 _knob("parallel.data_shards", "PATHWAY_TPU_DATA_SHARDS", "int", 0,

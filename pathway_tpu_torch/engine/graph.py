@@ -4,9 +4,15 @@
 A host-side operator DAG driven in topological order once per commit
 tick; each operator transforms columnar ``Delta`` batches, and
 device-heavy operators (batched ML UDFs, the KNN index) launch their CUDA
-work inside their ``process``.  The port runs the graph in one process:
-the reference's exchange plane between ranks (``dist_routing`` edges) is
-a later slice, so ``dist_routing`` is only declared here.
+work inside their ``process``.
+
+Distribution is two-plane, as in the reference: device state shards over
+a port ``Mesh`` *inside* the ops (``torch.distributed`` collectives,
+``parallel/mesh.py``), while the host relational plane shards BY ROW KEY
+across cluster processes — every rank runs this same DAG on its key
+slice, and exchange edges (``dist_routing``) move rows between ranks over
+``parallel/exchange.py`` exactly where the reference reshards timely
+collections (src/engine/dataflow.rs:3314).
 """
 
 from __future__ import annotations
@@ -16,6 +22,9 @@ import itertools
 import time as _time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+
+from ..internals.keys import KEY_DTYPE
 from ..internals.error_log import set_current_operator
 from ..internals.trace import reraise_with_trace
 from .delta import Delta, RowStore, empty_delta
@@ -87,11 +96,9 @@ class EngineOperator:
         raise NotImplementedError
 
     def dist_routing(self, port: int):
-        """How this input port's rows would be placed across cluster
-        processes (reference: per-operator exchange pacts on timely
+        """How this input port's rows are placed across cluster processes in
+        distributed runs (reference: per-operator exchange pacts on timely
         collections — reshard by key shard, src/engine/dataflow/shard.rs:6).
-        The port runs one process and reads it nowhere yet; operators keep
-        their declarations for the multi-process slice.
 
         Returns one of:
           None        — row-local: any placement works (pure rowwise ops);
@@ -147,7 +154,12 @@ class EngineGraph:
         self.operators: List[EngineOperator] = []
         self.sources: List["SourceOperator"] = []
         self.sinks: List[EngineOperator] = []
+        # distributed run state (set by the Executor when PATHWAY_PROCESSES>1):
+        # the host exchange plane, a BSP round counter, and per-edge routing
+        self.plane = None
+        self._round = 0
         self._topo_ops: List[EngineOperator] = []
+        self._edge_layout: Dict[Tuple[int, int], str] = {}
 
     def add_table(self, column_names: Sequence[str], name: str = "") -> EngineTable:
         t = EngineTable(column_names, name)
@@ -192,9 +204,94 @@ class EngineGraph:
         if order != len(self.operators):
             raise RuntimeError("cycle detected in dataflow graph")
         self._topo_ops = sorted(self.operators, key=lambda o: o.topo_index)
+        if self.plane is not None:
+            self._infer_layouts()
+
+    def _infer_layouts(self) -> None:
+        """Static placement analysis for distributed runs.  Each table is
+        either "sharded" (the global stream is the disjoint union of the
+        ranks' local streams) or "replicated" (every rank holds the full
+        stream).  The distinction decides what an exchange edge does at
+        runtime: routing a REPLICATED input by key must *filter* locally
+        (every rank already has every row — a network exchange would
+        duplicate rows N times), while routing a SHARDED input is a real
+        all-to-all.  Mirrors the reference's static exchange placement on
+        timely collections (src/engine/dataflow.rs:3314 reshard)."""
+        layout: Dict[int, str] = {}
+        for op in self._topo_ops:
+            from .operators.io import SourceOperator
+
+            if isinstance(op, SourceOperator):
+                mode = getattr(op, "dist_mode", "replicated")
+                layout[op.output.id] = (
+                    "replicated" if mode == "broadcast" else "sharded"
+                )
+                continue
+            effective = []
+            for port, table in enumerate(op.inputs):
+                routing = op.dist_routing(port)
+                in_layout = layout.get(table.id, "sharded")
+                if routing == "replicate":
+                    eff = "replicated"
+                elif routing is None:
+                    eff = in_layout
+                else:  # "key" / callable / "gather" all yield sharded placements
+                    eff = "sharded"
+                self._edge_layout[(op.id, port)] = in_layout
+                effective.append(eff)
+            if op.output is not None:
+                layout[op.output.id] = (
+                    "replicated"
+                    if effective and all(e == "replicated" for e in effective)
+                    else "sharded"
+                )
+
+    def _exchange(self, op: EngineOperator, port: int, delta: Delta, rnd: int) -> Delta:
+        """Apply this edge's routing through the exchange plane (BSP: every
+        rank calls this for every exchange edge every round, in the same
+        order)."""
+        from ..internals.keys import shards_of
+
+        plane = self.plane
+        routing = op.dist_routing(port)
+        names = op.inputs[port].column_names
+        in_layout = self._edge_layout.get((op.id, port), "sharded")
+        edge = f"e{op.id}.{port}"
+        if routing is None:
+            return delta
+        if routing == "replicate":
+            if in_layout == "replicated":
+                return delta
+            parts = [delta] * plane.nproc
+            got = plane.all_to_all(edge, rnd, parts)
+            return Delta.concat([d for d in got if d.n], names)
+        if routing == "gather":
+            if in_layout == "replicated":
+                return delta if plane.rank == 0 else empty_delta(names)
+            got = plane.gather(edge, rnd, delta)
+            if got is None:
+                return empty_delta(names)
+            return Delta.concat([d for d in got if d.n], names)
+        # "key" or computed-key routing
+        if routing == "key":
+            route_keys = delta.keys
+        else:
+            try:
+                route_keys = routing(delta) if delta.n else delta.keys
+            except Exception as exc:
+                reraise_with_trace(op, exc)
+        owners = shards_of(np.asarray(route_keys, dtype=KEY_DTYPE), plane.nproc)
+        if in_layout == "replicated":
+            # every rank holds the full stream: keep the owned slice locally
+            return delta.select_rows(owners == plane.rank)
+        parts = [delta.select_rows(owners == p) for p in range(plane.nproc)]
+        got = plane.all_to_all(edge, rnd, parts)
+        return Delta.concat([d for d in got if d.n], names)
 
     def propagate(self, initial: List[Tuple[EngineOperator, int, Delta]], ts: int) -> None:
         """Push deltas through the graph in topological order for one tick."""
+        if self.plane is not None:
+            return self._propagate_dist(initial, ts)
         # priority queue keyed by (topo_index, seq) so operators fire in order
         seq = itertools.count()
         heap: List[Tuple[int, int, EngineOperator, int, Delta]] = []
@@ -214,9 +311,48 @@ class EngineGraph:
                         heap, (consumer.topo_index, next(seq), consumer, cport, out)
                     )
 
+    def _propagate_dist(self, initial: List[Tuple[EngineOperator, int, Delta]], ts: int) -> None:
+        """Distributed tick propagation: a strict topological sweep in which
+        every rank visits every exchange edge exactly once per round (BSP) —
+        the deterministic global order is what makes the plane's collectives
+        deadlock-free.  Exchange edges run even when the local delta is empty
+        (a peer may be routing rows here); row-local edges behave exactly
+        like the single-process heap path."""
+        rnd = self._round
+        self._round += 1
+        pending: Dict[Tuple[int, int], List[Delta]] = {}
+        for op, port, delta in initial:
+            pending.setdefault((op.id, port), []).append(delta)
+        from .operators.io import SourceOperator
+
+        for op in self._topo_ops:
+            if isinstance(op, SourceOperator):
+                continue
+            for port in range(len(op.inputs)):
+                names = op.inputs[port].column_names
+                deltas = pending.pop((op.id, port), None)
+                merged = (
+                    Delta.concat(deltas, names) if deltas else empty_delta(names)
+                )
+                if op.dist_routing(port) is not None:
+                    merged = self._exchange(op, port, merged, rnd)
+                if merged.n == 0:
+                    continue
+                merged = merged.consolidated()
+                if merged.n == 0:
+                    continue
+                out = self._run_op(op, port, merged, ts)
+                if out is not None and out.n > 0 and op.output is not None:
+                    out = out.consolidated()
+                    op.rows_out += out.n
+                    op.output.store.apply(out)
+                    for consumer, cport in op.output.consumers:
+                        pending.setdefault((consumer.id, cport), []).append(out)
+
     def _run_op(self, op: EngineOperator, port: int, delta: Delta, ts: int):
         """Execute one operator on one delta with error attribution + the
-        per-operator latency/row probes."""
+        per-operator latency/row probes (shared by the single-process heap
+        path and the distributed sweep)."""
         t0 = _time.perf_counter_ns()
         set_current_operator(op)
         try:
@@ -264,7 +400,10 @@ class EngineGraph:
             finally:
                 set_current_operator(None)
             self._collect(op, out, pending)
-        if pending:
+        if pending or self.plane is not None:
+            # distributed: ranks must run the SAME number of propagate rounds
+            # per tick (every round walks every exchange edge), so tick-end
+            # propagation happens even when locally empty
             self.propagate(pending, ts)
         # roll the per-tick latency probes (progress_reporter.rs analog)
         for op in self.operators:
@@ -282,5 +421,5 @@ class EngineGraph:
             finally:
                 set_current_operator(None)
             self._collect(op, out, pending)
-        if pending:
+        if pending or self.plane is not None:
             self.propagate(pending, ts)

@@ -13,6 +13,12 @@ Two flavors:
   answers are retracted and re-emitted (matches ``query()``).  Recomputation
   is batched per tick (one device search for all live queries), which is the
   columnar analog of differential's per-record updates.
+
+Under a process cluster both inputs are replicated to every rank (each
+rank holds the whole index, and a mesh index's device calls stay SPMD),
+and the operator keeps a mirror of each input's rows (``mirrors``) for
+the result's column lookups, which the reference reads from the input
+tables' stores, where a rank holds only its own keys.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ import numpy as np
 
 from ...internals.expression import ColumnExpression
 from ...internals.keys import KEY_DTYPE
-from ..delta import Delta, rows_equal
+from ...parallel import distributed
+from ..delta import Delta, RowStore, rows_equal
 from ..graph import EngineOperator, EngineTable
 from .rowwise import build_eval_context
 
@@ -67,13 +74,19 @@ class ExternalIndexOperator(EngineOperator):
         # consistent mode: live queries qkey -> (value, filter, k)
         self._queries: Dict[int, Tuple[Any, Any, int]] = {}
         self._dirty = False
+        # distributed runs: this operator sees every row of both inputs (its
+        # routing replicates them) while each input table's store holds the
+        # rank's owned slice only, so the result's lookups of data and query
+        # columns (stdlib/indexing/data_index.py) read these full mirrors
+        self.mirrors: Optional[List[RowStore]] = None
 
     def dist_routing(self, port: int):
-        # Every process maintains the FULL index and sees every query: a
-        # mesh index spanning processes needs every process issuing the same
-        # device calls.  In the port's one-process engine this is the
-        # identity (the only rank holds every row); the multi-process engine
-        # (a later slice) reads it as the reference does.
+        # distributed: every rank maintains the FULL index and sees every
+        # query.  The device plane shards under the hood (a DeviceKnnIndex
+        # on a mesh across processes needs every process issuing the same
+        # device calls — SPMD); rank-0-only processing would deadlock those
+        # collectives, and key-sharding host-side would duplicate what the
+        # mesh already does.
         return "replicate"
 
     # -- data side ---------------------------------------------------------
@@ -115,6 +128,10 @@ class ExternalIndexOperator(EngineOperator):
         return out
 
     def process(self, port: int, delta: Delta, ts: int) -> Optional[Delta]:
+        if distributed.is_distributed():
+            if self.mirrors is None:
+                self.mirrors = [RowStore(t.column_names) for t in self.inputs]
+            self.mirrors[port].apply(delta.consolidated())
         out_names = self.output.column_names
         if port == 0:
             self._process_data(delta)

@@ -503,30 +503,26 @@ class FlattenOperator(EngineOperator):
             return None
         names = self.output.column_names
         src_cols = delta.columns
-        parents: List[int] = []
-        positions: List[int] = []
-        diff_rows: List[Tuple[int, Tuple[Any, ...]]] = []
-        flat = src_cols[self.flatten_column]
-        for i in range(delta.n):
-            parent_key = int(delta.keys[i])
-            diff = int(delta.diffs[i])
-            seq = flat[i]
-            if seq is None:
-                continue
-            for pos, item in enumerate(seq):
-                parents.append(parent_key)
-                positions.append(pos)
-                row = tuple(
-                    item if c == self.flatten_column else src_cols[c][i] for c in names
-                )
-                diff_rows.append((diff, row))
-        if not diff_rows:
+        seqs = [[] if seq is None else list(seq) for seq in src_cols[self.flatten_column]]
+        lens = np.fromiter((len(seq) for seq in seqs), dtype=np.int64, count=len(seqs))
+        total = int(lens.sum())
+        if total == 0:
             return None
+        # column by column: row i's j-th element becomes child row (i, j),
+        # each other column's value repeated, every column an object column
+        # of the same values a row-by-row build would hold
+        parent_rows = np.repeat(np.arange(delta.n), lens)
+        positions = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+        items = [item for seq in seqs for item in seq]
+        columns = {
+            c: as_column(items) if c == self.flatten_column else as_column(list(src_cols[c][parent_rows]))
+            for c in names
+        }
         # every child key of the delta in one host-library call: the same
         # (parent key, position) rows hash to the same keys as one by one
-        child_keys = ref_scalars_batch([parents, positions])
-        return Delta.from_rows(
-            names, [(int(k), diff, row) for k, (diff, row) in zip(child_keys, diff_rows)]
+        child_keys = ref_scalars_batch([delta.keys[parent_rows].tolist(), positions.tolist()])
+        return Delta(
+            keys=np.asarray(child_keys, dtype=KEY_DTYPE), diffs=delta.diffs[parent_rows], columns=columns
         )
 
 

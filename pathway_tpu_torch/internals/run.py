@@ -4,21 +4,28 @@ run.py:12 → GraphRunner → run_with_new_graph; here the graph is already
 lowered, so run = drive the Executor until sources finish or termination
 is requested).
 
-The port runs the engine in one process.  ``with_http_server=True``
-starts the metrics server (``internals/metrics.py``).  A persistence
-config (``persistence_config=``, or ``PATHWAY_PERSISTENT_STORAGE`` /
-``PATHWAY_PERSISTENCE_MODE`` / ``PATHWAY_SNAPSHOT_INTERVAL_MS`` through
-``get_config()``) attaches a ``PersistenceManager`` before the
-connectors start: it replays the input log (or restores operator
-snapshots), records new events and commits on the snapshot interval and
-at the end; a final commit that fails is logged, not raised, as the
-reference does.  A cluster topology (``PATHWAY_PROCESSES`` > 1) is a
-later slice (``ROADMAP.md``): asking for one raises
-``NotImplementedError`` rather than running without it."""
+``with_http_server=True`` starts the metrics server
+(``internals/metrics.py``).  A persistence config (``persistence_config=``,
+or ``PATHWAY_PERSISTENT_STORAGE`` / ``PATHWAY_PERSISTENCE_MODE`` /
+``PATHWAY_SNAPSHOT_INTERVAL_MS`` through ``get_config()``) attaches a
+``PersistenceManager`` before the connectors start: it replays the input
+log (or restores operator snapshots), records new events and commits on
+the snapshot interval and at the end; a final commit that fails is
+logged, not raised, as the reference does.
+
+Under a cluster topology (``PATHWAY_PROCESSES`` > 1, as ``python -m
+pathway_tpu_torch.cli spawn`` sets it) ``pw.run`` first joins the
+cluster (``parallel.distributed.maybe_initialize``); the executor runs the
+distributed tick over the exchange plane, which is closed when the run
+ends.  Each rank persists under its own ``rank{N}/`` root
+(``_rank_scoped``), and a rank that loses its peer (``PeerLost``) exits
+the process with status 70 at once: recovery is a restart of the whole
+cluster from the per-rank snapshots."""
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 from typing import Optional
 
@@ -43,17 +50,6 @@ def terminate() -> None:
             _current_executor.terminate()
 
 
-def _refuse_unported() -> None:
-    from ..parallel.distributed import topology_from_env
-
-    processes, _pid, _addr = topology_from_env()
-    if processes > 1:
-        raise NotImplementedError(
-            f"pw.run() across {processes} processes needs the multi-process engine "
-            "over the port's exchange plane, a later slice (ROADMAP.md, framework slice 4)"
-        )
-
-
 def run(
     *,
     commit_duration_ms: int = 100,
@@ -64,7 +60,12 @@ def run(
     **kwargs,
 ) -> None:
     global _current_executor
-    _refuse_unported()
+    # Join the process cluster first (no-op unless PATHWAY_PROCESSES > 1, set
+    # by `cli spawn` — the reference consumes the same topology vars in
+    # Config::from_env, src/engine/dataflow/config.rs:104-121).
+    from ..parallel import distributed
+
+    distributed.maybe_initialize()
     # Incremental-run support: operators added after a previous run() are
     # bootstrapped with snapshot deltas of their already-populated inputs
     # (the eager-building analog of the reference's tree-shaken re-runs,
@@ -84,6 +85,16 @@ def run(
                     bootstrap.append((op, port, t.store.to_delta()))
     if persistence_config is None:
         persistence_config = _persistence_config_from_env()
+    if (
+        persistence_config is not None
+        and persistence_config.backend is not None
+        and distributed.is_distributed()
+    ):
+        # one snapshot namespace per rank: each process persists ITS OWN
+        # input log + offsets (atomic per-rank commits are what make the
+        # cluster's replay compose into global exactly-once; reference:
+        # per-worker persisted frontiers, src/persistence/tracker.rs:49)
+        persistence_config = _rank_scoped(persistence_config, distributed.process_id())
     tick_hooks = []
     manager = None
     if persistence_config is not None and persistence_config.backend is not None:
@@ -117,7 +128,20 @@ def run(
         hook()
     G.hooks_started = len(G.pre_run_hooks)
     try:
-        executor.run(bootstrap=bootstrap)
+        try:
+            executor.run(bootstrap=bootstrap)
+        except BaseException as exc:
+            from ..parallel.exchange import PeerLost
+
+            if isinstance(exc, PeerLost):
+                # a cluster peer died: this worker cannot make progress
+                # and must not linger (an orderly exit would wait on the
+                # lost peer).  Hard-abort like the reference's worker-panic
+                # propagation (src/engine/dataflow.rs:5667-5676); recovery
+                # is a full cluster restart from the last persisted commits.
+                logging.getLogger(__name__).critical("aborting worker: %s", exc)
+                os._exit(70)
+            raise
         G.ran_ops.update(op.id for op in G.engine_graph.operators)
     finally:
         if manager is not None:
@@ -135,6 +159,20 @@ def run(
                 pass
         with _executor_lock:
             _current_executor = None
+        if distributed.is_distributed():
+            from ..parallel.exchange import close_plane
+
+            close_plane()
+
+
+def _rank_scoped(config, rank: int):
+    """Copy a persistence Config with the backend rooted under rank{N}/."""
+    import dataclasses
+
+    backend = config.backend
+    if backend.path is not None:
+        backend = dataclasses.replace(backend, path=os.path.join(backend.path, f"rank{rank}"))
+    return dataclasses.replace(config, backend=backend)
 
 
 def _persistence_config_from_env():

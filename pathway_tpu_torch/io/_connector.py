@@ -317,8 +317,8 @@ def register_source(
     dtypes = schema.typehints()
     _source_counter[0] += 1
     salt = _source_counter[0]
-    # the env topology: graph build happens before pw.run(), which refuses
-    # a cluster in this port (the multi-process engine is a later slice)
+    # the env topology: graph build happens before pw.run() joins the
+    # cluster, so the rank comes from the environment, not the store
     from ..parallel.distributed import topology_from_env
 
     processes, pid, _addr = topology_from_env()

@@ -10,7 +10,12 @@ files, committed through the session writer.  Under a persistence config
 (``pw.run(persistence_config=...)`` or ``PATHWAY_PERSISTENT_STORAGE``)
 they are the seek on restart: a file already ingested at the same mtime
 is not read again (its rows come back from the input log), a new or
-changed one is.  One process only, as ``pw.run``."""
+changed one is.
+
+Under a process cluster each rank reads its own split of the files,
+``crc32(basename) % processes`` (``_my_split``), and the engine routes
+the rows to their key owners (source ``dist_mode="partitioned"``);
+``write`` touches the file on rank 0 only."""
 
 from __future__ import annotations
 
@@ -59,6 +64,28 @@ def _expand(path: str) -> List[str]:
                 out.append(os.path.join(root, f))
         return out
     return sorted(_glob.glob(path)) or ([path] if os.path.exists(path) else [])
+
+
+def _my_split(files: List[str]) -> List[str]:
+    """Multi-process runs: each rank owns a deterministic hash-split of the
+    file set (the reference's parallel readers: only workers with index <
+    parallel_readers read a connector, src/engine/dataflow.rs:3317; here
+    EVERY rank reads ITS files and rows are exchanged to their key owner).
+
+    Topology comes from the env: the graph is built, and its reader
+    threads may start, before ``pw.run`` joins the cluster."""
+    from ...parallel.distributed import topology_from_env
+
+    nproc, rank, _addr = topology_from_env()
+    if nproc <= 1:
+        return files
+    import zlib
+
+    return [
+        f
+        for f in files
+        if zlib.crc32(os.path.basename(f).encode()) % nproc == rank
+    ]
 
 
 def _parse_into(
@@ -277,7 +304,7 @@ def read(
         def runner(writer: SessionWriter):
             pers = writer.persistence
             seen: Dict[str, float] = dict((pers.offsets() or {}) if pers else {})
-            for fpath in _expand(path):
+            for fpath in _my_split(_expand(path)):
                 try:
                     mtime = os.path.getmtime(fpath)
                 except OSError:
@@ -301,7 +328,7 @@ def read(
         pers = writer.persistence
         seen: Dict[str, float] = dict((pers.offsets() or {}) if pers else {})
         while True:
-            for fpath in _expand(path):
+            for fpath in _my_split(_expand(path)):
                 try:
                     mtime = os.path.getmtime(fpath)
                 except OSError:
@@ -329,8 +356,19 @@ def read(
 def write(table: Table, filename: str, *, format: str = "csv", **kwargs) -> None:
     """Write the table's update stream to a file; csv/jsonlines rows carry
     ``time`` and ``diff`` columns (reference output format,
-    src/connectors/data_format.rs DsvFormatter/JsonLinesFormatter)."""
+    src/connectors/data_format.rs DsvFormatter/JsonLinesFormatter).
+
+    Multi-process runs: the sink's input edge gathers to rank 0, so ONLY
+    rank 0 touches the file (exactly-once output); other ranks register the
+    same operator (graph shapes must match across SPMD replicas) with no-op
+    callbacks."""
+    from ...parallel.distributed import topology_from_env
     from .._subscribe import subscribe
+
+    processes, pid, _addr = topology_from_env()
+    if processes > 1 and pid != 0:
+        subscribe(table, on_change=None, on_time_end=None, on_end=None)
+        return
 
     names = table.column_names
     f = open(filename, "w", newline="")

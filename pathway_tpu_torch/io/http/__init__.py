@@ -14,8 +14,11 @@ parameters; a validator failure answers 400 ``{"error": ...}``, an
 serves the OpenAPI JSON; ``with_cors`` answers OPTIONS and adds the
 CORS headers.  A query row's key comes from a per-connector counter.
 
-One process only: under ``PATHWAY_PROCESSES`` > 1 the connector raises,
-as ``pw.run`` does (the multi-process engine is a later slice)."""
+Under a process cluster (``PATHWAY_PROCESSES`` > 1) rank 0 binds the
+server; the query rows go to every rank by the source's broadcast, and
+the response rows gather back to rank 0, where the futures resolve.  The
+other ranks bind no socket and register the same source and subscriber,
+so the graphs match rank for rank."""
 
 from __future__ import annotations
 
@@ -326,11 +329,17 @@ class RestServerSubject:
 
 
 class _ResponseWriter:
-    def __init__(self, subject: RestServerSubject):
+    def __init__(self, subject: Optional[RestServerSubject]):
+        # subject is None on non-frontend cluster ranks: the subscriber edge
+        # gathers response rows to rank 0, so only rank 0 resolves futures —
+        # but every rank must register the SAME operator (SPMD graph shape)
         self.subject = subject
 
     def __call__(self, response_table: Table) -> None:
         names = response_table.column_names
+        if self.subject is None:
+            subscribe(response_table, on_change=None)
+            return
 
         def on_change(key, row, time, is_addition):
             if not is_addition:
@@ -361,36 +370,50 @@ def rest_connector(
     documentation: Optional[EndpointDocumentation] = None,
 ) -> Tuple[Table, Any]:
     """Expose a REST endpoint as a (queries_table, response_writer) pair
-    (reference: io/http/_server.py:624)."""
-    from ...parallel.distributed import topology_from_env
+    (reference: io/http/_server.py:624).
 
-    processes, _pid, _addr = topology_from_env()
-    if processes > 1:
-        raise NotImplementedError(
-            f"a REST connector across {processes} processes needs the multi-process engine over "
-            "the port's exchange plane, a later slice (ROADMAP.md, framework slice 4)"
-        )
+    Multi-process runs: rank 0 binds the HTTP frontend; incoming query rows
+    BROADCAST to every rank (source dist_mode="broadcast"), so replicated
+    pipelines — including device-mesh retrieval, whose device calls must
+    stay SPMD across processes — serve the query on the whole cluster, and
+    the response stream gathers back to rank 0 where the HTTP futures
+    resolve."""
     if schema is None:
         schema = schema_from_types(query=str)
     if keep_queries is not None:
         delete_completed_queries = not keep_queries
-    stop_event = threading.Event()
-    if webserver is None:
-        webserver = PathwayWebserver(host=host or "0.0.0.0", port=8080 if port is None else port)
-    subject = RestServerSubject(
-        webserver,
-        route,
-        methods,
-        schema,
-        delete_completed_queries,
-        request_validator,
-        documentation,
-    )
 
-    def runner(writer: SessionWriter):
-        subject.attach_writer(writer)
-        # keep the session open for the lifetime of the run
-        stop_event.wait()
+    from ...parallel.distributed import topology_from_env
+
+    processes, pid, _addr = topology_from_env()
+    frontend = processes <= 1 or pid == 0
+    stop_event = threading.Event()
+
+    if frontend:
+        if webserver is None:
+            webserver = PathwayWebserver(host=host or "0.0.0.0", port=8080 if port is None else port)
+        subject = RestServerSubject(
+            webserver,
+            route,
+            methods,
+            schema,
+            delete_completed_queries,
+            request_validator,
+            documentation,
+        )
+
+        def runner(writer: SessionWriter):
+            subject.attach_writer(writer)
+            # keep the session open for the lifetime of the run
+            stop_event.wait()
+
+    else:
+        # non-frontend rank: same graph shape (source + subscriber must line
+        # up across SPMD replicas), no socket; rows arrive via the broadcast
+        subject = None
+
+        def runner(writer: SessionWriter):
+            stop_event.wait()
 
     G.post_run_hooks.append(stop_event.set)
     table = register_source(

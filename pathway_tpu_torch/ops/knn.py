@@ -18,8 +18,9 @@ same ``add`` / ``remove`` / ``search`` calls with the same host data
 (SPMD, as the reference's ``tests/dist_worker.py`` drives it): the slot
 bookkeeping is replicated, each rank writes and scores only the blocks
 it owns, a grow moves a block to the ranks that hold its rows by one
-broadcast from its owner, and a search's candidates cross ranks by one
-``all_gather`` (``ops/topk.sharded_topk``).
+broadcast from its owner, a search's candidates cross ranks by one
+``all_gather`` (``ops/topk.sharded_topk``), and the fused serve path's
+winners' keys by one more (``keys_of``).
 """
 
 from __future__ import annotations
@@ -283,21 +284,31 @@ class DeviceKnnIndex:
 
     def keys_of(self, slots: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The int32 key planes ``(hi, lo)`` at ``slots`` (any shape),
-        gathered on the device, on ``slots``' device."""
+        gathered on the device, on ``slots``' device.  On a mesh across
+        processes each rank gathers the keys of the blocks it owns and one
+        ``all_gather`` of the ``[2, *slots.shape]`` planes makes the
+        answer whole on every rank, each slot's key taken from its
+        block's owner."""
         if self.mesh is None:
             return self._his[0][slots], self._los[0][slots]
-        if self._multiproc:
-            raise NotImplementedError("the fused serve path over a mesh across processes is not ported")
         rps = self.capacity // self.n_shards
         hi = torch.zeros(slots.shape, dtype=torch.int32, device=slots.device)
         lo = torch.zeros_like(hi)
         for t in range(self.n_shards):
+            if self._his[t] is None:
+                continue  # another process's block
             local = slots - t * rps
             mine = (local >= 0) & (local < rps)
             at = local.clamp(0, rps - 1).to(self._his[t].device)
             hi = torch.where(mine, self._his[t][at].to(slots.device), hi)
             lo = torch.where(mine, self._los[t][at].to(slots.device), lo)
-        return hi, lo
+        if not self._multiproc:
+            return hi, lo
+        planes = distributed.all_gather(torch.stack([hi, lo]))  # [ranks, 2, *slots.shape]
+        owners = torch.tensor(self.mesh.owners, dtype=torch.int64, device=slots.device)
+        owner = owners[(slots // rps).clamp(0, self.n_shards - 1)]
+        whole = torch.gather(planes, 0, owner[None, None].expand(1, 2, *slots.shape))[0]
+        return whole[0], whole[1]
 
     def search(
         self, queries, k: int

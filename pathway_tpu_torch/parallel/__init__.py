@@ -1,8 +1,9 @@
 """Parallelism of the port (counterpart of ``pathway_tpu/parallel``): the
 control plane and data-plane collectives across processes
 (``distributed.py``), device meshes within and across processes
-(``mesh.py``), serve-shard groups (``shards.py``) and the serve
-fabric's authenticated frame stream (``exchange.py``)."""
+(``mesh.py``), serve-shard groups (``shards.py``), and the host
+exchange (``exchange.py``): the engine's ``ExchangePlane`` between ranks
+and the serve fabric's authenticated frame stream."""
 
 from .distributed import barrier, broadcast_obj, is_coordinator, is_distributed, maybe_initialize
 from .mesh import (
@@ -15,10 +16,11 @@ from .mesh import (
     make_mesh,
     set_mesh,
 )
-from .exchange import FramedStream, PeerLost
+from .exchange import ExchangePlane, FramedStream, PeerLost, close_plane, gather_table_rows, get_plane
 from .shards import FleetPartitionMap, ShardGroup, serve_shards
 
 __all__ = [
+    "ExchangePlane",
     "FleetPartitionMap",
     "FramedStream",
     "Mesh",
@@ -26,9 +28,12 @@ __all__ = [
     "ShardGroup",
     "barrier",
     "broadcast_obj",
+    "close_plane",
     "current_mesh",
     "data_axis_size",
     "device_count",
+    "gather_table_rows",
+    "get_plane",
     "is_coordinator",
     "is_distributed",
     "is_multiprocess",

@@ -26,6 +26,12 @@ Two planes:
   timeout or a store error is counted on
   ``pathway_dist_degraded_total{site=...}`` and answered locally (False;
   the local ``obj``), never raised and never hung past a spent deadline.
+  ``kv_set`` / ``kv_get`` are the store's plain key-value pair, the
+  counterpart of the reference's coordination-service
+  ``key_value_set`` / ``blocking_key_value_get``: the engine's exchange
+  plane (``parallel/exchange.py``) publishes its session token and listen
+  addresses through them.  They raise on a timeout: a rendezvous has no
+  local-only answer.
 - **Data plane** (``all_gather``, ``broadcast``): the default process
   group, whose backend is chosen from the topology at ``maybe_initialize``
   and nowhere else: ``nccl`` when every rank owns a distinct CUDA device,
@@ -59,6 +65,8 @@ __all__ = [
     "gather_obj",
     "is_coordinator",
     "is_distributed",
+    "kv_get",
+    "kv_set",
     "maybe_initialize",
     "process_count",
     "process_id",
@@ -252,6 +260,18 @@ def gather_obj(obj: Any) -> List[Any]:
     keys = [f"{key}/{r}" for r in range(_world)]
     _store.wait(keys, timedelta(seconds=_JOIN_TIMEOUT_S))
     return [pickle.loads(_store.get(k)) for k in keys]
+
+
+def kv_set(key: str, value: str) -> None:
+    """Publish ``value`` under ``key`` in the cluster's store."""
+    _store.set(key, value)
+
+
+def kv_get(key: str, timeout_ms: int = 60_000) -> str:
+    """The value under ``key``, waiting up to ``timeout_ms`` for a peer to
+    publish it; raises on a timeout."""
+    _store.wait([key], timedelta(milliseconds=timeout_ms))
+    return _store.get(key).decode()
 
 
 def _staged(t: torch.Tensor) -> torch.Tensor:

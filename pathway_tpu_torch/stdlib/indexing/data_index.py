@@ -99,7 +99,7 @@ class DataIndex:
             query_table._universe,
             short_name="index_reply",
         )
-        return query_table, reply_table
+        return query_table, reply_table, op
 
     def query_as_of_now(
         self,
@@ -110,10 +110,10 @@ class DataIndex:
         metadata_filter=None,
         **kwargs,
     ) -> "IndexQueryResult":
-        query_table, reply = self._build(
+        query_table, reply, op = self._build(
             query_column, number_of_matches, metadata_filter, asof_now=True
         )
-        return IndexQueryResult(self, query_table, reply, collapse_rows)
+        return IndexQueryResult(self, query_table, reply, collapse_rows, op)
 
     def query(
         self,
@@ -124,10 +124,10 @@ class DataIndex:
         metadata_filter=None,
         **kwargs,
     ) -> "IndexQueryResult":
-        query_table, reply = self._build(
+        query_table, reply, op = self._build(
             query_column, number_of_matches, metadata_filter, asof_now=False
         )
-        return IndexQueryResult(self, query_table, reply, collapse_rows)
+        return IndexQueryResult(self, query_table, reply, collapse_rows, op)
 
 
 class _ScoreMarker:
@@ -148,11 +148,30 @@ class IndexQueryResult:
         query_table: Table,
         reply_table: Table,
         collapse_rows: bool,
+        operator: Optional[ExternalIndexOperator] = None,
     ):
         self._index = index
         self._query_table = query_table
         self._reply = reply_table
         self._collapse = collapse_rows
+        self._operator = operator
+
+    def _lookup(self, table: Table, api_col: str, port: int) -> Callable[[int], Any]:
+        """``key -> value of api_col`` in ``table``'s rows: its store, or
+        in a distributed run (where the store holds this rank's keys only)
+        the index operator's mirror of that input (``port``)."""
+        engine_col = table._column_mapping[api_col]
+        store = table._engine_table.store
+        idx = store.column_names.index(engine_col)
+        op = self._operator
+
+        def lookup(key: int):
+            row = store.get(int(key))
+            if row is None and op is not None and op.mirrors is not None:
+                row = op.mirrors[port].get(int(key))
+            return row[idx] if row is not None else None
+
+        return lookup
 
     @property
     def score(self) -> _ScoreMarker:
@@ -160,16 +179,7 @@ class IndexQueryResult:
 
     # -- data lookup helpers ----------------------------------------------
     def _data_lookup_fn(self, api_col: str) -> Callable[[int], Any]:
-        data = self._index.data_table
-        engine_col = data._column_mapping[api_col]
-        store = data._engine_table.store
-        idx = store.column_names.index(engine_col)
-
-        def lookup(key: int):
-            row = store.get(int(key))
-            return row[idx] if row is not None else None
-
-        return lookup
+        return self._lookup(self._index.data_table, api_col, 0)
 
     def _remap_collapsed(self, expr):
         """Data-table refs -> tuple-valued applies over the reply column."""
@@ -285,13 +295,4 @@ class IndexQueryResult:
         return expr
 
     def _query_lookup_fn(self, api_col: str) -> Callable[[int], Any]:
-        q = self._query_table
-        engine_col = q._column_mapping[api_col]
-        store = q._engine_table.store
-        idx = store.column_names.index(engine_col)
-
-        def lookup(key: int):
-            row = store.get(int(key))
-            return row[idx] if row is not None else None
-
-        return lookup
+        return self._lookup(self._query_table, api_col, 1)

@@ -108,3 +108,15 @@ def test_process_config_reads_the_port_table(monkeypatch):
     with local_config(metrics_port=1):
         assert get_config().metrics_port == 1
     assert get_config().metrics_port != 1
+
+
+_EXCHANGE_KNOBS = ["parallel.exchange_host", "parallel.exchange_heartbeat_s", "parallel.exchange_heartbeat_timeout_s"]
+
+
+@pytest.mark.parametrize("key", _EXCHANGE_KNOBS)
+def test_exchange_plane_knobs_equal_the_reference_field_by_field(key):
+    """The knobs the exchange plane reads (``parallel/exchange.py``): every
+    declared field, mutability and doc included, is the reference's."""
+    mine, theirs = config.registry()[key], ref_config.registry()[key]
+    for field in ("env", "kind", "default", "doc", "lo", "hi", "choices", "mutability", "site_prefix", "auto_pytest"):
+        assert getattr(mine, field) == getattr(theirs, field), (key, field)

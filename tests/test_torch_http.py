@@ -293,9 +293,34 @@ def test_port_server_accepts_a_burst_of_connections():
 
 
 def test_rest_connector_refuses_a_cluster(monkeypatch):
-    monkeypatch.setenv("PATHWAY_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="framework slice 4"):
-        pathway_tpu_torch.io.http.rest_connector(host="127.0.0.1", port=free_port())
+    """Under a two-rank topology the connector builds on every rank (it no
+    longer refuses a cluster): rank 0 registers the server and a writer
+    that resolves its requests; rank 1 binds no socket (no server hook, no
+    subject) and registers the same broadcast source and subscriber, so the
+    graphs match rank for rank.  The two ranks serving together are
+    ``tests/test_torch_cluster.py``'s REST case."""
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.io.http import PathwayWebserver
+
+    def build(rank):
+        pathway_tpu_torch.reset()
+        monkeypatch.setenv("PATHWAY_PROCESSES", "2")
+        monkeypatch.setenv("PATHWAY_PROCESS_ID", str(rank))
+        queries, writer = pathway_tpu_torch.io.http.rest_connector(host="127.0.0.1", port=free_port())
+        writer(queries.select(result=pathway_tpu_torch.this.query))
+        servers = [h for h in G.pre_run_hooks if isinstance(getattr(h, "__self__", None), PathwayWebserver)]
+        shape = [type(op).__name__ for op in G.engine_graph.operators]
+        modes = [getattr(op, "dist_mode", None) for op in G.engine_graph.sources]
+        return writer.subject, servers, shape, modes
+
+    try:
+        subject0, servers0, shape0, modes0 = build(0)
+        subject1, servers1, shape1, modes1 = build(1)
+    finally:
+        pathway_tpu_torch.reset()
+    assert subject0 is not None and len(servers0) == 1
+    assert subject1 is None and servers1 == []
+    assert shape0 == shape1 and modes0 == modes1 == ["broadcast"]
 
 
 def test_jsonable_takes_torch_tensors():

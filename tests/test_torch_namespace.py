@@ -93,6 +93,8 @@ def test_namespace_covers_reference_public_names(where):
     stubs = [n for n in _public(where) if _is_stub(getattr(port, n))]
     for name in stubs:
         _assert_stub_raises(getattr(port, name))
+    # the multi-process engine (framework slice 4) is ported: no stub names it
+    assert [n for n in stubs if getattr(port, n).later_slice == "4"] == []
     if where != "io":
         # the rest of the host API is ported: outside pw.io no stub is left
         assert stubs == []

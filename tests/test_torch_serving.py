@@ -174,8 +174,10 @@ _FORBIDDEN = ("jax", "jaxlib", "flax", "pathway_tpu", "transformers", "safetenso
 
 
 def test_port_imports_no_jax_flax_or_reference():
-    files = sorted((_ROOT / "pathway_tpu_torch").rglob("*.py")) + [_ROOT / "chip_smoke.py"]
-    names = {str(f.relative_to(_ROOT / "pathway_tpu_torch")) for f in files[:-1]}
+    files = sorted((_ROOT / "pathway_tpu_torch").rglob("*.py"))
+    names = {str(f.relative_to(_ROOT / "pathway_tpu_torch")) for f in files}
+    # the script and the multi-process tests' rank worker run without JAX too
+    files += [_ROOT / "chip_smoke.py", _ROOT / "tests" / "torch_dist_worker.py"]
     assert {
         "cache/embedding.py",
         "cache/keys.py",
@@ -327,6 +329,7 @@ def test_port_imports_no_jax_flax_or_reference():
         "pathway_tpu_torch.demo",
         "pathway_tpu_torch.stdlib.utils",
         "pathway_tpu_torch.stdlib.viz",
+        "pathway_tpu_torch.parallel.exchange",
     ],
 )
 def test_framework_import_loads_no_jax_xxhash_or_pandas(module):

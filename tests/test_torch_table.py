@@ -480,16 +480,25 @@ def test_unported_names_raise_and_name_their_slice(name):
 
 
 def test_run_refuses_a_cluster_and_persistence(monkeypatch):
-    """``pw.run`` refuses a cluster (a later slice) and, under
-    OPERATOR_PERSISTING, a graph with an operator whose state no snapshot
-    carries (here ``update_rows``), naming it; a persistence config it can
-    honour records the run, and a restart replays it."""
+    """``pw.run`` joins the cluster first (it no longer refuses one): under
+    ``PATHWAY_PROCESSES=2`` it calls ``distributed.maybe_initialize``
+    before anything else, and the run goes on over what it answers (here
+    a stand-in that stays one process; two real ranks are
+    ``tests/test_torch_cluster.py``).  Under OPERATOR_PERSISTING it
+    refuses a graph with an operator whose state no snapshot carries (here
+    ``update_rows``), naming it; a persistence config it can honour
+    records the run, and a restart replays it."""
+    from pathway_tpu_torch.parallel import distributed
+
     pw = pathway_tpu_torch
-    _base(pw)
-    monkeypatch.setenv("PATHWAY_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    t = _base(pw)
+    joined = []
+    with monkeypatch.context() as m:
+        m.setattr(distributed, "maybe_initialize", lambda: joined.append(distributed.topology_from_env()))
+        m.setenv("PATHWAY_PROCESSES", "2")
         pw.run()
-    monkeypatch.delenv("PATHWAY_PROCESSES")
+    assert [j[0] for j in joined] == [2]
+    assert len(t._materialize()[0]) == len(_rows())
     pw.reset()
     t = _base(pw)
     t.update_rows(t.filter(pw.this.k > 2))

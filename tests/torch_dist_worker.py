@@ -1,11 +1,14 @@
 """Entry point of one rank of the port's multi-process tests.
 
-``tests/test_torch_distributed.py`` starts it N times with the topology
-environment (``PATHWAY_PROCESSES``, ``PATHWAY_PROCESS_ID``,
-``PATHWAY_COORDINATOR_ADDRESS``); ``maybe_initialize`` joins the ranks
-over a store and a gloo process group on the CPU.  The worker imports
-the port and torch only (it checks that no JAX module was loaded) and
-prints one ``RESULT <json>`` line.
+``tests/test_torch_distributed.py`` and ``tests/test_torch_cluster.py``
+start it N times with the topology environment (``PATHWAY_PROCESSES``,
+``PATHWAY_PROCESS_ID``, ``PATHWAY_COORDINATOR_ADDRESS``);
+``maybe_initialize`` joins the ranks over a store and a gloo process
+group on the CPU (``pw.run`` joins by itself).  The engine scenarios are
+the reference's ``tests/dist_worker.py`` ones on the port's ``pw``, plus
+a ``DataIndex`` over IVF and over a mesh index spanning the ranks.  The
+worker imports the port and torch only (it checks that no JAX module was
+loaded) and prints one ``RESULT <json>`` line.
 
 Usage: python tests/torch_dist_worker.py <scenario>
 """
@@ -117,7 +120,309 @@ def scenario_mesh() -> dict:
     }
 
 
-SCENARIOS = {"control_plane": scenario_control_plane, "mesh": scenario_mesh}
+# -- the engine over the exchange plane ----------------------------------------
+
+WORDCOUNT_MD = """
+    word  | cnt
+    alpha | 1
+    beta  | 2
+    alpha | 3
+    gamma | 4
+    beta  | 5
+    """
+
+
+def wordcount(pw):
+    """The reference's engine scenario's graph: a sum per word."""
+    table = pw.debug.table_from_markdown(WORDCOUNT_MD)
+    return table.groupby(table.word).reduce(table.word, total=pw.reducers.sum(table.cnt))
+
+
+def scenario_engine() -> dict:
+    """``pw.run()`` joins the cluster by itself; each rank reduces its
+    owned groups, and the union (``gather_table_rows``) is the whole
+    wordcount."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.parallel import distributed as dist
+    from pathway_tpu_torch.parallel import gather_table_rows
+
+    result = wordcount(pw)
+    pw.run(monitoring_level=None)
+    lkeys, _ = result._materialize()
+    keys, columns = gather_table_rows(result)
+    rows = sorted((str(columns["word"][i]), int(columns["total"][i])) for i in range(len(keys)))
+    return {"proc": dist.process_id(), "nproc": dist.process_count(), "rows": rows, "local_rows": len(lkeys)}
+
+
+def scenario_live_stream() -> dict:
+    """A watched csv directory read by partitioned readers, rows
+    exchanged to their key owners, a sharded groupby-count and one csv
+    sink on rank 0; rank 0 stops the cluster once the sink has counted
+    ``DIST_EXPECTED_TOTAL`` rows (the reference's scenario)."""
+    import os
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.run import terminate
+    from pathway_tpu_torch.parallel import distributed as dist
+    from pathway_tpu_torch.parallel.distributed import topology_from_env
+
+    _nproc, rank, _addr = topology_from_env()
+    data_dir = os.environ["DIST_DATA_DIR"]
+    out_csv = os.environ["DIST_OUT"]
+    expected_total = int(os.environ["DIST_EXPECTED_TOTAL"])
+
+    class Row(pw.Schema):
+        word: str
+
+    docs = pw.io.csv.read(data_dir, schema=Row, mode="streaming", poll_interval_s=0.05, persistent_id="dist_wc")
+    counts = docs.groupby(docs.word).reduce(word=docs.word, count=pw.reducers.count())
+    pw.io.csv.write(counts, out_csv)
+    latest: dict = {}
+    lock = threading.Lock()
+
+    def on_change(key, row, time, is_addition):
+        with lock:
+            if is_addition:
+                latest[row["word"]] = int(row["count"])
+
+    def on_time_end(time):
+        with lock:
+            total = sum(latest.values())
+        if total >= expected_total:
+            terminate()
+
+    if rank == 0:
+        pw.io.subscribe(counts, on_change=on_change, on_time_end=on_time_end)
+    else:
+        pw.io.subscribe(counts, on_change=None, on_time_end=None)
+    pw.run(monitoring_level=None, commit_duration_ms=50)
+    return {"proc": dist.process_id(), "nproc": dist.process_count(), "stopped": True}
+
+
+def scenario_rest() -> dict:
+    """Rank 0 binds the REST front; the query rows go to every rank by
+    broadcast, the answers gather back to rank 0 (the reference's
+    scenario).  Rank 1 reports whether it bound a socket."""
+    import os
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.internals.run import terminate
+    from pathway_tpu_torch.parallel import distributed as dist
+    from pathway_tpu_torch.parallel.distributed import topology_from_env
+
+    _nproc, rank, _addr = topology_from_env()
+    port = int(os.environ["DIST_REST_PORT"])
+    expected = int(os.environ["DIST_REST_EXPECTED"])
+
+    class Q(pw.Schema):
+        value: int
+
+    queries, writer = pw.io.http.rest_connector(host="127.0.0.1", port=port, schema=Q, delete_completed_queries=True)
+    responses = queries.select(result=pw.this.value * 2)
+    writer(responses)
+    served: set = set()
+    linger = [0]
+
+    def on_change(key, row, time, is_addition):
+        if is_addition:
+            served.add(row["result"])
+
+    def on_time_end(time):
+        if len(served) >= expected:
+            linger[0] += 1
+            if linger[0] >= 3:
+                terminate()
+
+    if rank == 0:
+        pw.io.subscribe(responses, on_change=on_change, on_time_end=on_time_end)
+    else:
+        pw.io.subscribe(responses, on_change=None, on_time_end=None)
+    from pathway_tpu_torch.io.http import PathwayWebserver
+
+    servers = sum(isinstance(getattr(h, "__self__", None), PathwayWebserver) for h in G.pre_run_hooks)
+    pw.run(monitoring_level=None, commit_duration_ms=50)
+    return {"proc": dist.process_id(), "served": len(served), "servers": servers}
+
+
+class _Doubled:
+    """The reference's ``AsyncTransformer`` case: ``invoke`` doubles."""
+
+    @staticmethod
+    def build(pw):
+        class Out(pw.Schema):
+            word: str
+            doubled: int
+
+        class Doubler(pw.AsyncTransformer):
+            output_schema = Out
+
+            async def invoke(self, word, cnt):
+                return {"word": word, "doubled": cnt * 2}
+
+        table = pw.debug.table_from_markdown(
+            """
+            word  | cnt
+            alpha | 1
+            beta  | 2
+            gamma | 3
+            delta | 4
+            eps   | 5
+            """
+        )
+        return Doubler(input_table=table).successful
+
+
+def scenario_async_transformer() -> dict:
+    """``invoke`` runs once per row cluster-wide (the input gathers to
+    rank 0) and the results go back to their key owners through the
+    partitioned loop-back source."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.parallel import distributed as dist
+    from pathway_tpu_torch.parallel import gather_table_rows
+
+    result = _Doubled.build(pw)
+    pw.run(monitoring_level=None, commit_duration_ms=50)
+    lkeys, _ = result._materialize()
+    keys, cols = gather_table_rows(result)
+    rows = sorted((str(cols["word"][i]), int(cols["doubled"][i])) for i in range(len(keys)))
+    return {"proc": dist.process_id(), "rows": rows, "local_rows": len(lkeys)}
+
+
+TEMPORAL_MD = """
+    t  | v
+    1  | 1
+    3  | 2
+    5  | 3
+    7  | 4
+    11 | 5
+    13 | 6
+    """
+
+
+def windowed(pw):
+    events = pw.debug.table_from_markdown(TEMPORAL_MD)
+    return pw.temporal.windowby(events, events.t, window=pw.temporal.tumbling(duration=4)).reduce(
+        start=pw.this._pw_window_start, total=pw.reducers.sum(pw.this.v)
+    )
+
+
+def scenario_temporal() -> dict:
+    """A tumbling-window sum: window keys shard like any group key."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.parallel import distributed as dist
+    from pathway_tpu_torch.parallel import gather_table_rows
+
+    result = windowed(pw)
+    pw.run(monitoring_level=None)
+    keys, cols = gather_table_rows(result)
+    rows = sorted((int(cols["start"][i]), int(cols["total"][i])) for i in range(len(keys)))
+    return {"proc": dist.process_id(), "rows": rows}
+
+
+INDEX_DIM = 16
+INDEX_DOCS = 120
+INDEX_QUERIES = 12
+
+
+def index_tables(pw):
+    """Seeded documents and queries for the ``DataIndex`` scenario."""
+    rng = np.random.default_rng(11)
+    vecs = rng.standard_normal((INDEX_DOCS, INDEX_DIM)).astype(np.float32)
+    qv = rng.standard_normal((INDEX_QUERIES, INDEX_DIM)).astype(np.float32)
+    docs = pw.debug.table_from_rows(
+        pw.schema_from_types(name=str, vec=np.ndarray), [(f"d{i}", vecs[i]) for i in range(INDEX_DOCS)]
+    )
+    queries = pw.debug.table_from_rows(pw.schema_from_types(qname=str, qv=np.ndarray),
+                                       [(f"q{i}", qv[i]) for i in range(INDEX_QUERIES)])
+    return docs, queries
+
+
+def index_answers(pw, factory, docs, queries, k: int = 5):
+    """``query_as_of_now`` over ``factory``: the answers table with the
+    query's name, the hits' names and their scores."""
+    index = pw.stdlib.indexing.DataIndex(
+        docs, pw.stdlib.indexing.InnerIndex(data_column=docs.vec, factory=factory, dimension=INDEX_DIM)
+    )
+    result = index.query_as_of_now(queries.qv, number_of_matches=k)
+    return result.select(qname=queries.qname, names=docs.name, scores=result.score)
+
+
+def captured(pw, table, rank: int) -> dict:
+    """The table's rows as a sink on rank 0 sees them (``qname`` ->
+    names and score bits)."""
+    rows: dict = {}
+
+    def on_change(key, row, time, is_addition):
+        if is_addition:
+            rows[row["qname"]] = [list(row["names"]), [np.float32(s).view(np.uint32).item() for s in row["scores"]]]
+
+    pw.io.subscribe(table, on_change=on_change if rank == 0 else None)
+    return rows
+
+
+SERVE_TEXTS = [f"query {i} " + " ".join(["stream", "join", "window", "index"][: 1 + i % 4]) for i in range(9)]
+
+
+def fused_mesh_serve(mesh) -> tuple:
+    """``FusedEncodeSearch`` (exact, fused) over a ``DeviceKnnIndex`` on
+    ``mesh``: the rows (key, score bits) and the dispatches + fetches of
+    each serve."""
+    from pathway_tpu_torch.ops.dispatch_counter import DispatchCounter
+    from pathway_tpu_torch.ops.knn import DeviceKnnIndex
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+
+    encoder = port_encoder()
+    index = DeviceKnnIndex(32, metric="cos", initial_capacity=16, mesh=mesh, device="cpu")
+    index.add(list(range(1000, 1000 + len(ENCODER_TEXTS))), encoder.encode(ENCODER_TEXTS))
+    serve = FusedEncodeSearch(encoder, index, k=4)
+    with DispatchCounter() as c:
+        rows = serve(SERVE_TEXTS)
+    return ([[[int(k), np.float32(s).view(np.uint32).item()] for k, s in r] for r in rows],
+            [c.dispatches, c.fetches])
+
+
+def scenario_data_index() -> dict:
+    """Two ``DataIndex``es over the same documents: a full-probe IVF
+    (each rank holds every row; the rescore's plain version on the CPU)
+    and a ``TpuKnnFactory`` index over a mesh of 4 CPU shards per rank
+    (8 in all, spanning the ranks); then the fused serve path over the
+    cross-process mesh."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.parallel import distributed as dist
+    from pathway_tpu_torch.parallel.distributed import topology_from_env
+    from pathway_tpu_torch.parallel.mesh import make_mesh
+
+    _nproc, rank, _addr = topology_from_env()
+    dist.maybe_initialize()
+    mesh = make_mesh(devices=["cpu"] * 4)
+    docs, queries = index_tables(pw)
+    ivf = pw.stdlib.indexing.IvfKnnFactory(dimension=INDEX_DIM, n_clusters=4, n_probe=4, device="cpu")
+    tpu = pw.stdlib.indexing.TpuKnnFactory(dimension=INDEX_DIM, mesh=mesh)
+    got_ivf = captured(pw, index_answers(pw, ivf, docs, queries), rank)
+    got_mesh = captured(pw, index_answers(pw, tpu, docs, queries), rank)
+    pw.run(monitoring_level=None)
+    from pathway_tpu_torch.engine.operators.external_index import ExternalIndexOperator
+    from pathway_tpu_torch.internals.parse_graph import G
+
+    ops = [op for op in G.engine_graph.operators if isinstance(op, ExternalIndexOperator)]
+    sizes = [len(op.index.index) for op in ops]
+    serve_rows, serve_counts = fused_mesh_serve(mesh)
+    return {"proc": dist.process_id(), "ivf": got_ivf, "mesh": got_mesh, "index_rows": sizes,
+            "serve": serve_rows, "serve_counts": serve_counts}
+
+
+SCENARIOS = {
+    "control_plane": scenario_control_plane,
+    "mesh": scenario_mesh,
+    "engine": scenario_engine,
+    "live_stream": scenario_live_stream,
+    "rest": scenario_rest,
+    "async_transformer": scenario_async_transformer,
+    "temporal": scenario_temporal,
+    "data_index": scenario_data_index,
+}
 
 
 def main() -> int:

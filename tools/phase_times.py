@@ -5,7 +5,7 @@
     python3 tools/phase_times.py run.log [more logs]
     python3 chip_smoke.py 2>&1 | python3 tools/phase_times.py --stamp > run.log
 
-prints a markdown table with one column per log.  Phases 10-23 report
+prints a markdown table with one column per log.  Phases 10-24 report
 their own seconds (the line that ends each one); phases 1-9 report none,
 so their row is the script's total less the phases after them.  A line
 may carry a leading ``<seconds><tab>`` stamp, which is ignored here;
@@ -37,6 +37,7 @@ ENDS = [
     ("21 persist", r"; phase 21 ([\d.]+) s$"),
     ("22 temporal", r"; phase 22 ([\d.]+) s$"),
     ("23 hostapi", r"; phase 23 ([\d.]+) s$"),
+    ("24 cluster", r"; phase 24 ([\d.]+) s \(the cluster arm [\d.]+ s\)$"),
 ]
 TOTAL = r"chip_smoke: all phases passed in ([\d.]+) s$"
 EARLY = "1-9 (total less the rest)"
