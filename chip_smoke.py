@@ -23,6 +23,8 @@ NVIDIA GPU:
     python3 chip_smoke.py --persist        # the builds, then phase 21 alone
     python3 chip_smoke.py --temporal       # the builds, then phase 22 alone
     python3 chip_smoke.py --hostapi        # the builds, then phase 23 alone
+    python3 chip_smoke.py --cluster        # the builds, then phase 24 alone
+    python3 chip_smoke.py --connectors     # the builds, then phase 25 alone
     python3 chip_smoke.py --first-call ROOT...  # the profiler's first sampled
                                            # call, fresh processes, per root
 
@@ -253,7 +255,14 @@ Phases, in order; any failure exits non-zero:
    1,000,000 x 384 seeded unit rows made on the card (4 blocks of 125,000
    rows per rank); top-10 keys and scores of 16 batches of 64 bitwise
    equal across the ranks and to one process's 8-shard mesh; q/s and the
-   exchange's ms per search printed with the backend; (c)
+   exchange's ms per search printed with the backend; then ring attention
+   at (d)'s shape with the 8 sequence blocks on an ``("sp",)`` mesh
+   spanning the ranks (4 each; K/V passed to the next rank by
+   ``distributed.ring_shift``, host-staged under gloo), f32 and bf16, full
+   and causal, each rank returning the whole output, held in (d) against
+   dense attention and the one-process ring (f32 within 1e-4, bf16 within
+   3e-2); the ring's ms per call and the shift's bytes and ms per step
+   printed per rank; (c)
    ``SentenceEncoder(mesh=...)`` over 8 logical shards against the
    unsharded encoder on 4,096 documents (bf16 within 3e-2, f32 within
    1e-5), docs/s of both; (d) ring attention at B = 1, L = 16,384, 6 heads
@@ -424,8 +433,38 @@ Phases, in order; any failure exits non-zero:
    the rescore at the phase's shape alone and between events beside its
    bound.
 
+24. the multi-process engine: two ranks of ``pw.run`` through ``python -m
+   pathway_tpu_torch.cli spawn`` on the one card, partitioned readers of
+   phase 4's documents into a full-probe IVF and a mesh index spanning the
+   ranks, queries through the REST front on rank 0, then a kill arm.
+25. a CDC feed into a live vector index, through the client-gated
+   connectors over fake clients injected into ``sys.modules`` for the
+   phase only (the card's machine has no ``boto3``, ``kafka``,
+   ``psycopg2`` or ``opentelemetry``): ``pw.io.s3.read`` of 16 JSON-lines
+   objects with etag offsets holding phase 4's 65,536 documents; phase
+   19's ``TpuEmbedder`` into a full-probe IVF ``DataIndex``;
+   ``pw.io.debezium.read`` over a 4-partition Kafka topic streams 1,024
+   updates and 1,024 deletes of those documents in 4 commits (its after
+   images applied with ``update_rows``; the deletes, which the debezium
+   table never held, through a second consumer group's
+   ``pw.io.kafka.read`` and ``difference``), each followed by a commit of
+   64 queries on a Kafka topic answered as of now (k = 10), half of them
+   the commit's updated texts; the answers out through
+   ``pw.io.kafka.write`` and ``pw.io.postgres.write_snapshot``; ``pw.run``
+   under a monitoring endpoint and a recording ``opentelemetry``.
+   Checked: every answer == an exact search on the card over the alive
+   documents' embeddings (ties within 1e-5, scores within 1e-4); no
+   deleted document returned; the index's rows == the alive count after
+   every commit; the Kafka messages and the Postgres statements == a
+   plain loop over the answers' update stream; one ``pathway.run`` span
+   with the graph's operator and table counts; the rescore launched, and
+   equal to its plain version at the phase's shape; every index tensor on
+   ``cuda``.  Printed: ingest s, CDC commit to retrievable ms, retrieve
+   p50 / p99 per query commit, the rescore alone against its bound, the
+   busy share.
+
 Every shape-census tripwire runs strict from the start
-(``PATHWAY_RECOMPILE_STRICT=1``); after phase 23 none may have tripped.
+(``PATHWAY_RECOMPILE_STRICT=1``); after phase 25 none may have tripped.
 
 The card's name and power limit, then the JSON record of the kernels,
 then ``{"ok": true, "device": {...}}`` are the last three lines; the
@@ -444,6 +483,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -3588,6 +3628,10 @@ RING_HEADS = 6
 RING_HD = 64
 RING_F32_ATOL = 1e-4
 RING_BF16_ATOL = 3e-2
+RING_REPS = 3  # timed calls of the ring across the ranks, per configuration
+RING_SHIFT_REPS = 20  # ring_shift calls timed alone
+RING_CASES = tuple((causal, name, dt) for causal in (False, True)
+                   for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)))
 
 
 def dp_rows(dev) -> torch.Tensor:
@@ -3617,10 +3661,67 @@ def dp_search(index, queries: np.ndarray):
     return keys, scores, (time.perf_counter() - t) / (len(queries) // BATCH)
 
 
+def ring_inputs(dev):
+    """Phase 17's ring attention inputs at B = 1, L = 16,384, 6 heads of
+    64, ~20% of keys masked, made on the card from a seed (the same on
+    every rank)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    q, k, v = (torch.randn(1, RING_L, RING_HEADS, RING_HD, generator=gen, device=dev) for _ in range(3))
+    kv_mask = torch.rand(1, RING_L, generator=gen, device=dev) > 0.2
+    positions = torch.arange(RING_L, device=dev)[None]
+    return q, k, v, kv_mask, positions
+
+
+def ring_across_ranks(dev, grid, out_dir: str) -> dict:
+    """Phase 17(b)'s ring arm on this rank: the 8 blocks of an ``("sp",)``
+    mesh over both ranks (4 each, the data axis of ``grid``), f32 and
+    bf16, full and causal; rank 0 saves each whole output to ``out_dir``
+    for the phase's checks.  Returns ms per call, and the shift's bytes
+    and ms per step (``ring_shift`` of one block's K, V, mask and
+    positions, timed alone)."""
+    from pathway_tpu_torch.ops.ring_attention import ring_attention_sharded
+    from pathway_tpu_torch.parallel import distributed as dist
+    from pathway_tpu_torch.parallel.mesh import Mesh
+
+    sp = Mesh([grid.data_device(i) for i in range(grid.shape["data"])], axis_names=("sp",), owners=grid.owners)
+    q, k, v, kv_mask, positions = ring_inputs(dev)
+    out = {"ms": {}, "shift_bytes": {}, "shift_ms": {}}
+    for causal, name, dt in RING_CASES:
+        args = (q.to(dt), k.to(dt), v.to(dt), kv_mask, positions)
+        got = ring_attention_sharded(sp, *args, causal=causal)
+        case = f"{'causal' if causal else 'full'} {name}"
+        if dist.process_id() == 0:
+            torch.save(got.cpu(), os.path.join(out_dir, f"ring {case}.pt"))
+        del got
+        dist.barrier(f"p17-ring-{case}")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(RING_REPS):
+            ring_attention_sharded(sp, *args, causal=causal)
+        torch.cuda.synchronize()
+        out["ms"][case] = (time.perf_counter() - t) * 1e3 / RING_REPS
+        if causal:
+            continue
+        block = RING_L // sp.shape["sp"]
+        held = [args[1][:, :block].contiguous(), args[2][:, :block].contiguous(), kv_mask[:, :block].contiguous(),
+                positions[:, :block].contiguous()]
+        out["shift_bytes"][name] = sum(t.numel() * t.element_size() for t in held)
+        dist.ring_shift(held)
+        dist.barrier(f"p17-shift-{name}")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(RING_SHIFT_REPS):
+            dist.ring_shift(held)
+        torch.cuda.synchronize()
+        out["shift_ms"][name] = (time.perf_counter() - t) * 1e3 / RING_SHIFT_REPS
+    return out
+
+
 def rank_worker(out_dir: str) -> int:
     """One rank of phase 17(b): join the cluster from the topology env,
     check the control plane, build this rank's blocks of the 8-shard
-    ``DeviceKnnIndex`` and search it; keys and scores to
+    ``DeviceKnnIndex`` and search it, then ring attention with this rank's
+    4 of the 8 sequence blocks (``ring_across_ranks``); keys and scores to
     ``out_dir/rank<r>.npz``, one ``RESULT`` line."""
     from pathway_tpu_torch import observe
     from pathway_tpu_torch.ops.knn import DeviceKnnIndex
@@ -3667,14 +3768,18 @@ def rank_worker(out_dir: str) -> int:
         gather_shards(mesh, cands)
     alone_ms = (time.perf_counter() - t) * 1e3 / DP_EXCHANGE_REPS
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), keys=keys, scores=scores)
+    block_rows = [list(b.shape) for b in index._mats if b is not None]
+    del index
+    torch.cuda.empty_cache()
+    ring = ring_across_ranks(dev, mesh, out_dir)
     checks["done"] = dist.barrier("p17-done")
     out = {
         "rank": rank, "ranks": dist.process_count(), "backend": dist.data_backend(), "checks": checks,
         "shards": mesh.shape["data"], "local": local_shards(mesh),
-        "block_rows": [list(b.shape) for b in index._mats if b is not None],
+        "block_rows": block_rows,
         "build_s": build_s, "qps": BATCH / batch_s, "batch_ms": batch_s * 1e3,
         "exchange_ms": (exchange.sum_seconds - s0) * 1e3 / max(1, n_ex), "exchanges": n_ex,
-        "exchange_alone_ms": alone_ms, "exchange_bytes": cands.numel() * cands.element_size(),
+        "exchange_alone_ms": alone_ms, "exchange_bytes": cands.numel() * cands.element_size(), "ring": ring,
     }
     dist.shutdown()
     print("RESULT " + json.dumps(out), flush=True)
@@ -3769,6 +3874,8 @@ def multiprocess_phase(encoder, docs, batches, serve_exact, exact_p50_ms: float,
         per_rank = [np.load(os.path.join(out_dir, f"rank{r}.npz")) for r in range(DP_RANKS)]
         keys = [p["keys"] for p in per_rank]
         scores = [p["scores"] for p in per_rank]
+        cases = [f"{'causal' if c else 'full'} {n}" for c, n, _dt in RING_CASES]
+        ring_across = {case: torch.load(os.path.join(out_dir, f"ring {case}.pt")) for case in cases}
     outs = [r for r, _ in results]
     why = ""
     for o, (_, err) in zip(outs, results):
@@ -3809,6 +3916,19 @@ def multiprocess_phase(encoder, docs, batches, serve_exact, exact_p50_ms: float,
     )
     if not all(same) or self_hit != 1.0:
         raise AssertionError(f"2 x 4 shards differ from 1 x 8 (equal per rank: {same}), self-hit {self_hit}")
+    log(
+        f"ring attention across the two ranks {tag}: B=1 L={RING_L}, {RING_HEADS} heads x {RING_HD}, 8 blocks of "
+        f"{RING_L // RING_BLOCKS} on an sp mesh spanning the ranks (4 blocks each, {why}); every rank returns the "
+        f"whole output (checked in (d)); "
+        + "; ".join(
+            f"rank {o['rank']}: " + ", ".join(f"{case} {ms:.3f} ms" for case, ms in o["ring"]["ms"].items())
+            + "; shift per step (one block's K, V, mask and positions to the next rank, host-staged): "
+            + ", ".join(f"{name} {o['ring']['shift_bytes'][name]} bytes {o['ring']['shift_ms'][name]:.3f} ms"
+                        for name in o["ring"]["shift_ms"])
+            for o in outs
+        )
+        + f" ({RING_REPS} calls and {RING_SHIFT_REPS} shifts timed per case)"
+    )
 
     # -- (c) SentenceEncoder over the logical 8-shard mesh --
     mesh8 = make_mesh(8, 1, devices=[dev] * 8)
@@ -3841,10 +3961,7 @@ def multiprocess_phase(encoder, docs, batches, serve_exact, exact_p50_ms: float,
         raise AssertionError(f"mesh encoder rows differ: bf16 {bf16_err}, f32 {f32_err}")
 
     # -- (d) ring attention at 16,384 tokens over 8 blocks --
-    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
-    q, k, v = (torch.randn(1, RING_L, RING_HEADS, RING_HD, generator=gen, device=dev) for _ in range(3))
-    kv_mask = torch.rand(1, RING_L, generator=gen, device=dev) > 0.2
-    positions = torch.arange(RING_L, device=dev)[None]
+    q, k, v, kv_mask, positions = ring_inputs(dev)
     ring_mesh = Mesh([dev] * RING_BLOCKS, axis_names=("sp",))
     torch.cuda.empty_cache()
     parts = []
@@ -3854,13 +3971,21 @@ def multiprocess_phase(encoder, docs, batches, serve_exact, exact_p50_ms: float,
             ring = ring_attention_sharded(ring_mesh, *args, causal=causal)
             dense = dense_attention(*args, causal=causal)
             err = float((ring.float() - dense).abs().max())
+            across = ring_across[f"{'causal' if causal else 'full'} {name}"].to(dev)
+            across_dense = float((across.float() - dense).abs().max())
+            across_one = float((across.float() - ring.float()).abs().max())
             del dense
-            if not err <= atol:
-                raise AssertionError(f"ring attention {name} causal={causal}: max err {err} > {atol}")
+            if not (err <= atol and across_dense <= atol and across_one <= atol and across.dtype == dt
+                    and across.shape == ring.shape):
+                raise AssertionError(f"ring attention {name} causal={causal}: max err {err}, across the ranks "
+                                     f"{across_dense} against dense and {across_one} against one process (atol "
+                                     f"{atol}), {across.dtype} {tuple(across.shape)}")
+            del across
             ring_ms = timed_ms(lambda: ring_attention_sharded(ring_mesh, *args, causal=causal), reps=3)
             dense_ms = timed_ms(lambda: dense_attention(*args, causal=causal), reps=2)
             parts.append(f"{'causal' if causal else 'full'} {name}: max err {err:.2e} (atol {atol}), ring "
-                         f"{ring_ms:.3f} ms, dense {dense_ms:.3f} ms")
+                         f"{ring_ms:.3f} ms, dense {dense_ms:.3f} ms; across the two ranks max err {across_dense:.2e} "
+                         f"against dense, {across_one:.2e} against this ring")
             if name == "f32" and not causal:
                 ks = sorted(profiled_kernels(lambda: ring_attention_sharded(ring_mesh, *args), reps=1),
                             key=lambda x: -x[1])
@@ -7914,6 +8039,503 @@ def cluster_phase(tag: str, dev=None, n_docs: int = N_DOCS, fw_ingest=None):
     return [r["launches"] for r in ranks], shape
 
 
+# -- phase 25: a CDC feed into a live vector index ---------------------------------
+CX_OBJECTS = 16  # JSON-lines objects in the bucket, N_DOCS / 16 documents each
+CX_PARTITIONS = 4  # partitions of the CDC and query topics
+CX_COMMITS = 4  # CDC commits, each followed by a query commit of BATCH
+CX_UPDATES = 1024  # document updates over the CDC commits
+CX_DELETES = 1024  # document deletes over the CDC commits
+CX_RE_DELETES = 64  # of each later commit's deletes, documents the commit before updated
+CX_COMMIT_MS = 10  # the engine's commit tick
+CX_WAIT_S = 300.0
+CX_ENDPOINT = "http://127.0.0.1:4317"  # the recording opentelemetry below never connects
+CX_BUCKET, CX_PREFIX = "cx-corpus", "documents/"
+CX_CDC_TOPIC, CX_QUERY_TOPIC, CX_ANSWER_TOPIC = "cx.public.documents", "cx.queries", "cx.answers"
+CX_BROKER = "cx-broker:9092"
+
+
+class _CxBroker:
+    """The phase's Kafka broker: each topic an append-only log of
+    ``(partition, offset, value)`` over ``CX_PARTITIONS`` partitions (by
+    key), read from the start by every consumer (``auto.offset.reset =
+    earliest``) until the topic is closed; produced messages are kept by
+    topic."""
+
+    def __init__(self):
+        self.cond = threading.Condition()
+        self.logs, self.closed, self.offsets, self.produced = {}, set(), {}, {}
+
+    def publish(self, topic: str, items) -> None:
+        """One commit of ``(key, JSON-able value)``: partition ``key %
+        CX_PARTITIONS``, the partitions interleaved as a broker serves them."""
+        with self.cond:
+            offsets = self.offsets.setdefault(topic, [0] * CX_PARTITIONS)
+            msgs = []
+            for key, value in items:
+                p = key % CX_PARTITIONS
+                msgs.append((offsets[p], p, json.dumps(value).encode()))
+                offsets[p] += 1
+            self.logs.setdefault(topic, []).extend((p, o, v) for o, p, v in sorted(msgs))
+            self.cond.notify_all()
+
+    def close(self) -> None:
+        with self.cond:
+            self.closed.update(self.logs)
+            self.closed.update((CX_CDC_TOPIC, CX_QUERY_TOPIC))
+            self.cond.notify_all()
+
+    def consume(self, topic: str):
+        i = 0
+        while True:
+            with self.cond:
+                while i >= len(self.logs.get(topic, ())) and topic not in self.closed:
+                    self.cond.wait(0.05)
+                log = self.logs.get(topic, [])
+                if i >= len(log):
+                    return
+                batch, i = log[i:], len(log)
+            for p, o, v in batch:
+                yield types.SimpleNamespace(partition=p, offset=o, value=v)
+
+    def modules(self, bucket: dict, pg_log: list, spans: list) -> dict:
+        """The client modules the phase's connectors import: ``kafka``,
+        ``boto3`` over ``bucket`` ({key: (etag, bytes)}), ``psycopg2``
+        logging to ``pg_log``, and an ``opentelemetry`` whose tracer
+        records finished spans in ``spans``."""
+        import contextlib
+
+        broker = self
+
+        class KafkaConsumer:
+            def __init__(self, topic, **kw):
+                assert kw.get("bootstrap_servers") == CX_BROKER, kw
+                self._it = broker.consume(topic)
+
+            def __iter__(self):
+                return self._it
+
+        class KafkaProducer:
+            def __init__(self, **kw):
+                assert kw.get("bootstrap_servers") == CX_BROKER, kw
+
+            def send(self, topic, payload):
+                with broker.cond:
+                    broker.produced.setdefault(topic, []).append(payload)
+
+            def flush(self):
+                pass
+
+        class S3:
+            def get_paginator(self, op):
+                assert op == "list_objects_v2"
+                return types.SimpleNamespace(paginate=lambda Bucket, Prefix: [{"Contents": [
+                    {"Key": key, "ETag": etag} for key, (etag, _b) in sorted(bucket.items())
+                    if Bucket == CX_BUCKET and key.startswith(Prefix)]}])
+
+            def download_file(self, bkt, key, local):
+                with open(local, "wb") as f:
+                    f.write(bucket[key][1])
+
+        class Cursor:
+            def execute(self, sql, params):
+                pg_log.append((" ".join(sql.split()), tuple(params)))
+
+        class Conn:
+            def cursor(self):
+                return Cursor()
+
+            def commit(self):
+                pass
+
+            def close(self):
+                pass
+
+        class Span:
+            def __init__(self):
+                self.attrs = {}
+
+            def set_attribute(self, key, value):
+                self.attrs[key] = value
+
+        class Tracer:
+            @contextlib.contextmanager
+            def start_as_current_span(self, name):
+                span = Span()
+                yield span
+                spans.append((name, dict(span.attrs)))
+
+        class Meter:
+            def create_observable_gauge(self, *a, **k):
+                pass
+
+            create_observable_counter = create_observable_gauge
+
+        def module(name, **attrs):
+            mod = types.ModuleType(name)
+            mod.__dict__.update(attrs)
+            return mod
+
+        trace = module("opentelemetry.trace", get_tracer=lambda name: Tracer())
+        metrics = module("opentelemetry.metrics", get_meter=lambda name: Meter())
+        return {
+            "kafka": module("kafka", KafkaConsumer=KafkaConsumer, KafkaProducer=KafkaProducer),
+            "boto3": module("boto3", client=lambda service, **kw: S3()),
+            "psycopg2": module("psycopg2", connect=lambda **kw: Conn()),
+            "opentelemetry": module("opentelemetry", trace=trace, metrics=metrics),
+            "opentelemetry.trace": trace,
+            "opentelemetry.metrics": metrics,
+            "opentelemetry.sdk": module("opentelemetry.sdk"),
+            "opentelemetry.sdk.resources": module("opentelemetry.sdk.resources", Resource=types.SimpleNamespace(
+                create=lambda attrs: attrs)),
+        }
+
+
+def _cx_bucket(docs) -> dict:
+    """The bucket: ``CX_OBJECTS`` JSON-lines objects of the documents,
+    each with an etag."""
+    import hashlib
+
+    per = len(docs) // CX_OBJECTS
+    bucket = {}
+    for o in range(CX_OBJECTS):
+        body = "".join(json.dumps({"doc_id": i, "text": docs[i]}) + "\n"
+                       for i in range(o * per, (o + 1) * per)).encode()
+        bucket[f"{CX_PREFIX}part{o:03d}.jsonl"] = (hashlib.md5(body).hexdigest(), body)
+    return bucket
+
+
+def _cx_changes(docs, n_updates: int, n_deletes: int, commits: int):
+    """The CDC commits: per commit ``(updates, deletes)``, an update
+    ``(doc, before, after)``, a delete ``(doc, before)``; from commit 1 on
+    the first ``CX_RE_DELETES`` deletes are documents the commit before
+    updated (their before image the updated text)."""
+    rng = np.random.default_rng(SEED + 25)
+    order = rng.permutation(len(docs)).tolist()
+    upd, dele = order[:n_updates], order[n_updates : n_updates + n_deletes]
+    per_u, per_d = n_updates // commits, n_deletes // commits
+    text = dict(enumerate(docs))
+    out, prev = [], []
+    fresh_deletes = iter(dele)
+    for c in range(commits):
+        updates = [(d, text[d], f"{text[d]} revised{c}") for d in upd[c * per_u : (c + 1) * per_u]]
+        re_del = prev[: min(CX_RE_DELETES, per_d)] if c else []
+        deletes = [(d, after) for d, _b, after in re_del]
+        deletes += [(d, text[d]) for d in itertools.islice(fresh_deletes, per_d - len(deletes))]
+        for d, _b, after in updates:
+            text[d] = after
+        out.append((updates, deletes))
+        prev = updates
+    return out
+
+
+def _cx_envelope(doc: int, op: str, before=None, after=None) -> dict:
+    payload = {"op": op, "source": {"table": "documents"}, "ts_ms": 0}
+    if before is not None:
+        payload["before"] = {"doc_id": doc, "text": before}
+    if after is not None:
+        payload["after"] = {"doc_id": doc, "text": after}
+    return {"payload": payload}
+
+
+def _cx_graph(pw, emb, dev, cuda: bool):
+    """The phase's graph: the bulk documents from S3, the CDC feed applied
+    (debezium after images over them, its deletes through a second
+    consumer group of the same topic), the live documents embedded into a
+    full-probe IVF ``DataIndex``, queries from Kafka answered as of now,
+    the answers out to Kafka and to a Postgres snapshot."""
+    import zlib
+
+    class Doc(pw.Schema):
+        doc_id: int = pw.column_definition(primary_key=True)
+        text: str
+
+    class Envelope(pw.Schema):
+        payload: dict
+
+    class Query(pw.Schema):
+        qid: int = pw.column_definition(primary_key=True)
+        query: str
+
+    def field(payload, *path):
+        value = getattr(payload, "value", payload)
+        for p in path:
+            value = (value or {}).get(p)
+        return value
+
+    settings = {"bootstrap.servers": CX_BROKER, "auto.offset.reset": "earliest"}
+    bulk = pw.io.s3.read(f"s3://{CX_BUCKET}/{CX_PREFIX}", format="json", schema=Doc, mode="static", name="cx_bulk")
+    changed = pw.io.debezium.read({**settings, "group.id": "cx-index"}, CX_CDC_TOPIC, schema=Doc, name="cx_cdc")
+    raw = pw.io.kafka.read({**settings, "group.id": "cx-tombstones"}, CX_CDC_TOPIC, schema=Envelope, format="json",
+                           name="cx_cdc_raw")
+    deleted = raw.select(op=pw.apply(field, pw.this.payload, "op"),
+                         doc_id=pw.apply(lambda p: int(field(p, "before", "doc_id")), pw.this.payload))
+    deleted = deleted.filter(pw.this.op == "d").with_id_from(pw.this.doc_id)
+    live = bulk.update_rows(changed).difference(deleted)
+    vecs = live.select(pw.this.doc_id, vec=emb(pw.this.text),
+                       meta=pw.apply(lambda d, t: {"doc": int(d), "crc": zlib.crc32(t.encode())}, pw.this.doc_id,
+                                     pw.this.text))
+    mod = pw.stdlib.indexing
+    index = mod.DataIndex(vecs, mod.InnerIndex(
+        data_column=vecs.vec, metadata_column=vecs.meta, dimension=emb.get_embedding_dimension(),
+        factory=mod.IvfKnnFactory(dimension=emb.get_embedding_dimension(), n_probe=1 << 30,
+                                  device=None if cuda else dev),
+    ))
+    queries = pw.io.kafka.read({**settings, "group.id": "cx-queries"}, CX_QUERY_TOPIC, schema=Query, format="json",
+                               name="cx_queries")
+    qs = queries.select(pw.this.qid, qvec=emb(pw.this.query))
+    res = index.query_as_of_now(qs.qvec, number_of_matches=K)
+    answers = res.select(qid=qs.qid, docs=vecs.doc_id, scores=res.score).select(
+        pw.this.qid, docs=pw.apply(lambda ds: tuple(int(d) for d in ds), pw.this.docs),
+        scores=pw.apply(lambda ss: tuple(float(s) for s in ss), pw.this.scores))
+    pw.io.kafka.write(answers, settings, topic_name=CX_ANSWER_TOPIC)
+    pw.io.postgres.write_snapshot(answers, {"host": "cx-db", "dbname": "answers"}, "cx_answers", primary_key=["qid"])
+    return answers
+
+
+def connectors_retrieval(pw, emb, docs, dev, commits: int = CX_COMMITS):
+    """Phase 25's run: the graph over the fake bucket, broker, database
+    and tracer, driven commit by commit; returns the report."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathway_tpu_torch.engine.operators.external_index import ExternalIndexOperator
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+
+    cuda = dev.type == "cuda"
+    n = len(docs)
+    broker, pg_log, spans = _CxBroker(), [], []
+    bucket = _cx_bucket(docs)
+    changes = _cx_changes(docs, CX_UPDATES * n // N_DOCS, CX_DELETES * n // N_DOCS, commits)
+    fakes = broker.modules(bucket, pg_log, spans)
+    saved = {name: sys.modules.get(name) for name in fakes}
+    sys.modules.update(fakes)
+    config = pw.get_config()
+    endpoint = config.monitoring_server
+    from pathway_tpu_torch.observe import recorder
+
+    spans_on, telemetry = recorder._spans_on, recorder._telemetry
+    driver = _FrameworkDriver("phase 25")
+    report = {"cdc_ms": [], "latency_ms": [], "alive": [], "index_rows": [], "searches_of": [], "fresh": [],
+              "fresh_first": 0, "updates": sum(len(u) for u, _d in changes),
+              "deletes": sum(len(d) for _u, d in changes)}
+    try:
+        pw.set_monitoring_config(server_endpoint=CX_ENDPOINT)
+        t_build = _now()
+        answers = _cx_graph(pw, emb, dev, cuda)
+        pw.io.subscribe(answers, on_change=driver.on_change("answers"), on_time_end=driver.on_tick)
+        (op,) = [o for o in pw.G.engine_graph.operators if isinstance(o, ExternalIndexOperator)]
+        inner, ivf = op.index, op.index.index
+        live, vec_of_key, doc_of_key = {}, {}, {}  # key -> (doc, crc), its vector, its document
+        searches = []
+        orig_add, orig_remove, orig_search = inner.add, inner.remove, inner.search
+
+        def add(keys, values, metadatas):
+            orig_add(keys, values, metadatas)
+            with driver.cond:
+                for key, value, md in zip(keys, values, metadatas):
+                    md = getattr(md, "value", md)
+                    live[int(key)] = (int(md["doc"]), int(md["crc"]))
+                    doc_of_key[int(key)] = int(md["doc"])
+                    vec_of_key[int(key)] = np.asarray(value, np.float32)
+                driver.cond.notify_all()
+
+        def remove(keys):
+            orig_remove(keys)
+            with driver.cond:
+                for key in keys:
+                    live.pop(int(key), None)
+                driver.cond.notify_all()
+
+        def search(values, k, filters):
+            out = orig_search(values, k, filters)
+            searches.append((np.stack([np.asarray(v, np.float32) for v in values]), k, out))
+            return out
+
+        inner.add, inner.remove, inner.search = add, remove, search
+        report["build_s"] = _now() - t_build
+        import zlib
+
+        want = {d: zlib.crc32(t.encode()) for d, t in enumerate(docs)}
+        qidx = query_ids()
+
+        def state():
+            return {doc: crc for doc, crc in live.values()}
+
+        def drive():
+            driver.wait(lambda: state() == want, "the bulk documents in the index")
+            report["ingest_s"] = _now() - report["t_run"]
+            for c, (updates, deletes) in enumerate(changes):
+                for d, _b, after in updates:
+                    want[d] = zlib.crc32(after.encode())
+                for d, _b in deletes:
+                    want.pop(d)
+                t_cdc = _now()
+                broker.publish(CX_CDC_TOPIC, [(d, _cx_envelope(d, "u", before, after)) for d, before, after in updates]
+                               + [(d, _cx_envelope(d, "d", before)) for d, before in deletes])
+                driver.wait(lambda: state() == want, f"CDC commit {c} in the index")
+                report["cdc_ms"].append((_now() - t_cdc) * 1e3)
+                report["alive"].append({key: vec_of_key[key] for key in live})
+                report["index_rows"].append((len(ivf), len(want)))
+                n_before = len(searches)
+                fresh = [after for _d, _b, after in updates[: BATCH // 2]]
+                texts = fresh + [docs[qidx[c * BATCH + b] % n] for b in range(BATCH - len(fresh))]
+                report["fresh"].append([d for d, _b, _a in updates[: BATCH // 2]])
+                t_q = _now()
+                broker.publish(CX_QUERY_TOPIC, [(b, {"qid": c * BATCH + b, "query": text})
+                                                for b, text in enumerate(texts)])
+                driver.wait(lambda: len(driver.answers.get("answers", {})) >= (c + 1) * BATCH,
+                            f"the answers of query commit {c}")
+                last = max(t for t, _k, _d in driver.arrival["answers"])
+                report["latency_ms"].append((last - t_q) * 1e3)
+                report["searches_of"].append(list(range(n_before, len(searches))))
+
+        def run_driver():
+            try:
+                drive()
+            except BaseException as exc:  # noqa: BLE001 - re-raised on the main thread after the run
+                report["error"] = exc
+            finally:
+                broker.close()
+
+        rescore_shortlist.launches = 0
+        thread = threading.Thread(target=run_driver, daemon=True, name="phase25-driver")
+        with profile(activities=[ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]) as prof:
+            report["t_run"] = t_run = _now()
+            thread.start()
+            try:
+                pw.run(commit_duration_ms=CX_COMMIT_MS)
+            finally:
+                driver.stop = True
+                thread.join(timeout=60)
+            if cuda:
+                torch.cuda.synchronize()
+            wall_ms = (_now() - t_run) * 1e3
+        report["launches"] = rescore_shortlist.launches
+        if "error" in report:
+            raise report["error"]
+        report.update(wall_ms=wall_ms, stats=dict(ivf.stats),
+                      busy=device_busy(prof, wall_ms) if cuda else "busy share not measured (CPU)")
+
+        # -- checks ---------------------------------------------------------------
+        deleted_docs = set()
+        bad_rank = gone = 0
+        max_err = 0.0
+        for c, (alive, (rows_in, n_alive)) in enumerate(zip(report["alive"], report["index_rows"])):
+            deleted_docs.update(d for d, _b in changes[c][1])
+            if rows_in != n_alive or len(alive) != n_alive:
+                raise AssertionError(f"phase 25: after CDC commit {c} the index holds {rows_in} rows "
+                                     f"({len(alive)} keys), {n_alive} documents are alive")
+            # the Kafka source has no atomic commit: a query commit's rows may
+            # land in more than one tick, each tick one search
+            if not report["searches_of"][c]:
+                raise AssertionError(f"phase 25: query commit {c} searched no time")
+            rows = []
+            for si in report["searches_of"][c]:
+                qv, k, part = searches[si]
+                exact = _tm_exact(alive, set(alive), qv, k, dev)
+                for got, ref in zip(part, exact):
+                    got = [(int(key), float(score)) for key, score in got]
+                    gone += sum(1 for key, _s in got if key not in alive)
+                    bad_rank += not same_ranking(ref, got, tie=1e-5, atol=TM_EXACT_TOL)
+                    max_err = max([max_err] + [abs(a[1] - b[1]) for a, b in zip(ref, got)])
+                rows.extend(part)
+            answered = {ev[-1][1]["qid"]: ev[-1][1]["docs"] for ev in driver.answers["answers"].values()
+                        if ev[-1][1]["qid"] // BATCH == c}
+            if sorted(answered.values()) != sorted(tuple(doc_of_key[int(key)] for key, _s in r) for r in rows):
+                raise AssertionError(f"phase 25: commit {c}'s answers differ from its index's search")
+            if any(d in deleted_docs for docs_ in answered.values() for d in docs_):
+                raise AssertionError(f"phase 25: commit {c} answered a deleted document")
+            report["fresh_first"] += sum(1 for b, d in enumerate(report["fresh"][c])
+                                         if answered[c * BATCH + b] and answered[c * BATCH + b][0] == d)
+        retracted = sum(1 for evs in driver.answers["answers"].values() for e in evs if e[2] < 0)
+        if bad_rank or gone or retracted:
+            raise AssertionError(f"phase 25: {bad_rank} answers differ from the exact search over the alive "
+                                 f"documents, {gone} hits not alive, {retracted} retracted")
+        events = [(t, row, diff) for evs in driver.answers["answers"].values() for t, row, diff in evs]
+        want_kafka = sorted(json.dumps({"qid": int(row["qid"]), "docs": list(row["docs"]),
+                                        "scores": list(row["scores"]), "time": t, "diff": diff}, sort_keys=True)
+                            for t, row, diff in events)
+        got_kafka = sorted(json.dumps(json.loads(p), sort_keys=True) for p in broker.produced.get(CX_ANSWER_TOPIC, ()))
+        ins = ("INSERT INTO cx_answers (qid, docs, scores) VALUES (%s, %s, %s) ON CONFLICT (qid) DO UPDATE SET "
+               "docs = EXCLUDED.docs, scores = EXCLUDED.scores")
+        want_pg = sorted(((ins, (row["qid"], row["docs"], row["scores"])) if diff > 0
+                          else ("DELETE FROM cx_answers WHERE qid = %s", (row["qid"],)))
+                         for _t, row, diff in events)
+        if got_kafka != want_kafka or sorted(pg_log) != want_pg:
+            raise AssertionError(f"phase 25: {len(got_kafka)} Kafka messages and {len(pg_log)} Postgres statements, "
+                                 f"a plain loop over the {len(events)} answer events gives {len(want_kafka)} and "
+                                 f"{len(want_pg)} (equal: {got_kafka == want_kafka}, {sorted(pg_log) == want_pg})")
+        graph = {"operators": len(pw.G.engine_graph.operators), "tables": len(pw.G.engine_graph.tables)}
+        if spans != [("pathway.run", graph)]:
+            raise AssertionError(f"phase 25: spans {spans}, expected one pathway.run span with {graph}")
+        off = _cl_tensors_on(ivf, "cuda") if cuda else []
+        if cuda and (report["launches"] == 0 or off):
+            raise AssertionError(f"phase 25: {report['launches']} rescore launches, index tensors off the card: {off}")
+        report.update(max_err=max_err, events=len(events), kafka=len(got_kafka), pg=len(pg_log), graph=graph,
+                      n_clusters=int(ivf._centroids.shape[0]), searches=[len(of) for of in report["searches_of"]],
+                      queries=np.concatenate([searches[si][0] for si in report["searches_of"][-1]]),
+                      dead=int(torch.isneginf(ivf._bias).sum()) if ivf._bias is not None else 0,
+                      slots=0 if ivf._bias is None else int(ivf._bias.numel()), alive_end=len(ivf),
+                      bucket_bytes=sum(len(b) for _e, b in bucket.values()))
+        return report, ivf
+    finally:
+        for name, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
+        pw.set_monitoring_config(server_endpoint=endpoint)
+        recorder._spans_on, recorder._telemetry = spans_on, telemetry
+
+
+def connectors_phase(tag: str, dev=None, emb=None, docs=None, commits: int = CX_COMMITS):
+    """Phase 25: a CDC feed into a live vector index, all through ``import
+    pathway_tpu_torch as pw`` and the client-gated connectors over fake
+    clients.  Returns (rescore launches on the connectors path, the kernel
+    at the phase's shape)."""
+    import pathway_tpu_torch as pw
+
+    t_phase = _now()
+    dev = dev or torch.device(DEVICE)
+    cuda = dev.type == "cuda"
+    pw.reset()
+    if cuda:
+        torch.cuda.empty_cache()
+    docs = docs if docs is not None else corpus(N_DOCS)
+    emb = emb or _cl_embedder(dev)
+    r, ivf = connectors_retrieval(pw, emb, docs, dev, commits)
+    lat, cdc = r["latency_ms"], r["cdc_ms"]
+    log(
+        f"connectors {tag}: {len(docs)} documents in {CX_OBJECTS} JSON-lines objects ({r['bucket_bytes']} bytes, "
+        f"etag offsets) through pw.io.s3.read into a full-probe IVF DataIndex (C={r['n_clusters']}) by the "
+        f"TpuEmbedder, ingest {r['ingest_s']:.3f} s from pw.run; then {commits} CDC commits on a {CX_PARTITIONS}-"
+        f"partition Kafka topic through pw.io.debezium.read ({r['updates']} updates and {r['deletes']} deletes, "
+        f"deletes also through a second consumer group's pw.io.kafka.read), each followed by {BATCH} queries "
+        f"from a Kafka topic answered as of now (k={K}) out through pw.io.kafka.write and "
+        f"pw.io.postgres.write_snapshot, under pw.run's telemetry: the index held the alive count after every "
+        f"commit ({r['alive_end']} at the end), every answer (searches per query commit {r['searches']}: a Kafka "
+        f"commit may span ticks) == an exact search over the alive documents' "
+        f"embeddings on the card rank by rank (ties within 1e-5, scores within {TM_EXACT_TOL}; max diff "
+        f"{r['max_err']:.2e}), no deleted document "
+        f"returned, none retracted; {r['fresh_first']} of {sum(map(len, r['fresh']))} queries equal to a just-updated "
+        f"text found that document first; {r['kafka']} Kafka messages and {r['pg']} Postgres statements == a plain "
+        f"loop over the {r['events']} answer events; one pathway.run span with {r['graph']}; CDC commit to "
+        f"retrievable " + ", ".join(f"{ms:.3f}" for ms in cdc) + f" ms; retrieve per query commit (first to last "
+        f"answer) " + ", ".join(f"{ms:.3f}" for ms in lat) + f" ms, p50 {np.percentile(lat, 50):.3f} p99 "
+        f"{np.percentile(lat, 99):.3f} ms; the first commit apart (the first IVF search and query embed) p50 "
+        f"{np.percentile(lat[1:], 50):.3f} p99 {np.percentile(lat[1:], 99):.3f} ms; -inf bias slots at the end {r['dead']} of {r['slots']}; IVF "
+        f"retrains {r['stats'].get('retrains', 0)}, absorbs {r['stats'].get('absorbs', 0)}; graph build "
+        f"{r['build_s']:.3f} s; {r['busy']}; rescore launches {r['launches']}"
+    )
+    shape = None
+    if cuda:
+        shape = rescore_at_path_shape(ivf, ivf_search_rescore_args(ivf, r["queries"]), dev)
+        log(f"ivf_rescore at the connectors shape {tag}: " + rescore_line(ivf, shape)
+            + f"; {r['dead']} -inf bias slots in the slabs; launches {r['launches']}")
+    log(f"connectors {tag}: phase 25 {_now() - t_phase:.1f} s")
+    pw.reset()
+    return r["launches"], shape
+
+
 def framework_setup():
     """The set-up ``--framework`` and ``--qa`` share: the card's name, the
     kernels' build, phase 4's rows and phase 5's direct serve p50 (exact
@@ -8098,6 +8720,20 @@ def main() -> int:
         log(f"build {time.perf_counter() - t0:.1f} s")
         launches = cluster_phase(f"[{smi}]")[0]
         log(f"rescore launches per rank {launches}; shape census: {tripwire_census()}")
+        return 0
+    if sys.argv[1:] == ["--connectors"]:
+        from pathway_tpu_torch.kernels.build import build_host
+
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        ).stdout.strip()
+        log(f"card: {smi}")
+        t0 = time.perf_counter()
+        build_all()
+        build_host("tokenize_hash")
+        log(f"build {time.perf_counter() - t0:.1f} s")
+        launches = connectors_phase(f"[{smi}]")[0]
+        log(f"rescore launches {launches}; shape census: {tripwire_census()}")
         return 0
     if sys.argv[1:] == ["--distributed"]:
         from pathway_tpu_torch.kernels.build import build_host
@@ -8440,6 +9076,10 @@ def main() -> int:
     # -- 24. the multi-process engine: two ranks through cli spawn on the one card, counted per rank --
     cl_launches, cl_kernel = cluster_phase(tag, fw_ingest=FW_INGEST)
     worst_err = max(worst_err, cl_kernel["max_abs_err"])
+
+    # -- 25. a CDC feed into a live vector index through the client-gated connectors, counted --
+    cx_launches, cx_kernel = connectors_phase(tag)
+    worst_err = max(worst_err, cx_kernel["max_abs_err"])
     log(f"shape census: {tripwire_census()}")
 
     record = {
@@ -8451,14 +9091,15 @@ def main() -> int:
                 "replaces": "pathway_tpu/ops/ivf_pallas.py:37",
                 "launches": launches + rr_launches + sched_launches + li_launches + ws_launches + st_launches
                 + po_launches + sum(rw_launches.values()) + ss_launches + sf_launches + fw_launches
-                + qa_launches["ivf_rescore"] + ps_launches + tm_launches + ha_launches + sum(cl_launches),
+                + qa_launches["ivf_rescore"] + ps_launches + tm_launches + ha_launches + sum(cl_launches)
+                + cx_launches,
                 "launches_by_path": {
                     "serve": launches, "rerank": rr_launches, "scheduler": sched_launches,
                     "ingest": li_launches, "warmstate": ws_launches, "tuning": st_launches,
                     "profiling": po_launches, "real_weights": rw_launches, "sharded": ss_launches,
                     "fabric": sf_launches, "framework": fw_launches, "qa": qa_launches["ivf_rescore"],
                     "persist": ps_launches, "temporal": tm_launches, "hostapi": ha_launches,
-                    "cluster_per_rank": cl_launches,
+                    "cluster_per_rank": cl_launches, "connectors": cx_launches,
                 },
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,
@@ -8491,6 +9132,7 @@ def main() -> int:
                 "temporal_shape": {key: tm_kernel[key] for key in _SHAPE_KEYS},
                 "hostapi_shape": {key: ha_kernel[key] for key in _SHAPE_KEYS},
                 "cluster_shape": {key: cl_kernel[key] for key in _SHAPE_KEYS},
+                "connectors_shape": {key: cx_kernel[key] for key in _SHAPE_KEYS},
             },
             *decode_kernels,
         ]

@@ -10,7 +10,9 @@ incremental engine (``engine/``) with its persistence (``persistence``:
 input logs, operator snapshots, ``pw.run(persistence_config=...)``),
 ``debug``, ``demo``, ``io`` (``python``, ``subscribe``, the file
 connectors ``fs`` / ``csv`` / ``jsonlines`` / ``plaintext``, ``sqlite``,
-``null`` and the REST connector ``http``), ``iterate`` (fixed points over a
+``null``, the REST connector ``http``, and the connectors whose transport
+needs a client library, imported when called: ``kafka``, ``debezium``,
+``s3``, ``postgres`` and 15 more), ``iterate`` (fixed points over a
 nested engine graph), ``stdlib.indexing`` (``DataIndex`` over the device
 KNN indexes, BM25, the hybrid index, sorting), ``ml`` (``KNNIndex``, the
 LSH index, ``knn_classifier``), ``stateful``, ``temporal`` (windows,
@@ -24,10 +26,9 @@ transformers (``transformer``, ``ClassArg``, ...), ``export_table`` /
 ``import_table``, interactive mode (``LiveTable``), ``utils``
 (``AsyncTransformer``, ``pandas_transformer``, ``col``), ``viz``, the
 fuzzy joins and the HMM reducer (``ml``) and the deprecated
-``asynchronous``.  Names of the reference's namespace whose modules are
-later slices (the transport-gated connectors under ``pw.io``) are stubs
-(``internals/unported.py``) that raise ``NotImplementedError`` naming the
-slice in ``ROADMAP.md``.
+``asynchronous``.  ``pw.run`` exports OTLP spans through
+``internals/telemetry.py`` when a monitoring endpoint is set and
+``opentelemetry`` is installed.
 
 Device modules below the framework: host tokenizer -> ``TransformerEncoder``
 forward + masked mean pool + L2 normalize -> exact (``DeviceKnnIndex``)

@@ -11,7 +11,10 @@ or ``PATHWAY_PERSISTENT_STORAGE`` / ``PATHWAY_PERSISTENCE_MODE`` /
 ``PersistenceManager`` before the connectors start: it replays the input
 log (or restores operator snapshots), records new events and commits on
 the snapshot interval and at the end; a final commit that fails is
-logged, not raised, as the reference does.
+logged, not raised, as the reference does.  With a monitoring endpoint
+(``get_config().monitoring_server``) and ``opentelemetry`` installed, the
+run is one ``pathway.run`` span with the graph's ``operators`` and
+``tables`` counts (``internals/telemetry.py``).
 
 Under a cluster topology (``PATHWAY_PROCESSES`` > 1, as ``python -m
 pathway_tpu_torch.cli spawn`` sets it) ``pw.run`` first joins the
@@ -124,26 +127,36 @@ def run(
             start_metrics_server(G.engine_graph)
         except OSError as exc:  # the port is taken: the run goes on without /metrics, as the reference's
             logging.getLogger(__name__).warning("metrics server not started: %s", exc)
+    from .telemetry import maybe_telemetry
+
+    telemetry = maybe_telemetry()
+    telemetry.attach(G.engine_graph)
     for hook in G.pre_run_hooks[G.hooks_started :]:
         hook()
     G.hooks_started = len(G.pre_run_hooks)
     try:
-        try:
-            executor.run(bootstrap=bootstrap)
-        except BaseException as exc:
-            from ..parallel.exchange import PeerLost
+        with telemetry.span(
+            "pathway.run",
+            operators=len(G.engine_graph.operators),
+            tables=len(G.engine_graph.tables),
+        ):
+            try:
+                executor.run(bootstrap=bootstrap)
+            except BaseException as exc:
+                from ..parallel.exchange import PeerLost
 
-            if isinstance(exc, PeerLost):
-                # a cluster peer died: this worker cannot make progress
-                # and must not linger (an orderly exit would wait on the
-                # lost peer).  Hard-abort like the reference's worker-panic
-                # propagation (src/engine/dataflow.rs:5667-5676); recovery
-                # is a full cluster restart from the last persisted commits.
-                logging.getLogger(__name__).critical("aborting worker: %s", exc)
-                os._exit(70)
-            raise
+                if isinstance(exc, PeerLost):
+                    # a cluster peer died: this worker cannot make progress
+                    # and must not linger (an orderly exit would wait on the
+                    # lost peer).  Hard-abort like the reference's worker-panic
+                    # propagation (src/engine/dataflow.rs:5667-5676); recovery
+                    # is a full cluster restart from the last persisted commits.
+                    logging.getLogger(__name__).critical("aborting worker: %s", exc)
+                    os._exit(70)
+                raise
         G.ran_ops.update(op.id for op in G.engine_graph.operators)
     finally:
+        telemetry.shutdown()
         if manager is not None:
             try:
                 manager.finalize(executor.current_ts)

@@ -1,40 +1,86 @@
 """``pw.io`` of the port (counterpart of ``pathway_tpu/io``).
 
-Ported: ``python`` (``ConnectorSubject``, ``read``) and ``subscribe``,
-over the shared connector runtime (``_connector.py``); the file
-connectors ``fs`` (csv / json lines / plaintext / plaintext by file /
-binary, static or streaming) with ``csv``, ``jsonlines`` and
-``plaintext`` over it; ``http``, the REST connector on the standard
-library's HTTP server; ``sqlite`` over the standard library's
-``sqlite3``; ``null``, a sink that discards; and the connector bookkeeping (``_offsets.py``:
-committed offset antichains and per-connector monitors, read by the
-live-ingest runner, ``serve/ingest.py``, and the metrics server).  The
-message-queue, database and cloud connectors (``kafka`` and 18 more) are a
-later slice: each is a stub module whose names raise
-``NotImplementedError`` naming it (``ROADMAP.md``, framework slice 3c)."""
+Over the shared connector runtime (``_connector.py``): ``python``
+(``ConnectorSubject``, ``read``) and ``subscribe``; the file connectors
+``fs`` (csv / json lines / plaintext / plaintext by file / binary, static
+or streaming) with ``csv``, ``jsonlines`` and ``plaintext`` over it;
+``http``, the REST connector on the standard library's HTTP server;
+``sqlite`` over the standard library's ``sqlite3``; ``null``, a sink that
+discards; and the connector bookkeeping (``_offsets.py``: committed offset
+antichains and per-connector monitors, read by the live-ingest runner,
+``serve/ingest.py``, and the metrics server).
 
-from ..internals.unported import LaterSliceModule as _StubModule
-from . import csv, fs, http, jsonlines, null, plaintext, python, sqlite
+The message-queue, database and cloud connectors parse and format locally
+and need a client library only for the transport, imported when a
+connector is called (``_gated.py``; without it the call raises
+``ImportError`` naming the package): ``kafka`` with ``redpanda`` and
+``debezium`` over it, ``s3`` with ``s3_csv`` and ``minio``, ``deltalake``,
+``postgres``, ``mongodb``, ``bigquery``, ``nats``, ``pubsub``, ``gdrive``,
+``sharepoint``, ``pyfilesystem``; ``elasticsearch``, ``logstash`` and
+``slack`` over ``requests``; ``airbyte`` runs a source process and reads
+the Airbyte protocol from its output."""
+
+from . import (
+    airbyte,
+    bigquery,
+    csv,
+    debezium,
+    deltalake,
+    elasticsearch,
+    fs,
+    gdrive,
+    http,
+    jsonlines,
+    kafka,
+    logstash,
+    minio,
+    mongodb,
+    nats,
+    null,
+    plaintext,
+    postgres,
+    pubsub,
+    pyfilesystem,
+    python,
+    redpanda,
+    s3,
+    s3_csv,
+    sharepoint,
+    slack,
+    sqlite,
+)
 from ._offsets import ConnectorMonitor, OffsetAntichain
 from ._subscribe import subscribe
-
-_GATED = (
-    "airbyte", "bigquery", "debezium", "deltalake", "elasticsearch", "gdrive", "kafka", "logstash", "minio",
-    "mongodb", "nats", "postgres", "pubsub", "pyfilesystem", "redpanda", "s3", "s3_csv", "sharepoint", "slack",
-)
-globals().update({name: _StubModule(f"io.{name}", "3c", f"io/{name}") for name in _GATED})
 
 __all__ = [
     "ConnectorMonitor",
     "OffsetAntichain",
+    "airbyte",
+    "bigquery",
     "csv",
+    "debezium",
+    "deltalake",
+    "elasticsearch",
     "fs",
+    "gdrive",
     "http",
     "jsonlines",
+    "kafka",
+    "logstash",
+    "minio",
+    "mongodb",
+    "nats",
     "null",
     "plaintext",
+    "postgres",
+    "pubsub",
+    "pyfilesystem",
     "python",
+    "redpanda",
+    "s3",
+    "s3_csv",
+    "sharepoint",
+    "slack",
     "sqlite",
     "subscribe",
-    *_GATED,
 ]

@@ -22,7 +22,7 @@ from ..internals.schema import Schema
 from ..internals.table import Table
 from ..internals.universe import Universe
 
-__all__ = ["SessionWriter", "register_source", "coerce_row_types", "jsonable"]
+__all__ = ["SessionWriter", "register_source", "coerce_row_types", "jsonable", "refuse_dropped"]
 
 
 def jsonable(v):
@@ -36,6 +36,17 @@ def jsonable(v):
     if isinstance(v, bytes):
         return v.decode(errors="replace")
     return v
+
+
+def refuse_dropped(where: str, kwargs: Mapping[str, Any]) -> None:
+    """Raise for keyword arguments that the reference's ``where`` takes in
+    its ``**kwargs`` and never reads: a caller's option would silently do
+    nothing, so the port refuses it."""
+    if kwargs:
+        raise TypeError(
+            f"{where}() got unexpected keyword arguments {sorted(kwargs)} "
+            "(the reference accepts and ignores them)"
+        )
 
 
 class SessionWriter:

@@ -18,7 +18,7 @@ import itertools
 import threading
 import time
 import weakref
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from . import histogram as _hist_mod
 from .histogram import EventRing, LatencyHistogram, bucket_bounds_s
@@ -161,9 +161,19 @@ def record_event(kind: str, tag: str, dur_ns: int = 0, **extra: Any) -> None:
         _ring.append((time.time(), kind, tag, int(dur_ns), extra or None))
 
 
+_telemetry = None
+_spans_on: Optional[bool] = None
+
+
 def emit_span(name: str, **attributes: Any) -> None:
-    """A zero-duration span on the active trace (``observe/trace.py``);
-    the port has no OTLP export."""
+    """A zero-duration span on the active trace (``observe/trace.py``)
+    and, when a monitoring endpoint is configured
+    (``PATHWAY_MONITORING_SERVER``) and ``opentelemetry`` is installed, an
+    OTLP span through ``internals/telemetry.py`` carrying the same
+    attributes.  The endpoint is read at the first call.  Gated on the
+    same switch as every other record call: ``PATHWAY_OBSERVE=0``
+    silences the export too."""
+    global _telemetry, _spans_on
     if not _hist_mod.enabled:
         return
     from . import trace as _trace  # trace.py imports this module
@@ -171,6 +181,23 @@ def emit_span(name: str, **attributes: Any) -> None:
     t = _trace.current()
     if t is not None:
         t.add_event(name, **attributes)
+    if _spans_on is False:
+        return
+    if _spans_on is None:
+        try:
+            from ..internals.telemetry import NoopTelemetry, maybe_telemetry
+
+            _telemetry = maybe_telemetry()
+            _spans_on = not isinstance(_telemetry, NoopTelemetry)
+        except Exception:  # noqa: BLE001 - telemetry never fails a serve
+            _spans_on = False
+        if not _spans_on:
+            return
+    try:
+        with _telemetry.span(name, **attributes):
+            pass
+    except Exception:  # noqa: BLE001 - an exporter fault never fails a serve
+        pass
 
 
 def register_provider(obj: Any) -> None:

@@ -11,8 +11,18 @@ Scores accumulate as an online softmax in f32: a running max per query,
 every key is masked give 0.  In exact arithmetic this is full softmax
 attention; each device holds ``O(L / n)`` of the sequence.
 
+Over a mesh whose axis spans processes (``parallel/mesh.py``
+``is_multiprocess``), each rank keeps only the blocks it owns
+(``local_shards``): a rotation passes K/V between the rank's own blocks
+by ``.to(device)`` and sends its last block to the next rank while the
+previous rank's last block arrives (``distributed.ring_shift``, the
+counterpart of ``ppermute``).  The output blocks are then gathered, so
+every rank returns the whole ``[B, L, H, Dh]``, as the reference's
+``shard_map`` returns a global array.
+
 The reference writes this with ``shard_map`` and ``ppermute`` in XLA, not
-in Pallas, so the port writes it as plain torch ops (einsum, exp, max).
+in Pallas, so the port writes it as plain torch ops (einsum, exp, max)
+and ``torch.distributed`` point-to-point sends.
 
 Layouts, as the reference's: q, k, v ``[B, L, H, Dh]``; ``kv_mask``
 ``[B, L]`` key validity; ``positions`` ``[B, L]`` global token positions
@@ -22,11 +32,12 @@ Layouts, as the reference's: q, k, v ``[B, L, H, Dh]``; ``kv_mask``
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 
-from ..parallel.mesh import is_multiprocess
+from ..parallel import distributed
+from ..parallel.mesh import gather_shards, is_multiprocess, local_shards
 
 __all__ = ["dense_attention", "ring_attention_blocks", "ring_attention_sharded"]
 
@@ -57,6 +68,34 @@ def _merge(m, o, l, bm, bo, bl):
     return new_m, o, l * corr_old + bl * corr_new
 
 
+_Held = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _ring(
+    q: Sequence[torch.Tensor],
+    held: List[_Held],
+    steps: int,
+    rotate: Callable[[List[_Held]], List[_Held]],
+    causal: bool,
+) -> List[torch.Tensor]:
+    """The ring over the Q blocks ``q``: each attends to its own K/V block
+    ``held[i]`` (keys, values, key mask, key positions, on ``q[i]``'s
+    device), then ``steps`` times to what ``rotate`` brings it."""
+    scale = 1.0 / math.sqrt(q[0].shape[-1])
+    q32 = [qi.float() for qi in q]
+    q_pos = [h[3] for h in held]
+    state = [_block_attn(q32[i], *held[i][:3], q_pos[i], held[i][3], causal, scale) for i in range(len(q))]
+    for _ in range(steps):
+        held = rotate(held)
+        for i, (kb, vb, mb, pb) in enumerate(held):
+            state[i] = _merge(*state[i], *_block_attn(q32[i], kb, vb, mb, q_pos[i], pb, causal, scale))
+    out = []
+    for i, (_, o, l) in enumerate(state):
+        denom = torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]  # [B, L_i, H, 1]
+        out.append((o / denom).to(q[i].dtype))
+    return out
+
+
 def ring_attention_blocks(
     devices: Sequence[torch.device],
     q: Sequence[torch.Tensor],
@@ -70,27 +109,47 @@ def ring_attention_blocks(
     argument on ``devices[i]``.  Returns each device's output block
     ``[B, L_i, H, Dh]`` in ``q``'s dtype, on its device."""
     n = len(devices)
-    scale = 1.0 / math.sqrt(q[0].shape[-1])
-    q32 = [qi.float() for qi in q]
+
+    def rotate(held):
+        # device i receives what device i - 1 held
+        return [tuple(t.to(devices[i]) for t in held[i - 1]) for i in range(n)]
+
     held = [(k[i], v[i], kv_mask[i].bool(), positions[i]) for i in range(n)]
-    state = [_block_attn(q32[i], *held[i][:3], positions[i], held[i][3], causal, scale) for i in range(n)]
-    for _ in range(n - 1):
-        # one rotation: device i receives what device i - 1 held
-        held = [tuple(t.to(devices[i]) for t in held[i - 1]) for i in range(n)]
-        for i in range(n):
-            kb, vb, mb, pb = held[i]
-            state[i] = _merge(*state[i], *_block_attn(q32[i], kb, vb, mb, positions[i], pb, causal, scale))
-    out = []
-    for i, (_, o, l) in enumerate(state):
-        denom = torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]  # [B, L_i, H, 1]
-        out.append((o / denom).to(q[i].dtype))
-    return out
+    return _ring(q, held, n - 1, rotate, causal)
 
 
-def _split(t: torch.Tensor, n: int, devices: Sequence[torch.device]) -> List[torch.Tensor]:
+def _split(t: torch.Tensor, n: int, devices: Sequence[torch.device], which: Sequence[int] = ()) -> List[torch.Tensor]:
+    """Blocks ``which`` (every block when empty) of ``t``'s sequence dim
+    split ``n`` ways, each on its device."""
     if t.shape[1] % n:
         raise ValueError(f"sequence length {t.shape[1]} does not split over {n} blocks")
-    return [c.to(d) for c, d in zip(t.chunk(n, dim=1), devices)]
+    chunks = t.chunk(n, dim=1)
+    return [chunks[i].to(devices[i]) for i in (which or range(n))]
+
+
+def _ring_across_processes(mesh, devices, q, k, v, kv_mask, positions, causal: bool) -> torch.Tensor:
+    """This rank's blocks of the ring, then every rank's output blocks
+    gathered in sequence order on ``q``'s device."""
+    n = len(devices)
+    world = distributed.process_count()
+    if mesh.owners != [r for r in range(world) for _ in range(n // world)]:
+        raise ValueError(f"ring attention needs each rank's blocks contiguous and in rank order, got owners "
+                         f"{mesh.owners}")
+    mine = local_shards(mesh)
+    q_mine, k_mine, v_mine, m_mine, p_mine = (_split(t, n, devices, mine) for t in (q, k, v, kv_mask, positions))
+    local = [devices[i] for i in mine]
+    held = [(kb, vb, mb.bool(), pb) for kb, vb, mb, pb in zip(k_mine, v_mine, m_mine, p_mine)]
+
+    def rotate(held):
+        # the rank's last block goes to rank r + 1; its first block
+        # position receives rank r - 1's last; the rest move up by one
+        incoming = distributed.ring_shift(held[-1])
+        moved = [tuple(t.to(local[0]) for t in incoming)]
+        return moved + [tuple(t.to(local[a]) for t in held[a - 1]) for a in range(1, len(held))]
+
+    blocks = _ring(q_mine, held, n - 1, rotate, causal)
+    got = gather_shards(mesh, torch.stack([b.to(q.device) for b in blocks]))  # [n, B, L / n, H, Dh]
+    return torch.cat(list(got), dim=1)
 
 
 def ring_attention_sharded(
@@ -104,13 +163,17 @@ def ring_attention_sharded(
     causal: bool = False,
 ) -> torch.Tensor:
     """Ring attention with the sequence dim split over ``axis`` of
-    ``mesh``: the blocks are placed on the axis's devices, attended
-    (``ring_attention_blocks``) and concatenated on ``q``'s device.  The
-    mesh's devices belong to this process."""
-    if is_multiprocess(mesh):
-        raise NotImplementedError("ring attention over a mesh across processes")
+    ``mesh``: the blocks are placed on the axis's devices, attended and
+    concatenated on ``q``'s device.  Over a mesh across processes
+    (``axis`` its first axis) every rank passes the same full inputs,
+    attends only its own blocks, and returns the whole output."""
     devices = mesh.axis_devices(axis)
     n = len(devices)
+    if is_multiprocess(mesh):
+        if mesh.axis_names[0] != axis:
+            raise ValueError(f"ring attention across processes needs {axis!r} as the mesh's first axis, "
+                             f"got {mesh.axis_names}")
+        return _ring_across_processes(mesh, devices, q, k, v, kv_mask, positions, causal)
     blocks = ring_attention_blocks(
         devices, *(_split(t, n, devices) for t in (q, k, v, kv_mask, positions)), causal=causal
     )

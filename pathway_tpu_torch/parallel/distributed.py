@@ -32,7 +32,8 @@ Two planes:
   plane (``parallel/exchange.py``) publishes its session token and listen
   addresses through them.  They raise on a timeout: a rendezvous has no
   local-only answer.
-- **Data plane** (``all_gather``, ``broadcast``): the default process
+- **Data plane** (``all_gather``, ``broadcast``, and ``ring_shift``, the
+  point-to-point rotation of ring attention): the default process
   group, whose backend is chosen from the topology at ``maybe_initialize``
   and nowhere else: ``nccl`` when every rank owns a distinct CUDA device,
   ``gloo`` otherwise (on the CPU, and when ranks share one card, where
@@ -48,7 +49,7 @@ import socket
 import sys
 import threading
 from datetime import timedelta
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as tdist
@@ -70,6 +71,7 @@ __all__ = [
     "maybe_initialize",
     "process_count",
     "process_id",
+    "ring_shift",
     "shutdown",
     "topology_from_env",
 ]
@@ -292,6 +294,29 @@ def all_gather(t: torch.Tensor) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(_world)]
     tdist.all_gather(parts, src)
     return torch.stack(parts).to(t.device, t.dtype)
+
+
+def ring_shift(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The counterpart of ``jax.lax.ppermute`` with the permutation
+    ``r -> r + 1 (mod process_count())``: each of ``tensors`` goes to rank
+    ``r + 1`` and the same-shaped tensor of rank ``r - 1`` comes back, all
+    in one ``batch_isend_irecv`` (one tag per tensor).  Every rank passes
+    tensors of the same shapes and dtypes in the same order.  The results
+    land on each input's device and dtype (under gloo a CUDA tensor is
+    staged through host memory).  A failure raises (site ``dist.shift``
+    armed, a peer lost, a timeout): there is no local answer for a
+    neighbour's block."""
+    if not is_distributed():
+        raise RuntimeError("ring_shift needs a process group: run under PATHWAY_PROCESSES > 1 and maybe_initialize()")
+    inject.fire("dist.shift")
+    nxt, prv = (_rank + 1) % _world, (_rank - 1) % _world
+    staged = [_staged(t) for t in tensors]
+    got = [torch.empty_like(s) for s in staged]
+    ops = [tdist.P2POp(tdist.isend, s, nxt, tag=i) for i, s in enumerate(staged)]
+    ops += [tdist.P2POp(tdist.irecv, g, prv, tag=i) for i, g in enumerate(got)]
+    for req in tdist.batch_isend_irecv(ops):
+        req.wait()
+    return [g.to(t.device, t.dtype) for g, t in zip(got, tensors)]
 
 
 def broadcast(t: torch.Tensor, src: int) -> torch.Tensor:

@@ -1049,3 +1049,29 @@ def test_cuda_async_transformer_retrieval_equals_a_direct_search():
         pw.reset()
     assert report["launches"] > 0 and report["ivf"]._slabs.device.type == "cuda"
     assert report["hits"] == 1024 * chip_smoke.K
+
+
+@pytest.mark.cuda
+def test_cuda_cdc_feed_into_a_live_index_equals_an_exact_search():
+    """Phase 25 of ``chip_smoke.py`` at 1,024 documents on the card: the
+    S3 bulk load, the debezium CDC commits and the Kafka queries over fake
+    clients into a full-probe IVF ``DataIndex``; every answer equals an
+    exact search over the alive documents, the sinks equal a plain loop,
+    the rescore kernel launched (the phase raises on any difference)."""
+    import importlib.util
+    import os
+
+    import pathway_tpu_torch as pw
+
+    dev = _cuda()
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    pw.reset()
+    try:
+        report, ivf = chip_smoke.connectors_retrieval(pw, chip_smoke._ps_embedder(), chip_smoke.corpus(1024), dev)
+    finally:
+        pw.reset()
+    assert report["launches"] > 0 and ivf._slabs.device.type == "cuda"
+    assert report["alive_end"] == 1024 - report["deletes"]

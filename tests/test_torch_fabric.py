@@ -46,6 +46,7 @@ from pathway_tpu_torch.ops.knn import DeviceKnnIndex
 from pathway_tpu_torch.ops.serving import FusedEncodeSearch
 from pathway_tpu_torch.parallel.exchange import FramedStream, PeerLost
 from pathway_tpu_torch.robust import HOST_FAILOVER, REPLICA_LOST, ServeResult
+from pathway_tpu_torch.robust.deadline import Deadline
 from pathway_tpu_torch.serve import FabricWorker, ServeFabric, ServeScheduler, fabric_token
 from pathway_tpu_torch.serve import fabric as fabric_mod
 
@@ -280,6 +281,70 @@ def test_kill_host_midflight_flags_failover_never_raises(stacks, monkeypatch):
         w_ok.stop()
         inner0.stop()
         inner1.stop()
+
+
+def test_fabric_recv_chaos_triple_reroutes_in_flight(stacks, monkeypatch):
+    """``fabric.recv`` (``serve/fabric.py``) armed, as the reference's
+    ``tests/test_robust.py`` test of that name arms it: ``raise`` abandons
+    the in-flight attempt (its host's breaker fed) and the same call
+    re-routes to the survivor, rows equal to that host's scheduler and
+    flagged ``host_failover``; ``delay`` only delays; ``hang`` under a
+    spent deadline is released by the deadline and degrades.
+
+    The oracle counts, it does not time: each breaker's ``opens`` (the
+    reference test reads ``state == "open"``, which reverts to half-open
+    after the breaker's cool-down of one heartbeat timeout, 2 s, so a
+    re-routed serve slower than that under load sees no open breaker), and
+    which exception ended each firing of the site (a ``hang`` released by
+    its 600 s ``hang_s`` would raise ``FaultInjected``, one released by
+    the deadline ``DeadlineExceeded``)."""
+    _ref_fused, fused = stacks
+    ended = []
+    fire = fabric_mod.inject.fire
+
+    def spy(site, deadline=None):
+        try:
+            fire(site, deadline=deadline)
+        except BaseException as exc:
+            ended.append((site, type(exc).__name__))
+            raise
+        if site == "fabric.recv":
+            ended.append((site, None))
+
+    monkeypatch.setattr(fabric_mod.inject, "fire", spy)
+    fleet = _Fleet(fused, n=2)
+    breakers = [robust.breaker(f"fabric:{name}") for name in fleet.names]
+
+    def opens():
+        return [b.stats["opens"] for b in breakers]
+
+    try:
+        assert fleet.fabric.connect() == 2
+        failover0, opens0 = _degraded(HOST_FAILOVER), opens()
+        with robust.inject.armed("fabric.recv", "raise", times=1):
+            got = fleet.fabric.serve([QUERIES[0]])
+        assert ended == [("fabric.recv", "FaultInjected")]
+        assert got[0], "recv chaos must re-route, not fail the request"
+        assert HOST_FAILOVER in got.degraded and _degraded(HOST_FAILOVER) == failover0 + 1
+        survivor = fleet.names.index(got.meta["fabric_host"])
+        # exactly one host took the fall: the other one answered
+        assert [b - a for a, b in zip(opens0, opens())] == [int(i != survivor) for i in range(2)]
+        assert list(got) == list(fleet.scheds[survivor].serve([QUERIES[0]]))
+        for b in breakers:
+            b.reset()
+        ended.clear()
+        opens0 = opens()
+        with robust.inject.armed("fabric.recv", "delay", delay_s=0.02):
+            got = fleet.fabric.serve([QUERIES[0]])
+        assert ended == [("fabric.recv", None)]
+        assert got.degraded == () and got[0] and opens() == opens0
+        ended.clear()
+        with robust.inject.armed("fabric.recv", "hang", hang_s=600.0):
+            got = fleet.fabric.serve([QUERIES[0]], deadline=Deadline(0.0))
+        assert ended == [("fabric.recv", "DeadlineExceeded")]
+        assert isinstance(got, ServeResult) and got.degraded and list(got) == [[]]
+    finally:
+        fleet.stop()
 
 
 def test_bye_drain_reroutes_cleanly(stacks):

@@ -3,20 +3,19 @@
 The port's counterpart of ``tests/test_api_parity.py::
 test_namespace_covers_reference_all`` (which reads an upstream checkout
 that is not here), checked against ``dir(pathway_tpu)``: every public name
-is present in the port, ported, or in ``pw.io`` a stub that raises
-``NotImplementedError`` naming its slice in ``ROADMAP.md``.  The same
-holds for ``pw.io``, ``pw.stdlib`` and the stdlib modules, ``pw.utils``
-and ``pw.viz`` included.
+is present in the port and is not a stub.  The same holds for ``pw.io``
+and each of its connector packages, ``pw.stdlib`` and the stdlib modules,
+``pw.utils`` and ``pw.viz`` included.
 The reference's names are read in a fresh interpreter: a worker that ran
 other tests holds submodules they imported.
 """
 
 import functools
+import importlib
 import json
 import os
 import subprocess
 import sys
-import types
 
 import pytest
 
@@ -36,10 +35,16 @@ _EXCEPTIONS = {
 }
 
 
+_CONNECTORS = (
+    "airbyte", "bigquery", "debezium", "deltalake", "elasticsearch", "gdrive", "kafka", "logstash", "minio",
+    "mongodb", "nats", "postgres", "pubsub", "pyfilesystem", "redpanda", "s3", "s3_csv", "sharepoint", "slack",
+)
+
 _MODULES = {
     "pw": "", "io": ".io", "stdlib": ".stdlib", "temporal": ".stdlib.temporal", "graphs": ".stdlib.graphs",
     "ordered": ".stdlib.ordered", "statistical": ".stdlib.statistical", "indexing": ".stdlib.indexing",
     "ml": ".stdlib.ml", "utils": ".stdlib.utils", "viz": ".stdlib.viz",
+    **{f"io.{name}": f".io.{name}" for name in _CONNECTORS},
 }
 
 
@@ -70,19 +75,12 @@ def _port_module(where):
 
 
 def _is_stub(obj) -> bool:
+    """A stand-in naming a later slice (what the port's unported names
+    were until the connectors were ported)."""
     try:
         return isinstance(vars(obj).get("later_slice"), str)
     except TypeError:
         return False
-
-
-def _assert_stub_raises(obj):
-    """A stub names its slice when it is used (a module in any function
-    it is asked for)."""
-    if isinstance(obj, types.ModuleType):
-        obj = obj.read
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md, framework slice {obj.later_slice}"):
-        obj()
 
 
 @pytest.mark.parametrize("where", list(_MODULES))
@@ -90,14 +88,17 @@ def test_namespace_covers_reference_public_names(where):
     port = _port_module(where)
     missing = [n for n in _public(where) if not hasattr(port, n)]
     assert missing == []
-    stubs = [n for n in _public(where) if _is_stub(getattr(port, n))]
-    for name in stubs:
-        _assert_stub_raises(getattr(port, name))
-    # the multi-process engine (framework slice 4) is ported: no stub names it
-    assert [n for n in stubs if getattr(port, n).later_slice == "4"] == []
-    if where != "io":
-        # the rest of the host API is ported: outside pw.io no stub is left
-        assert stubs == []
+    assert [n for n in _public(where) if _is_stub(getattr(port, n))] == []
+    if where == "io":
+        # every connector is the port's own package module
+        for name in _CONNECTORS:
+            mod = getattr(port, name)
+            assert name in _public(where) and mod.__name__ == f"pathway_tpu_torch.io.{name}" and hasattr(mod, "__path__")
+    if where.startswith("io."):
+        # the connector's public functions and classes are the port's own
+        ref = importlib.import_module("pathway_tpu" + _MODULES[where])
+        for name in ref.__all__:
+            assert getattr(port, name).__module__.startswith("pathway_tpu_torch."), name
     if where == "pw":
         for name in ("sql", "export_table", "import_table", "ExportedTable", "enable_interactive_mode", "LiveTable",
                      "ClassArg", "attribute", "input_attribute", "input_method", "method", "output_attribute",
@@ -110,22 +111,6 @@ def test_namespace_covers_reference_public_names(where):
                      "WindowJoinResult", "PathwayConfig", "get_config", "config", "Pointer_",
                      "set_license_key", "set_monitoring_config"):
             assert name in _public(where) and not _is_stub(getattr(port, name)), name
-
-
-def test_connectors_of_a_later_slice_are_stub_modules():
-    """``pw.io.kafka`` and the 18 other transport-gated connectors: any
-    function raises naming slice 3c; private names stay AttributeError."""
-    gated = [n for n in _public("io") if _is_stub(getattr(pathway_tpu_torch.io, n))]
-    assert len(gated) == 19 and "kafka" in gated
-    for name in gated:
-        mod = getattr(pathway_tpu_torch.io, name)
-        for fn in ("read", "write"):
-            with pytest.raises(NotImplementedError, match=rf"pw\.io\.{name}\.{fn} .*framework slice 3c"):
-                getattr(mod, fn)()
-        assert not hasattr(mod, "__path__")
-    from pathway_tpu_torch.io import kafka
-
-    assert kafka is pathway_tpu_torch.io.kafka
 
 
 def test_license_and_monitoring_setters_are_the_reference_ones(monkeypatch):

@@ -2,7 +2,15 @@
 against dense attention and against the reference (``ops/ring_attention.py``
 over a virtual 8-device CPU mesh, as ``tests/test_ring_attention.py``
 runs it).  Tolerance: f32 atol 2e-5, as the reference's own test (the
-online softmax sums in another order than one softmax)."""
+online softmax sums in another order than one softmax).
+
+Across processes: two ranks of ``tests/torch_dist_worker.py ring`` (gloo
+on the CPU) each hold 4 of the 8 sequence blocks of a ``("sp",)`` mesh
+spanning the ranks; every rank's whole output is held against the
+one-process ring and dense attention on that rank, and against the
+reference's ``ring_attention_sharded`` on a 2-device host mesh within
+1e-5 in f32, full and causal; the sequence-parallel trunk over that
+mesh against the reference's trunk."""
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +26,9 @@ from pathway_tpu_torch.models.params import params_from_flax
 from pathway_tpu_torch.models.transformer import TransformerConfig, TransformerEncoder
 from pathway_tpu_torch.ops.ring_attention import dense_attention, ring_attention_blocks, ring_attention_sharded
 from pathway_tpu_torch.parallel.mesh import Mesh
+
+from .test_torch_cluster import _spawn
+from .torch_dist_worker import ring_inputs
 
 ATOL = 2e-5
 
@@ -43,12 +54,7 @@ def _port_mesh():
     return Mesh(["cpu"] * 8, axis_names=("sp",))
 
 
-def _qkv(B=2, L=64, H=4, Dh=16, seed=0):
-    rng = np.random.default_rng(seed)
-    q, k, v = (rng.normal(size=(B, L, H, Dh)).astype(np.float32) for _ in range(3))
-    kv_mask = rng.random((B, L)) > 0.2
-    positions = np.broadcast_to(np.arange(L)[None, :], (B, L)).astype(np.int32)
-    return q, k, v, kv_mask, positions
+_qkv = ring_inputs
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -94,10 +100,14 @@ def test_ring_bf16_keeps_the_working_type():
     np.testing.assert_allclose(got.float().numpy(), dense_attention(q16, k16, v16, t[3], t[4]).numpy(), atol=3e-2)
 
 
+def _trunk_kw(causal, pool):
+    return dict(vocab_size=512, d_model=32, n_heads=4, n_layers=2, d_ff=128, max_len=64, pool=pool, causal=causal)
+
+
 def _trunk_pair(causal, pool):
     mesh = _ref_mesh()
     L = 64
-    kw = dict(vocab_size=512, d_model=32, n_heads=4, n_layers=2, d_ff=128, max_len=L, pool=pool, causal=causal)
+    kw = _trunk_kw(causal, pool)
     ref = RefEncoder(RefConfig(dtype=jnp.float32, mesh=mesh, sequence_axis="sp", **kw))
     rng = np.random.default_rng(3)
     ids = rng.integers(8, 512, size=(2, L)).astype(np.int32)
@@ -132,3 +142,71 @@ def test_sequence_parallel_trunk_refuses_packed_segments():
     with pytest.raises(ValueError, match="packed"), torch.no_grad():
         port(torch.from_numpy(ids), torch.from_numpy(mask), segments=torch.from_numpy(segments),
              positions=torch.from_numpy(positions), n_segments=1)
+
+
+TRUNK_CASES = [(False, "mean"), (True, "none")]
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """One spawn of two ranks of the ``ring`` scenario, with the trunk's
+    seeded weights of both ``TRUNK_CASES`` (the reference's parameters
+    carried into the port) saved for the ranks to load.  Returns
+    ``(ranks' results, the reference's trunk outputs)``."""
+    saved, want = [], []
+    for causal, pool in TRUNK_CASES:
+        ref, params, port, ids, mask = _trunk_pair(causal, pool)
+        want.append(np.asarray(ref.apply({"params": params}, jnp.asarray(ids), jnp.asarray(mask)), np.float32))
+        saved.append({"kw": _trunk_kw(causal, pool), "state": port.state_dict(), "ids": torch.from_numpy(ids), "mask": torch.from_numpy(mask)})
+    path = str(tmp_path_factory.mktemp("ring") / "trunk.pt")
+    torch.save(saved, path)
+    return _spawn("ring", env_extra={"RING_TRUNK": path}), want
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_across_processes_matches_one_process_dense_and_reference(two_ranks, causal):
+    results, _ = two_ranks
+    arrays = _qkv()
+    want = np.asarray(_ref_ring_2(arrays, causal))
+    name = "causal" if causal else "full"
+    for r, got in enumerate(results):
+        assert got["proc"] == r and got["multiprocess"] and got["backend"] == "gloo"
+        assert got["owners"] == [0] * 4 + [1] * 4 and got["local"] == list(range(4 * r, 4 * r + 4))
+        f32, bf16 = got[f"f32_{name}"], got[f"bf16_{name}"]
+        assert f32["shape"] == bf16["shape"] == [2, 64, 4, 16]
+        assert (f32["dtype"], bf16["dtype"]) == ("torch.float32", "torch.bfloat16")
+        assert f32["vs_one"] <= 1e-6 and f32["vs_dense"] <= ATOL
+        assert bf16["vs_one"] <= 1e-2 and bf16["vs_dense"] <= 3e-2
+        np.testing.assert_allclose(np.asarray(f32["out"], np.float32), want, atol=1e-5, rtol=0)
+
+
+def _ref_ring_2(arrays, causal):
+    devs = jax.devices()
+    if len(devs) < 2:
+        pytest.skip("needs 2 virtual devices (conftest sets host platform count)")
+    return ref_ring(RefMesh(np.array(devs[:2]), axis_names=("sp",)), *(jnp.asarray(a) for a in arrays), causal=causal)
+
+
+def test_ring_across_processes_raises_on_a_failed_shift(two_ranks):
+    """An armed ``dist.shift`` raises on each rank (no rank answers with
+    its own block), and the next call is exact again."""
+    results, _ = two_ranks
+    for got in results:
+        assert got["shift_fault"] == "injected fault at 'dist.shift'"
+        assert got["after_fault_vs_dense"] <= ATOL
+
+
+@pytest.mark.parametrize("case", range(len(TRUNK_CASES)))
+def test_sequence_parallel_trunk_across_processes_matches_reference(two_ranks, case):
+    results, want = two_ranks
+    for got in results:
+        out = np.asarray(got["trunk"][case], np.float32)
+        assert out.shape == want[case].shape and np.isfinite(out).all()
+        np.testing.assert_allclose(out, want[case], atol=1e-5, rtol=0)
+
+
+def test_ring_shift_needs_a_process_group():
+    from pathway_tpu_torch.parallel import distributed
+
+    with pytest.raises(RuntimeError, match="process group"):
+        distributed.ring_shift([torch.zeros(2)])

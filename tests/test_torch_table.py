@@ -6,6 +6,8 @@ keyed rows and identical ``(key, row, diff)`` update streams through
 ``pw.io.subscribe``, tick by tick (wall-clock times are not compared).
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -472,11 +474,15 @@ def test_dtype_of_a_tensor_is_an_array():
              "io.elasticsearch.write", "io.debezium.read"]
 )
 def test_unported_names_raise_and_name_their_slice(name):
-    target = pathway_tpu_torch
+    """These names were stubs naming their slice until the connectors were
+    ported: each is now the port's own function, with the reference's
+    parameters, and no stub is left to raise."""
+    target, ref = pathway_tpu_torch, pathway_tpu
     for part in name.split("."):
-        target = getattr(target, part)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, framework slice"):
-        target()
+        target, ref = getattr(target, part), getattr(ref, part)
+    assert target.__module__ == f"pathway_tpu_torch.{name.rsplit('.', 1)[0]}"
+    assert not hasattr(target, "later_slice")
+    assert list(inspect.signature(target).parameters) == list(inspect.signature(ref).parameters)
 
 
 def test_run_refuses_a_cluster_and_persistence(monkeypatch):

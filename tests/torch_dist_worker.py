@@ -413,6 +413,157 @@ def scenario_data_index() -> dict:
             "serve": serve_rows, "serve_counts": serve_counts}
 
 
+# -- ring attention over a mesh across processes ------------------------------
+
+def ring_inputs(B=2, L=64, H=4, Dh=16, seed=0):
+    """The seeded inputs of ``tests/test_torch_ring_attention.py``."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(B, L, H, Dh)).astype(np.float32) for _ in range(3))
+    kv_mask = rng.random((B, L)) > 0.2
+    positions = np.broadcast_to(np.arange(L)[None, :], (B, L)).astype(np.int32)
+    return q, k, v, kv_mask, positions
+
+
+def sp_mesh_across_ranks(local_devices):
+    """A one-axis ``("sp",)`` mesh over every rank's devices in rank
+    order (a collective)."""
+    from pathway_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    grid = make_mesh(devices=local_devices)
+    return Mesh([grid.data_device(i) for i in range(grid.shape["data"])], axis_names=("sp",), owners=grid.owners)
+
+
+def scenario_ring() -> dict:
+    """Ring attention with the 8 sequence blocks split 4 + 4 over the
+    ranks, f32 and bf16, full and causal, against the one-process ring
+    and dense attention on the same rank; an armed ``dist.shift`` raises;
+    with ``RING_TRUNK`` (a ``torch.save`` of a state dict, config
+    keywords, ids and mask) the sequence-parallel trunk over the same
+    mesh."""
+    import os
+
+    import torch
+
+    from pathway_tpu_torch.models.transformer import TransformerConfig, TransformerEncoder
+    from pathway_tpu_torch.ops.ring_attention import dense_attention, ring_attention_sharded
+    from pathway_tpu_torch.parallel import distributed as dist
+    from pathway_tpu_torch.parallel.mesh import Mesh, is_multiprocess, local_shards
+    from pathway_tpu_torch.robust import inject
+
+    torch.set_num_threads(1)
+    dist.maybe_initialize()
+    sp = sp_mesh_across_ranks(["cpu"] * 4)
+    one = Mesh(["cpu"] * 8, axis_names=("sp",))
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in ring_inputs()]
+    out = {"proc": dist.process_id(), "multiprocess": is_multiprocess(sp), "owners": sp.owners,
+           "local": local_shards(sp), "backend": dist.data_backend()}
+    for causal in (False, True):
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            args = [x.to(dt) for x in t[:3]] + t[3:]
+            got = ring_attention_sharded(sp, *args, causal=causal)
+            base = ring_attention_sharded(one, *args, causal=causal)
+            dense = dense_attention(*args, causal=causal)
+            out[f"{name}_{'causal' if causal else 'full'}"] = {
+                "dtype": str(got.dtype), "shape": list(got.shape),
+                "vs_one": float((got.float() - base.float()).abs().max()),
+                "vs_dense": float((got.float() - dense).abs().max()),
+                "out": got.float().numpy().tolist() if name == "f32" else None,
+            }
+    with inject.armed("dist.shift", "raise", times=1):
+        try:
+            ring_attention_sharded(sp, *t)
+            out["shift_fault"] = None
+        except inject.FaultInjected as exc:
+            out["shift_fault"] = str(exc)
+    out["after_fault_vs_dense"] = float((ring_attention_sharded(sp, *t) - dense_attention(*t)).abs().max())
+    path = os.environ.get("RING_TRUNK")
+    if path:
+        saved = torch.load(path)
+        out["trunk"] = []
+        for case in saved:
+            cfg = TransformerConfig(dtype=torch.float32, mesh=sp, sequence_axis="sp", **case["kw"])
+            model = TransformerEncoder(cfg)
+            model.load_state_dict(case["state"])
+            with torch.no_grad():
+                out["trunk"].append(model(case["ids"], case["mask"]).float().numpy().tolist())
+    dist.barrier("ring_done")
+    return out
+
+
+# -- kafka over ranks ------------------------------------------------------------
+
+KAFKA_WORDS = ["alpha", "beta", "gamma", "delta", "epsilon"]
+KAFKA_MESSAGES = [
+    (p, o, {"word": KAFKA_WORDS[(7 * p + o) % 5], "n": 100 * p + o}) for p in range(4) for o in range(12)
+]
+
+
+def fake_kafka_module():
+    """A ``kafka`` client module whose consumer reads ``KAFKA_MESSAGES``
+    from 4 partitions: with a ``group_id`` the partitions a broker would
+    assign this rank of the process topology (``p % ranks == rank``),
+    without one every partition (a consumer outside any group)."""
+    import types
+
+    from pathway_tpu_torch.parallel.distributed import topology_from_env
+
+    class Msg:
+        def __init__(self, partition, offset, value):
+            self.partition, self.offset, self.value = partition, offset, value
+
+    class KafkaConsumer:
+        def __init__(self, topic, **kw):
+            ranks, rank, _addr = topology_from_env()
+            group = kw.get("group_id")
+            self._msgs = [Msg(p, o, json.dumps(v).encode()) for p, o, v in KAFKA_MESSAGES
+                          if group is None or p % ranks == rank]
+
+        def __iter__(self):
+            return iter(self._msgs)
+
+    mod = types.ModuleType("kafka")
+    mod.KafkaConsumer = KafkaConsumer
+    return mod
+
+
+def kafka_pipeline(pw, settings):
+    """The stream read from topic ``events`` and its sum and count per
+    word."""
+
+    class Event(pw.Schema):
+        word: str
+        n: int
+
+    t = pw.io.kafka.read(settings, "events", schema=Event)
+    return t, t.groupby(t.word).reduce(t.word, total=pw.reducers.sum(t.n), count=pw.reducers.count())
+
+
+KAFKA_SETTINGS = {
+    "partitioned": {"bootstrap.servers": "broker:9092", "group.id": "g"},
+    "replicated": {"bootstrap.servers": "broker:9092"},
+}
+
+
+def _kafka_scenario(mode: str) -> dict:
+    """``pw.io.kafka.read`` over two ranks in one ``dist_mode``: every row
+    of the stream and the per-word reduce, gathered from the ranks."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.parallel import distributed as dist
+    from pathway_tpu_torch.parallel import gather_table_rows
+
+    sys.modules["kafka"] = fake_kafka_module()
+    events, counts = kafka_pipeline(pw, KAFKA_SETTINGS[mode])
+    op = events._engine_table.producer
+    pw.run(monitoring_level=None)
+    keys, cols = gather_table_rows(events)
+    rows = sorted([int(keys[i]), str(cols["word"][i]), int(cols["n"][i])] for i in range(len(keys)))
+    ckeys, ccols = gather_table_rows(counts)
+    totals = sorted([str(ccols["word"][i]), int(ccols["total"][i]), int(ccols["count"][i])] for i in range(len(ckeys)))
+    lkeys, _ = events._materialize()
+    return {"proc": dist.process_id(), "dist_mode": op.dist_mode, "rows": rows, "totals": totals,
+            "local_rows": len(lkeys)}
+
+
 SCENARIOS = {
     "control_plane": scenario_control_plane,
     "mesh": scenario_mesh,
@@ -422,6 +573,9 @@ SCENARIOS = {
     "async_transformer": scenario_async_transformer,
     "temporal": scenario_temporal,
     "data_index": scenario_data_index,
+    "ring": scenario_ring,
+    "kafka_partitioned": lambda: _kafka_scenario("partitioned"),
+    "kafka_replicated": lambda: _kafka_scenario("replicated"),
 }
 
 
