@@ -25,6 +25,7 @@ NVIDIA GPU:
     python3 chip_smoke.py --hostapi        # the builds, then phase 23 alone
     python3 chip_smoke.py --cluster        # the builds, then phase 24 alone
     python3 chip_smoke.py --connectors     # the builds, then phase 25 alone
+    python3 chip_smoke.py --analysis       # the builds, then phase 26 alone
     python3 chip_smoke.py --first-call ROOT...  # the profiler's first sampled
                                            # call, fresh processes, per root
 
@@ -128,10 +129,10 @@ Phases, in order; any failure exits non-zero:
    c1 / c4 / c16 == its solo ``generate``, as is every call-level one; no
    device-to-host sync in the c16 step loop; a warm prefix join == a cold
    one with prefill tokens reused; one slot reused over EOS leaves gives
-   solo tokens; 64 saturated requests at budget 64, spec_k 16 off and on,
+   solo tokens; 16 saturated requests at budget 64, spec_k 16 off and on,
    all == solo, at most 2 + 2 dispatches and fetches per round and 1 + 1
-   per plain chunk; 16 requests drafted by the reduced-layer trunk, all ==
-   solo; a 32-slot int8 pool: spec-on == spec-off, warm ==
+   per plain chunk; 8 requests drafted by the reduced-layer trunk, all ==
+   solo; a 32-slot int8 pool under 16 requests: spec-on == spec-off, warm ==
    cold, its K/V bytes within the 16-slot bf16 pool's; the fused LayerNorm
    and the readout launched, the readout from the step, verify and
    prefill programs (launches printed by path and row count).  Printed:
@@ -331,8 +332,8 @@ Phases, in order; any failure exits non-zero:
    documents (full probe), ``CrossEncoderReranker`` over the default
    ``CrossEncoderModel`` (24 candidates), ``TpuChat(continuous=True)`` over
    the default ``TextGenerator`` (48 new tokens).  ``urllib`` callers ask
-   64 of phase 5's query documents: 16 answers at c1, 32 at c16 and a
-   profiled burst of 16, with ``return_context_docs``; 16
+   64 of phase 5's query documents: 8 answers at c1, 8 at c16 and a
+   profiled burst of 8 at c8, with ``return_context_docs``; 16
    ``/v1/retrieve`` (k = 10), a summary of 4 texts, ``/v1/statistics``
    and ``/v1/pw_list_documents``.  Checked: every route 200 with the
    reference's JSON shape; each operator's searches == a direct search of
@@ -462,9 +463,33 @@ Phases, in order; any failure exits non-zero:
    ``cuda``.  Printed: ingest s, CDC commit to retrievable ms, retrieve
    p50 / p99 per query commit, the rescore alone against its bound, the
    busy share.
+26. serve, ingest and decode under the runtime lock-order sanitizer, in a
+   fresh interpreter (``--analysis-worker OUT``, this script) started with
+   ``PATHWAY_LOCK_SANITIZER=1``, ``PATHWAY_LOCK_SANITIZER_RAISE=1``,
+   ``PATHWAY_DONATION_GUARD=1`` and ``PATHWAY_DONATION_GUARD_STRICT=1``;
+   its nonzero exit fails the run.  (a) phase 4's encoder over the 65,536
+   documents into a full-probe ``IvfKnnIndex``; a ``ServeScheduler`` over
+   ``FusedEncodeSearch`` (k = 10) takes 256 single-query requests over 64
+   queries from 16 closed-loop callers while a second thread commits
+   1,024 fresh documents (32 of them copies of query texts) after the
+   64th answer, absorbed in the background: every answer == a direct
+   search of its query against the index before the commit or after it
+   (keys up to ties, scores within 2e-2), and the rescore kernel launched
+   and equal to its plain version at the phase's shape.  (b) a
+   ``ContinuousDecoder`` burst of the 16 greedy prompts on the default
+   ``TextGenerator`` == solo ``generate``, with ``add_layer_norm_rows``
+   and ``tied_readout`` launched and held against their plain versions.
+   (c) no violation of either tripwire, locks tracked and edges observed,
+   every runtime edge consistent with the declared ranks, and the edges
+   the static lock graph (``analysis/lock_order.py``) lacks printed.  (d)
+   32 scheduler batches under ``torch.cuda.set_sync_debug_mode("warn")``:
+   each sync the mode reports lies in a function the hidden-sync rule
+   counts as a booked or waived fetch; syncs per batch printed beside the
+   fetches ``ops/dispatch_counter.py`` booked.  The static analysis runs
+   in this process beside the worker.
 
 Every shape-census tripwire runs strict from the start
-(``PATHWAY_RECOMPILE_STRICT=1``); after phase 25 none may have tripped.
+(``PATHWAY_RECOMPILE_STRICT=1``); after phase 26 none may have tripped.
 
 The card's name and power limit, then the JSON record of the kernels,
 then ``{"ok": true, "device": {...}}`` are the last three lines; the
@@ -1477,13 +1502,13 @@ DEC_WIDTH = 96
 DEC_BUDGET = 32
 DEC_CONC = (1, 4, 16)
 DEC_REQS = {1: 2, 4: 4, 16: 16}  # the call-level arm serializes on the host (c1 / c4 cut from 4 / 8 for phase 24)
-DEC_C16_REQS = 32  # the busy-share and sync-debug drives (64 before phase 24; cut to make room for it)
+DEC_C16_REQS = 16  # the busy-share and sync-debug drives (64 before phase 24, 32 before phase 26; cut for each)
 SPEC_K = 16  # phase_speculative_decode
 SPEC_BUDGET = 64
-SPEC_REQS = 32  # the bench saturates 256; cut with SPEC_TRUNK_REQS and I8_REQS to keep the script's time
+SPEC_REQS = 16  # the bench saturates 256; cut with SPEC_TRUNK_REQS and I8_REQS to keep the script's time (32 before phase 26)
 SPEC_TRUNK_REQS = 8  # requests drafted by the reduced-layer trunk
 I8_SLOTS = 32
-I8_REQS = 32  # one request per slot of the int8 pool
+I8_REQS = 16  # half the int8 pool's slots (one request per slot, 32, before phase 26)
 SAMPLE_TEMP = 0.8
 LN_ATOL = 1e-5  # f32 statistics summed in another order than torch's mean
 READOUT_ATOL = 1e-4  # f32 dot products of 256 terms in another order
@@ -5487,7 +5512,7 @@ def framework_phase(direct_p50: dict, tag: str):
 # -- phase 20: question answering and chat -------------------------------------------
 QA_QUESTIONS = 64  # distinct questions: phase 5's first query documents
 QA_C1 = 8  # answers at c1, one caller (16 before phase 24)
-QA_C16 = 16  # answers at c16; the whole script, phases 21-24 included, keeps its time budget
+QA_C16 = 8  # answers at c16 (16 before phase 26); the whole script, phases 21-26 included, keeps its time budget
 QA_CALLERS = 16
 QA_BURST = 8  # answers of the profiled burst, at c8 (16 at c16 before phase 24: reading that trace took most of it)
 QA_RETRIEVES = 16  # /v1/retrieve calls, k = K
@@ -8536,6 +8561,437 @@ def connectors_phase(tag: str, dev=None, emb=None, docs=None, commits: int = CX_
     return r["launches"], shape
 
 
+# -- phase 26: the sanitized serve, ingest and decode ------------------------------
+AN_CALLERS = 16  # closed-loop single-query callers
+AN_REQUESTS = 256  # requests of the burst, over AN_QUERIES queries
+AN_QUERIES = 64
+AN_FRESH = 1024  # fresh documents committed (added, then absorbed) during the burst
+AN_COMMIT_AFTER = 64  # answers served before the commit lands
+AN_TIES = 32  # of the fresh documents, copies of query texts: their answers change at the commit
+AN_SYNC_BATCHES = 32  # scheduler batches under torch.cuda.set_sync_debug_mode("warn"), after a warm-up
+AN_TOL = 2e-2  # bf16 trunk: a query's row moves with the batch the scheduler packs it in (phase 23's rule)
+AN_TIMEOUT_S = 300.0  # the worker past this is killed and the phase fails
+AN_ENV = {
+    "PATHWAY_LOCK_SANITIZER": "1", "PATHWAY_LOCK_SANITIZER_RAISE": "1",
+    "PATHWAY_DONATION_GUARD": "1", "PATHWAY_DONATION_GUARD_STRICT": "1",
+}
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def _pkg_rel(path: str) -> str:
+    """``.../pathway_tpu_torch/ops/serving.py`` -> ``pathway_tpu_torch/ops/serving.py``."""
+    parts = path.replace(os.sep, "/").split("/")
+    if "pathway_tpu_torch" not in parts:
+        return path
+    return "/".join(parts[len(parts) - 1 - parts[::-1].index("pathway_tpu_torch"):])
+
+
+def _sync_site() -> tuple:
+    """The port's frames on the calling thread's stack, innermost first, as
+    ``(module path, function qualname)``: where a sync was made.  Closures
+    keep their definer's name, lambdas and generator expressions the
+    function they sit in.  A stack without a frame of the port names its
+    thread and its frames instead."""
+    frame = sys._getframe(1)
+    ours, outside = [], []
+    while frame is not None:
+        name = frame.f_code.co_filename
+        if os.sep + "pathway_tpu_torch" + os.sep in name and os.sep + "analysis" + os.sep not in name:
+            qual = frame.f_code.co_qualname.replace(".<locals>", "")
+            ours.append((_pkg_rel(name), ".".join(q for q in qual.split(".") if not q.startswith("<"))))
+        elif not name.endswith(("warnings.py", "chip_smoke.py")):
+            outside.append(f"{os.path.basename(name)}:{frame.f_lineno}:{frame.f_code.co_qualname}")
+        frame = frame.f_back
+    if ours:
+        return tuple(ours[:12])
+    return ((f"outside the port ({threading.current_thread().name})", " < ".join(outside[:8])),)
+
+
+def analysis_worker(out_path: str, dev=None, encoder=None, gen=None, n_docs: int = N_DOCS) -> int:
+    """Phase 26's interpreter (``--analysis-worker OUT``), started with the
+    lock sanitizer and the in-place-write guard armed, both raising: (a)
+    serve under a concurrent commit, (b) decode, (c) the sanitizer's
+    counts and edges, (d) syncs under the sync debug mode.  Writes its
+    report to ``OUT`` as JSON; any failure is a nonzero exit."""
+    import warnings
+
+    from pathway_tpu_torch.analysis import sanitizer
+    from pathway_tpu_torch.cache import PrefixKVCache
+    from pathway_tpu_torch.kernels.build import build_all, build_host
+    from pathway_tpu_torch.models.encoder import SentenceEncoder
+    from pathway_tpu_torch.models.generator import TextGenerator
+    from pathway_tpu_torch.ops import decode_rows, dispatch_counter, donation_guard
+    from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+    from pathway_tpu_torch.serve import ContinuousDecoder, ServeScheduler
+
+    t_phase = _now()
+    dev = dev or torch.device(DEVICE)
+    cuda = dev.type == "cuda"
+    if not (sanitizer.installed() and donation_guard.enabled() and donation_guard.strict_mode()):
+        raise AssertionError("phase 26: the lock sanitizer or the strict in-place-write guard is not armed")
+    if cuda:
+        build_all()
+    build_host("tokenize_hash")
+    report = {"locks_at_import": sanitizer.stats()["locks_tracked"]}
+
+    # -- (a) serve under the sanitizer, a commit landing mid-burst ----------------
+    encoder = encoder or SentenceEncoder(
+        dimension=DIM, n_layers=6, n_heads=6, max_length=128, vocab_size=32768, seed=SEED, dtype=torch.bfloat16,
+    )
+    docs = corpus(n_docs)
+    t0 = _now()
+    with torch.no_grad():
+        mat = torch.cat([encoder.encode_to_device(docs[i : i + ENCODE_CHUNK]) for i in range(0, n_docs, ENCODE_CHUNK)])
+    ivf = IvfKnnIndex(mat.shape[1], metric="cos", device=dev, absorb_threshold=AN_FRESH)
+    ivf.build_from_matrix(list(range(n_docs)), mat)
+    ivf.n_probe = ivf._centroids.shape[0]
+    del mat
+    if cuda:
+        torch.cuda.synchronize()
+    report["setup_s"] = _now() - t0
+    qidx = query_ids()
+    queries = [docs[qidx[i] % n_docs] for i in range(AN_QUERIES)]
+    fresh = [queries[2 * i] for i in range(AN_TIES)] + [
+        t + " fresh" for t in corpus(AN_FRESH - AN_TIES, seed=SEED + 26)
+    ]
+    fresh_keys = list(range(n_docs, n_docs + AN_FRESH))
+    with torch.no_grad():
+        fresh_vecs = torch.cat(
+            [encoder.encode_to_device(fresh[i : i + ENCODE_CHUNK]) for i in range(0, AN_FRESH, ENCODE_CHUNK)]
+        ).float().cpu().numpy()
+    fused = FusedEncodeSearch(encoder, ivf, k=K)
+    before = fused(queries)
+    sched = ServeScheduler(fused, name="analysis", result_cache=None)
+    answers = {}
+    errors = []
+    served = threading.Semaphore(0)
+    commit = {}
+
+    def caller(c: int) -> None:
+        try:
+            for j in range(c, AN_REQUESTS, AN_CALLERS):
+                q = j % AN_QUERIES
+                (row,) = sched.serve([queries[q]])
+                answers[j] = (q, [(int(k), float(sc)) for k, sc in row])
+                served.release()
+        except BaseException as exc:  # noqa: BLE001 - re-raised on the main thread
+            errors.append(exc)
+
+    def committer() -> None:
+        try:
+            for _ in range(AN_COMMIT_AFTER):
+                served.acquire()
+            commit["at_answers"] = len(answers)
+            t = _now()
+            ivf.add(fresh_keys, fresh_vecs)
+            commit["add_ms"] = (_now() - t) * 1e3
+        except BaseException as exc:  # noqa: BLE001 - re-raised on the main thread
+            errors.append(exc)
+
+    rescore_shortlist.launches = 0
+    try:
+        threads = [threading.Thread(target=caller, args=(c,), name=f"phase26-caller-{c}") for c in range(AN_CALLERS)]
+        threads.append(threading.Thread(target=committer, name="phase26-commit"))
+        t_burst = _now()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=AN_TIMEOUT_S)
+        report["burst_s"] = _now() - t_burst
+        launches_a = rescore_shortlist.launches
+        if errors:
+            raise errors[0]
+        report["absorb_wait_s"] = wait_maintenance(ivf)
+        after = fused(queries)
+        verdict = {"before": 0, "after": 0, "both": 0}
+        bad = []
+        for j, (q, got) in sorted(answers.items()):
+            b = same_ranking([(int(k), float(sc)) for k, sc in before[q]], got, tie=AN_TOL, atol=AN_TOL)
+            a = same_ranking([(int(k), float(sc)) for k, sc in after[q]], got, tie=AN_TOL, atol=AN_TOL)
+            verdict["both" if a and b else "before" if b else "after" if a else "neither"] = (
+                verdict.get("both" if a and b else "before" if b else "after" if a else "neither", 0) + 1
+            )
+            if not (a or b):
+                bad.append(j)
+        if len(answers) != AN_REQUESTS or bad:
+            raise AssertionError(f"phase 26 (a): {len(answers)} of {AN_REQUESTS} answers, {len(bad)} equal to neither "
+                                 f"the index before the commit nor after it (first {bad[:5]})")
+        placed = sum(1 for key in fresh_keys if key in ivf._slot_of_key)
+        changed = sum(1 for q in range(AN_QUERIES) if [k for k, _ in before[q]] != [k for k, _ in after[q]])
+        if placed + len(ivf._tail) < AN_FRESH or ivf.stats["absorbs"] < 1 or changed == 0:
+            raise AssertionError(f"phase 26 (a): absorbs {ivf.stats['absorbs']}, {placed} fresh rows placed, the "
+                                 f"commit changed {changed} queries' answers")
+        if cuda and launches_a == 0:
+            raise AssertionError("phase 26 (a): the sanitized serve launched no rescore kernel")
+        st = dict(sched.stats)
+    finally:
+        sched.stop()
+    report.update(
+        answers=len(answers), verdict=verdict, commit=commit, placed=placed, changed=changed, sched=st,
+        n_clusters=int(ivf._centroids.shape[0]), launches_a=launches_a,
+    )
+
+    # -- (b) decode under the sanitizer ---------------------------------------------
+    gen = gen or TextGenerator(kv_cache=PrefixKVCache(block=16), eos_id=None, seed=2)  # 256 wide, 4 layers, bf16
+    prompts = decode_prompts()
+    t0 = _now()
+    solo = [gen.generate([p], max_new_tokens=DEC_BUDGET)[0] for p in prompts]
+    eng = ContinuousDecoder(gen, slots=DEC_SLOTS, step_bucket=DEC_BUCKET, kv_width=DEC_WIDTH, name="analysis-decode")
+    try:
+        for name in ("layer_norm_rows", "add_layer_norm_rows", "tied_readout"):
+            getattr(decode_rows, name).launches = 0
+        tickets = [eng.submit(p, max_new_tokens=DEC_BUDGET) for p in prompts]
+        outs = [t.result(timeout=TICKET_TIMEOUT_S) for t in tickets]
+        launches_b = {name: getattr(decode_rows, name).launches for name in ("add_layer_norm_rows", "tied_readout")}
+    finally:
+        eng.stop()
+    bad = [i for i, (o, w) in enumerate(zip(outs, solo)) if str(o) != w or getattr(o, "degraded", ())]
+    if bad:
+        raise AssertionError(f"phase 26 (b): {len(bad)} of {len(prompts)} decode outputs differ from solo generate "
+                             f"(first prompt {bad[0]})")
+    if cuda and min(launches_b.values()) == 0:
+        raise AssertionError(f"phase 26 (b): decode row kernels launched {launches_b}")
+    report.update(decode_s=_now() - t0, launches_b=launches_b)
+
+    # the kernels against their plain versions at this phase's shapes
+    ln = gen.module.blocks[0].ln_0
+    g = torch.Generator(device=dev).manual_seed(SEED + 26)
+    x = (torch.randn(DEC_SLOTS, 1, gen.config.d_model, generator=g, device=dev) * 3).to(torch.bfloat16)
+    delta = torch.randn(DEC_SLOTS, 1, gen.config.d_model, generator=g, device=dev).to(torch.bfloat16)
+    h = torch.randn(DEC_SLOTS, gen.config.d_model, generator=g, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        s_k, y_k = decode_rows.add_layer_norm_rows(x, delta, ln.weight, ln.bias, torch.float32)
+        s_p, y_p = decode_rows.add_layer_norm_reference(x, delta, ln.weight, ln.bias, torch.float32)
+        ln_err = max(float((s_k.float() - s_p.float()).abs().max()), float((y_k - y_p).abs().max()))
+        ro_err = float((decode_rows.tied_readout(h, gen._table) - decode_rows.tied_readout_reference(h, gen._table))
+                       .abs().max())
+        decode_k = {
+            "add_layer_norm_rows": {"max_abs_err": ln_err, "ms": None, "plain_ms": None},
+            "tied_readout": {"max_abs_err": ro_err, "ms": None, "plain_ms": None},
+        }
+        if cuda:
+            decode_k["add_layer_norm_rows"].update(
+                ms=timed_ms(lambda: decode_rows.add_layer_norm_rows(x, delta, ln.weight, ln.bias, torch.bfloat16), 20),
+                plain_ms=timed_ms(
+                    lambda: decode_rows.add_layer_norm_reference(x, delta, ln.weight, ln.bias, torch.bfloat16), 20),
+            )
+            decode_k["tied_readout"].update(
+                ms=timed_ms(lambda: decode_rows.tied_readout(h, gen._table), 20),
+                plain_ms=timed_ms(lambda: decode_rows.tied_readout_reference(h, gen._table), 20),
+            )
+    if ln_err > LN_ATOL or ro_err > READOUT_ATOL:
+        raise AssertionError(f"phase 26 (b): add_layer_norm_rows err {ln_err}, tied_readout err {ro_err}")
+    report["decode_kernels"] = decode_k
+
+    # -- (d) runtime syncs under the sync debug mode ---------------------------------
+    sched = ServeScheduler(fused, name="analysis-sync", result_cache=None)
+    batches = [[docs[(i * 7919 + j * 131) % n_docs] for j in range(BATCH)] for i in range(AN_SYNC_BATCHES + 4)]
+    syncs = {}
+    try:
+        for texts in batches[:4]:  # warm-up: first-call work stays out of the count
+            sched.serve(texts)
+        if cuda:
+            torch.cuda.synchronize()
+        counter = dispatch_counter.install()
+        n0 = sched.stats.get("batches", 0)
+
+        def on_warning(message, category, filename, lineno, file=None, line=None):
+            if "called a synchronizing CUDA operation" in str(message):
+                site = _sync_site()
+                syncs[site] = syncs.get(site, 0) + 1
+
+        # the mode does not report a host wait on a CUDA event or stream (the
+        # fetch of device.to_host): those waits are recorded beside it
+        waited = {}
+        waits = [(torch.cuda.Event, "synchronize"), (torch.cuda.Stream, "synchronize"), (torch.cuda, "synchronize")]
+        saved = [getattr(owner, attr) for owner, attr in waits]
+
+        def recording(orig):
+            def wait(*a, **kw):
+                site = _sync_site()
+                waited[site] = waited.get(site, 0) + 1
+                return orig(*a, **kw)
+            return wait
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = on_warning
+            for (owner, attr), orig in zip(waits, saved):
+                setattr(owner, attr, recording(orig))
+            if cuda:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for texts in batches[4:]:
+                    sched.serve(texts)
+            finally:
+                if cuda:
+                    torch.cuda.set_sync_debug_mode(0)
+                for (owner, attr), orig in zip(waits, saved):
+                    setattr(owner, attr, orig)
+        n_batches = sched.stats.get("batches", 0) - n0
+        dispatches, fetches = counter.snapshot()
+        dispatch_counter.uninstall()
+    finally:
+        sched.stop()
+    report["sync"] = {
+        "batches": n_batches, "dispatches_booked": dispatches, "fetches_booked": fetches,
+        "sites": [[list(map(list, site)), n] for site, n in sorted(syncs.items(), key=lambda kv: str(kv[0]))],
+        "waits": [[list(map(list, site)), n] for site, n in sorted(waited.items(), key=lambda kv: str(kv[0]))],
+    }
+
+    # -- (c) the sanitizer's counts and edges, the guard's violations ---------------
+    report["sanitizer"] = sanitizer.stats()
+    report["edges"] = sanitizer.edges()
+    report["donation"] = donation_guard.stats()
+    report["worker_s"] = _now() - t_phase
+    with open(out_path, "w") as fh:
+        json.dump(report, fh)
+
+    # the rescore kernel at (a)'s shape, against its plain version (after the counts)
+    report["shape"], report["shape_line"] = None, "not measured (CPU)"
+    if cuda:
+        b = max(1, min(BATCH, round(st.get("items_dispatched", AN_REQUESTS) / max(st.get("batches", 1), 1))))
+        qv = np.asarray(encoder.encode(queries[:b]), dtype=np.float32)
+        report["shape"] = rescore_at_path_shape(ivf, ivf_search_rescore_args(ivf, qv), dev)
+        report["shape_line"] = rescore_line(ivf, report["shape"])
+    report["worker_s"] = _now() - t_phase
+    with open(out_path, "w") as fh:
+        json.dump(report, fh)
+    return 0
+
+
+def _an_static(out: dict) -> None:
+    """The port's static lock graph and hidden-sync fetch scopes, for phase
+    26's runtime-vs-static checks (run beside the worker)."""
+    try:
+        import pathway_tpu_torch
+        from pathway_tpu_torch.analysis.hidden_sync import fetch_scopes
+        from pathway_tpu_torch.analysis.lock_order import static_graph
+
+        pkg = os.path.dirname(os.path.abspath(pathway_tpu_torch.__file__))
+        t0 = _now()
+        out["graph"] = static_graph([pkg])
+        out["scopes"] = {(_pkg_rel(p), q): kind for (p, q), kind in fetch_scopes([pkg]).items()}
+        out["static_s"] = _now() - t0
+    except BaseException as exc:  # noqa: BLE001 - re-raised by the phase
+        out["error"] = exc
+
+
+def analysis_phase(tag: str):
+    """Phase 26: serve, ingest and decode in a fresh interpreter with the
+    runtime lock-order sanitizer and the in-place-write guard armed, both
+    raising; the sanitizer's runtime edges against the static lock graph,
+    the syncs the sync debug mode reports against the hidden-sync rule's
+    fetch scopes.  Returns (launches by kernel, the rescore kernel at the
+    phase's shape, the decode kernels' records)."""
+    import tempfile
+
+    t_phase = _now()
+    static = {}
+    th = threading.Thread(target=_an_static, args=(static,), name="phase26-static")
+    th.start()
+    env = dict(os.environ, **AN_ENV)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "analysis.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--analysis-worker", out_path], env=env,
+            capture_output=True, text=True, timeout=AN_TIMEOUT_S,
+        )
+        for line in proc.stdout.splitlines():
+            print(line, flush=True)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr[-8000:])
+            raise AssertionError(f"phase 26: the sanitized worker exited {proc.returncode}")
+        with open(out_path) as fh:
+            r = json.load(fh)
+    th.join()
+    if "error" in static:
+        raise static["error"]
+    out = analysis_checks(r, static, tag)
+    log(f"analysis {tag}: phase 26 {_now() - t_phase:.1f} s (worker {r['worker_s']:.1f} s, static analysis "
+        f"{static['static_s']:.1f} s beside it)")
+    return out
+
+
+def analysis_checks(r: dict, static: dict, tag: str):
+    """Phase 26's checks and lines over the worker's report ``r`` and the
+    static side ``static`` (``_an_static``)."""
+    from pathway_tpu_torch.analysis.lock_order import runtime_edge_report
+
+    san, don = r["sanitizer"], r["donation"]
+    vio = san["violations"]
+    if any(vio.values()) or san["locks_tracked"] <= 0 or san["edges_observed"] <= 0 or don["violations"]:
+        raise AssertionError(f"phase 26 (c): sanitizer {san}, in-place-write guard violations {don['violations']}")
+    edges = [tuple(e) for e in r["edges"]]
+    rep = runtime_edge_report(edges, static["graph"])
+    if rep["inconsistent"]:
+        raise AssertionError(f"phase 26 (c): runtime edges against the rank table: {rep['inconsistent']}")
+    scopes = static["scopes"]
+
+    def attributed(entries):
+        """Each sync to the innermost frame of its stack that the lint lists
+        as a fetch scope: ``(path, qual, n, how the lint counts it)``."""
+        out = []
+        for frames, n in entries:
+            hit = next(((p, q) for p, q in frames if (p, q) in scopes), None)
+            p, q = hit or tuple(frames[0])
+            out.append((p, q, n, scopes.get(hit, "unknown to the lint")))
+        return out
+
+    sy = r["sync"]
+    sites, waits = attributed(sy["sites"]), attributed(sy["waits"])
+    unknown = [e for e in sites + waits if e[3] not in ("booked", "waived")]
+    v = r["verdict"]
+    n_sync, n_wait = sum(e[2] for e in sites), sum(e[2] for e in waits)
+    log(
+        f"analysis (a) {tag}: under PATHWAY_LOCK_SANITIZER=1 and PATHWAY_DONATION_GUARD=1 (both raising), "
+        f"{N_DOCS} documents encoded into a full-probe IVF (C={r['n_clusters']}) in {r['setup_s']:.3f} s; "
+        f"{AN_CALLERS} closed-loop callers sent {r['answers']} single-query requests over {AN_QUERIES} queries to a "
+        f"ServeScheduler over FusedEncodeSearch (k={K}) in {r['burst_s']:.3f} s while a second thread committed "
+        f"{AN_FRESH} fresh documents after answer {r['commit'].get('at_answers')} (add {r['commit'].get('add_ms', 0):.3f} ms; "
+        f"absorbed, {r['placed']} placed, {r['absorb_wait_s']:.3f} s waited after the burst): every answer == a direct "
+        f"search of its query (keys up to ties, scores within {AN_TOL}) against the index before the commit "
+        f"({v.get('before', 0)} only), after it ({v.get('after', 0)} only) or both ({v.get('both', 0)}); the commit "
+        f"changed {r['changed']} of {AN_QUERIES} queries' answers; scheduler {r['sched'].get('batches')} batches; "
+        f"rescore launches {r['launches_a']}"
+    )
+    dk = r["decode_kernels"]
+    log(
+        f"analysis (b) {tag}: a ContinuousDecoder burst of {len(decode_prompts())} greedy prompts ({DEC_BUDGET} tokens) "
+        f"on the default TextGenerator == solo generate, prompt for prompt, in {r['decode_s']:.3f} s; launches "
+        f"{r['launches_b']}; add_layer_norm_rows at [{DEC_SLOTS}, 1, 256] bf16 err {dk['add_layer_norm_rows']['max_abs_err']:.2e} "
+        f"kernel {_ms(dk['add_layer_norm_rows']['ms'])} plain {_ms(dk['add_layer_norm_rows']['plain_ms'])}; "
+        f"tied_readout at M={DEC_SLOTS} err {dk['tied_readout']['max_abs_err']:.2e} kernel "
+        f"{_ms(dk['tied_readout']['ms'])} plain {_ms(dk['tied_readout']['plain_ms'])} (20 calls between CUDA events)"
+    )
+    log(
+        f"analysis (c) {tag}: violations {vio}; locks tracked {san['locks_tracked']} ({r['locks_at_import']} at "
+        f"import), runtime edges {len(edges)}, every one rank-consistent; the static graph "
+        f"({len(static['graph']['edges'])} edges, {len(static['graph']['sites'])} sites, {static['static_s']:.1f} s) "
+        f"lacks {len(rep['missing'])}: {rep['missing']}; in-place-write guard: violations {don['violations']}, "
+        f"writes {don['written']}"
+    )
+    log(
+        f"analysis (d) {tag}: {sy['batches']} scheduler batches under torch.cuda.set_sync_debug_mode(\"warn\"): "
+        f"{n_sync} syncs reported ({n_sync / max(sy['batches'], 1):.2f} per batch) and {n_wait} host waits on CUDA "
+        f"events or streams ({n_wait / max(sy['batches'], 1):.2f} per batch) beside {sy['fetches_booked']} fetches "
+        f"and {sy['dispatches_booked']} dispatches booked by ops/dispatch_counter.py "
+        f"({sy['fetches_booked'] / max(sy['batches'], 1):.2f} fetches per batch); sync sites: "
+        + ("; ".join(f"{p}:{q} x{n} ({how})" for p, q, n, how in sites) or "none") + "; wait sites: "
+        + ("; ".join(f"{p}:{q} x{n} ({how})" for p, q, n, how in waits) or "none")
+    )
+    if unknown:
+        raise AssertionError(f"phase 26 (d): syncs outside every fetch scope the hidden-sync rule books or waives: "
+                             f"{unknown}")
+    log(f"ivf_rescore at the analysis shape {tag}: " + r["shape_line"] + f"; launches {r['launches_a']}")
+    return {"ivf_rescore": r["launches_a"], **r["launches_b"]}, r["shape"], dk
+
+
 def framework_setup():
     """The set-up ``--framework`` and ``--qa`` share: the card's name, the
     kernels' build, phase 4's rows and phase 5's direct serve p50 (exact
@@ -8574,6 +9030,8 @@ def main() -> int:
         return 1
     if len(sys.argv) == 3 and sys.argv[1] == "--rank-worker":
         return rank_worker(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--analysis-worker":
+        return analysis_worker(sys.argv[2])
     if len(sys.argv) == 5 and sys.argv[1] == "--persist-worker":
         return persist_worker(*sys.argv[2:5])
     if len(sys.argv) == 6 and sys.argv[1] == "--cluster-worker":
@@ -8734,6 +9192,20 @@ def main() -> int:
         log(f"build {time.perf_counter() - t0:.1f} s")
         launches = connectors_phase(f"[{smi}]")[0]
         log(f"rescore launches {launches}; shape census: {tripwire_census()}")
+        return 0
+    if sys.argv[1:] == ["--analysis"]:
+        from pathway_tpu_torch.kernels.build import build_host
+
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        ).stdout.strip()
+        log(f"card: {smi}")
+        t0 = time.perf_counter()
+        build_all()  # once, before the worker starts: it loads what this built
+        build_host("tokenize_hash")
+        log(f"build {time.perf_counter() - t0:.1f} s")
+        launches = analysis_phase(f"[{smi}]")[0]
+        log(f"launches {launches}; shape census: {tripwire_census()}")
         return 0
     if sys.argv[1:] == ["--distributed"]:
         from pathway_tpu_torch.kernels.build import build_host
@@ -9080,6 +9552,15 @@ def main() -> int:
     # -- 25. a CDC feed into a live vector index through the client-gated connectors, counted --
     cx_launches, cx_kernel = connectors_phase(tag)
     worst_err = max(worst_err, cx_kernel["max_abs_err"])
+
+    # -- 26. serve, ingest and decode under the lock sanitizer, counted --
+    an_launches, an_kernel, an_decode = analysis_phase(tag)
+    worst_err = max(worst_err, an_kernel["max_abs_err"])
+    for rec, name in ((decode_kernels[0], "add_layer_norm_rows"), (decode_kernels[1], "tied_readout")):
+        rec["launches"] += an_launches[name]
+        rec["launches_by_path"]["analysis"] = an_launches[name]
+        rec["analysis_shape"] = an_decode[name]
+        rec["max_abs_err"] = max(rec["max_abs_err"], an_decode[name]["max_abs_err"])
     log(f"shape census: {tripwire_census()}")
 
     record = {
@@ -9092,7 +9573,7 @@ def main() -> int:
                 "launches": launches + rr_launches + sched_launches + li_launches + ws_launches + st_launches
                 + po_launches + sum(rw_launches.values()) + ss_launches + sf_launches + fw_launches
                 + qa_launches["ivf_rescore"] + ps_launches + tm_launches + ha_launches + sum(cl_launches)
-                + cx_launches,
+                + cx_launches + an_launches["ivf_rescore"],
                 "launches_by_path": {
                     "serve": launches, "rerank": rr_launches, "scheduler": sched_launches,
                     "ingest": li_launches, "warmstate": ws_launches, "tuning": st_launches,
@@ -9100,6 +9581,7 @@ def main() -> int:
                     "fabric": sf_launches, "framework": fw_launches, "qa": qa_launches["ivf_rescore"],
                     "persist": ps_launches, "temporal": tm_launches, "hostapi": ha_launches,
                     "cluster_per_rank": cl_launches, "connectors": cx_launches,
+                    "analysis": an_launches["ivf_rescore"],
                 },
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,
@@ -9133,6 +9615,7 @@ def main() -> int:
                 "hostapi_shape": {key: ha_kernel[key] for key in _SHAPE_KEYS},
                 "cluster_shape": {key: cl_kernel[key] for key in _SHAPE_KEYS},
                 "connectors_shape": {key: cx_kernel[key] for key in _SHAPE_KEYS},
+                "analysis_shape": {key: an_kernel[key] for key in _SHAPE_KEYS},
             },
             *decode_kernels,
         ]

@@ -42,9 +42,19 @@ decode path's LayerNorm and readout are port-side CUDA kernels
 
 from __future__ import annotations
 
-import datetime as _datetime
-
+# the runtime lock-order sanitizer must patch the threading constructors
+# BEFORE any module of the package creates its locks — this import chain
+# is where they all get created, so the hook runs first.  The knob table
+# is pure stdlib, so it loads before everything; the analysis package
+# loads only when the knob is on.
 from . import config
+
+if config.get("analysis.lock_sanitizer"):
+    from .analysis.sanitizer import install as _sanitizer_install
+
+    _sanitizer_install()
+
+import datetime as _datetime
 from .device import DEFAULT_DTYPE, resolve_device
 from .internals import dtype as dt
 from .internals import api_reducers as reducers

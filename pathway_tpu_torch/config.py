@@ -309,6 +309,29 @@ _knob("ops.recompile_limit", "PATHWAY_RECOMPILE_LIMIT", "int", 128,
 _knob("ops.recompile_strict", "PATHWAY_RECOMPILE_STRICT", "bool", False,
       "recompile tripwire raises instead of warn-once", auto_pytest=True)
 
+# hot-path static analysis and the runtime lock-order sanitizer (analysis/)
+_knob("analysis.cache_dir", "PATHWAY_ANALYSIS_CACHE", "str", "",
+      "incremental analyzer cache directory (empty = cold runs)")
+_knob("analysis.lock_sanitizer", "PATHWAY_LOCK_SANITIZER", "bool", False,
+      "runtime lock-order sanitizer (proxies pathway locks)")
+_knob("analysis.lock_sanitizer_raise", "PATHWAY_LOCK_SANITIZER_RAISE",
+      "bool", False, "sanitizer raises on a would-be inversion",
+      auto_pytest=True)
+_knob("analysis.lock_hold_ms", "PATHWAY_LOCK_HOLD_MS", "float", 0.0,
+      "sanitizer lock-hold budget in ms (0 = off)", lo=0.0, hi=60_000.0)
+
+# the host tokenizer library (models/tokenizer.py, kernels/host.py)
+_knob("native.disable", "PATHWAY_TPU_DISABLE_NATIVE", "bool", False,
+      "skip building/loading the native library")
+
+# engine (internals/config.py)
+_knob("engine.commit_duration_ms", "PATHWAY_COMMIT_DURATION_MS", "int", 100,
+      "dataflow commit-tick duration in ms", lo=1, hi=3_600_000)
+_knob("engine.terminate_on_error", "PATHWAY_TERMINATE_ON_ERROR", "bool",
+      True, "tear the graph down on an operator error")
+_knob("engine.runtime_typechecking", "PATHWAY_RUNTIME_TYPECHECKING", "bool",
+      False, "per-row schema checks in the engine")
+
 # question answering and chat (xpacks/llm/llms.py, question_answering.py)
 _knob("chat.continuous", "PATHWAY_CHAT_CONTINUOUS", "bool", False,
       "route xpack chat through the continuous decoder")

@@ -271,6 +271,7 @@ class ForwardIndex:
         quant = self.quant == "int8"
         T = self.tokens_per_doc
         self._tripwire.observe(("pool", tokens.shape[0], tokens.shape[1], T, quant))
+        # pathway: allow(recompile-hazard): shapes bucketed upstream — encode_token_states pads the batch with _bucket and pins L to max_len, so the pool step sees one shape per batch bucket
         q, scales, nvalid, pooled = _POOL(tokens, upload(mask, tokens.device), T, quant)
         audit = None
         if self.stats["absorbs"] % _AUDIT_EVERY == 0:
@@ -536,7 +537,7 @@ class ForwardIndex:
             Lq = int(query_tokens.shape[1])
             self._tripwire.observe(("maxsim", B, Lq, Kc, k_out, self._capacity, self.tokens_per_doc))
             # the launch runs under the index lock: a short retry schedule
-            fetch = retry_call(
+            fetch = retry_call(  # pathway: allow(lock-discipline): dispatch-only — a commit writes the row buckets in place, so the gather is enqueued before the lock drops; the fetch happens off-lock in the completion
                 "forward.gather",
                 lambda: to_host(_MAXSIM(
                     query_tokens, mask_dev, self._tok, self._scales, self._nvalid,
@@ -735,9 +736,9 @@ class ShardedForwardIndex:
                 if dev.type == "cuda":
                     child._serve_stream = torch.cuda.current_stream(dev)
                 self._tripwire.observe(("table", B, Lq, Kc, child._capacity, self.tokens_per_doc))
-                qtok_s, mask_s, slots_dev = query_tokens.to(dev), mask_dev.to(dev), upload(slots, dev)
+                qtok_s, mask_s, slots_dev = query_tokens.to(dev), mask_dev.to(dev), upload(slots, dev)  # pathway: allow(lock-discipline): device→device scatter of the UNFETCHED stage-1 query token states — peer copies enqueued like a dispatch, not a host round trip
                 # launched under the child's lock: a commit writes its rows in place
-                out = retry_call(
+                out = retry_call(  # pathway: allow(lock-discipline): dispatch-only — the shard's commit writes its rows in place, so the launch is enqueued before the lock drops (fetch after the merge)
                     "forward.gather",
                     lambda: _TABLE(qtok_s, mask_s, child._tok, child._scales, child._nvalid, slots_dev, quant),
                     deadline=deadline,

@@ -11,9 +11,7 @@ parsing goes through the port's knob table
 (``pathway_tpu_torch/config.py``) — field defaults are
 ``default_factory`` thunks, so each ``PathwayConfig()`` construction
 reads the CURRENT knob values instead of whatever the env held at
-class-definition time.  The reference's mesh and engine fields come with
-the slices that read them; span export over the monitoring endpoint comes
-with the telemetry slice (``ROADMAP.md``, framework slice 3c)."""
+class-definition time.  The fields are the reference's, one for one."""
 
 from __future__ import annotations
 
@@ -27,6 +25,23 @@ __all__ = ["PathwayConfig", "get_config", "set_license_key", "set_monitoring_con
 
 @dataclass
 class PathwayConfig:
+    # device meshes (the mesh axes' size overrides)
+    mesh_data_axis: int = field(
+        default_factory=lambda: config.get("parallel.data_shards")
+    )
+    mesh_model_axis: int = field(
+        default_factory=lambda: config.get("parallel.model_shards")
+    )
+    # engine
+    commit_duration_ms: int = field(
+        default_factory=lambda: config.get("engine.commit_duration_ms")
+    )
+    terminate_on_error: bool = field(
+        default_factory=lambda: config.get("engine.terminate_on_error")
+    )
+    runtime_typechecking: bool = field(
+        default_factory=lambda: config.get("engine.runtime_typechecking")
+    )
     # persistence
     persistence_mode: str = field(
         default_factory=lambda: config.get("persistence.mode")
@@ -58,6 +73,10 @@ class PathwayConfig:
     @property
     def process_id(self) -> int:
         return config.get("parallel.process_id")
+
+    @property
+    def processes(self) -> int:
+        return config.get("parallel.processes")
 
 
 _config = PathwayConfig()

@@ -171,7 +171,7 @@ class ClipModel:
         observe.record_occupancy("clip_text", n, b)
         ids_t, mask_t = upload(ids, self.device), upload(mask, self.device)
         out = retry_call("clip.dispatch", self.module.encode_text, ids_t, mask_t)
-        host = out[:n].cpu().numpy()
+        host = out[:n].cpu().numpy()  # pathway: allow(value-flow): encode_text's contract is synchronous host rows (the serve path goes through submit/complete, which books its fetch)
         _H_TEXT.observe_ns(time.perf_counter_ns() - t0)
         return host
 
@@ -200,7 +200,8 @@ class ClipModel:
         self._tripwire.observe(("image", batch.shape[0]))
         t0 = time.perf_counter_ns()
         observe.record_occupancy("clip_image", n, batch.shape[0])
+        # pathway: allow(recompile-hazard): shapes bucketed upstream — image_batch pads the images to [_bucket(n), S, S, 3], the census key this scope observes
         out = retry_call("clip.dispatch", self.module.encode_image, upload(batch, self.device))
-        host = out[:n].cpu().numpy()
+        host = out[:n].cpu().numpy()  # pathway: allow(value-flow): encode_image's contract is synchronous host rows, same as encode_text
         _H_IMAGE.observe_ns(time.perf_counter_ns() - t0)
         return host

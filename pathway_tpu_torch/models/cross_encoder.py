@@ -27,6 +27,7 @@ it scores unpacked whatever ``packed`` says, with BERT pair segments:
 ``checkpoint_path`` that is not an HF directory raises ``ValueError``.
 """
 
+# pathway: serve-path  (hidden-sync lint applies: no implicit host round trips)
 from __future__ import annotations
 
 import time

@@ -47,6 +47,7 @@ pool, normalize); the rows come back in order on the encoder's
 tripwire sees each block's shape.
 """
 
+# pathway: serve-path  (hidden-sync lint applies: no implicit host round trips)
 from __future__ import annotations
 
 import copy
@@ -201,7 +202,7 @@ class SentenceEncoder:
         spans = [(min(B, s * per), min(B, (s + 1) * per)) for s in range(n)]
         self._tripwire.observe(("block", rb, L))
         outs = []
-        for s in local_shards(self.mesh):
+        for s in local_shards(self.mesh):  # pathway: allow(hidden-sync): device→device scatter of the batch's row blocks to the mesh's data devices and gather of their outputs — ids and mask are already on the encoder's device (uploaded by the caller), so these are peer copies with no host wait
             lo, hi = spans[s]
             dev = self.mesh.data_device(s)
             bi = torch.zeros((rb, L), dtype=ids.dtype, device=dev)
@@ -225,6 +226,7 @@ class SentenceEncoder:
 
         def embed(ids_m, mask_m):
             self._tripwire.observe(ids_m.shape)
+            # pathway: allow(recompile-hazard): shapes bucketed upstream — the embedding cache pads the misses with zero rows to _bucket(misses) before it calls embed (cache/embedding.py encode_rows)
             return _FORWARD(self, upload(ids_m, self.device), upload(mask_m, self.device))
 
         out, misses = self.embed_cache.encode_rows(
@@ -276,9 +278,12 @@ class SentenceEncoder:
         self._tripwire.observe(("packed", Rb, L, S))
         dev = self.device
         ids_t, seg_t, pos_t = upload(ids, dev), upload(segments, dev), upload(positions, dev)
+        # the row index rides the same pinned, non-blocking upload as the
+        # operands: a blocking copy after the launch would hold the host
+        # until the packed forward finished
+        flat_ix = upload(np.asarray([r * S + seg for r, seg in doc_slots], np.int64), dev)
         pooled = retry_call("encoder.dispatch", _PACKED, self, ids_t, seg_t, pos_t, S)  # [Rb, S, d]
-        flat_ix = torch.as_tensor([r * S + seg for r, seg in doc_slots], dtype=torch.int64)
-        return pooled.reshape(Rb * S, -1).index_select(0, flat_ix.to(dev))
+        return pooled.reshape(Rb * S, -1).index_select(0, flat_ix)
 
     @torch.no_grad()
     def encode_token_states(self, texts: Sequence[str]):

@@ -21,6 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import config
 from ..kernels.host import host_lib, native_xxh3_64
 from ._xxh3 import xxh3_64
 
@@ -115,7 +116,9 @@ class HashTokenizer:
         max_length = max_length or self.max_length
         if pairs is None and len(texts):
             texts_s = [t if isinstance(t, str) else str(t) for t in texts]
-            if "".join(texts_s).isascii():
+            # PATHWAY_TPU_DISABLE_NATIVE keeps to the Python path, as the
+            # reference does when its native library is disabled
+            if "".join(texts_s).isascii() and not config.get("native.disable"):
                 return self._encode_batch_native(texts_s, max_length, pad_to)
         return self._encode_batch_python(texts, pairs, max_length, pad_to)
 

@@ -30,6 +30,7 @@ the same rows as its ``profile`` column.  Series and the provider are
 created on first use, never at import.
 """
 
+# pathway: serve-path  (hidden-sync lint applies: ``profiled`` runs inside every serve dispatch)
 from __future__ import annotations
 
 import threading
@@ -198,7 +199,7 @@ def _completer_loop() -> None:
             _inflight += 1
         try:
             try:
-                ev.synchronize()
+                ev.synchronize()  # pathway: allow(hidden-sync): the completer thread's one wait per sampled call — off every serve thread by design, it is the attribution itself (the calling thread never synchronizes)
             except Exception:  # noqa: BLE001 - a failed wait drops the sample, never the serve
                 _dropped()
                 continue

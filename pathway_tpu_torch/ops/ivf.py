@@ -922,8 +922,8 @@ class IvfKnnIndex:
                 (_bucket(nq), k, p, self.tail_bucket(len(tail)), self._slabs.shape[0], self._M_pad,
                  self._centroids.shape[0])
             )
-            z = torch.from_numpy(queries).to(self.device)
-            out = _SEARCH(self, z, k, p, tail_dev, False)
+            z = torch.from_numpy(queries).to(self.device)  # pathway: allow(lock-discipline): the launch's query operand — uploaded under the lock with the dispatch it feeds, as the reference does; the fetch happens off-lock below
+            out = _SEARCH(self, z, k, p, tail_dev, False)  # pathway: allow(lock-discipline, recompile-hazard): dispatch-only — an absorb writes the slabs in place, so the launch is enqueued before the lock drops (fetch off-lock below); the census key buckets nq but z keeps nq rows, padding it is ROADMAP.md Queue 2 (a)
             keys_by_slot = self._keys_by_slot  # dispatch-time snapshot
         scores, slots, t_scores, t_idx = (t.cpu().numpy() for t in out)
         return [

@@ -324,7 +324,7 @@ class DeviceKnnIndex:
                 norms = np.linalg.norm(queries, axis=1)
                 queries = queries / np.where(norms == 0, 1.0, norms)[:, None]
             k_eff = min(k, len(self.key_to_slot))
-            scores, idx = self.score_topk(torch.from_numpy(queries).to(self.device), k_eff)
+            scores, idx = self.score_topk(torch.from_numpy(queries).to(self.device), k_eff)  # pathway: allow(lock-discipline): the reference host-search contract — the query upload, scoring and fetch run under the index lock that orders them against add's in-place scatter, as in the reference; the serve path goes through FusedEncodeSearch instead
             scores = scores.cpu().numpy()
             idx = idx.cpu().numpy()
             out: List[List[Tuple[int, float]]] = []

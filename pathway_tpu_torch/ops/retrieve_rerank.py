@@ -36,6 +36,7 @@ Stage timings land on ``pathway_serve_stage_seconds{stage}`` and the
 active trace (``stage.<name>``, ``stage2.pack_dispatch``, ``stage2.rtt``).
 """
 
+# pathway: serve-path  (hidden-sync lint applies: no implicit host round trips)
 from __future__ import annotations
 
 import math

@@ -64,6 +64,7 @@ Per-shard dispatch seconds land on
 ``pathway_serve_shard_stage_seconds{stage,shard}``.
 """
 
+# pathway: serve-path  (hidden-sync lint applies: no implicit host round trips)
 from __future__ import annotations
 
 import threading
@@ -252,7 +253,7 @@ class FusedEncodeSearch:
 
     def _submit_exact(self, texts, ids, mask, n_real: int, k: int, t_start: int, deadline, z, launches: int):
         index = self.index
-        with index._lock, self._lock:
+        with index._lock, self._lock:  # pathway: allow(lock-order): rank exception index(3)<scheduler(5) — index-before-pipeline is the fused-serve pair order at EVERY site (the absorb writes the slabs in place, so the launch is enqueued before the index lock drops; the pipeline lock nests inside), so the pair is globally ordered and deadlock-free
             n_items = len(index.key_to_slot)
             gen0 = self.index_generation()
             if n_items == 0:
@@ -266,7 +267,7 @@ class FusedEncodeSearch:
                 packed, qtok = step(self, z, ids, mask, k_eff)
                 return to_host(packed), qtok
 
-            fetch, qtok = retry_call(
+            fetch, qtok = retry_call(  # pathway: allow(lock-discipline): dispatch-only — an absorb writes the index in place, so the launch is enqueued before the lock drops; the fetch happens off-lock in the completion
                 "serve.dispatch", launch, deadline=deadline, policy=_LOCKED_DISPATCH_RETRY
             )
         record_dispatch("serve_exact", shards=launches)
@@ -288,7 +289,7 @@ class FusedEncodeSearch:
 
     def _submit_ivf(self, texts, ids, mask, n_real: int, k: int, t_start: int, deadline, z, launches: int):
         index = self.index
-        with index._lock, self._lock:
+        with index._lock, self._lock:  # pathway: allow(lock-order): rank exception index(3)<scheduler(5) — same index-before-pipeline pair order as the exact branch (one global order for the pair keeps it deadlock-free)
             gen0 = self.index_generation()
             if len(index) == 0:
                 empty = ServeResult([[] for _ in texts], meta={"index_generation": gen0})
@@ -312,7 +313,7 @@ class FusedEncodeSearch:
                 packed, qtok, k_main, k_tail = step(self, z, ids, mask, k_eff, p, tail_dev)
                 return to_host(packed), qtok, k_main, k_tail
 
-            fetch, qtok, k_main, k_tail = retry_call(
+            fetch, qtok, k_main, k_tail = retry_call(  # pathway: allow(lock-discipline): dispatch-only — an absorb writes the slabs in place, so the launch is enqueued before the lock drops; the fetch happens off-lock in the completion
                 "ivf.dispatch", launch, deadline=deadline, policy=_LOCKED_DISPATCH_RETRY
             )
             keys_by_slot = index._keys_by_slot  # dispatch-time snapshot
@@ -402,10 +403,10 @@ class FusedEncodeSearch:
                         "shard", B, k_eff, p, child.tail_bucket(len(tail)), C_pad, child._centroids.shape[0], M,
                         child._d_pad,
                     ))
-                    z_s = z.to(child.device)
+                    z_s = z.to(child.device)  # pathway: allow(lock-discipline, value-flow): device→device scatter of the UNFETCHED [B, d] embedding — a peer copy enqueued like a dispatch, not a host round trip; the value is loop-invariant but the TARGET device varies per shard (mirrored in residency.DECLARED_TRANSFERS), and it must precede the launch that consumes it under this lock
                     # launched under the child's lock: an absorb commit
                     # writes the slabs in place
-                    out = retry_call(
+                    out = retry_call(  # pathway: allow(lock-discipline): dispatch-only — an absorb writes the shard's slabs in place, so the launch is enqueued before the lock drops; the merged fetch happens off-lock in the completion
                         "shard.dispatch", _SHARD_SEARCH, self, child, z_s, k_eff, p, tail_dev,
                         deadline=deadline, policy=_LOCKED_DISPATCH_RETRY, breaker=breaker,
                     )
@@ -456,7 +457,7 @@ class FusedEncodeSearch:
         else:
             # gather leg: the per-shard lists move to the merge device,
             # and one tree merge packs the global top-k
-            moved = [outs[s].to(z.device) for s in live]
+            moved = [outs[s].to(z.device) for s in live]  # pathway: allow(hidden-sync): device→device gather of the per-shard top-k lists to the merge device — peer copies, no host copy and no host wait
             self._tripwire.observe(("merge", len(live), B, k_eff))
             fetch = retry_call(
                 "shard.merge", lambda: to_host(_SHARD_MERGE(moved, k_eff)),

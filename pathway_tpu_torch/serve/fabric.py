@@ -64,6 +64,7 @@ A replacement worker restores the writer's warm state
 mode.
 """
 
+# pathway: serve-path  (hidden-sync lint applies: no implicit host round trips)
 from __future__ import annotations
 
 import hashlib

@@ -39,6 +39,7 @@ launch and every copy of a batch is ordered on one stream;
 (``CrossEncoderModel.submit``).
 """
 
+# pathway: serve-path  (hidden-sync lint applies: no implicit host round trips)
 from __future__ import annotations
 
 import contextlib

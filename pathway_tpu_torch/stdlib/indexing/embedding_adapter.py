@@ -38,7 +38,7 @@ class EmbeddingIndexAdapter:
         texts = ["" if v is None else str(v) for v in values]
         if self._mode == "encode":
             # the encoder returns host numpy rows (SentenceEncoder.encode)
-            return list(np.asarray(self.embedder.encode(texts), np.float32))
+            return list(np.asarray(self.embedder.encode(texts), np.float32))  # pathway: allow(value-flow): ingest-side host materialization — the adapter's contract is host float32 rows for the inner index, one batched crossing per micro-batch, off every serve lock (mirrored in residency.DECLARED_TRANSFERS)
         fn = self.embedder.func
         if self._mode == "async":
 

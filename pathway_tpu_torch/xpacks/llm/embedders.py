@@ -93,7 +93,7 @@ class TpuEmbedder(BaseEmbedder):
             # plain batches.
             def embed(texts) -> np.ndarray:
                 out = encoder.encode_packed_to_device(list(texts))
-                return out.float().cpu().numpy()
+                return out.float().cpu().numpy()  # pathway: allow(value-flow): the embedder xpack's contract IS a host ndarray — a deliberate synchronous fetch on the ingest/UDF path, never inside a serve stage (mirrored in residency.DECLARED_TRANSFERS)
 
         else:
 
@@ -144,7 +144,7 @@ class SentenceTransformerEmbedder(BaseEmbedder):
             self._dimension = int(st_model.get_sentence_embedding_dimension())
 
             def embed(texts) -> np.ndarray:
-                return np.asarray(st_model.encode(list(texts), **call_kwargs), dtype=np.float32)
+                return np.asarray(st_model.encode(list(texts), **call_kwargs), dtype=np.float32)  # pathway: allow(value-flow): SentenceTransformer is a HOST-side model — its .encode matches the device-producer spelling but returns numpy rows; no device crossing (mirrored in residency.DECLARED_TRANSFERS)
 
             super().__init__(embed, batched=True)
             return

@@ -95,11 +95,17 @@ def test_process_config_reads_the_port_table(monkeypatch):
     monkeypatch.setenv("PATHWAY_PERSISTENT_STORAGE", "/state")
     monkeypatch.setenv("PATHWAY_PERSISTENCE_MODE", "OPERATOR_PERSISTING")
     monkeypatch.setenv("PATHWAY_SNAPSHOT_INTERVAL_MS", "250")
-    for env in ("PATHWAY_REPLAY_STORAGE", "PATHWAY_MONITORING_SERVER", "PATHWAY_LICENSE_KEY"):
+    for env in (
+        "PATHWAY_REPLAY_STORAGE", "PATHWAY_MONITORING_SERVER", "PATHWAY_LICENSE_KEY",
+        "PATHWAY_TPU_DATA_SHARDS", "PATHWAY_TPU_MODEL_SHARDS", "PATHWAY_COMMIT_DURATION_MS",
+        "PATHWAY_TERMINATE_ON_ERROR", "PATHWAY_RUNTIME_TYPECHECKING",
+    ):
         monkeypatch.delenv(env, raising=False)
     mine, theirs = PathwayConfig(), RefConfig()
     assert vars(mine) == {name: getattr(theirs, name) for name in vars(mine)}
     assert vars(mine) == {
+        "mesh_data_axis": 0, "mesh_model_axis": 0, "commit_duration_ms": 100,
+        "terminate_on_error": True, "runtime_typechecking": False,
         "persistence_mode": "OPERATOR_PERSISTING", "replay_storage": None, "persistent_storage": "/state",
         "snapshot_interval_ms": 250, "metrics_port": 23456, "metrics_host": "0.0.0.0",
         "monitoring_server": None, "license_key": None,
@@ -120,3 +126,54 @@ def test_exchange_plane_knobs_equal_the_reference_field_by_field(key):
     mine, theirs = config.registry()[key], ref_config.registry()[key]
     for field in ("env", "kind", "default", "doc", "lo", "hi", "choices", "mutability", "site_prefix", "auto_pytest"):
         assert getattr(mine, field) == getattr(theirs, field), (key, field)
+
+
+def test_the_port_declares_every_knob_of_the_reference():
+    """The knob keys of the two tables are equal: the analysis, engine and
+    native knobs of the reference are declared in the port too."""
+    assert set(config.registry()) == set(ref_config.registry())
+
+
+_ENGINE_ENV = {
+    "PATHWAY_TPU_DATA_SHARDS": "4", "PATHWAY_TPU_MODEL_SHARDS": "2", "PATHWAY_COMMIT_DURATION_MS": "250",
+    "PATHWAY_TERMINATE_ON_ERROR": "0", "PATHWAY_RUNTIME_TYPECHECKING": "1",
+}
+
+
+@pytest.mark.parametrize("env", [{}, _ENGINE_ENV], ids=["defaults", "set"])
+def test_process_config_fields_equal_the_reference(env, monkeypatch):
+    """``dataclasses.fields`` of the two ``PathwayConfig``s agree, name for
+    name, and under the same environment every field has the same value
+    (``pw.get_config().commit_duration_ms`` answers in both)."""
+    import dataclasses
+
+    from pathway_tpu.internals.config import PathwayConfig as RefConfig
+    from pathway_tpu_torch.internals.config import PathwayConfig
+
+    for name in _ENGINE_ENV:
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    assert [f.name for f in dataclasses.fields(PathwayConfig)] == [f.name for f in dataclasses.fields(RefConfig)]
+    mine, theirs = PathwayConfig(), RefConfig()
+    assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+    assert (mine.process_id, mine.processes) == (theirs.process_id, theirs.processes)
+    if env:
+        assert (mine.commit_duration_ms, mine.terminate_on_error, mine.mesh_data_axis) == (250, False, 4)
+
+
+def test_native_disable_keeps_the_tokenizer_to_the_python_path(monkeypatch):
+    """``PATHWAY_TPU_DISABLE_NATIVE=1`` keeps an ASCII batch off the host
+    library, as the reference keeps to its Python tokenizer; the ids are
+    the same either way."""
+    from pathway_tpu_torch.models import tokenizer as tok_mod
+
+    tok = tok_mod.HashTokenizer(vocab_size=512, max_length=32)
+    texts = ["the cat sat", "on the mat today"]
+    native = tok.encode_batch(texts)
+    calls = []
+    monkeypatch.setattr(tok_mod.HashTokenizer, "_encode_batch_native", lambda *a, **k: calls.append(1))
+    monkeypatch.setenv("PATHWAY_TPU_DISABLE_NATIVE", "1")
+    python = tok.encode_batch(texts)
+    assert calls == []
+    assert all((a == b).all() for a, b in zip(native, python))
