@@ -26,6 +26,7 @@ NVIDIA GPU:
     python3 chip_smoke.py --cluster        # the builds, then phase 24 alone
     python3 chip_smoke.py --connectors     # the builds, then phase 25 alone
     python3 chip_smoke.py --analysis       # the builds, then phase 26 alone
+    python3 chip_smoke.py --native         # the builds, then phase 27 alone
     python3 chip_smoke.py --first-call ROOT...  # the profiler's first sampled
                                            # call, fresh processes, per root
 
@@ -488,8 +489,28 @@ Phases, in order; any failure exits non-zero:
    fetches ``ops/dispatch_counter.py`` booked.  The static analysis runs
    in this process beside the worker.
 
+27. the native host runtime (``csrc/host/native_io.cc``), then a CSV-fed
+   index.  (a) on this host, in turns native, plain, plain, native, each
+   native result equal to the plain one: ``native.csv_rows`` against the
+   ``csv`` module over phase 4's 65,536 documents written as 16 CSV files
+   of ``doc_id,text,score`` (texts with commas, doubled quotes and
+   newlines; one file with CRLF endings); ``parse_int64`` /
+   ``parse_float64`` against their plain versions over the id and score
+   cells; ``crc32`` against ``zlib.crc32`` and ``frame_scan`` against
+   ``scan_views`` over a 256 MiB blob in ``warmstate.chunk_bytes`` frames,
+   framing those chunks by either CRC; then 65,536 event frames framed by
+   either CRC and scanned by ``framing.scan`` against ``scan_views`` with
+   copies.  (b) the first 4 files (16,384 documents) through
+   ``pw.io.fs.read(format="csv")``, phase 19's ``TpuEmbedder`` into a
+   full-probe IVF ``DataIndex``, 4 query commits of 64 through
+   ``pw.io.python`` (k = 10, 10 ms tick).  Checked: the engine's rows ==
+   the ``csv`` module's rows of the same files; every answer == an exact
+   search on the card over the documents' embeddings (ties within 1e-5,
+   scores within 1e-4); the rescore launched, and equal to its plain
+   version at the phase's shape; every index tensor on ``cuda``.
+
 Every shape-census tripwire runs strict from the start
-(``PATHWAY_RECOMPILE_STRICT=1``); after phase 26 none may have tripped.
+(``PATHWAY_RECOMPILE_STRICT=1``); after phase 27 none may have tripped.
 
 The card's name and power limit, then the JSON record of the kernels,
 then ``{"ok": true, "device": {...}}`` are the last three lines; the
@@ -8992,6 +9013,373 @@ def analysis_checks(r: dict, static: dict, tag: str):
     return {"ivf_rescore": r["launches_a"], **r["launches_b"]}, r["shape"], dk
 
 
+# -- phase 27: the native host runtime, then a CSV-fed index --------------------------
+NV_FILES = 16  # (a): the N_DOCS documents as CSV files of N_DOCS / 16 rows each
+NV_CRLF_FILE = 3  # this file's lines end in "\r\n", the others' in "\n"
+NV_INDEX_FILES = 4  # (b): the first 4 files (16,384 documents) feed the index
+NV_COMMITS = 4  # (b): query commits of BATCH through pw.io.python
+NV_COMMIT_MS = 10  # the engine's commit tick while (b) runs
+NV_FRAME_BYTES = 256 << 20  # (a): the framing blob, in warmstate.chunk_bytes chunks
+NV_EVENTS = 65_536  # (a): frames of one persisted event's payload each
+NV_TOL = 1e-4  # phase 19's: scores within 1e-4, keys free only between scores tied within 1e-5
+NV_TURNS = ("native", "plain", "plain", "native")
+
+
+def _nv_files(docs, n_files: int = NV_FILES):
+    """The documents as CSV files (bytes) of ``doc_id,text,score``: every
+    5th text holds a comma, every 7th doubled quotes, every 11th a
+    newline; file ``NV_CRLF_FILE`` ends its lines in ``\\r\\n``."""
+    import csv
+
+    scores = np.random.default_rng(SEED + 27).standard_normal(len(docs))
+    per = len(docs) // n_files
+    files = []
+    for f in range(n_files):
+        out = io.StringIO()
+        writer = csv.writer(out, lineterminator="\r\n" if f == NV_CRLF_FILE else "\n")
+        writer.writerow(["doc_id", "text", "score"])
+        for i in range(f * per, (f + 1) * per):
+            text = docs[i]
+            if i % 5 == 0:
+                text = text.replace(" ", ", ", 1)
+            if i % 7 == 0:
+                text += ' "quoted"'
+            if i % 11 == 0:
+                text = text.replace(" ", "\n", 1)
+            writer.writerow([i, text, repr(float(scores[i]))])
+        files.append(out.getvalue().encode())
+    return files
+
+
+def _nv_csv_module_rows(data: bytes):
+    """What ``pw.io.fs`` read a plain CSV file into before the native
+    scanner: the decoded file through ``csv.reader``, blank lines
+    skipped."""
+    import csv
+
+    return [row for row in csv.reader(io.StringIO(data.decode("utf-8", errors="replace"), newline="")) if row]
+
+
+def _nv_turns(fns: dict):
+    """Host seconds of each version in the turns ``NV_TURNS``, each turn
+    after a full garbage collection, and each version's result of its
+    first turn."""
+    import gc
+
+    times, results = {name: [] for name in fns}, {}
+    for name in NV_TURNS:
+        gc.collect()
+        t0 = time.perf_counter()
+        out = fns[name]()
+        times[name].append(time.perf_counter() - t0)
+        results.setdefault(name, out)
+        del out
+    return times, results
+
+
+def _nv_line(what: str, times: dict) -> str:
+    return f"{what}: native " + " / ".join(f"{s:.4f}" for s in times["native"]) + " s, plain " + " / ".join(
+        f"{s:.4f}" for s in times["plain"]) + " s"
+
+
+def native_host(docs, frame_bytes: int = NV_FRAME_BYTES, n_events: int = NV_EVENTS):
+    """Phase 27 (a): the native host runtime against its plain versions on
+    this host, in turns native, plain, plain, native; every native result
+    must equal the plain one.  Returns ``(lines, seconds by measurement,
+    the CSV files)``."""
+    import pickle
+    import struct
+    import zlib
+
+    from pathway_tpu_torch import config as port_config
+    from pathway_tpu_torch import native
+    from pathway_tpu_torch.native import fallback
+    from pathway_tpu_torch.persistence.framing import frame, frame_all, scan, scan_views
+
+    if not native.available():
+        raise AssertionError("phase 27: the native library is disabled")
+    files = _nv_files(docs)
+    lines, secs = [], {}
+
+    def check(what, results, same=None):
+        same = same or (lambda a, b: a == b)
+        if not same(results["native"], results["plain"]):
+            raise AssertionError(f"phase 27 (a): {what}: the native result differs from the plain one")
+
+    # CSV: native.csv_rows against the csv module, over the 16 files
+    times, res = _nv_turns({"native": lambda: [native.csv_rows(b) for b in files],
+                            "plain": lambda: [_nv_csv_module_rows(b) for b in files]})
+    check("csv_rows", res)
+    n_rows = sum(len(rows) - 1 for rows in res["native"])
+    if n_rows != len(docs):
+        raise AssertionError(f"phase 27 (a): {n_rows} rows read back from the CSV files of {len(docs)} documents")
+    secs["csv_rows"] = times
+    lines.append(_nv_line(f"csv_rows against the csv module, {len(files)} files, {n_rows} rows, "
+                          f"{sum(map(len, files))} bytes", times))
+
+    # typed parse of the id and score cells
+    cells = {"id": [], "score": []}
+    for b in files:
+        rcs, off, ln, _q = native.csv_scan(b)
+        first = rcs[1:-1]  # each data row's first cell (the header row apart)
+        cells["id"].append((b, off[first], ln[first]))
+        cells["score"].append((b, off[first + 2], ln[first + 2]))
+    for fn, col in (("parse_int64", "id"), ("parse_float64", "score")):
+        times, res = _nv_turns({
+            "native": lambda fn=fn, col=col: [getattr(native, fn)(*c) for c in cells[col]],
+            "plain": lambda fn=fn, col=col: [getattr(fallback, fn)(*c) for c in cells[col]],
+        })
+        check(fn, res, lambda a, b: all(np.array_equal(x[1], y[1]) and np.array_equal(x[0].view(np.int64),
+                                                                                     y[0].view(np.int64))
+                                        for x, y in zip(a, b)))
+        if not all(bool(ok.all()) for _v, ok in res["native"]):
+            raise AssertionError(f"phase 27 (a): {fn} refused a cell of the {col} column")
+        secs[fn] = times
+        lines.append(_nv_line(f"{fn} over the {sum(len(c[1]) for c in cells[col])} {col} cells", times))
+
+    # framing: a warm-state blob of chunk_bytes frames
+    chunk = port_config.get("warmstate.chunk_bytes")
+    payload = np.random.default_rng(SEED + 28).bytes(frame_bytes)
+    view = memoryview(payload)
+    chunks = [view[o : o + chunk] for o in range(0, frame_bytes, chunk)]
+    blob = frame_all(chunks)
+    times, res = _nv_turns({"native": lambda: native.crc32(blob), "plain": lambda: zlib.crc32(blob)})
+    check("crc32", res)
+    secs["crc32"] = times
+    lines.append(_nv_line(f"crc32 of a {len(blob)}-byte blob", times))
+
+    def native_views():
+        offs, lens, consumed = native.frame_scan(blob)
+        bview = memoryview(blob)
+        return [bview[o : o + n] for o, n in zip(offs.tolist(), lens.tolist())], consumed == len(blob)
+
+    times, res = _nv_turns({"native": native_views, "plain": lambda: scan_views(blob)})
+    check("frame_scan", res, lambda a, b: a[1] and b[1] and len(a[0]) == len(b[0]) == len(chunks)
+          and all(x == y for x, y in zip(a[0], b[0])))
+    secs["frame_scan"] = times
+    lines.append(_nv_line(f"frame_scan (walk and CRCs, then views) against scan_views (CRCs on up to 8 threads), "
+                          f"{len(chunks)} frames of {chunk} bytes", times))
+
+    def native_frame(p):
+        return struct.pack("<II", len(p), native.crc32(p)) + p
+
+    times, res = _nv_turns({"native": lambda: b"".join(native_frame(c) for c in chunks),
+                            "plain": lambda: b"".join(frame(c) for c in chunks)})
+    check("frame of chunks", res)
+    secs["frame_chunks"] = times
+    lines.append(_nv_line(f"frame of the {len(chunks)} chunks (native.crc32 against zlib.crc32)", times))
+    del blob, res, chunks, view, payload
+
+    # framing: a persisted source's log, one frame per event
+    events = [pickle.dumps((1, i, (f"row{i}",)), protocol=pickle.HIGHEST_PROTOCOL) for i in range(n_events)]
+    times, res = _nv_turns({"native": lambda: b"".join(native_frame(p) for p in events),
+                            "plain": lambda: b"".join(frame(p) for p in events)})
+    check("frame of events", res)
+    secs["frame_events"] = times
+    log_blob = res["plain"]
+    lines.append(_nv_line(f"frame of {n_events} events of {sum(map(len, events)) // n_events} bytes", times))
+    times, res = _nv_turns({"native": lambda: scan(log_blob),
+                            "plain": lambda: ([v.tobytes() for v in scan_views(log_blob)[0]], True)})
+    check("scan of events", res)
+    if res["native"][0] != events:
+        raise AssertionError("phase 27 (a): the events did not come back from their frames")
+    secs["scan_events"] = times
+    lines.append(_nv_line(f"framing.scan (native.frame_scan) against scan_views + copies, {n_events} event frames",
+                          times))
+    return lines, secs, files
+
+
+def native_index(pw, emb, files, dev, commits: int = NV_COMMITS):
+    """Phase 27 (b): the first ``NV_INDEX_FILES`` CSV files through
+    ``pw.io.fs.read`` into a full-probe IVF ``DataIndex`` by the embedder,
+    then ``commits`` query commits of BATCH through ``pw.io.python``.
+    Returns the report."""
+    import tempfile
+
+    from pathway_tpu_torch.engine.operators.external_index import ExternalIndexOperator
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+
+    cuda = dev.type == "cuda"
+    files = files[:NV_INDEX_FILES]
+    want_rows = sorted((int(r[0]), r[1], float(r[2])) for b in files for r in _nv_csv_module_rows(b)[1:])
+    texts = {d: t for d, t, _s in want_rows}
+    doc_ids = sorted(texts)
+    qidx = query_ids()
+    queries = [texts[doc_ids[qidx[i] % len(doc_ids)]] for i in range(commits * BATCH)]
+    driver = _FrameworkDriver("phase 27")
+    report = {"latency_ms": [], "searches_of": []}
+    with tempfile.TemporaryDirectory(prefix="native-csv-") as folder:
+        for f, b in enumerate(files):
+            with open(os.path.join(folder, f"part{f:02d}.csv"), "wb") as out:
+                out.write(b)
+
+        class Doc(pw.Schema):
+            doc_id: int = pw.column_definition(primary_key=True)
+            text: str
+            score: float
+
+        class Query(pw.Schema):
+            qid: int = pw.column_definition(primary_key=True)
+            query: str
+
+        t_build = _now()
+        docs_t = pw.io.fs.read(folder, format="csv", schema=Doc, mode="static", name="native_csv")
+        vecs = docs_t.select(pw.this.doc_id, vec=emb(pw.this.text),
+                             meta=pw.apply(lambda d: {"doc": int(d)}, pw.this.doc_id))
+        mod = pw.stdlib.indexing
+        dim = emb.get_embedding_dimension()
+        index = mod.DataIndex(vecs, mod.InnerIndex(
+            data_column=vecs.vec, metadata_column=vecs.meta, dimension=dim,
+            factory=mod.IvfKnnFactory(dimension=dim, n_probe=1 << 30, device=None if cuda else dev),
+        ))
+        subject, query_q = _queue_subject(pw, "queries", driver)
+        qs = pw.io.python.read(subject, schema=Query, atomic_batches=True, name="native_queries")
+        qs = qs.select(pw.this.qid, qvec=emb(pw.this.query))
+        res = index.query_as_of_now(qs.qvec, number_of_matches=K)
+        answers = res.select(qid=qs.qid, docs=vecs.doc_id, scores=res.score).select(
+            pw.this.qid, docs=pw.apply(lambda ds: tuple(int(d) for d in ds), pw.this.docs),
+            scores=pw.apply(lambda ss: tuple(float(s) for s in ss), pw.this.scores))
+        pw.io.subscribe(answers, on_change=driver.on_change("answers"), on_time_end=driver.on_tick)
+        (op,) = [o for o in pw.G.engine_graph.operators if isinstance(o, ExternalIndexOperator)]
+        inner, ivf = op.index, op.index.index
+        vec_of_key, doc_of_key, searches = {}, {}, []
+        orig_add, orig_search = inner.add, inner.search
+
+        def add(keys, values, metadatas):
+            orig_add(keys, values, metadatas)
+            with driver.cond:
+                for key, value, md in zip(keys, values, metadatas):
+                    doc_of_key[int(key)] = int(getattr(md, "value", md)["doc"])
+                    vec_of_key[int(key)] = np.asarray(value, np.float32)
+                driver.cond.notify_all()
+
+        def search(values, k, filters):
+            out = orig_search(values, k, filters)
+            searches.append((np.stack([np.asarray(v, np.float32) for v in values]), k, out))
+            return out
+
+        inner.add, inner.search = add, search
+        report["build_s"] = _now() - t_build
+
+        def drive():
+            driver.wait(lambda: len(doc_of_key) >= len(want_rows), "the CSV documents in the index")
+            report["ingest_s"] = _now() - report["t_run"]
+            for c in range(commits):
+                n_before = len(searches)
+                query_q.put([{"qid": c * BATCH + b, "query": queries[c * BATCH + b]} for b in range(BATCH)])
+                driver.wait(lambda: len(driver.answers.get("answers", {})) >= (c + 1) * BATCH
+                            and len(driver.commit_at.get("queries", ())) > c, f"the answers of query commit {c}")
+                last = max(t for t, _k, _d in driver.arrival["answers"])
+                report["latency_ms"].append((last - driver.commit_at["queries"][c]) * 1e3)
+                report["searches_of"].append(list(range(n_before, len(searches))))
+
+        def run_driver():
+            try:
+                drive()
+            except BaseException as exc:  # noqa: BLE001 - re-raised on the main thread after the run
+                report["error"] = exc
+            finally:
+                query_q.put(None)
+
+        rescore_shortlist.launches = 0
+        thread = threading.Thread(target=run_driver, daemon=True, name="phase27-driver")
+        report["t_run"] = t_run = _now()
+        thread.start()
+        try:
+            pw.run(commit_duration_ms=NV_COMMIT_MS)
+        finally:
+            driver.stop = True
+            thread.join(timeout=60)
+        if cuda:
+            torch.cuda.synchronize()
+        report["run_s"] = _now() - t_run
+        report["launches"] = rescore_shortlist.launches
+        if "error" in report:
+            raise report["error"]
+
+    # -- checks ---------------------------------------------------------------------
+    _keys, cols = docs_t._materialize()
+    got_rows = sorted((int(d), str(t), float(s)) for d, t, s in zip(cols["doc_id"], cols["text"], cols["score"]))
+    if got_rows != want_rows:
+        raise AssertionError(f"phase 27 (b): the engine read {len(got_rows)} rows, the csv module "
+                             f"{len(want_rows)}; {sum(a != b for a, b in zip(got_rows, want_rows))} differ")
+    if len(ivf) != len(want_rows):
+        raise AssertionError(f"phase 27 (b): the index holds {len(ivf)} rows, the files {len(want_rows)}")
+    keys = sorted(vec_of_key)
+    bad = 0
+    max_err = 0.0
+    answered = {}
+    for evs in driver.answers["answers"].values():
+        for _t, row, diff in evs:
+            if diff > 0:
+                answered[int(row["qid"])] = tuple(row["docs"])
+    for c in range(commits):
+        if not report["searches_of"][c]:
+            raise AssertionError(f"phase 27 (b): query commit {c} searched no time")
+        rows = []
+        for si in report["searches_of"][c]:
+            qv, k, part = searches[si]
+            exact = _tm_exact(vec_of_key, keys, qv, k, dev)
+            for got, ref in zip(part, exact):
+                got = [(int(key), float(score)) for key, score in got]
+                bad += not same_ranking(ref, got, tie=1e-5, atol=NV_TOL)
+                max_err = max([max_err] + [abs(a[1] - b[1]) for a, b in zip(ref, got)])
+            rows.extend(part)
+        mine = sorted(answered[q] for q in answered if q // BATCH == c)
+        if mine != sorted(tuple(doc_of_key[int(key)] for key, _s in r) for r in rows):
+            raise AssertionError(f"phase 27 (b): commit {c}'s answers differ from its index's search")
+    retracted = sum(1 for evs in driver.answers["answers"].values() for e in evs if e[2] < 0)
+    if bad or retracted or len(answered) != commits * BATCH:
+        raise AssertionError(f"phase 27 (b): {bad} answers differ from the exact search over the documents' "
+                             f"embeddings, {retracted} retracted, {len(answered)} of {commits * BATCH} answered")
+    first = sum(1 for q, docs_ in answered.items() if docs_ and texts[docs_[0]] == queries[q])
+    off = _cl_tensors_on(ivf, "cuda") if cuda else []
+    if cuda and (report["launches"] == 0 or off):
+        raise AssertionError(f"phase 27 (b): {report['launches']} rescore launches, index tensors off the card: {off}")
+    report.update(max_err=max_err, rows=len(got_rows), first=first, n_clusters=int(ivf._centroids.shape[0]),
+                  searches=[len(of) for of in report["searches_of"]],
+                  queries=np.concatenate([searches[si][0] for si in report["searches_of"][-1]]))
+    return report, ivf
+
+
+def native_phase(tag: str, dev=None, emb=None, docs=None, frame_bytes: int = NV_FRAME_BYTES,
+                 n_events: int = NV_EVENTS, commits: int = NV_COMMITS):
+    """Phase 27: the native host runtime on this host (a), then a CSV-fed
+    index on the card (b).  Returns (rescore launches on the CSV path, the
+    kernel at the phase's shape, the host seconds of (a))."""
+    import pathway_tpu_torch as pw
+
+    t_phase = _now()
+    dev = dev or torch.device(DEVICE)
+    cuda = dev.type == "cuda"
+    docs = docs if docs is not None else corpus(N_DOCS)
+    lines, secs, files = native_host(docs, frame_bytes, n_events)
+    for line in lines:
+        log(f"native host (a) on this host ({os.cpu_count()} cores) {tag}: {line}")
+    pw.reset()
+    if cuda:
+        torch.cuda.empty_cache()
+    emb = emb or _cl_embedder(dev)
+    r, ivf = native_index(pw, emb, files, dev, commits)
+    lat = r["latency_ms"]
+    log(
+        f"native csv index (b) {tag}: {r['rows']} documents in {NV_INDEX_FILES} CSV files (one with CRLF endings; "
+        f"quoted commas, doubled quotes and newlines) through pw.io.fs.read == the csv module's rows; the TpuEmbedder into a full-probe IVF DataIndex (C={r['n_clusters']}), ingest {r['ingest_s']:.3f} s "
+        f"from pw.run; {commits} query commits of {BATCH} through pw.io.python (k={K}, {NV_COMMIT_MS} ms tick): every "
+        f"answer == an exact search over the documents' embeddings (ties within 1e-5, scores within {NV_TOL}; max "
+        f"diff {r['max_err']:.2e}; searches per commit {r['searches']}), {r['first']} of {commits * BATCH} found "
+        f"their own document first; commit to the last answer " + ", ".join(f"{ms:.3f}" for ms in lat)
+        + f" ms; graph build {r['build_s']:.3f} s, run {r['run_s']:.3f} s; rescore launches {r['launches']}"
+    )
+    shape = None
+    if cuda:
+        shape = rescore_at_path_shape(ivf, ivf_search_rescore_args(ivf, r["queries"]), dev)
+        log(f"ivf_rescore at the native csv shape {tag}: " + rescore_line(ivf, shape) + f"; launches {r['launches']}")
+    log(f"native {tag}: phase 27 {_now() - t_phase:.1f} s")
+    pw.reset()
+    return r["launches"], shape, secs
+
+
 def framework_setup():
     """The set-up ``--framework`` and ``--qa`` share: the card's name, the
     kernels' build, phase 4's rows and phase 5's direct serve p50 (exact
@@ -9207,6 +9595,21 @@ def main() -> int:
         launches = analysis_phase(f"[{smi}]")[0]
         log(f"launches {launches}; shape census: {tripwire_census()}")
         return 0
+    if sys.argv[1:] == ["--native"]:
+        from pathway_tpu_torch.kernels.build import build_host
+
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        ).stdout.strip()
+        log(f"card: {smi}")
+        t0 = time.perf_counter()
+        build_all()
+        build_host("tokenize_hash")
+        build_host("native_io")
+        log(f"build {time.perf_counter() - t0:.1f} s")
+        launches = native_phase(f"[{smi}]")[0]
+        log(f"rescore launches {launches}; shape census: {tripwire_census()}")
+        return 0
     if sys.argv[1:] == ["--distributed"]:
         from pathway_tpu_torch.kernels.build import build_host
         from pathway_tpu_torch.ops.serving import FusedEncodeSearch
@@ -9267,6 +9670,9 @@ def main() -> int:
     t0 = time.perf_counter()
     build_host("tokenize_hash")
     log(f"build: the host batch tokenizer (g++, csrc/host/tokenize_hash.cc) in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    build_host("native_io")
+    log(f"build: the native I/O runtime (g++, csrc/host/native_io.cc) in {time.perf_counter() - t0:.2f} s")
 
     # -- 3. kernel vs plain at edge shapes ------------------------------------
     worst_err = rescore_edge_cases(rescore_shortlist, ivf_rescore_reference, dev)
@@ -9561,6 +9967,10 @@ def main() -> int:
         rec["launches_by_path"]["analysis"] = an_launches[name]
         rec["analysis_shape"] = an_decode[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], an_decode[name]["max_abs_err"])
+
+    # -- 27. the native host runtime, then a CSV-fed index, counted --
+    nv_launches, nv_kernel, _nv_secs = native_phase(tag, docs=docs)
+    worst_err = max(worst_err, nv_kernel["max_abs_err"])
     log(f"shape census: {tripwire_census()}")
 
     record = {
@@ -9573,7 +9983,7 @@ def main() -> int:
                 "launches": launches + rr_launches + sched_launches + li_launches + ws_launches + st_launches
                 + po_launches + sum(rw_launches.values()) + ss_launches + sf_launches + fw_launches
                 + qa_launches["ivf_rescore"] + ps_launches + tm_launches + ha_launches + sum(cl_launches)
-                + cx_launches + an_launches["ivf_rescore"],
+                + cx_launches + an_launches["ivf_rescore"] + nv_launches,
                 "launches_by_path": {
                     "serve": launches, "rerank": rr_launches, "scheduler": sched_launches,
                     "ingest": li_launches, "warmstate": ws_launches, "tuning": st_launches,
@@ -9581,7 +9991,7 @@ def main() -> int:
                     "fabric": sf_launches, "framework": fw_launches, "qa": qa_launches["ivf_rescore"],
                     "persist": ps_launches, "temporal": tm_launches, "hostapi": ha_launches,
                     "cluster_per_rank": cl_launches, "connectors": cx_launches,
-                    "analysis": an_launches["ivf_rescore"],
+                    "analysis": an_launches["ivf_rescore"], "native_csv": nv_launches,
                 },
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,
@@ -9616,6 +10026,7 @@ def main() -> int:
                 "cluster_shape": {key: cl_kernel[key] for key in _SHAPE_KEYS},
                 "connectors_shape": {key: cx_kernel[key] for key in _SHAPE_KEYS},
                 "analysis_shape": {key: an_kernel[key] for key in _SHAPE_KEYS},
+                "native_csv_shape": {key: nv_kernel[key] for key in _SHAPE_KEYS},
             },
             *decode_kernels,
         ]

@@ -320,9 +320,9 @@ _knob("analysis.lock_sanitizer_raise", "PATHWAY_LOCK_SANITIZER_RAISE",
 _knob("analysis.lock_hold_ms", "PATHWAY_LOCK_HOLD_MS", "float", 0.0,
       "sanitizer lock-hold budget in ms (0 = off)", lo=0.0, hi=60_000.0)
 
-# the host tokenizer library (models/tokenizer.py, kernels/host.py)
+# the host libraries (native/, models/tokenizer.py, kernels/host.py)
 _knob("native.disable", "PATHWAY_TPU_DISABLE_NATIVE", "bool", False,
-      "skip building/loading the native library")
+      "answer with native/'s plain versions and the Python tokenizer instead of the host libraries")
 
 # engine (internals/config.py)
 _knob("engine.commit_duration_ms", "PATHWAY_COMMIT_DURATION_MS", "int", 100,

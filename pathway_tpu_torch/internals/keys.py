@@ -25,6 +25,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 
 from ..kernels.host import host_lib, native_xxh3_64
+from ..native import COL_BOOL, COL_BYTES, COL_FLOAT64, COL_INT64, COL_NONE, COL_POINTER, COL_STR
 
 __all__ = [
     "Pointer",
@@ -44,8 +45,6 @@ KEY_DTYPE = np.uint64
 SHARD_BITS = 16
 SHARD_MASK = (1 << SHARD_BITS) - 1
 
-# column type tags of ptt_serialize_rows (csrc/host/tokenize_hash.cc)
-COL_NONE, COL_BOOL, COL_INT64, COL_FLOAT64, COL_STR, COL_BYTES, COL_POINTER = range(7)
 
 # Salt distinguishing "no id columns → sequential row number" keys from hashed keys.
 _SEQ_SALT = 0x9E3779B97F4A7C15

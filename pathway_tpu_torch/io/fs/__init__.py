@@ -3,8 +3,9 @@ plaintext / binary, static or streaming (directory watching)
 (counterpart of ``pathway_tpu/io/fs``; reference: python/pathway/io/fs/
 __init__.py:31-275, scanner src/connectors/scanner/filesystem.rs).
 
-CSV is read with the standard library's ``csv`` module (the reference's
-columnar scanner is a native library of its own package).  Offsets are
+CSV is read with the standard library's ``csv`` module: the port's
+native scanner (``native.csv_rows``) was slower than it on the card's
+host in the whole smoke run (``PERF.md``, phase 27).  Offsets are
 kept as the reference keeps them: ``{path: mtime}`` of fully ingested
 files, committed through the session writer.  Under a persistence config
 (``pw.run(persistence_config=...)`` or ``PATHWAY_PERSISTENT_STORAGE``)

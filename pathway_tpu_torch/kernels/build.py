@@ -12,10 +12,10 @@ a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the library already there.  A failed build raises:
 nothing falls back to a kernel's plain version.
 
-Host code in ``csrc/host/<name>.cc`` (the batch tokenizer) builds the
-same way with the host's C++ compiler (``$CXX``, else ``g++``):
+Host code in ``csrc/host/<name>.cc`` (the batch tokenizer and row hash,
+the native I/O runtime) builds the same way with the host's C++ compiler (``$CXX``, else ``g++``):
 
-    g++ -std=c++17 -O3 -shared -fPIC -o _build/<name>-host-<hash>.so \
+    g++ -std=c++17 -O3 -shared -fPIC -pthread -o _build/<name>-host-<hash>.so \
         csrc/host/<name>.cc
 
 Each build writes a temporary file named by its process and renames it
@@ -44,7 +44,7 @@ NVCC_FLAGS = (
 )
 LINK_FLAGS = ("-ldl",)  # after the source, so the linker keeps it
 HOST_CSRC = CSRC / "host"
-HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -144,12 +144,13 @@ def _host_target(name: str) -> Path:
     return BUILD_DIR / f"{name}-host-{h.hexdigest()[:16]}.so"
 
 
-def build_host(name: str) -> Path:
-    """Compile ``csrc/host/<name>.cc`` unless its library is current;
-    returns the library path.  Raises ``BuildError`` on failure."""
+def build_host(name: str, force: bool = False) -> Path:
+    """Compile ``csrc/host/<name>.cc`` unless its library is current (or
+    ``force``); returns the library path.  Raises ``BuildError`` on
+    failure."""
     target = _host_target(name)
     with _lock:
-        if not target.exists():
+        if force or not target.exists():
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_cxx(), *HOST_FLAGS, "-o", str(tmp), str(HOST_CSRC / f"{name}.cc")]
             _finish(_spawn(cmd, target, tmp))

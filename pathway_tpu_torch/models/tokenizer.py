@@ -22,7 +22,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .. import config
-from ..kernels.host import host_lib, native_xxh3_64
+from .. import native
+from ..kernels.host import native_xxh3_64
 from ._xxh3 import xxh3_64
 
 __all__ = ["HashTokenizer", "native_xxh3_64"]
@@ -31,19 +32,11 @@ _WORD_RE = re.compile(r"[\w']+|[^\w\s]")
 
 def _tokenize_native(texts: Sequence[str], vocab_size: int, reserved: int) -> Tuple[np.ndarray, np.ndarray]:
     """Word ids of an ASCII batch, flat, and each text's ``[start, end)``
-    in them (``offsets [n + 1]``)."""
+    in them (``offsets [n + 1]``), by ``native.tokenize_hash``."""
     n = len(texts)
-    blob = "".join(texts).encode("ascii")
     offsets = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(np.fromiter(map(len, texts), dtype=np.int64, count=n), out=offsets[1:])
-    ids = np.empty(max(1, len(blob)), dtype=np.int32)
-    tok_off = np.empty(n + 1, dtype=np.int64)
-    rc = host_lib().ptt_tokenize_hash(
-        blob, offsets.ctypes.data, n, vocab_size, reserved, ids.ctypes.data, tok_off.ctypes.data
-    )
-    if rc != 0:
-        raise RuntimeError(f"ptt_tokenize_hash returned {rc}")
-    return ids, tok_off
+    return native.tokenize_hash("".join(texts).encode("ascii"), offsets, vocab_size, reserved)
 
 
 class HashTokenizer:

@@ -5,7 +5,11 @@ Frame = ``[u32 LE payload_len][u32 LE crc32(payload)][payload]`` with the
 zlib CRC-32, the checksum the reference's native library computes, so
 one payload frames to the same bytes in both packages.  ``scan`` returns
 the payloads of the valid prefix: a torn write or bit rot ends the scan
-at the last intact frame instead of failing the reader.
+at the last intact frame instead of failing the reader.  It walks the
+frames and checks their CRCs in one call of the native runtime
+(``native.frame_scan``); ``frame`` computes one payload's CRC with
+``zlib.crc32``, which costs less than a library call at the size of an
+event's payload.
 
 ``frame_all`` and ``scan_views`` are the bulk forms a snapshot of many
 chunks uses: the CRCs of a large blob are computed on several threads
@@ -26,6 +30,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from .. import native
 
 __all__ = ["ViewStream", "frame", "frame_all", "scan", "scan_views"]
 
@@ -90,8 +96,9 @@ def scan_views(blob: bytes) -> Tuple[List[memoryview], bool]:
 def scan(blob: bytes) -> Tuple[List[bytes], bool]:
     """Decode concatenated frames: ``(payloads, intact)``, ``intact``
     False when a truncated or corrupt tail was dropped."""
-    views, intact = scan_views(blob)
-    return [v.tobytes() for v in views], intact
+    offsets, lengths, consumed = native.frame_scan(blob)
+    view = memoryview(blob)
+    return [view[o : o + n].tobytes() for o, n in zip(offsets.tolist(), lengths.tolist())], consumed == len(view)
 
 
 class ViewStream(io.RawIOBase):

@@ -953,7 +953,15 @@ def test_kafka_etl_template_on_the_port_equals_the_reference(monkeypatch):
     """The reference's kafka-etl test (``tests/test_templates.py``): two
     topics in different time zones unify into one epoch-stamped stream,
     loaded back to kafka, over the fake client; the port's messages are
-    the reference's."""
+    the reference's, tick for tick.
+
+    Each topic is read on a thread of its own, so which tick a message
+    lands in is thread timing: under load one package put both messages
+    in one tick and the other in two.  The feed is made deterministic:
+    the engine's first tick waits until both consumers have delivered
+    (a pre-run hook after the sources' own), so both messages land in
+    the first tick in both packages."""
+    fed = threading.Semaphore(0)
     topics = {
         "timezone1": [_Msg(json.dumps({"date": "2024-02-05 10:01:52.884548 -0500", "message": "NYC event"}).encode(),
                            0, 0)],
@@ -966,7 +974,12 @@ def test_kafka_etl_template_on_the_port_equals_the_reference(monkeypatch):
             self._msgs = topics[topic]
 
         def __iter__(self):
-            return iter(self._msgs)
+            yield from self._msgs
+            fed.release()  # resumed after the reader inserted the last message
+
+    def all_fed():
+        for _topic in topics:
+            assert fed.acquire(timeout=60), "a fake consumer did not deliver"
 
     def scenario(pw):
         sent = []
@@ -985,6 +998,7 @@ def test_kafka_etl_template_on_the_port_equals_the_reference(monkeypatch):
                                                           KafkaProducer=FakeProducer))
         _kafka_etl_module(pw).build({"bootstrap.servers": "broker:9092", "group.id": "g"}, "timezone1", "timezone2",
                                     "unified")
+        importlib.import_module(pw.__name__ + ".internals.parse_graph").G.pre_run_hooks.append(all_fed)
         pw.run(monitoring_level=None, commit_duration_ms=50)
         return sorted(((t, sorted(p.items())) for t, p in _ticked(sent)), key=repr)
 
