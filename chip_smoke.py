@@ -27,6 +27,8 @@ NVIDIA GPU:
     python3 chip_smoke.py --connectors     # the builds, then phase 25 alone
     python3 chip_smoke.py --analysis       # the builds, then phase 26 alone
     python3 chip_smoke.py --native         # the builds, then phase 27 alone
+    python3 chip_smoke.py --surface        # the builds and phase 4's rows,
+                                           # then phase 28 alone
     python3 chip_smoke.py --first-call ROOT...  # the profiler's first sampled
                                            # call, fresh processes, per root
 
@@ -130,7 +132,7 @@ Phases, in order; any failure exits non-zero:
    c1 / c4 / c16 == its solo ``generate``, as is every call-level one; no
    device-to-host sync in the c16 step loop; a warm prefix join == a cold
    one with prefill tokens reused; one slot reused over EOS leaves gives
-   solo tokens; 16 saturated requests at budget 64, spec_k 16 off and on,
+   solo tokens; 16 saturated requests at budget 32, spec_k 16 off and on,
    all == solo, at most 2 + 2 dispatches and fetches per round and 1 + 1
    per plain chunk; 8 requests drafted by the reduced-layer trunk, all ==
    solo; a 32-slot int8 pool under 16 requests: spec-on == spec-off, warm ==
@@ -145,7 +147,7 @@ Phases, in order; any failure exits non-zero:
    embeds connector commits into the 1M IVF index and the phase-8
    forward index while phase 9's scheduler serves the cascade at c16:
    128 single-query requests, 8 commits of 8 fresh documents 10 ms
-   apart, a unique sentinel in the middle commit; then a burst of 4,096
+   apart, a unique sentinel in the middle commit; then a burst of 2,048
    documents in commits of 64 (past ``absorb_threshold``: an absorb
    writes slabs in place while the MaxSim pipeline serves).  Checked:
    every batch lands, nothing dropped, the generation grew, the
@@ -334,7 +336,7 @@ Phases, in order; any failure exits non-zero:
    ``CrossEncoderModel`` (24 candidates), ``TpuChat(continuous=True)`` over
    the default ``TextGenerator`` (48 new tokens).  ``urllib`` callers ask
    64 of phase 5's query documents: 8 answers at c1, 8 at c16 and a
-   profiled burst of 8 at c8, with ``return_context_docs``; 16
+   profiled burst of 4 at c4, with ``return_context_docs``; 16
    ``/v1/retrieve`` (k = 10), a summary of 4 texts, ``/v1/statistics``
    and ``/v1/pw_list_documents``.  Checked: every route 200 with the
    reference's JSON shape; each operator's searches == a direct search of
@@ -509,8 +511,27 @@ Phases, in order; any failure exits non-zero:
    scores within 1e-4); the rescore launched, and equal to its plain
    version at the phase's shape; every index tensor on ``cuda``.
 
+28. the reference's public surface.  (a) filtered exact search on phase
+   4's 1,000,000 x 384 ``DeviceKnnIndex``: 64 queries (encoded
+   documents), k = 10, half with an allow-list of 1,000 keys holding
+   their unfiltered top 5 and half with ``None``; each row == the
+   unfiltered top 10 filtered by its list; then 64 of the returned keys
+   removed and searched for again: none comes back, filtered or not (the
+   rows are put back after).  (b) ``ServeScheduler`` over
+   ``FusedEncodeSearch`` on the IVF index serves 64 requests from 16
+   callers, every request traced (each == the direct serve within 3e-2),
+   and one with an expired deadline (kept by the tail sampler); a
+   4-prompt x 8-token ``ContinuousDecoder`` burst; then
+   ``start_metrics_server`` answers ``GET /metrics`` classic
+   (``version=0.0.4``, no exemplar token) and OpenMetrics (exemplars on
+   bucket samples only, each naming a kept trace), ``/serve_stats`` with
+   the ``generators`` and ``slo`` columns and ``/slo``; the rescore and
+   the decode-row kernels launched.  ``python -m pathway_tpu_torch.config
+   --format markdown``, run in a subprocess beside (a) and (b), prints
+   ``markdown_table()``.
+
 Every shape-census tripwire runs strict from the start
-(``PATHWAY_RECOMPILE_STRICT=1``); after phase 27 none may have tripped.
+(``PATHWAY_RECOMPILE_STRICT=1``); after phase 28 none may have tripped.
 
 The card's name and power limit, then the JSON record of the kernels,
 then ``{"ok": true, "device": {...}}`` are the last three lines; the
@@ -1525,7 +1546,7 @@ DEC_CONC = (1, 4, 16)
 DEC_REQS = {1: 2, 4: 4, 16: 16}  # the call-level arm serializes on the host (c1 / c4 cut from 4 / 8 for phase 24)
 DEC_C16_REQS = 16  # the busy-share and sync-debug drives (64 before phase 24, 32 before phase 26; cut for each)
 SPEC_K = 16  # phase_speculative_decode
-SPEC_BUDGET = 64
+SPEC_BUDGET = 32  # new tokens per speculative and int8 request (64 before phase 28: the script's time)
 SPEC_REQS = 16  # the bench saturates 256; cut with SPEC_TRUNK_REQS and I8_REQS to keep the script's time (32 before phase 26)
 SPEC_TRUNK_REQS = 8  # requests drafted by the reduced-layer trunk
 I8_SLOTS = 32
@@ -2225,7 +2246,7 @@ LI_CALLERS = 16  # phase 11: the c16 drive of bench.py phase_live_ingest
 LI_REQUESTS = 128
 LI_COMMITS = 8
 LI_PER_COMMIT = 8
-LI_BURST = 4096  # past absorb_threshold: an absorb runs while serves do
+LI_BURST = 2048  # past absorb_threshold: an absorb runs while serves do (4,096 before phase 28)
 LI_BURST_COMMIT = 64
 LI_ROUNDS = 3  # interleaved pairs of the plane and shed A/Bs
 LI_SHED_BACKOFF_S = 0.1  # a shed caller waits this long before its next request, as after a retry-after
@@ -2472,7 +2493,7 @@ def live_ingest_phase(encoder, ivf, docs, modes, fwd, tag: str):
     if not landed or stats["dropped"] or ivf.generation <= gen0 or not found or kept != ["forced"]:
         raise AssertionError(f"live ingest: flushed {landed}, stats {stats}, sentinel {found}, its trace kept {kept}")
 
-    # -- burst: 4,096 documents in commits of 64 while the MaxSim pipeline
+    # -- burst: LI_BURST documents in commits of 64 while the MaxSim pipeline
     # serves; the tail passes absorb_threshold and the absorb runs under
     # the serves; each batch stays within stage 1 + MaxSim's 2 + 2 --
     t_arm = time.perf_counter()
@@ -5535,7 +5556,8 @@ QA_QUESTIONS = 64  # distinct questions: phase 5's first query documents
 QA_C1 = 8  # answers at c1, one caller (16 before phase 24)
 QA_C16 = 8  # answers at c16 (16 before phase 26); the whole script, phases 21-26 included, keeps its time budget
 QA_CALLERS = 16
-QA_BURST = 8  # answers of the profiled burst, at c8 (16 at c16 before phase 24: reading that trace took most of it)
+QA_BURST = 4  # answers of the profiled burst, at c4 (16 at c16 before phase 24, 8 at c8 before phase 28: reading
+# that trace took most of it)
 QA_RETRIEVES = 16  # /v1/retrieve calls, k = K
 QA_TOPK = 6  # search_topk; the reranker scores 4 x 6 = 24 candidates
 QA_NEW_TOKENS = 48
@@ -5740,7 +5762,7 @@ def qa_phase(direct_p50: dict, tag: str):
         report["c1_wall"] = _now() - t0
         c16_reqs = [questions[i % QA_QUESTIONS] for i in range(QA_C16)]
         qps, c16_lat, _ = drive(lambda q: ask(q, "c16"), c16_reqs, QA_CALLERS)
-        # the busy share over one burst of c8 answers: reading a trace of
+        # the busy share over one burst of c4 answers: reading a trace of
         # the whole arm (~2M kernels) costs the profiler minutes
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = _now()
@@ -9380,6 +9402,280 @@ def native_phase(tag: str, dev=None, emb=None, docs=None, frame_bytes: int = NV_
     return r["launches"], shape, secs
 
 
+# -- phase 28: the reference's public surface on the card ------------------------------
+SU_ALLOW = 1_000  # keys in each filtered query's allow-list
+SU_REMOVE = 64  # returned keys removed, then searched for again
+SU_CALLERS = 16
+SU_REQUESTS = 64
+SU_DECODE = (4, 8)  # the decoder burst: prompts x new tokens
+
+
+def surface_filtered(exact, queries: np.ndarray, keys, rng) -> dict:
+    """Phase 28 (a): filtered exact search over ``exact``.  Half the
+    queries get an allow-list of ``SU_ALLOW`` keys holding their
+    unfiltered top 5, half ``None``; each row must equal the unfiltered
+    top-k filtered by its list, scores bit for bit (the same scores, one
+    filter after).  Then ``SU_REMOVE`` of the returned keys are removed:
+    none comes back, filtered or not; put back, they answer as before
+    (scores within 1e-5: a row is normalized again as it is added)."""
+    plain = exact.search(queries, K)
+    allow = []
+    for qi, row in enumerate(plain):
+        if qi % 2:
+            allow.append(None)
+            continue
+        picked = [key for key, _ in row[:5]]
+        for i in rng.choice(len(keys), size=2 * SU_ALLOW, replace=False):
+            if len(picked) == SU_ALLOW:
+                break
+            if int(keys[i]) not in picked:
+                picked.append(int(keys[i]))
+        allow.append(picked)
+    t = _now()
+    got = exact.search(queries, K, candidate_keys=allow)
+    ms = (_now() - t) * 1e3
+    short = 0
+    for qi, row in enumerate(got):
+        allowed = None if allow[qi] is None else set(allow[qi])
+        want = [kv for kv in plain[qi] if allowed is None or kv[0] in allowed]
+        if row != want:
+            raise AssertionError(f"phase 28 (a): query {qi}'s filtered row {row[:3]} != the unfiltered top {K} "
+                                 f"filtered by its list {want[:3]}")
+        if allowed is not None and len(row) < 5:
+            raise AssertionError(f"phase 28 (a): query {qi} lost keys of its unfiltered top 5 that its list holds")
+        short += len(row) < K
+    gone = list(dict.fromkeys(key for row in got for key, _ in row))[:SU_REMOVE]
+    vecs = exact._matrix[torch.tensor([exact.key_to_slot[key] for key in gone], device=exact._matrix.device)].clone()
+    exact.remove(gone)
+    try:
+        back = [exact.search(queries, K, candidate_keys=allow), exact.search(queries, K)]
+        seen = {key for rows in back for row in rows for key, _ in row} & set(gone)
+        if seen or any(len(row) != K for row in back[1]):
+            raise AssertionError(f"phase 28 (a): removed keys came back: {sorted(seen)[:5]}")
+    finally:
+        exact.add_from_device(gone, vecs)
+    restored = exact.search(queries, K)
+    if not all(same_ranking(w, g, tie=1e-5, atol=1e-5) for w, g in zip(plain, restored)):
+        raise AssertionError("phase 28 (a): the index answers otherwise after the removed rows were put back")
+    return {"ms": ms, "short": short, "filtered": sum(a is not None for a in allow), "removed": len(gone)}
+
+
+def _sf_fetch(port: int, route: str, accept=None):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{route}", headers={"Accept": accept} if accept else {})
+    t = _now()
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        body = resp.read().decode()
+        return body, resp.headers["Content-Type"], (_now() - t) * 1e3
+
+
+def surface_scrape(encoder, ivf, docs, dev, gen=None) -> dict:
+    """Phase 28 (b): ``ServeScheduler`` over ``FusedEncodeSearch`` on the
+    IVF index serves ``SU_REQUESTS`` requests from ``SU_CALLERS`` callers
+    with every request traced, plus one with an expired deadline (kept by
+    the tail sampler), then a ``ContinuousDecoder`` burst; ``GET
+    /metrics`` in both formats, ``/serve_stats`` and ``/slo`` from
+    ``start_metrics_server``."""
+    from pathway_tpu_torch import observe
+    from pathway_tpu_torch.internals.metrics import start_metrics_server
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.models.generator import TextGenerator
+    from pathway_tpu_torch.observe import slo, trace
+    from pathway_tpu_torch.ops import decode_rows
+    from pathway_tpu_torch.ops.ivf_rescore import rescore_shortlist
+    from pathway_tpu_torch.ops.serving import FusedEncodeSearch
+    from pathway_tpu_torch.robust.deadline import Deadline
+    from pathway_tpu_torch.serve import ContinuousDecoder, ServeScheduler
+
+    observe.reset()  # exemplars of earlier phases name traces this phase's store no longer keeps
+    trace.reset()
+    trace.set_sample(1.0)
+    serve = FusedEncodeSearch(encoder, ivf, k=K)
+    texts = [docs[j] for j in query_ids()[:SU_REQUESTS]]
+    want = serve(texts)
+    out: list = [None] * SU_REQUESTS
+    rescore_shortlist.launches = 0
+    t = _now()
+    with ServeScheduler(serve, result_cache=None, name="smoke-surface") as sched:
+        def caller(c: int) -> None:
+            for i in range(c, SU_REQUESTS, SU_CALLERS):
+                out[i] = sched.serve([texts[i]])
+
+        threads = [threading.Thread(target=caller, args=(c,)) for c in range(SU_CALLERS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        late = sched.serve([texts[0]], deadline=Deadline(0.0))
+    serve_s = _now() - t
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = rescore_shortlist.launches
+    bad = sum(not (r is not None and len(r) == 1 and same_ranking(w, list(r[0]), tie=SCHED_TOL, atol=SCHED_TOL))
+              for r, w in zip(out, want))
+    if bad or not late.degraded:
+        raise AssertionError(f"phase 28 (b): {bad} of {SU_REQUESTS} scheduled serves differ from the direct serve "
+                             f"(tolerance {SCHED_TOL}); the expired request degraded {late.degraded}")
+    t_dec = _now()
+    gen = gen or TextGenerator(device=dev, kv_cache=None, eos_id=None)
+    n_prompts, n_new = SU_DECODE
+    prompts = [docs[i] for i in range(n_prompts)]
+    for name in ("add_layer_norm_rows", "layer_norm_rows", "tied_readout"):
+        getattr(decode_rows, name).launches = 0
+    with ContinuousDecoder(gen, slots=n_prompts, name="smoke-surface-decode") as eng:
+        answers = eng.generate(prompts, max_new_tokens=n_new)
+        decode_s = _now() - t_dec
+        decode_launches = {"add_layer_norm_rows": decode_rows.add_layer_norm_rows.launches
+                           + decode_rows.layer_norm_rows.launches, "tied_readout": decode_rows.tied_readout.launches}
+        server = start_metrics_server(G.engine_graph, port=0)
+        try:
+            classic, classic_type, classic_ms = _sf_fetch(server.port, "/metrics")
+            om, om_type, om_ms = _sf_fetch(server.port, "/metrics", "application/openmetrics-text")
+            stats = json.loads(_sf_fetch(server.port, "/serve_stats")[0])
+            slo_doc = json.loads(_sf_fetch(server.port, "/slo")[0])
+        finally:
+            server.stop()
+    solo = [gen.generate([p], max_new_tokens=n_new)[0] for p in prompts]
+    bad = [i for i, (a, w) in enumerate(zip(answers, solo)) if str(a) != w or getattr(a, "degraded", ())]
+    if len(answers) != n_prompts or bad:
+        raise AssertionError(f"phase 28 (b): {len(bad)} of {n_prompts} decoder burst answers differ from solo "
+                             f"generate: {answers!r}")
+    if "version=0.0.4" not in classic_type or "# {" in classic:
+        raise AssertionError(f"phase 28 (b): the classic scrape ({classic_type}) carries an exemplar token")
+    if "openmetrics-text" not in om_type or not om.rstrip().endswith("# EOF"):
+        raise AssertionError(f"phase 28 (b): the OpenMetrics scrape is {om_type}, ends {om.rstrip()[-20:]!r}")
+    ex_lines = [line for line in om.split("\n") if " # {" in line]
+    ids = [line.split('trace_id="', 1)[1].split('"', 1)[0] for line in ex_lines]
+    off_bucket = [line for line in ex_lines if "_bucket{" not in line.split(" ", 1)[0]]
+    unkept = sorted({tid for tid in ids if trace.get_trace(tid) is None})
+    if not ex_lines or off_bucket or unkept:
+        raise AssertionError(f"phase 28 (b): {len(ex_lines)} exemplars, {len(off_bucket)} off bucket samples, "
+                             f"trace ids no kept trace holds: {unkept[:5]}")
+    gens = stats.get("generators", {}).get("smoke-surface-decode", {})
+    tokens = gens.get('pathway_generator_tokens_total{phase="decode"}', 0)
+    if not gens or tokens <= 0 or set(stats.get("slo", {}).get("slos", ())) != set(slo_doc.get("slos", ())):
+        raise AssertionError(f"phase 28 (b): /serve_stats generators {gens}, slo {list(stats.get('slo', {}))}")
+    kept = trace.stats()["kept"]
+    return {
+        "launches": launches, "serve_s": serve_s, "classic_ms": classic_ms, "om_ms": om_ms,
+        "classic_lines": classic.count("\n"), "om_lines": om.count("\n"), "exemplars": len(ex_lines),
+        "kept": kept, "decode_tokens": tokens, "decode_s": decode_s, "slos": sorted(slo_doc.get("slos", ())),
+        "decode_launches": decode_launches, "gen": gen,
+        "queries": encoder.encode_to_device(texts).float().cpu().numpy(),
+    }
+
+
+def surface_decode_rows(gen, dev) -> dict:
+    """The decode-row kernels at phase 28's burst shape (``[slots, 1,
+    d_model]`` LayerNorm rows, ``[slots, d_model]`` readout) against their
+    plain versions on the same inputs, with ``LN_ATOL`` / ``READOUT_ATOL``;
+    timed between events on the card.  Keyed by the record's kernel."""
+    from pathway_tpu_torch.ops import decode_rows
+
+    n, d = SU_DECODE[0], gen.config.d_model
+    ln = gen.module.blocks[0].ln_0
+    g = torch.Generator(device=dev).manual_seed(SEED + 28)
+    x = (torch.randn(n, 1, d, generator=g, device=dev) * 3).to(torch.bfloat16)
+    delta = torch.randn(n, 1, d, generator=g, device=dev).to(torch.bfloat16)
+    h = torch.randn(n, d, generator=g, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        s_k, y_k = decode_rows.add_layer_norm_rows(x, delta, ln.weight, ln.bias, torch.float32)
+        s_p, y_p = decode_rows.add_layer_norm_reference(x, delta, ln.weight, ln.bias, torch.float32)
+        y1_k = decode_rows.layer_norm_rows(x, ln.weight, ln.bias, torch.float32)
+        y1_p = decode_rows.layer_norm_reference(x, ln.weight, ln.bias, torch.float32)
+        ln_err = max(float((s_k.float() - s_p.float()).abs().max()), float((y_k - y_p).abs().max()),
+                     float((y1_k - y1_p).abs().max()))
+        ro_err = float((decode_rows.tied_readout(h, gen._table) - decode_rows.tied_readout_reference(h, gen._table))
+                       .abs().max())
+        rows = {
+            "add_layer_norm_rows": {"max_abs_err": ln_err, "ms": None, "plain_ms": None},
+            "tied_readout": {"max_abs_err": ro_err, "ms": None, "plain_ms": None},
+        }
+        if dev.type == "cuda":
+            rows["add_layer_norm_rows"].update(
+                ms=timed_ms(lambda: decode_rows.add_layer_norm_rows(x, delta, ln.weight, ln.bias, torch.bfloat16), 20),
+                plain_ms=timed_ms(
+                    lambda: decode_rows.add_layer_norm_reference(x, delta, ln.weight, ln.bias, torch.bfloat16), 20),
+            )
+            rows["tied_readout"].update(
+                ms=timed_ms(lambda: decode_rows.tied_readout(h, gen._table), 20),
+                plain_ms=timed_ms(lambda: decode_rows.tied_readout_reference(h, gen._table), 20),
+            )
+    if ln_err > LN_ATOL or ro_err > READOUT_ATOL:
+        raise AssertionError(f"phase 28 (b): at [{n}, 1, {d}] layer_norm_rows / add_layer_norm_rows err {ln_err} "
+                             f"(limit {LN_ATOL}), tied_readout err {ro_err} (limit {READOUT_ATOL})")
+    return rows
+
+
+def surface_phase(tag: str, encoder, exact, ivf, docs, keys, dev=None, gen=None):
+    """Phase 28: filtered exact search on phase 4's 1M index (a); the
+    scrape surface over a traced scheduler serve and a decoder burst held
+    against solo ``generate`` (b), and the decode-row kernels at the
+    burst's shape against their plain versions; the knob CLI in a
+    subprocess against ``markdown_table()``.  Returns (rescore launches,
+    the rescore kernel at the phase's shape, decode-row launches by
+    kernel, the decode-row kernels at the burst's shape)."""
+    from pathway_tpu_torch import config
+
+    t_phase = _now()
+    dev = dev or torch.device(DEVICE)
+    cli = subprocess.Popen([sys.executable, "-m", "pathway_tpu_torch.config", "--format", "markdown"],
+                           cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    try:
+        rng = np.random.default_rng(SEED + 28)
+        with torch.no_grad():
+            queries = encoder.encode_to_device([docs[j] for j in query_ids()[:BATCH]]).float().cpu().numpy()
+        fa = surface_filtered(exact, queries, keys, rng)
+        secs = {"a": _now() - t_phase}
+        sc = surface_scrape(encoder, ivf, docs, dev, gen)
+        decode = sc["decode_launches"]
+        secs["b"] = _now() - t_phase - secs["a"]
+        t_cli = _now()
+        cli_out, cli_err = cli.communicate(timeout=300)
+        secs["cli_wait"] = _now() - t_cli
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    if cli.returncode != 0 or cli_out.strip() != config.markdown_table().strip():
+        raise AssertionError(f"phase 28: `python -m pathway_tpu_torch.config --format markdown` exited "
+                             f"{cli.returncode} and printed {len(cli_out)} chars != markdown_table(): {cli_err[-300:]}")
+    if dev.type == "cuda" and (sc["launches"] == 0 or min(decode.values()) == 0):
+        raise AssertionError(f"phase 28: rescore launches {sc['launches']}, decode-row launches {decode}")
+    log(
+        f"surface (a) {tag}: filtered exact search over the {len(exact)}-row index, {BATCH} queries k={K}, "
+        f"{fa['filtered']} with an allow-list of {SU_ALLOW} keys holding their unfiltered top 5: every row == the "
+        f"unfiltered top {K} filtered by its list ({fa['short']} rows shorter than {K}); filtered search "
+        f"{fa['ms']:.3f} ms; {fa['removed']} returned keys removed: none came back, filtered or not"
+    )
+    shape = None
+    t_shape = _now()
+    if dev.type == "cuda":
+        shape = rescore_at_path_shape(ivf, ivf_search_rescore_args(ivf, sc["queries"]), dev)
+        log(f"ivf_rescore at the surface shape {tag}: " + rescore_line(ivf, shape) + f"; launches {sc['launches']}")
+    rows = surface_decode_rows(sc["gen"], dev)
+    log(f"decode rows at the surface burst's shape {tag}: " + "; ".join(
+        f"{name} max abs err {r['max_abs_err']:.3e}, "
+        + (f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms" if r["ms"] is not None else "not timed")
+        for name, r in rows.items()) + f" (limits {LN_ATOL} / {READOUT_ATOL})")
+    secs["shape"] = _now() - t_shape
+    log(
+        f"surface (b) {tag}: {SU_REQUESTS} requests from {SU_CALLERS} callers through ServeScheduler over the IVF "
+        f"FusedEncodeSearch, every request traced, in {sc['serve_s']:.3f} s (== the direct serve within "
+        f"{SCHED_TOL}); {sc['kept']} traces kept; a {SU_DECODE[0]}-prompt x {SU_DECODE[1]}-token decoder burst "
+        f"({sc['decode_tokens']:.0f} decode tokens, == solo generate, decode-row launches {decode}); /metrics classic "
+        f"{sc['classic_lines']} lines with no exemplar, OpenMetrics {sc['om_lines']} lines with {sc['exemplars']} "
+        f"exemplars, all on bucket samples and naming kept traces; /serve_stats has the generators and slo columns "
+        f"(slos {sc['slos']}); the knob CLI's markdown == markdown_table(); rescore launches {sc['launches']}; "
+        f"scrape classic {sc['classic_ms']:.3f} ms, openmetrics {sc['om_ms']:.3f} ms; (a) {secs['a']:.1f} s, (b) "
+        f"{secs['b']:.1f} s (decoder {sc['decode_s']:.1f} s), the CLI's wait {secs['cli_wait']:.1f} s, the kernels at "
+        f"the phase's shapes {secs['shape']:.1f} s; phase 28 {_now() - t_phase:.1f} s"
+    )
+    return sc["launches"], shape, decode, rows
+
+
 def framework_setup():
     """The set-up ``--framework`` and ``--qa`` share: the card's name, the
     kernels' build, phase 4's rows and phase 5's direct serve p50 (exact
@@ -9609,6 +9905,24 @@ def main() -> int:
         log(f"build {time.perf_counter() - t0:.1f} s")
         launches = native_phase(f"[{smi}]")[0]
         log(f"rescore launches {launches}; shape census: {tripwire_census()}")
+        return 0
+    if sys.argv[1:] == ["--surface"]:
+        from pathway_tpu_torch.kernels.build import build_host
+        from pathway_tpu_torch.ops.ivf import IvfKnnIndex
+
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        ).stdout.strip()
+        log(f"card: {smi}")
+        t0 = time.perf_counter()
+        build_all()
+        build_host("tokenize_hash")
+        encoder, docs, doc_vecs, keys, exact = main_rows(f"[{smi}]")
+        ivf = IvfKnnIndex(DIM, metric="cos")
+        ivf.build_from_matrix(keys, exact._matrix[:N_ROWS])
+        log(f"build and phase 4's rows {time.perf_counter() - t0:.1f} s")
+        launches, _shape, decode, _rows = surface_phase(f"[{smi}]", encoder, exact, ivf, docs, keys)
+        log(f"rescore launches {launches}, decode-row launches {decode}; shape census: {tripwire_census()}")
         return 0
     if sys.argv[1:] == ["--distributed"]:
         from pathway_tpu_torch.kernels.build import build_host
@@ -9971,6 +10285,15 @@ def main() -> int:
     # -- 27. the native host runtime, then a CSV-fed index, counted --
     nv_launches, nv_kernel, _nv_secs = native_phase(tag, docs=docs)
     worst_err = max(worst_err, nv_kernel["max_abs_err"])
+
+    # -- 28. the reference's public surface: filtered search and the scrape, counted --
+    su_launches, su_shape, su_decode, su_rows = surface_phase(tag, encoder, exact, ivf, docs, keys)
+    worst_err = max(worst_err, su_shape["max_abs_err"])
+    for rec, name in ((decode_kernels[0], "add_layer_norm_rows"), (decode_kernels[1], "tied_readout")):
+        rec["launches"] += su_decode[name]
+        rec["launches_by_path"]["surface"] = su_decode[name]
+        rec["surface_shape"] = su_rows[name]
+        rec["max_abs_err"] = max(rec["max_abs_err"], su_rows[name]["max_abs_err"])
     log(f"shape census: {tripwire_census()}")
 
     record = {
@@ -9983,7 +10306,7 @@ def main() -> int:
                 "launches": launches + rr_launches + sched_launches + li_launches + ws_launches + st_launches
                 + po_launches + sum(rw_launches.values()) + ss_launches + sf_launches + fw_launches
                 + qa_launches["ivf_rescore"] + ps_launches + tm_launches + ha_launches + sum(cl_launches)
-                + cx_launches + an_launches["ivf_rescore"] + nv_launches,
+                + cx_launches + an_launches["ivf_rescore"] + nv_launches + su_launches,
                 "launches_by_path": {
                     "serve": launches, "rerank": rr_launches, "scheduler": sched_launches,
                     "ingest": li_launches, "warmstate": ws_launches, "tuning": st_launches,
@@ -9991,7 +10314,7 @@ def main() -> int:
                     "fabric": sf_launches, "framework": fw_launches, "qa": qa_launches["ivf_rescore"],
                     "persist": ps_launches, "temporal": tm_launches, "hostapi": ha_launches,
                     "cluster_per_rank": cl_launches, "connectors": cx_launches,
-                    "analysis": an_launches["ivf_rescore"], "native_csv": nv_launches,
+                    "analysis": an_launches["ivf_rescore"], "native_csv": nv_launches, "surface": su_launches,
                 },
                 "max_abs_err": worst_err,
                 "ms": kernel_ms,
@@ -10027,6 +10350,7 @@ def main() -> int:
                 "connectors_shape": {key: cx_kernel[key] for key in _SHAPE_KEYS},
                 "analysis_shape": {key: an_kernel[key] for key in _SHAPE_KEYS},
                 "native_csv_shape": {key: nv_kernel[key] for key in _SHAPE_KEYS},
+                "surface_shape": {key: su_shape[key] for key in _SHAPE_KEYS},
             },
             *decode_kernels,
         ]

@@ -22,15 +22,23 @@ environment and over the parse cache, whatever the environment string
 does after the ``set``.  ``auto_pytest`` bools (the strict-mode
 tripwires) default to "on under pytest" and are re-read on every call,
 never cached.
+
+``load()`` parses every knob from the environment at once; it is the
+chaos site ``config.load``, and a fault there serves the last-good
+values (one warning, one ``pathway_config_load_failures_total``).
+``python -m pathway_tpu_torch.config --format {text,json,markdown}``
+prints the table (``describe()`` / ``markdown_table()``), row for row
+the reference's.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = [
     "DYNAMIC",
@@ -40,8 +48,12 @@ __all__ = [
     "UnknownKnobError",
     "clear_override",
     "clear_overrides",
+    "describe",
     "get",
     "get_site",
+    "knobs",
+    "load",
+    "markdown_table",
     "overrides",
     "registry",
     "set",
@@ -85,6 +97,13 @@ class Knob:
     site_prefix: Optional[str] = None
     auto_pytest: bool = False
 
+    def default_doc(self) -> str:
+        if self.auto_pytest:
+            return "auto (on under pytest)"
+        if self.kind == "bool":
+            return "on" if self.default else "off"
+        return str(self.default)
+
 
 _REGISTRY: Dict[str, Knob] = {}
 # key -> (raw env string seen at parse time, typed value)
@@ -106,7 +125,7 @@ def _knob(key: str, env: str, kind: str, default: Any, doc: str, **kw: Any) -> N
 _knob("serve.coalesce_us", "PATHWAY_SERVE_COALESCE_US", "float", 2000.0,
       "scheduler coalescing window in µs (0 = no wait)", lo=0.0, hi=100_000.0, mutability=DYNAMIC)
 _knob("serve.max_batch", "PATHWAY_SERVE_MAX_BATCH", "int", 64,
-      "cap on unique queries per coalesced device batch", lo=1, hi=4096)
+      "cap on UNIQUE queries per coalesced device batch", lo=1, hi=4096)
 _knob("serve.shards", "PATHWAY_SERVE_SHARDS", "int", 0,
       "serve-side index shard count (0 = caller/device default)", lo=0, hi=4096)
 _knob("serve.deadline_ms", "PATHWAY_SERVE_DEADLINE_MS", "float", 0.0,
@@ -140,8 +159,8 @@ _knob("fabric.request_timeout_s", "PATHWAY_FABRIC_REQUEST_TIMEOUT", "float", 30.
 
 # partitioned serve fabric (serve/fabric.py scatter-gather)
 _knob("fabric.partitions", "PATHWAY_FABRIC_PARTITIONS", "int", 0,
-      "index partitions across the fabric fleet (0 = replica mode; N > 0 = each host owns doc_key % N "
-      "of the corpus and serves scatter-gather)", lo=0, hi=4096)
+      "index partitions across the fabric fleet (0 = replica mode, every host holds the full index; "
+      "N > 0 = each host owns doc_key % N of the corpus and serves scatter-gather)", lo=0, hi=4096)
 _knob("partition.gather_timeout_s", "PATHWAY_PARTITION_GATHER_TIMEOUT", "float", 10.0,
       "scatter-gather straggler bound in seconds: a partition unanswered past it is flagged "
       "partition_lost and the surviving partitions' merge is served", lo=0.05, hi=86_400.0,
@@ -151,7 +170,7 @@ _knob("partition.absorb_timeout_s", "PATHWAY_PARTITION_ABSORB_TIMEOUT", "float",
       "owner partition", lo=0.05, hi=86_400.0)
 
 # cache tiers (cache/)
-_knob("cache.enabled", "PATHWAY_CACHE", "bool", True, "global cache kill switch")
+_knob("cache.enabled", "PATHWAY_CACHE", "bool", True, "global cache kill switch (off disables every tier)")
 _knob("cache.result", "PATHWAY_CACHE_RESULT", "bool", True, "tier-0 result cache")
 _knob("cache.result_bytes", "PATHWAY_CACHE_RESULT_BYTES", "int", 32 << 20,
       "result-tier byte budget", lo=0, hi=1 << 40, mutability=DYNAMIC)
@@ -190,9 +209,9 @@ _knob("decode.slots", "PATHWAY_DECODE_SLOTS", "int", 8,
 _knob("decode.kv_width", "PATHWAY_DECODE_KV_WIDTH", "int", 0,
       "slot-pool context width override (0 = model max_len)", lo=0, hi=1_048_576)
 _knob("decode.kv_quant", "PATHWAY_DECODE_KV_QUANT", "enum", "bf16",
-      "slot-pool K/V storage", choices=("bf16", "int8"))
+      "slot-pool K/V storage (bit-identity oracle pins this)", choices=("bf16", "int8"))
 _knob("decode.spec_k", "PATHWAY_DECODE_SPEC_K", "int", 0,
-      "speculation depth per verify dispatch (0 = off)", lo=0, hi=16)
+      "speculation depth per verify dispatch (0 = off; token-identity oracle pins this)", lo=0, hi=16)
 _knob("decode.draft", "PATHWAY_DECODE_DRAFT", "enum", "auto",
       "speculative draft source", choices=("auto", "ngram", "trunk"))
 _knob("decode.draft_layers", "PATHWAY_DECODE_DRAFT_LAYERS", "int", 0,
@@ -221,7 +240,7 @@ _knob("observe.enabled", "PATHWAY_OBSERVE", "bool", True,
 _knob("observe.trace_sample", "PATHWAY_TRACE_SAMPLE", "float", 1.0,
       "head-sampling probability for request traces", lo=0.0, hi=1.0)
 _knob("observe.trace_keep", "PATHWAY_TRACE_KEEP", "int", 256,
-      "kept-trace LRU capacity", lo=1, hi=65_536)
+      "kept-trace LRU capacity on GET /traces", lo=1, hi=65_536)
 _knob("observe.trace_pending", "PATHWAY_TRACE_PENDING", "int", 128,
       "pending-trace ring capacity", lo=1, hi=65_536)
 _knob("observe.trace_max_spans", "PATHWAY_TRACE_MAX_SPANS", "int", 192,
@@ -229,7 +248,7 @@ _knob("observe.trace_max_spans", "PATHWAY_TRACE_MAX_SPANS", "int", 192,
 _knob("observe.trace_slow_pct", "PATHWAY_TRACE_SLOW_PCT", "float", 0.99,
       "tail-sampling slow-percentile threshold", lo=0.5, hi=0.9999)
 _knob("observe.slo", "PATHWAY_SLO", "bool", True,
-      "SLO engine shed probe in scheduler admission")
+      "SLO engine shed-advisory probe in scheduler admission")
 _knob("observe.slo_tick_s", "PATHWAY_SLO_TICK_S", "float", 1.0,
       "min seconds between SLO burn-rate evaluations", lo=0.0, hi=3600.0)
 _knob("observe.slo_latency_ms", "PATHWAY_SLO_LATENCY_MS", "float", 500.0,
@@ -269,7 +288,7 @@ _knob("robust.retry_base_ms", "PATHWAY_RETRY_BASE_MS", "float", 5.0,
 _knob("robust.retry_max_ms", "PATHWAY_RETRY_MAX_MS", "float", 200.0,
       "retry backoff max delay in ms", lo=0.0, hi=600_000.0)
 _knob("robust.retry_seed", "PATHWAY_RETRY_SEED", "int", 0,
-      "retry jitter seed", lo=0, hi=2**31 - 1)
+      "retry jitter seed (replayable soaks)", lo=0, hi=2**31 - 1)
 _knob("robust.breaker_threshold", "PATHWAY_BREAKER_THRESHOLD", "int", 5,
       "consecutive failures that open a circuit breaker", lo=1, hi=10_000)
 _knob("robust.breaker_reset_s", "PATHWAY_BREAKER_RESET_S", "float", 30.0,
@@ -521,3 +540,89 @@ def snapshot() -> Dict[str, Any]:
 def registry() -> Dict[str, Knob]:
     """The declarations, read-only by convention."""
     return dict(_REGISTRY)
+
+
+def knobs() -> List[Knob]:
+    return [_REGISTRY[k] for k in sorted(_REGISTRY)]
+
+
+def load() -> Dict[str, Any]:
+    """Parse every declared knob from the current environment into the
+    cache and return the snapshot.  Chaos site ``config.load``: a fault
+    serves the last-good values (a warning and a counter, never a
+    failed serve)."""
+    from . import observe
+    from .robust import inject
+
+    try:
+        inject.fire("config.load")
+    except Exception as exc:  # noqa: BLE001 - a poisoned reload degrades to the last-good values
+        _warn_once(f"load:{type(exc).__name__}", "config.load failed (%r); serving last-good knob values", exc)
+        observe.counter("pathway_config_load_failures_total").inc()
+        return snapshot()
+    for key, knob in _REGISTRY.items():
+        if not knob.auto_pytest:
+            raw = os.environ.get(knob.env)
+            _cache[key] = (raw, _parse(knob, raw))
+    return snapshot()
+
+
+def describe() -> List[Dict[str, Any]]:
+    """One JSON-able row per knob: the CLI's and the README's table."""
+    rows = []
+    for knob in knobs():
+        bounds = ""
+        if knob.lo is not None or knob.hi is not None:
+            bounds = f"[{knob.lo!r}, {knob.hi!r}]"
+        elif knob.choices:
+            bounds = "|".join(knob.choices)
+        rows.append({
+            "key": knob.key,
+            "env": knob.env + ("(_<SITE>)" if knob.site_prefix else ""),
+            "type": knob.kind,
+            "default": knob.default_doc(),
+            "bounds": bounds,
+            "mutability": knob.mutability,
+            "doc": knob.doc,
+        })
+    return rows
+
+
+_COLUMNS = ("key", "env", "type", "default", "bounds", "mutability", "doc")
+
+
+def markdown_table() -> str:
+    """The knob table in Markdown, the form the README embeds."""
+    lines = [
+        "| key | env | type | default | bounds | mutability | doc |",
+        "| --- | --- | --- | --- | --- | --- | --- |",
+    ]
+    for r in describe():
+        lines.append("| `{key}` | `{env}` | {type} | {default} | {bounds} | {mutability} | {doc} |".format(**r))
+    return "\n".join(lines)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        prog="python -m pathway_tpu_torch.config", description="The declarative PATHWAY_* knob table of the port."
+    )
+    parser.add_argument("--format", choices=("text", "json", "markdown"), default="text", dest="fmt",
+                        help="table output format")
+    args = parser.parse_args(argv)
+    if args.fmt == "json":
+        print(json.dumps(describe(), indent=1, sort_keys=True))
+    elif args.fmt == "markdown":
+        print(markdown_table())
+    else:
+        rows = describe()
+        widths = {c: max(len(c), *(len(str(r[c])) for r in rows)) for c in _COLUMNS[:-1]}
+        print("  ".join(c.ljust(widths[c]) for c in _COLUMNS[:-1]) + "  doc")
+        for r in rows:
+            print("  ".join(str(r[c]).ljust(widths[c]) for c in _COLUMNS[:-1]) + "  " + r["doc"])
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -155,7 +155,7 @@ def render_metrics(
     # the ML hot path
     from .. import observe
 
-    lines.extend(observe.render_prometheus())
+    lines.extend(observe.render_prometheus(openmetrics=openmetrics))
     if openmetrics:
         # OpenMetrics counter semantics: the FAMILY name must not carry
         # the `_total` suffix — the sample does (`# TYPE x counter` +
@@ -232,7 +232,7 @@ class MetricsServer:
                     # stale-on-fault, never a 500.
                     from ..observe import slo as _slo
 
-                    body = json.dumps(_slo.engine().evaluate()).encode()
+                    body = json.dumps(_slo.evaluate()).encode()
                     ctype = "application/json"
                 elif self.path.startswith("/traces"):
                     # kept (tail-sampled) per-request span trees

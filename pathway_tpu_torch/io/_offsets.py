@@ -13,7 +13,7 @@ from __future__ import annotations
 import threading
 import time
 import weakref
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 __all__ = ["ConnectorMonitor", "OffsetAntichain", "connector_monitors"]
 
@@ -30,14 +30,32 @@ class OffsetAntichain:
         if cur is None or offset > cur:
             self._positions[partition] = offset
 
+    def get(self, partition: Any, default: Any = None) -> Any:
+        return self._positions.get(partition, default)
+
     def merge(self, other: "OffsetAntichain") -> "OffsetAntichain":
         merged = OffsetAntichain(self._positions)
         for partition, offset in other._positions.items():
             merged.advance(partition, offset)
         return merged
 
+    def dominates(self, other: "OffsetAntichain") -> bool:
+        """True when every partition of ``other`` is at or behind ours."""
+        for partition, offset in other._positions.items():
+            cur = self._positions.get(partition)
+            if cur is None or cur < offset:
+                return False
+        return True
+
+    def items(self) -> Iterable[Tuple[Any, Any]]:
+        return self._positions.items()
+
     def as_dict(self) -> Dict[Any, Any]:
         return dict(self._positions)
+
+    @staticmethod
+    def from_dict(raw: Optional[Dict[Any, Any]]) -> "OffsetAntichain":
+        return OffsetAntichain(raw or {})
 
     def __len__(self) -> int:
         return len(self._positions)

@@ -6,14 +6,21 @@ safetensors reader / writer."""
 from .clip import ClipModel
 from .cross_encoder import CrossEncoderModel
 from .encoder import SentenceEncoder
+from .generator import TextGenerator
 from .hf_import import BertConfig, is_hf_checkpoint, load_hf_text_model
+from .tokenizer import HashTokenizer
+from .transformer import TransformerConfig, TransformerEncoder
 from .wordpiece import WordPieceTokenizer
 
 __all__ = [
     "BertConfig",
     "ClipModel",
     "CrossEncoderModel",
+    "HashTokenizer",
     "SentenceEncoder",
+    "TextGenerator",
+    "TransformerConfig",
+    "TransformerEncoder",
     "WordPieceTokenizer",
     "is_hf_checkpoint",
     "load_hf_text_model",

@@ -16,8 +16,10 @@ from .histogram import N_BUCKETS, EventRing, LatencyHistogram, bucket_bounds_s
 from .recorder import (
     Counter,
     Gauge,
+    count,
     counter,
     emit_span,
+    enabled,
     gauge,
     histogram,
     next_id,
@@ -37,8 +39,10 @@ __all__ = [
     "LatencyHistogram",
     "N_BUCKETS",
     "bucket_bounds_s",
+    "count",
     "counter",
     "emit_span",
+    "enabled",
     "gauge",
     "hbm",
     "histogram",

@@ -9,7 +9,9 @@ reference's ``observe`` registry never sees these series.
 - providers (objects with ``observe_metrics()``) are held weakly and
   sampled only when someone renders or snapshots;
 - ``render_prometheus`` gives the Prometheus text exposition, sorted
-  by family and label set, one consistent snapshot per series.
+  by family and label set, one consistent snapshot per series; with
+  ``openmetrics=True`` the kept traces' exemplars ride on the histogram
+  bucket samples.
 """
 
 from __future__ import annotations
@@ -26,8 +28,10 @@ from .histogram import EventRing, LatencyHistogram, bucket_bounds_s
 __all__ = [
     "Counter",
     "Gauge",
+    "count",
     "counter",
     "emit_span",
+    "enabled",
     "gauge",
     "histogram",
     "next_id",
@@ -41,6 +45,10 @@ __all__ = [
 ]
 
 _LabelKey = Tuple[Tuple[str, str], ...]
+
+
+def enabled() -> bool:
+    return _hist_mod.enabled
 
 
 def set_enabled(flag: bool) -> None:
@@ -132,6 +140,13 @@ def counter(name: str, **labels: Any) -> Counter:
 
 def gauge(name: str, **labels: Any) -> Gauge:
     return _series(_gauges, Gauge, name, labels)
+
+
+def count(name: str, n: int = 1, **labels: Any) -> None:
+    """Counter increment with labels resolved per call, for sites whose
+    label values vary at runtime (one registry lookup)."""
+    if _hist_mod.enabled:
+        counter(name, **labels).inc(n)
 
 
 _occ_cache: Dict[Tuple[str, int], Tuple[Counter, Counter, Counter]] = {}
@@ -229,6 +244,14 @@ def _fmt_labels(key: _LabelKey, extra: Tuple[Tuple[str, str], ...] = ()) -> str:
     return "{" + ",".join(f'{k}="{_escape(v)}"' for k, v in pairs) + "}"
 
 
+def _fmt_exemplar(exemplars, i: int) -> str:
+    """The OpenMetrics exemplar suffix of bucket ``i`` ('' when none)."""
+    if exemplars is None or exemplars[i] is None:
+        return ""
+    trace_id, value_s, ts = exemplars[i]
+    return f' # {{trace_id="{_escape(trace_id)}"}} {repr(value_s)} {ts:.3f}'
+
+
 def _fmt_value(value: float) -> str:
     if float(value).is_integer():
         return str(int(value))
@@ -245,7 +268,7 @@ def _ring_health() -> List[Tuple[str, int, int]]:
     rows.extend(_trace.ring_stats())
     active = _dc._active
     if active is not None:
-        rows.append(("dispatch_counter", _dc.MAX_EVENTS, active.events_dropped))
+        rows.append(("dispatch_counter", active.max_events, active.events_dropped))
     return rows
 
 
@@ -258,9 +281,13 @@ def _copy_tables():
         )
 
 
-def render_prometheus() -> List[str]:
-    """Every series in the Prometheus text exposition format (classic,
-    no exemplars), families sorted by name and label set."""
+def render_prometheus(openmetrics: bool = False) -> List[str]:
+    """Every series in the Prometheus text exposition format, families
+    sorted by name and label set.  ``openmetrics=True`` appends each
+    histogram bucket's exemplar (a kept trace's id, its duration and
+    stamp: ``# {trace_id="..."} value ts``); that syntax is legal only in
+    the OpenMetrics exposition, and a classic ``version=0.0.4`` parser
+    fails the whole scrape on it, so the classic form carries none."""
     lines: List[str] = []
     bounds = bucket_bounds_s()
     hist_items, counter_items, gauge_items = _copy_tables()
@@ -271,11 +298,16 @@ def render_prometheus() -> List[str]:
         lines.append(f"# TYPE {name} histogram")
         for key in sorted(series):
             counts, sum_ns, n = series[key].snapshot()
+            exemplars = series[key].exemplars() if openmetrics else None
             cum = 0
             for i, bound in enumerate(bounds):
                 cum += counts[i]
-                lines.append(f"{name}_bucket{_fmt_labels(key, (('le', repr(bound)),))} {cum}")
-            lines.append(f"{name}_bucket{_fmt_labels(key, (('le', '+Inf'),))} {n}")
+                lines.append(
+                    f"{name}_bucket{_fmt_labels(key, (('le', repr(bound)),))} {cum}" + _fmt_exemplar(exemplars, i)
+                )
+            lines.append(
+                f"{name}_bucket{_fmt_labels(key, (('le', '+Inf'),))} {n}" + _fmt_exemplar(exemplars, len(bounds))
+            )
             lines.append(f"{name}_sum{_fmt_labels(key)} {sum_ns * 1e-9:.9f}")
             lines.append(f"{name}_count{_fmt_labels(key)} {n}")
     prov: Dict[str, Dict[str, List[Tuple[_LabelKey, float]]]] = {"counter": {}, "gauge": {}}
@@ -300,11 +332,13 @@ def render_prometheus() -> List[str]:
 def snapshot() -> Dict[str, Any]:
     """JSON-able view: histogram summaries (count, sum, p50/p95/p99
     bucket bounds), counters, gauges (provider samples included), a
-    per-tier cache column (samples labeled ``tier``), a per-runner
-    ingest column (samples labeled ``ingest``), a per-shard column
-    (samples labeled ``shard``; the other labels stay on the key), the profiler's
-    per-callable ``profile`` column, the ledger's ``hbm`` column, ring
-    health and the recent event ring."""
+    per-shard column (samples labeled ``shard``), a per-tier cache
+    column (``tier``), a per-engine ``generators`` column (``generator``:
+    the continuous decoders' slots, tokens and requests) and a per-runner
+    ingest column (``ingest``), the other labels staying on the key; the
+    profiler's per-callable ``profile`` column, the ledger's ``hbm``
+    column, the SLO engine's burn-rate document (``slo``), ring health
+    and the recent event ring."""
     hist_items, counter_items, gauge_items = _copy_tables()
     hists = {}
     for name, series in hist_items.items():
@@ -319,24 +353,28 @@ def snapshot() -> Dict[str, Any]:
             }
     counters = {n + _fmt_labels(k): c.value for n, s in counter_items.items() for k, c in s.items()}
     gauges = {n + _fmt_labels(k): g.value for n, s in gauge_items.items() for k, g in s.items()}
-    # provider samples labeled tier=... (cache tiers) and ingest=...
-    # (live-ingest runners) also land in a column per tier / runner
-    caches: Dict[str, Dict[str, float]] = {}
-    ingests: Dict[str, Dict[str, float]] = {}
+    # provider samples labeled shard=..., tier=... (cache tiers),
+    # generator=... (decode engines) and ingest=... (live-ingest runners)
+    # also land in a column per shard / tier / engine / runner
     shards: Dict[str, Dict[str, float]] = {}
+    caches: Dict[str, Dict[str, float]] = {}
+    generators: Dict[str, Dict[str, float]] = {}
+    ingests: Dict[str, Dict[str, float]] = {}
     for kind, name, key, value in _provider_samples():
         (counters if kind == "counter" else gauges)[name + _fmt_labels(key)] = value
         labels = dict(key)
-        for label, column in (("tier", caches), ("ingest", ingests), ("shard", shards)):
+        for label, column in (("shard", shards), ("tier", caches), ("generator", generators), ("ingest", ingests)):
             owner = labels.get(label)
             if owner is not None:
                 rest = tuple((lk, lv) for lk, lv in key if lk != label)
                 column.setdefault(owner, {})[name + _fmt_labels(rest)] = value
     events, total = _ring.snapshot()
-    # device-time attribution and the device-memory ledger ride along,
-    # so one read answers who owns device time and who owns its memory
+    # device-time attribution, the device-memory ledger and the burn-rate
+    # document ride along, so one read answers who owns device time, who
+    # owns its memory and whether the objectives are in budget
     from . import hbm as _hbm
     from . import profile as _profile
+    from . import slo as _slo
 
     return {
         "enabled": _hist_mod.enabled,
@@ -344,11 +382,13 @@ def snapshot() -> Dict[str, Any]:
         "histograms": hists,
         "counters": counters,
         "gauges": gauges,
-        "caches": {k: caches[k] for k in sorted(caches)},
-        "ingest": {k: ingests[k] for k in sorted(ingests)},
         "shards": {k: shards[k] for k in sorted(shards, key=lambda sh: (0, int(sh)) if sh.isdigit() else (1, sh))},
+        "caches": {k: caches[k] for k in sorted(caches)},
+        "generators": {k: generators[k] for k in sorted(generators)},
+        "ingest": {k: ingests[k] for k in sorted(ingests)},
         "profile": _profile.profile_stats(),
         "hbm": _hbm.ledger_stats(),
+        "slo": _slo.evaluate(),
         "events": [
             {"ts": e[0], "kind": e[1], "tag": e[2], "dur_ns": e[3], **(e[4] or {})} for e in events
         ],

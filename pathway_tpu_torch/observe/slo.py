@@ -43,6 +43,7 @@ __all__ = [
     "SloSpec",
     "default_specs",
     "engine",
+    "evaluate",
     "firing_specs",
     "record_shed_advised",
     "reset",
@@ -336,6 +337,11 @@ def set_engine(specs: Optional[List[SloSpec]]) -> SloEngine:
         _engine = SloEngine(specs)
         register_provider(_engine)
         return _engine
+
+
+def evaluate(max_age_s: Optional[float] = None) -> Dict[str, Any]:
+    """The process engine's burn-rate document (the ``GET /slo`` body)."""
+    return engine().evaluate(max_age_s)
 
 
 def shed_advisory_enabled() -> bool:

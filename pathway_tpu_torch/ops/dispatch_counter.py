@@ -32,9 +32,6 @@ from ..observe import trace as _trace
 
 __all__ = ["DispatchCounter", "install", "record_dispatch", "record_fetch", "uninstall"]
 
-# (kind, tag) pairs a counter keeps
-MAX_EVENTS = 4096
-
 _install_lock = threading.Lock()
 _active: Optional["DispatchCounter"] = None
 _obs_counters: Dict[Tuple[str, str, bool], observe.Counter] = {}
@@ -53,12 +50,13 @@ class DispatchCounter:
     DispatchCounter() as c:``): logical ones by default, physical ones as
     the headline counts with ``mode="physical"``;
     ``physical_dispatches`` / ``physical_fetches`` always count
-    launches and copies; ``events`` keeps the first ``MAX_EVENTS``
+    launches and copies; ``events`` keeps the first ``max_events``
     ``(kind, tag)`` pairs and ``events_dropped`` the rest."""
 
-    def __init__(self, mode: str = "logical") -> None:
+    def __init__(self, max_events: int = 4096, mode: str = "logical") -> None:
         if mode not in ("logical", "physical"):
             raise ValueError(f"unknown accounting mode {mode!r}")
+        self.max_events = int(max_events)
         self.mode = mode
         self.dispatches = 0
         self.fetches = 0
@@ -78,7 +76,7 @@ class DispatchCounter:
             else:
                 self.fetches += headline
                 self.physical_fetches += physical
-            if len(self.events) < MAX_EVENTS:
+            if len(self.events) < self.max_events:
                 self.events.append((kind, tag))
             else:
                 self.events_dropped += 1

@@ -161,18 +161,18 @@ def note_write(site: str, *refs: Any) -> None:
             _written_total[site] = _written_total.get(site, 0) + 1
 
 
-def check(ref: Any) -> Optional[str]:
-    """The site whose in-place write reached the stamped ``ref`` since
+def check(value: Any) -> Optional[str]:
+    """The site whose in-place write reached the stamped ``value`` since
     its stamp, or None while it is intact (or was never stamped)."""
     with _lock:
-        entry = _stamps.get(id(ref))
+        entry = _stamps.get(id(value))
         if entry is None:
             return None
         _site, version, ptr, writes0, _fin = entry
         writes, writer = _writes.get(ptr, (0, ""))
     if writes != writes0:
         return writer
-    if version is not None and _version(ref) != version:
+    if version is not None and _version(value) != version:
         return "an in-place write outside the recorded sites"
     return None
 

@@ -444,16 +444,16 @@ class IvfKnnIndex:
         data = np.stack([rows[k] for k in keys])
         return self._layout_from_data(keys, torch.from_numpy(data).to(self.device), from_matrix=False)
 
-    def build_from_matrix(self, keys: Sequence[int], matrix: torch.Tensor) -> None:
+    def build_from_matrix(self, keys: Sequence[int], matrix_dev: torch.Tensor) -> None:
         """Bulk build from a DEVICE-RESIDENT row matrix [n, d] (e.g. the
         exact ``DeviceKnnIndex``'s matrix): only the k-means sample and
         the [n, n_pref] preferences cross to the host; the slab layout is
         a device gather + scatter.  The host row store keeps only rows
         streamed in through ``add``."""
         keys = [int(k) for k in keys]
-        if len(keys) != int(matrix.shape[0]):
-            raise ValueError(f"{len(keys)} keys for {int(matrix.shape[0])} rows")
-        built = self._layout_from_data(keys, matrix.to(self.device), from_matrix=True)
+        if len(keys) != int(matrix_dev.shape[0]):
+            raise ValueError(f"{len(keys)} keys for {int(matrix_dev.shape[0])} rows")
+        built = self._layout_from_data(keys, matrix_dev.to(self.device), from_matrix=True)
         with self._lock:
             self._install(built)
             self.stats["sync_builds"] += 1

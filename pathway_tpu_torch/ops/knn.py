@@ -26,7 +26,7 @@ winners' keys by one more (``keys_of``).
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -311,10 +311,15 @@ class DeviceKnnIndex:
         return whole[0], whole[1]
 
     def search(
-        self, queries, k: int
+        self, queries, k: int, candidate_keys: Optional[Sequence[Optional[Sequence[int]]]] = None
     ) -> List[List[Tuple[int, float]]]:
         """Top-k per query from host queries; returns [(key, score), ...]
-        per query row."""
+        per query row.
+
+        ``candidate_keys``: an optional allow-list per query (``None`` in
+        a row: no filter).  As in the reference it filters within the
+        top ``min(k, live rows)``, so a filtered row may hold fewer than
+        ``k``; a key removed since its slot was scored is never returned."""
         queries = np.asarray(queries, dtype=np.float32).reshape(-1, self.dimension)
         nq = queries.shape[0]
         with self._lock:
@@ -329,11 +334,17 @@ class DeviceKnnIndex:
             idx = idx.cpu().numpy()
             out: List[List[Tuple[int, float]]] = []
             for qi in range(nq):
+                allow = None
+                if candidate_keys is not None and candidate_keys[qi] is not None:
+                    allow = {int(c) for c in candidate_keys[qi]}
                 row: List[Tuple[int, float]] = []
                 for j in range(k_eff):
                     s = float(scores[qi, j])
-                    if np.isfinite(s):
-                        row.append((int(self.slot_to_key[int(idx[qi, j])]), s))
+                    if not np.isfinite(s):
+                        continue
+                    key = int(self.slot_to_key[int(idx[qi, j])])
+                    if key in self.key_to_slot and (allow is None or key in allow):
+                        row.append((key, s))
                 out.append(row)
             return out
 

@@ -5,12 +5,15 @@ control plane and data-plane collectives across processes
 exchange (``exchange.py``): the engine's ``ExchangePlane`` between ranks
 and the serve fabric's authenticated frame stream."""
 
+from . import distributed
 from .distributed import barrier, broadcast_obj, is_coordinator, is_distributed, maybe_initialize
 from .mesh import (
     Mesh,
     current_mesh,
     data_axis_size,
     device_count,
+    global_zeros,
+    host_to_global,
     is_multiprocess,
     local_shards,
     make_mesh,
@@ -32,8 +35,11 @@ __all__ = [
     "current_mesh",
     "data_axis_size",
     "device_count",
+    "distributed",
     "gather_table_rows",
     "get_plane",
+    "global_zeros",
+    "host_to_global",
     "is_coordinator",
     "is_distributed",
     "is_multiprocess",

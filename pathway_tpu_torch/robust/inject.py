@@ -17,7 +17,9 @@ resolved partitions) / ``partition.absorb`` (that routed batch is
 dropped, counted on ``pathway_partition_absorb_dropped_total`` and
 re-committable), all in ``serve/fabric.py``, and the S3 snapshot-backend
 triple ``s3.get`` / ``s3.put`` / ``s3.list`` (``persistence/backends.py``:
-a transient object-store error retries with the seeded-jitter backoff).
+a transient object-store error retries with the seeded-jitter backoff),
+and ``config.load`` (``config.py``: a reload serves the last-good knob
+values, counted on ``pathway_config_load_failures_total``).
 A test or an operator arms a site to
 
 - ``raise`` a ``FaultInjected``,

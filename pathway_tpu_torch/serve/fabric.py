@@ -91,6 +91,10 @@ from ..robust.degrade import HOST_FAILOVER, PARTITION_LOST, REPLICA_LOST, ServeR
 
 __all__ = ["FabricWorker", "ServeFabric", "fabric_token"]
 
+# the most a stop() waits for the token of a connection still in the
+# listen backlog before it says bye to it
+_PART_HANDSHAKE_S = 0.5
+
 
 def fabric_token() -> bytes:
     """One fabric session secret (shared across the group out of band)."""
@@ -162,6 +166,7 @@ class FabricWorker:
         self._lock = threading.Lock()
         self._streams: List[FramedStream] = []
         self._stopping = False
+        self._draining = False  # a planned stop (bye), not a kill
         self._inflight = 0
         self.stats: Dict[str, int] = {"requests": 0, "pings": 0, "errors": 0, "absorbs": 0}
         self._accept_thread = threading.Thread(target=self._accept_loop, daemon=True, name=f"fabric-acc-{self.name}")
@@ -178,23 +183,20 @@ class FabricWorker:
             except OSError:
                 return  # listener closed
             if self._stopping:
-                try:
-                    conn.close()
-                except OSError:
-                    pass
+                self._part(conn)
                 return
             try:
                 stream = FramedStream.accept(conn, self.token)
             except Exception:  # noqa: BLE001 - junk or a wrong token: dropped before any unpickle
                 continue
             with self._lock:
-                # a kill() during the handshake did not see this stream:
-                # a dead worker must not keep it open and answer pings
+                # a stop() or kill() during the handshake did not see this
+                # stream: a dead worker must not keep it open and answer pings
                 stopping = self._stopping
                 if not stopping:
                     self._streams.append(stream)
             if stopping:
-                stream.close()
+                self._part(stream)
                 return
             threading.Thread(target=self._reader, args=(stream,), daemon=True, name=f"fabric-rd-{self.name}").start()
 
@@ -274,6 +276,40 @@ class FabricWorker:
         except PeerLost:
             pass  # the front is gone; its absorb timeout counted the drop
 
+    def _part(self, conn) -> None:
+        """Close a connection that stop() or kill() did not see: one still
+        in the listen backlog (a socket) or in its handshake (a
+        ``FramedStream``).  Its front's ``connect()`` had returned, so
+        after a planned stop it hears a ``bye`` like every registered
+        front, and re-routes instead of reading a crash; after a kill it
+        is just closed.  The front sends its token in the same call that
+        connects, so a socket's handshake waits at most
+        ``_PART_HANDSHAKE_S``: a peer that never sends one cannot hold
+        a planned stop."""
+        if self._draining:
+            try:
+                if not isinstance(conn, FramedStream):
+                    conn = FramedStream.accept(conn, self.token, timeout=_PART_HANDSHAKE_S)
+                conn.send({"op": "bye"})
+            except Exception:  # noqa: BLE001 - junk, a wrong token or a gone front: nothing to tell
+                pass
+        try:
+            conn.close()
+        except OSError:
+            pass
+
+    def _drain_backlog(self) -> None:
+        """Part every connection still waiting in the listen backlog: the
+        kernel accepted them, so their fronts count them connected."""
+        self._listener.setblocking(False)
+        while True:
+            try:
+                conn, _ = self._listener.accept()
+            except OSError:
+                return  # the backlog is empty (or the listener closed)
+            conn.setblocking(True)
+            self._part(conn)
+
     def _close_listener(self) -> None:
         # close() alone frees the fd number, but the accept thread blocked
         # in accept(2) pins the kernel socket: it keeps listening, and a
@@ -305,13 +341,14 @@ class FabricWorker:
         with self._lock:
             if self._stopping:
                 return
-            self._stopping = True
+            self._stopping = self._draining = True
             streams = list(self._streams)
         for stream in streams:
             try:
                 stream.send({"op": "bye"})
             except PeerLost:
                 pass
+        self._drain_backlog()
         self._close_listener()
         for stream in streams:
             stream.close()

@@ -417,6 +417,92 @@ def test_kill_during_the_handshake_closes_that_stream(stacks, monkeypatch):
         fleet.stop()
 
 
+def test_stop_during_the_handshake_says_bye(stacks, monkeypatch):
+    """A planned stop inside the same window (the front connected, the
+    worker still authenticating its stream): that front hears ``bye``
+    too, so it re-routes without reading a crash."""
+    _ref_fused, fused = stacks
+    entered, release = threading.Event(), threading.Event()
+    accept = FramedStream.accept
+
+    def held_accept(conn, token, timeout=10.0):
+        entered.set()
+        release.wait(30)
+        return accept(conn, token, timeout)
+
+    monkeypatch.setattr(FramedStream, "accept", staticmethod(held_accept))
+    fleet = _Fleet(fused, n=1)
+    try:
+        assert fleet.fabric.connect() == 1
+        assert entered.wait(10)
+        fleet.workers[0].stop()
+        release.set()
+        assert _wait_for(lambda: not fleet.fabric._links[0].up(), 5)
+        assert fleet.fabric._links[0].down_reason == "bye"
+        assert fleet.workers[0]._streams == []
+    finally:
+        release.set()
+        fleet.stop()
+
+
+def test_stop_says_bye_to_a_front_still_in_the_listen_backlog(stacks, monkeypatch):
+    """``connect()`` returns once the kernel queued the connection, which
+    may be before the worker's accept thread ran at all (a loaded host).
+    A planned stop then must not just close the listener, which resets
+    the queued connection and reads as a crash: it takes the connection
+    from the backlog and says ``bye``."""
+    _ref_fused, fused = stacks
+    release = threading.Event()
+    accept_loop = FabricWorker._accept_loop
+
+    def held_loop(self):
+        release.wait(30)
+        accept_loop(self)
+
+    monkeypatch.setattr(FabricWorker, "_accept_loop", held_loop)
+    fleet = _Fleet(fused, n=1)
+    try:
+        assert fleet.fabric.connect() == 1
+        fleet.workers[0].stop()
+        release.set()
+        assert _wait_for(lambda: not fleet.fabric._links[0].up(), 5)
+        assert fleet.fabric._links[0].down_reason == "bye"
+    finally:
+        release.set()
+        fleet.stop()
+
+
+def test_a_silent_peer_in_the_backlog_does_not_hold_a_planned_stop(stacks, monkeypatch):
+    """A connection in the listen backlog that never sends its token (a
+    port scan, a stalled dialer) holds ``stop()`` for at most the short
+    part handshake, not the front's connect timeout; a front queued
+    beside it still hears ``bye``."""
+    _ref_fused, fused = stacks
+    monkeypatch.setenv("PATHWAY_FABRIC_CONNECT_TIMEOUT", "30")
+    release = threading.Event()
+    accept_loop = FabricWorker._accept_loop
+
+    def held_loop(self):
+        release.wait(30)
+        accept_loop(self)
+
+    monkeypatch.setattr(FabricWorker, "_accept_loop", held_loop)
+    fleet = _Fleet(fused, n=1)
+    silent = socket.create_connection(fleet.workers[0].address, timeout=5)
+    try:
+        assert fleet.fabric.connect() == 1
+        t0 = time.perf_counter()
+        fleet.workers[0].stop()
+        assert time.perf_counter() - t0 < fabric_mod._PART_HANDSHAKE_S + 2.0
+        release.set()
+        assert _wait_for(lambda: not fleet.fabric._links[0].up(), 5)
+        assert fleet.fabric._links[0].down_reason == "bye"
+    finally:
+        release.set()
+        silent.close()
+        fleet.stop()
+
+
 def test_heartbeat_silence_trips_the_breaker(stacks, monkeypatch):
     """A host that stops answering pings (socket still open) is marked
     down within one heartbeat timeout."""

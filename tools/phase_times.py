@@ -5,7 +5,7 @@
     python3 tools/phase_times.py run.log [more logs]
     python3 chip_smoke.py 2>&1 | python3 tools/phase_times.py --stamp > run.log
 
-prints a markdown table with one column per log.  Phases 10-27 report
+prints a markdown table with one column per log.  Phases 10-28 report
 their own seconds (the line that ends each one); phases 1-9 report none,
 so their row is the script's total less the phases after them.  A line
 may carry a leading ``<seconds><tab>`` stamp, which is ignored here;
@@ -41,6 +41,7 @@ ENDS = [
     ("25 connectors", r": phase 25 ([\d.]+) s$"),
     ("26 analysis", r": phase 26 ([\d.]+) s \(worker"),
     ("27 native", r": phase 27 ([\d.]+) s$"),
+    ("28 surface", r"; phase 28 ([\d.]+) s$"),
 ]
 TOTAL = r"chip_smoke: all phases passed in ([\d.]+) s$"
 EARLY = "1-9 (total less the rest)"
